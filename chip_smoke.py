@@ -3,14 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA wave kernels from ``src/repro_torch/csrc``,
-holds each against its plain PyTorch version on the card (bit for bit, on
-random verifier-clean waves at the largest Table V buckets and on every
-golden opcode program), drives the NMC main path through the entry points a
-user calls — the Table V ``verify_sweep`` through ``BucketedPool``, the same
-builds through ``ResidentPool`` + ``DispatchQueue``, and an ``nmc.jit``
-kernel sync and async on both engines — and times both kernels beside their
-plain versions and their bounds.
+Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
+``nvcc`` per source, in parallel) and drives two paths of the port:
+
+* NMC execution: the two wave kernels against their plain PyTorch versions
+  on the card (bit for bit, on random verifier-clean waves at the largest
+  Table V buckets and on every golden opcode program); the Table V
+  ``verify_sweep`` through ``BucketedPool``, the same builds through
+  ``ResidentPool`` + ``DispatchQueue``, and an ``nmc.jit`` kernel sync and
+  async on both engines; both kernels timed beside their plain versions
+  and their bounds.
+* W8A8 serving: ``nmc_matmul`` and ``flash_attention`` against their plain
+  versions at the serving path's shapes; qwen1.5-0.5B at full width (random
+  weights from a seed, quantized) served by ``ServeEngine``, with every
+  projection through ``nmc_matmul`` and every prefill layer's attention
+  through ``flash_attention``; one prefill's logits through the kernels
+  against the plain versions; both kernels timed beside their plain
+  versions, their bounds and one PyTorch library call.
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name / power-limit line, and as the last line
@@ -22,6 +31,7 @@ result.  Imports nothing of JAX or of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -312,6 +322,389 @@ def phase_timing(report: dict, waves: dict, device) -> dict:
             if r["sew"] == 8 and r["tiles"] == WAVE_TILES}
 
 
+# ---------------------------------------------------------------------------
+# the LM layer: W8A8 serving of qwen1.5-0.5B through nmc_matmul and
+# flash_attention
+# ---------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12              # H100 SXM bf16 dense tensor peak
+F32_OPS_PER_S = 67e12                # H100 SXM f32 CUDA-core peak
+SERVE_ARCH = "qwen1.5-0.5b"
+SERVE = dict(n_slots=4, max_len=1024, requests=8, prompt_lo=64,
+             prompt_hi=512, max_new=16)
+PREFILL_LENGTHS = (64, 128, 256, 512)
+LM_KERNEL_META = {
+    "nmc_matmul": {"source": "src/repro_torch/csrc/nmc_matmul.cu",
+                   "replaces": "src/repro/kernels/nmc_matmul.py:32"},
+    "flash_attention": {"source": "src/repro_torch/csrc/flash_attention.cu",
+                        "replaces": "src/repro/kernels/flash_attention.py:27"},
+}
+#: the shapes each LM kernel's JSON row reports: the prefill LM head of a
+#: 384-token prompt, and that prompt's attention
+ROW_MATMUL = (384, 1024, 151936)
+ROW_ATTENTION = 384
+
+
+def events_ms(fn, reps: int, flush=None) -> float:
+    """Mean ms per call by CUDA events around each call, after a warm-up;
+    ``flush`` (outside the timed span) evicts the 50 MB L2 first."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def matmul_bound_ms(m: int, k: int, n: int, out_bytes: int) -> tuple:
+    nbytes = m * k + k * n + 8 * n + m * n * out_bytes
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / INT_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound_ms(b, hq, hkv, s, d, dv, elem) -> dict:
+    """Bytes: q, k, v read once and o written once.  Operations: 2 D + 2
+    Dv per visible (causal) query-key pair, against the bf16 tensor peak
+    (the f32 CUDA-core peak, the rate of the kernel's own f32 math, kept
+    beside it)."""
+    nbytes = elem * (b * hq * s * (d + dv) + b * hkv * s * (d + dv))
+    flops = b * hq * s * (s + 1) // 2 * (2 * d + 2 * dv)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_bf16, t_f32 = flops / BF16_OPS_PER_S, flops / F32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_bf16) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_bf16 else "operations",
+            "bound_f32_ms": max(t_bytes, t_f32) * 1e3}
+
+
+def phase_lm_kernels_vs_plain(report: dict, device) -> dict:
+    """nmc_matmul and flash_attention against their plain versions on the
+    card at the serving path's shapes (tolerances: kernels/checks.py)."""
+    import torch
+    from repro_torch.kernels import checks
+    worst = {"nmc_matmul": 0.0, "flash_attention": 0.0}
+    cases = []
+    shapes = [(m, k, n) for m in checks.MATMUL_M
+              for k, n in checks.MATMUL_KN] + list(checks.MATMUL_RAGGED)
+    for m, k, n in shapes:
+        errs = checks.check_matmul(m, k, n, device)
+        torch.cuda.synchronize()
+        f32 = max(v for c, v in errs.items() if not c.endswith("bf16"))
+        worst["nmc_matmul"] = max(worst["nmc_matmul"], f32)
+        cases.append({"kernel": "nmc_matmul", "shape": [m, k, n], **errs})
+        log(f"lm kernel vs plain: nmc_matmul M={m} K={k} N={n}: "
+            + " ".join(f"{c}={v:.3g}" for c, v in errs.items()))
+    for name in checks.ATTENTION_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            err = checks.check_attention(name, dtype, device)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                worst["flash_attention"] = max(worst["flash_attention"], err)
+            cases.append({"kernel": "flash_attention", "case": name,
+                          "dtype": str(dtype), "max_abs_err": err})
+            log(f"lm kernel vs plain: flash_attention {name} {dtype}: "
+                f"max_abs_err={err:.3g}")
+    report["lm_cases"] = cases
+    report["lm_max_abs_err"] = worst
+    return worst
+
+
+@contextlib.contextmanager
+def recorded_lm_kernel_calls():
+    """Record the inputs and output of every LM-kernel launch the models
+    make inside the block, at the dispatch layer (``kernels/ops.py``): the
+    wrappers themselves run, and count, as usual."""
+    import types
+    from repro_torch.kernels import ops
+    calls = []
+    orig_mm, orig_fa = ops._mm, ops._fa
+
+    def recorder(name, fn):
+        def wrapper(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((name, args, kw, out))
+            return out
+        return wrapper
+    ops._mm = types.SimpleNamespace(
+        nmc_matmul=recorder("nmc_matmul", orig_mm.nmc_matmul))
+    ops._fa = types.SimpleNamespace(
+        flash_attention=recorder("flash_attention", orig_fa.flash_attention))
+    try:
+        yield calls
+    finally:
+        ops._mm, ops._fa = orig_mm, orig_fa
+
+
+def replay_against_plain(calls) -> dict:
+    """Every recorded launch against the plain version on its own inputs,
+    with the tolerances of kernels/checks.py (raises beyond them)."""
+    from repro_torch.kernels import checks, flash_attention as fa, ref
+    worst = {"nmc_matmul": 0.0, "flash_attention": 0.0}
+    count = {"nmc_matmul": 0, "flash_attention": 0}
+    for i, (name, args, kw, out) in enumerate(calls):
+        if name == "nmc_matmul":
+            want = ref.nmc_matmul(*args, **kw)
+            tol = checks.matmul_tolerance(kw["act"], kw["out_dtype"])
+        else:
+            want = fa.chunked_attention(*args, **kw)
+            tol = checks.attention_tolerance(args[0].dtype)
+        worst[name] = max(worst[name],
+                          checks.close(f"{name} launch {i}", out, want, *tol))
+        count[name] += 1
+    return {"launches": count, "max_abs_err": worst}
+
+
+def perturbed_plain_logits(params, tokens, cfg, seed: int = 1):
+    """The plain path's logits with half the embedded inputs moved by one
+    float32 ulp: the model's own sensitivity to last-bit noise."""
+    import torch
+    from repro_torch.kernels import ops
+    with torch.inference_mode(), ops.force_plain():
+        x = params.embed(tokens, cfg.dtype)
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+        flip = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+        x = torch.where(flip, torch.nextafter(x, torch.full_like(x, 1e30)), x)
+        for blk in params.layers:
+            x = blk(x, cfg)
+        return params.logits(x, cfg)
+
+
+def compare_logits(params, cfg, prompt, device) -> dict:
+    """One prompt through the kernels and under ``ops.force_plain()``, with
+    the served bf16 activations and with float32 ones.
+
+    1. Every kernel launch of the kernels' forward is replayed through its
+       plain version on the same inputs, within the tolerances of
+       kernels/checks.py: the kernels are right at this width and on these
+       activations.
+    2. The logits of every position (the prefill's are the last row).
+       W8A8 with a per-tensor dynamic scale is discontinuous: where the two
+       attention versions differ in the last bit (another summation
+       order), an int8 rounding flips, and 24 layers carry it on.  Moving
+       the plain path's inputs by one float32 ulp shows the model's own
+       spread, printed beside.  The float32 prefill's top-1 token must
+       agree; for both dtypes the RMS difference must stay under 25% of
+       the logit scale and the top-1 tokens agree at half the positions
+       or more, which a wrong kernel (unrelated logits: RMS about 140%,
+       agreement near 0) fails."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    tokens = torch.as_tensor(prompt[None], device=device)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c = cfg.scaled(dtype=dtype)
+        with recorded_lm_kernel_calls() as calls:
+            got, _ = lm.forward(params, {"tokens": tokens}, c)
+        replay = replay_against_plain(calls)
+        del calls
+        with ops.force_plain():
+            want, _ = lm.forward(params, {"tokens": tokens}, c)
+        got, want = got[0].float(), want[0].float()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"non-finite {dtype} logits")
+        top2 = want[-1].topk(2).values
+        st = dict(replay=replay,
+                  max_abs_diff=float((got - want).abs().max()),
+                  rms_diff=float((got - want).pow(2).mean().sqrt()),
+                  logit_std=float(want.std()),
+                  top1_agreement=float((got.argmax(-1) == want.argmax(-1))
+                                       .float().mean()),
+                  last_top1_kernels=int(got[-1].argmax()),
+                  last_top1_plain=int(want[-1].argmax()),
+                  plain_top2_gap=float(top2[0] - top2[1]))
+        if dtype == torch.float32:
+            pert = perturbed_plain_logits(params, tokens, c)[0].float()
+            st["ulp_perturbed_plain"] = dict(
+                max_abs_diff=float((pert - want).abs().max()),
+                rms_diff=float((pert - want).pow(2).mean().sqrt()),
+                top1_agreement=float((pert.argmax(-1) == want.argmax(-1))
+                                     .float().mean()))
+        out[str(dtype)] = st
+        log(f"serving: {dtype} forward of a {len(prompt)}-token prompt: "
+            f"{replay['launches']} launches replayed through the plain "
+            f"versions, max abs err {replay['max_abs_err']}; logits kernels "
+            f"vs plain: max_abs_diff={st['max_abs_diff']:.4g} "
+            f"rms={st['rms_diff']:.4g} (logit std {st['logit_std']:.4g}), "
+            f"top-1 agreement {st['top1_agreement']:.4f}, prefill top-1 "
+            f"kernels {st['last_top1_kernels']} plain "
+            f"{st['last_top1_plain']} (plain top-2 gap "
+            f"{st['plain_top2_gap']:.4g}); plain vs plain with 1-ulp "
+            f"inputs: {st.get('ulp_perturbed_plain', 'not run')}")
+        if st["rms_diff"] > 0.25 * st["logit_std"] \
+                or st["top1_agreement"] < 0.5:
+            raise AssertionError(f"{dtype} logits through the kernels stray "
+                                 f"from the plain versions'")
+        if dtype == torch.float32 and \
+                st["last_top1_kernels"] != st["last_top1_plain"]:
+            raise AssertionError("the float32 prefill's top-1 token differs "
+                                 "between the kernels and the plain versions")
+    return out
+
+
+def phase_serving(report: dict, device, seed: int = 0) -> dict:
+    """The port's W8A8 serving path at qwen1.5-0.5B's full width: random
+    weights from a seeded generator, quantized, served by ServeEngine.
+    The LM kernels' launch counts are set to 0 just before and read just
+    after."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine, \
+        quantize_params
+
+    cfg = configs.get(SERVE_ARCH).scaled(nmc_mode="w8a8")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = quantize_params(lm.init_params(cfg, gen, device), cfg)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(SERVE["prompt_lo"], SERVE["prompt_hi"] + 1,
+                           SERVE["requests"])
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lengths]
+    eng = ServeEngine(cfg, params, n_slots=SERVE["n_slots"],
+                      max_len=SERVE["max_len"], device=device)
+    for i, pr in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=pr, max_new=SERVE["max_new"]))
+    calls0 = eng.nmc_queue.calls
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    prefills = len(prompts)
+    decode_steps = eng.nmc_queue.calls - calls0 - prefills
+    per_forward = cfg.n_layers * 7 + 1
+    log(f"serving {SERVE_ARCH} w8a8: {len(done)} requests, prompts "
+        f"{sorted(int(n) for n in lengths)}, {prefills} prefills + "
+        f"{decode_steps} decode steps in {serve_s:.3f} s; launches "
+        f"{launches}")
+    if len(done) != len(prompts) or any(len(r.out) != SERVE["max_new"]
+                                        for r in done):
+        raise AssertionError("a request did not return max_new tokens")
+    if launches["nmc_matmul"] < per_forward * (prefills + decode_steps):
+        raise AssertionError(f"nmc_matmul launched {launches['nmc_matmul']}"
+                             f" < {per_forward} x {prefills + decode_steps}")
+    if launches["flash_attention"] != cfg.n_layers * prefills:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} != "
+                             f"{cfg.n_layers} x {prefills}")
+    tokens = [t for r in done for t in r.out]
+    if not all(0 <= t < cfg.vocab_size for t in tokens):
+        raise AssertionError("a token outside the vocabulary")
+
+    # one prompt through the kernels and through the plain versions (not
+    # counted: the main path's counts were read above)
+    logits = compare_logits(params, cfg, prompts[0], device)
+
+    # prefill ms per prompt length, decode steps/s at n_slots
+    prefill_ms = {}
+    for n in PREFILL_LENGTHS:
+        toks = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, n)), device=device)}
+        prefill_ms[n] = events_ms(
+            lambda: lm.prefill(params, toks, cfg, SERVE["max_len"]), reps=3)
+    caches = lm.init_caches(params, cfg, SERVE["n_slots"], SERVE["max_len"],
+                            dtype=cfg.dtype)
+    step_toks = torch.zeros((SERVE["n_slots"], 1), dtype=torch.long,
+                            device=device)
+    clen = torch.full((SERVE["n_slots"],), 300, dtype=torch.int32,
+                      device=device)
+    step_ms = events_ms(
+        lambda: lm.decode_step(params, step_toks, caches, clen, cfg), reps=20)
+    log(f"serving: prefill ms by prompt length "
+        f"{ {n: round(v, 3) for n, v in prefill_ms.items()} }; decode step "
+        f"{step_ms:.3f} ms at {SERVE['n_slots']} slots = "
+        f"{1e3 / step_ms:.1f} steps/s")
+    report["serving"] = dict(
+        arch=SERVE_ARCH, **SERVE, prompt_lengths=[int(n) for n in lengths],
+        seconds=serve_s, prefills=prefills, decode_steps=decode_steps,
+        launches=launches, logits=logits, prefill_ms=prefill_ms,
+        decode_step_ms=step_ms, param_count=cfg.param_count())
+    return launches
+
+
+def int_mm_library(x, w, scale, bias, out_dtype):
+    """``torch._int_mm`` plus the epilogue as torch ops, as a callable, or
+    None and the reason why there is none for this shape."""
+    import torch
+    if x.shape[0] <= 16:
+        return None, "torch._int_mm needs M > 16"
+    try:
+        torch._int_mm(x, w)
+    except RuntimeError as exc:
+        return None, f"torch._int_mm refused: {str(exc).splitlines()[0]}"
+    return (lambda: (torch._int_mm(x, w).float() * scale + bias)
+            .to(out_dtype)), None
+
+
+def phase_lm_timing(report: dict, device) -> dict:
+    """ms per launch of both LM kernels at the serving path's shapes,
+    beside the plain version, the bound and one PyTorch library call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import checks, flash_attention as fa, \
+        nmc_matmul as mm, ref
+    flush_buf = torch.empty(128 << 20, dtype=torch.int8, device=device)
+    flush = flush_buf.zero_
+    rows = []
+    for m in checks.MATMUL_M:
+        for k, n in checks.MATMUL_KN:
+            x, w, scale, bias = checks.matmul_inputs(m, k, n, device)
+            kw = dict(act="none", out_dtype=torch.bfloat16)
+            ms = events_ms(lambda: mm.nmc_matmul(x, w, scale, bias, **kw),
+                           reps=10, flush=flush)
+            plain = events_ms(lambda: ref.nmc_matmul(x, w, scale, bias, **kw),
+                              reps=2, flush=flush)
+            lib_fn, why = int_mm_library(x, w, scale, bias, torch.bfloat16)
+            lib = None if lib_fn is None else events_ms(lib_fn, reps=10,
+                                                        flush=flush)
+            bms, by = matmul_bound_ms(m, k, n, 2)
+            rows.append(dict(kernel="nmc_matmul", shape=[m, k, n], ms=ms,
+                             plain_ms=plain, library_ms=lib,
+                             library_null_reason=why, bound_ms=bms,
+                             bound_by=by))
+            lib_txt = f"{lib:.4f} ms" if lib is not None else f"null ({why})"
+            log(f"timing: nmc_matmul M={m} K={k} N={n} bf16: kernel "
+                f"{ms:.4f} ms, plain {plain:.3f} ms, library {lib_txt}, "
+                f"bound {bms:.4f} ms ({by})")
+    for s in (128, 384, 1000):
+        case = dict(b=1, hq=16, hkv=16, sq=s, skv=s, d=64, dv=64)
+        q, k, v = checks.attention_inputs(case, torch.bfloat16, device)
+        ms = events_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                       reps=20)
+        plain = events_ms(lambda: fa.chunked_attention(q, k, v, causal=True),
+                          reps=3)
+        lib = events_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=20)
+        bound = attention_bound_ms(1, 16, 16, s, 64, 64, 2)
+        rows.append(dict(kernel="flash_attention", shape=[1, 16, s, 64],
+                         ms=ms, plain_ms=plain, library_ms=lib, **bound))
+        log(f"timing: flash_attention B=1 H=16 S={s} D=64 bf16 causal: "
+            f"kernel {ms:.4f} ms, plain {plain:.3f} ms, library {lib:.4f} "
+            f"ms, bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}; "
+            f"{bound['bound_f32_ms']:.5f} ms at the f32 peak)")
+    report["lm_timing"] = rows
+    return {"nmc_matmul": next(r for r in rows if r["kernel"] == "nmc_matmul"
+                               and r["shape"] == list(ROW_MATMUL)),
+            "flash_attention": next(r for r in rows
+                                    if r["kernel"] == "flash_attention"
+                                    and r["shape"][2] == ROW_ATTENTION)}
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -337,6 +730,9 @@ def main() -> int:
     waves = phase_kernels_vs_plain(report, device)
     launches = phase_main_path(report)
     timed = phase_timing(report, waves, device)
+    lm_errs = phase_lm_kernels_vs_plain(report, device)
+    lm_launches = phase_serving(report, device)
+    lm_timed = phase_lm_timing(report, device)
 
     kernels = []
     for engine, meta in KERNEL_META.items():
@@ -347,6 +743,15 @@ def main() -> int:
                         "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": None})
+    for kname, meta in LM_KERNEL_META.items():
+        row = lm_timed[kname]
+        kernels.append({"name": kname, **meta, "route": "cuda",
+                        "launches": lm_launches[kname],
+                        "max_abs_err": lm_errs[kname], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"]})
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict[str, object] = {}
 #: per source stem: {"seconds": build wall time (0.0 when cached),
 #: "ptxas": the compiler's register / shared-memory report}
 BUILD_LOG: dict[str, dict] = {}
@@ -97,3 +98,23 @@ def load(stem: str) -> ctypes.CDLL:
                 _LIBS[name] = ctypes.CDLL(str(path))
         lib = _LIBS[stem]
     return lib
+
+
+def entry(stem: str, argtypes: list):
+    """The C function ``stem`` of ``csrc/<stem>.cu``, with its argument
+    types declared (``ctypes.c_void_p`` for every pointer and the stream)
+    and an ``int`` CUDA error code as its result."""
+    fn = _ENTRIES.get(stem)
+    if fn is None:
+        fn = getattr(load(stem), stem)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[stem] = fn
+    return fn
+
+
+def check_launch(kernel: str, rc: int) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")

@@ -46,17 +46,6 @@ CARUS_FIELDS = isa.CARUS_TRACE_DTYPE.names
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
-_BOUND: dict[str, object] = {}
-
-
-def _entry(stem: str, argtypes: list):
-    fn = _BOUND.get(stem)
-    if fn is None:
-        fn = getattr(cuda_build.load(stem), stem)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _BOUND[stem] = fn
-    return fn
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -74,11 +63,6 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
                          f"move the image in 16-byte vectors)")
 
 
-def _raise_on_error(kernel: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
-
-
 def caesar_wave(fields: dict, mem: torch.Tensor, sew: int) -> torch.Tensor:
     """Run a wave of NM-Caesar streams: ``fields`` holds int32 ``[T, n]``
     ``op/dest/src1/src2``; ``mem`` is the int32 ``[T, 8192]`` image,
@@ -91,12 +75,12 @@ def caesar_wave(fields: dict, mem: torch.Tensor, sew: int) -> torch.Tensor:
     _check("mem", mem, (n_tiles, 8192), mem.device)
     for k in CAESAR_FIELDS:
         _check(k, fields[k], (n_tiles, n_instr), mem.device)
-    fn = _entry("caesar_wave", [_VP] * 5 + [_I] * 4 + [_VP])
+    fn = cuda_build.entry("caesar_wave", [_VP] * 5 + [_I] * 4 + [_VP])
     with torch.cuda.device(mem.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(fields[k].data_ptr() for k in CAESAR_FIELDS),
                 mem.data_ptr(), n_tiles, n_instr, mem_words, sew, stream)
-    _raise_on_error("caesar_wave", rc)
+    cuda_build.check_launch("caesar_wave", rc)
     caesar_wave.launches += 1
     return mem
 
@@ -113,13 +97,13 @@ def carus_wave(fields: dict, vrf: torch.Tensor, sew: int) -> torch.Tensor:
     _check("vrf", vrf, (n_tiles, 32, 256), vrf.device)
     for k in CARUS_FIELDS:
         _check(k, fields[k], (n_tiles, n_instr), vrf.device)
-    fn = _entry("carus_wave", [_VP] * 9 + [_I] * 5 + [_VP])
+    fn = cuda_build.entry("carus_wave", [_VP] * 9 + [_I] * 5 + [_VP])
     with torch.cuda.device(vrf.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(fields[k].data_ptr() for k in CARUS_FIELDS),
                 vrf.data_ptr(), n_tiles, n_instr, n_regs, reg_words, sew,
                 stream)
-    _raise_on_error("carus_wave", rc)
+    cuda_build.check_launch("carus_wave", rc)
     carus_wave.launches += 1
     return vrf
 

@@ -108,3 +108,67 @@ def test_wrappers_check_their_inputs(card):
     with pytest.raises(ValueError):
         cuda_engine.caesar_wave(
             {**fields, "dest": fields["dest"].t().contiguous().t()}, state, 8)
+
+
+# ---------------------------------------------------------------------------
+# The LM-layer kernels: nmc_matmul and flash_attention against their plain
+# versions at the serving path's shapes (tolerances in kernels/checks.py)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import checks  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import nmc_matmul as mm  # noqa: E402
+
+
+@pytest.mark.parametrize("m", checks.MATMUL_M)
+@pytest.mark.parametrize("k,n", checks.MATMUL_KN)
+def test_nmc_matmul_equals_plain_at_serving_shapes(card, m, k, n):
+    before = mm.nmc_matmul.launches
+    errs = checks.check_matmul(m, k, n, card)
+    torch.cuda.synchronize()
+    assert errs["acc"] == 0 and errs["none/f32"] == 0
+    assert mm.nmc_matmul.launches == before + 9
+
+
+@pytest.mark.parametrize("m,k,n", checks.MATMUL_RAGGED)
+def test_nmc_matmul_equals_plain_at_ragged_shapes(card, m, k, n):
+    checks.check_matmul(m, k, n, card)
+
+
+def test_nmc_matmul_exact_worst_case_accumulator(card):
+    k = 2816
+    x = torch.full((4, k), -128, dtype=torch.int8, device=card)
+    w = torch.full((k, 64), -128, dtype=torch.int8, device=card)
+    acc = mm.nmc_matmul(x, w, None, out_dtype=torch.int32)
+    assert int(acc[0, 0]) == 128 * 128 * k and bool((acc == acc[0, 0]).all())
+
+
+@pytest.mark.parametrize("name", sorted(checks.ATTENTION_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_equals_plain(card, name, dtype):
+    before = fa.flash_attention.launches
+    checks.check_attention(name, dtype, card)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+
+
+def test_lm_kernel_wrappers_check_their_inputs(card):
+    x, w, scale, bias = checks.matmul_inputs(4, 64, 32, card)
+    with pytest.raises(TypeError):
+        mm.nmc_matmul(x.float(), w, scale)
+    with pytest.raises(ValueError):
+        mm.nmc_matmul(x, w[:32], scale)
+    with pytest.raises(ValueError):
+        mm.nmc_matmul(x, w.t().contiguous().t(), scale)
+    with pytest.raises(ValueError):
+        mm.nmc_matmul(x, w, scale, act="tanh")
+    with pytest.raises(ValueError):
+        mm.nmc_matmul(x, w, scale, out_dtype=torch.int32)
+    q, k, v = checks.attention_inputs(checks.ATTENTION_CASES["qwen-128"],
+                                      torch.float32, card)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :5], v[:, :5])

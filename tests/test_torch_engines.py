@@ -176,7 +176,8 @@ def test_implementations_registry_is_complete():
 def test_kernel_build_targets_are_keyed_by_source_and_flags(monkeypatch):
     from repro_torch import cuda_build
     srcs = cuda_build.sources()
-    assert [s.name for s in srcs] == ["caesar_wave.cu", "carus_wave.cu"]
+    assert [s.name for s in srcs] == ["caesar_wave.cu", "carus_wave.cu",
+                                      "flash_attention.cu", "nmc_matmul.cu"]
     targets = [cuda_build._target(s) for s in srcs]
     for src, t in zip(srcs, targets):
         assert t.parent.parent == cuda_build.BUILD_DIR

@@ -28,7 +28,11 @@ def test_import_without_jax_or_reference():
             "import repro_torch, repro_torch.nmc, repro_torch.core, "
             "repro_torch.core.programs, repro_torch.nmc.cuda_engine, "
             "repro_torch.nmc.carry, repro_torch.nmc.conformance, "
-            "repro_torch.cuda_build; "
+            "repro_torch.cuda_build, repro_torch.kernels, "
+            "repro_torch.kernels.checks, repro_torch.configs, "
+            "repro_torch.models.lm, repro_torch.models.convert, "
+            "repro_torch.serve.engine; "
+            "repro_torch.configs.get('qwen1.5-0.5b'); "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules if sys.modules[m] is not None); "
             "print('ok')")
