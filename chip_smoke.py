@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, in parallel) and drives two paths of the port:
+``nvcc`` per source, in parallel) and drives five paths of the port:
 
 * NMC execution: the two wave kernels against their plain PyTorch versions
   on the card (bit for bit, on random verifier-clean waves at the largest
@@ -20,6 +20,18 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   through ``flash_attention``; one prefill's logits through the kernels
   against the plain versions; both kernels timed beside their plain
   versions, their bounds and one PyTorch library call.
+* The kernels demo (``python -m repro_torch.examples.nmc_kernels_demo``):
+  ``vrf_alu`` against its plain version bit for bit (both demo programs,
+  every op in both modes and the wrap extremes at int8 / int16 / int32 on
+  a block-multiple and a ragged VL, 50 random programs), then the demo
+  itself end to end; ``vrf_alu`` at full size (32 registers x 1,048,576
+  elements, the VRF of a 1024-tile NM-Carus array) timed beside its plain
+  version and its bound.
+* Multi-tile NMC: the five tile-count-sweep kernel families at tiles 1, 2,
+  4, 8 and 16, sync and async, on both wave kernels, and one autotuned
+  mixed 7 Caesar + 1 Carus ``qrelu`` wave.
+* The resident W8A8 block: one qwen-family decoder layer served off the
+  tile array with its weights resident, bit-exact three ways.
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name / power-limit line, and as the last line
@@ -365,6 +377,16 @@ def events_ms(fn, reps: int, flush=None) -> float:
     return total / reps
 
 
+def l2_flush(device):
+    """A callable that evicts the 50 MB L2 by reading 512 MB.  A read leaves
+    clean lines behind, where clearing a buffer would leave dirty lines for
+    the timed kernel to write back, and it outlasts a wrapper's host work,
+    so the timed span that follows holds the kernel alone."""
+    import torch
+    buf = torch.ones(128 << 20, dtype=torch.float32, device=device)
+    return lambda: buf.max()
+
+
 def matmul_bound_ms(m: int, k: int, n: int, out_bytes: int) -> tuple:
     nbytes = m * k + k * n + 8 * n + m * n * out_bytes
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / INT_OPS_PER_S
@@ -657,8 +679,7 @@ def phase_lm_timing(report: dict, device) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import checks, flash_attention as fa, \
         nmc_matmul as mm, ref
-    flush_buf = torch.empty(128 << 20, dtype=torch.int8, device=device)
-    flush = flush_buf.zero_
+    flush = l2_flush(device)
     rows = []
     for m in checks.MATMUL_M:
         for k, n in checks.MATMUL_KN:
@@ -704,6 +725,259 @@ def phase_lm_timing(report: dict, device) -> dict:
                                     and r["shape"][2] == ROW_ATTENTION)}
 
 
+# ---------------------------------------------------------------------------
+# vrf_alu, the kernels demo, multi-tile NMC and the resident block
+# ---------------------------------------------------------------------------
+
+VRF_META = {"name": "vrf_alu", "source": "src/repro_torch/csrc/vrf_alu.cu",
+            "replaces": "src/repro/kernels/vrf_alu.py:35"}
+#: 32 registers x 1,048,576 elements: the VRF of a 1024-tile NM-Carus
+#: array, 1 KiB per register per tile at SEW 8
+VRF_FULL = (32, 1 << 20)
+#: the resident block's layer: qwen1.5-0.5B's shape (heads of 64, d_ff =
+#: 2.75 d_model) at the width PERF.md states, for the serving run's 4 rows
+BLOCK = dict(d_model=320, n_heads=5, d_ff=880, rows=4, tiles=80)
+
+
+def vrf_bound_ms(compiled, vl: int, elem: int) -> tuple:
+    """Bytes: every register the program reads before writing it (vs2
+    unless the op is mv, vs1 in vv mode) loaded once, every register it
+    writes stored once: the load and store lists of
+    ``kernels.vrf_alu.compile_prog``.  Operations:
+    one per element per instruction, at the int8 peak."""
+    t_bytes = (compiled.n_load + compiled.n_store) * vl * elem \
+        / HBM_BYTES_PER_S
+    t_ops = compiled.n_instr * vl / INT_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_vrf_vs_plain(report: dict, device) -> int:
+    """vrf_alu against its plain version on the card, bit for bit, on
+    every case of kernels/checks.py (50 random programs among them)."""
+    import torch
+    from repro_torch.kernels import checks
+    worst, cases = 0, checks.vrf_cases(n_random=50)
+    for label, f, entries in cases:
+        worst = max(worst, checks.check_vrf_alu(f, entries, device))
+    torch.cuda.synchronize()
+    log(f"vrf_alu vs plain: {len(cases)} cases (demo programs, every op x "
+        f"mode, wrap extremes at int8/int16/int32, VL "
+        f"{list(checks.VRF_VLS)}, 50 random programs) bit-exact")
+    report["vrf_cases"] = len(cases)
+    return worst
+
+
+def phase_vrf_full(report: dict, device) -> dict:
+    """vrf_alu at full size with the demo's fused_chain program, at int8,
+    int16 and int32: kernel vs plain bit for bit, then ms per launch (L2
+    flushed before each), the plain version's ms and the bound."""
+    import torch
+    from repro_torch.kernels import checks, ref
+    from repro_torch.kernels import vrf_alu as V
+    entries = checks.VRF_DEMO_PROGRAMS["fused_chain"]
+    prog = V.make_prog(entries)
+    compiled = V.compile_prog(ref.check_vrf_program(prog, VRF_FULL[0])) \
+        .to(device)
+    flush = l2_flush(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = []
+    for dtype in checks.VRF_DTYPES:
+        info = torch.iinfo(dtype)
+        base = torch.randint(info.min, info.max + 1, VRF_FULL,
+                             generator=gen, device=device, dtype=dtype)
+        got = V.vrf_alu(base.clone(), prog)
+        want = ref.vrf_alu(base.clone(), prog)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"vrf_alu full size {dtype}: kernel != "
+                                 f"plain")
+        del got, want
+        buf = base.clone()
+        ms = events_ms(lambda: V.launch(buf, compiled), reps=20,
+                       flush=flush)
+        plain = events_ms(lambda: ref.vrf_alu(buf, prog), reps=3,
+                          flush=flush)
+        bms, by = vrf_bound_ms(compiled, VRF_FULL[1], base.element_size())
+        rows.append(dict(dtype=str(dtype), shape=list(VRF_FULL),
+                         n_instr=len(entries), ms=ms, plain_ms=plain,
+                         bound_ms=bms, bound_by=by, max_abs_err=0))
+        log(f"timing: vrf_alu {VRF_FULL[0]}x{VRF_FULL[1]} {dtype} "
+            f"fused_chain ({len(entries)} instrs): kernel {ms:.4f} ms, plain "
+            f"{plain:.3f} ms, bound {bms:.5f} ms ({by}), library null (no "
+            f"PyTorch call runs a program-as-data VRF)")
+        del base, buf
+    report["vrf_timing"] = rows
+    return rows[0]
+
+
+def phase_demo(report: dict) -> dict:
+    """The kernels demo end to end on the card: the vrf_alu path's entry
+    point.  Every kernel count is set to 0 just before and read just
+    after."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.examples import nmc_kernels_demo
+    from repro_torch.nmc import cuda_engine
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    cuda_engine.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = nmc_kernels_demo.main([])
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches
+                for k in kernels.KERNELS + cuda_engine.KERNELS}
+    log(f"demo: nmc_kernels_demo on the card in {demo_s:.3f} s; launches "
+        f"{launches}")
+    if not (all(result["vrf_alu"].values())
+            and result["frontend"]["bit_exact"]
+            and result["nmc_matmul_rel_err"] < 0.015):
+        raise AssertionError(f"the demo's checks failed: {result}")
+    for name in ("vrf_alu", "nmc_matmul", "caesar_wave", "carus_wave"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the demo launched no {name}")
+    report["demo"] = dict(seconds=demo_s, launches=launches, result=result)
+    return launches
+
+
+def phase_multitile(report: dict) -> dict:
+    """Multi-tile NMC on the card: every tile-count-sweep family at tiles
+    1-16 and SEW 8/16/32 on both engines, sync and async, each output equal
+    to the single-tile output and the numpy oracle, compiles <= buckets;
+    then one autotuned 7 Caesar + 1 Carus qrelu wave that launches both
+    wave kernels in one wave.  Counts set to 0 just before, read just
+    after."""
+    import numpy as np
+    import torch
+    from repro_torch import nmc
+    from repro_torch.core import programs
+    from repro_torch.examples import tile_families
+    from repro_torch.nmc import cuda_engine
+    from repro_torch.nmc import schedule as S
+    rt = nmc.NmcRuntime(backend="cuda")
+    torch.cuda.synchronize()
+    cuda_engine.reset_launch_counts()
+    t0 = time.perf_counter()
+    sweep = tile_families.sweep(rt)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    log(f"multi-tile: {len(sweep['runs'])} partitioned runs (5 families x "
+        f"SEW 8/16/32 x 2 engines x tiles {list(tile_families.TILES)}, each "
+        f"sync + async) bit-exact vs single tile and oracle in "
+        f"{sweep_s:.3f} s; compiles={sweep['compiles']} <= "
+        f"buckets={sweep['buckets']}; queue waves={rt.queue.waves}")
+
+    S.clear_plan_cache()
+    kfn, args = programs.qrelu_case(8)
+    ck = nmc.jit(kfn, tiles=8, partition="rows", runtime=rt)
+    tuned = ck.plan_schedule(*args, schedule="auto")
+    if sorted(tuned.engines) != ["caesar"] * 7 + ["carus"]:
+        raise AssertionError(f"qrelu autotuned to {tuned.engines}")
+    ref_out = ck(*args, schedule="uniform")
+    q = rt.queue
+    before = {k.__name__: k.launches for k in cuda_engine.KERNELS}
+    w0, m0 = q.waves, q.mixed_engine_waves
+    out = ck(*args, schedule="auto")
+    torch.cuda.synchronize()
+    wave = {k.__name__: k.launches - before[k.__name__]
+            for k in cuda_engine.KERNELS}
+    if not (np.array_equal(out, ref_out)
+            and np.array_equal(out, ck.oracle(*args))):
+        raise AssertionError("the mixed qrelu wave diverged")
+    if (q.waves - w0, q.mixed_engine_waves - m0) != (1, 1) \
+            or wave != {"caesar_wave": 1, "carus_wave": 1}:
+        raise AssertionError(f"the mixed qrelu wave was not one wave of "
+                             f"both kernels: {wave}")
+    launches = {k.__name__: k.launches for k in cuda_engine.KERNELS}
+    log(f"multi-tile: qrelu autotuned to 7 Caesar + 1 Carus shards "
+        f"({tuned.modeled_cycles:.0f} modeled cycles vs uniform "
+        f"{tuned.uniform_cycles:.0f}), one wave launching {wave}, bit-exact; "
+        f"path launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a wave kernel was not launched: {launches}")
+    report["multitile"] = dict(
+        seconds=sweep_s, runs=len(sweep["runs"]), compiles=sweep["compiles"],
+        buckets=sweep["buckets"], launches=launches,
+        qrelu=dict(engines=list(tuned.engines),
+                   modeled_cycles=tuned.modeled_cycles,
+                   uniform_cycles=tuned.uniform_cycles, wave=wave))
+    return launches
+
+
+def phase_resident_block(report: dict, device, seed: int = 0) -> dict:
+    """One decode step of a resident W8A8 qwen-family layer on the tile
+    array (cold, then a steady step), bit-exact three ways (resident tiles,
+    ``nmc_project`` and the exact int32 GEMM); after the first step only
+    activation patches cross the bus.  Counts set to 0 just before the
+    resident steps and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, nmc
+    from repro_torch.models import lm
+    from repro_torch.nmc import cuda_engine
+    from repro_torch.serve.engine import ServeEngine, quantize_params
+    b = BLOCK
+    cfg = configs.get(SERVE_ARCH).scaled(
+        n_layers=1, d_model=b["d_model"], n_heads=b["n_heads"],
+        n_kv_heads=b["n_heads"], d_ff=b["d_ff"], nmc_mode="w8a8")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = quantize_params(lm.init_params(cfg, gen, device), cfg)
+    queue = nmc.DispatchQueue(pool=nmc.ResidentPool(backend="cuda"))
+    eng = ServeEngine(cfg, params, n_slots=b["rows"], max_len=64,
+                      nmc_queue=queue, nmc_tiles=b["tiles"], device=device)
+    t0 = time.perf_counter()
+    blk = eng.resident_block(layer=0)
+    build_s = time.perf_counter() - t0
+    if not blk.static:
+        raise AssertionError("a projection failed the residency proof")
+    pool = queue.pool
+    x = np.random.default_rng(seed).normal(
+        size=(b["rows"], cfg.d_model)).astype(np.float32)
+
+    torch.cuda.synchronize()
+    cuda_engine.reset_launch_counts()
+    t0 = time.perf_counter()
+    y_res, st = blk.step(x, blk.init_state(8))
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    loads, pb = pool.loads, pool.patch_bytes
+    t0 = time.perf_counter()
+    blk.step(y_res, st)
+    steady_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.__name__: k.launches for k in cuda_engine.KERNELS}
+    if loads != blk.n_shards or pool.loads != loads \
+            or pool.patch_bytes - pb != blk.patch_bytes_per_call:
+        raise AssertionError(f"residency broken: loads {loads} -> "
+                             f"{pool.loads} for {blk.n_shards} shards, "
+                             f"patch bytes {pool.patch_bytes - pb}")
+    if launches["caesar_wave"] <= 0:
+        raise AssertionError(f"the block launched no caesar_wave: "
+                             f"{launches}")
+
+    t0 = time.perf_counter()
+    y_prj, _ = blk.step(x, blk.init_state(8), mm=blk.project_mm(eng))
+    project_s = time.perf_counter() - t0
+    y_mm, _ = blk.step(x, blk.init_state(8), mm=blk.torch_mm)
+    if not (np.array_equal(y_res, y_prj) and np.array_equal(y_res, y_mm)
+            and np.isfinite(y_res).all()):
+        raise AssertionError("resident / nmc_project / torch_mm diverged")
+    log(f"resident block: qwen-family layer d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}x{cfg.head_dim} d_ff={cfg.d_ff}, "
+        f"{b['rows']} rows, {blk.n_shards} Caesar shards ({b['tiles']} per "
+        f"projection), built in {build_s:.1f} s; cold step {cold_ms:.1f} ms, "
+        f"steady step {steady_ms:.1f} ms; weights loaded once "
+        f"(loads={loads}), steady step patched "
+        f"{blk.patch_bytes_per_call} B; resident == nmc_project == torch_mm "
+        f"bit for bit (nmc_project step {project_s:.1f} s); launches "
+        f"{launches}")
+    report["resident_block"] = dict(
+        **b, build_s=build_s, cold_step_ms=cold_ms, steady_step_ms=steady_ms,
+        project_step_s=project_s, shards=blk.n_shards, loads=loads,
+        patches=pool.patches, patch_bytes_per_step=blk.patch_bytes_per_call,
+        modeled_step_cycles=blk.step_cycles(True), launches=launches)
+    return launches
+
+
 
 def main() -> int:
     import torch
@@ -733,6 +1007,11 @@ def main() -> int:
     lm_errs = phase_lm_kernels_vs_plain(report, device)
     lm_launches = phase_serving(report, device)
     lm_timed = phase_lm_timing(report, device)
+    vrf_err = phase_vrf_vs_plain(report, device)
+    demo_launches = phase_demo(report)
+    vrf_row = phase_vrf_full(report, device)
+    tile_launches = phase_multitile(report)
+    block_launches = phase_resident_block(report, device)
 
     kernels = []
     for engine, meta in KERNEL_META.items():
@@ -752,6 +1031,16 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
+    kernels.append({**VRF_META, "route": "cuda",
+                    "launches": demo_launches["vrf_alu"],
+                    "max_abs_err": vrf_err, "ms": vrf_row["ms"],
+                    "plain_ms": vrf_row["plain_ms"],
+                    "bound_ms": vrf_row["bound_ms"],
+                    "bound_by": vrf_row["bound_by"], "library_ms": None})
+    report["path_launches"] = {"nmc": launches, "serving": lm_launches,
+                               "demo": demo_launches,
+                               "multitile": tile_launches,
+                               "resident_block": block_launches}
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

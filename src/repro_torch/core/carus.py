@@ -74,6 +74,13 @@ class CarusVPU:
     def __init__(self, config: CarusConfig | None = None):
         self.cfg = config or CarusConfig()
 
+    def run_program(self, vrf: torch.Tensor, program, vl0=None):
+        """Execute a unified-IR :class:`repro_torch.nmc.program.Program` on
+        the device of ``vrf``."""
+        assert program.engine == "carus", program.engine
+        return self.run_trace(vrf, program.lower(vrf.device), program.sew,
+                              vl0=vl0)
+
     def run_trace(self, vrf: torch.Tensor, trace: dict, sew: int, vl0=None):
         """Execute a trace.  ``trace`` is a dict of equal-length int32
         tensors with the CARUS_TRACE_DTYPE fields.  Returns ``(vrf, vl,

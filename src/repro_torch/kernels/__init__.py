@@ -1,12 +1,15 @@
-"""The LM-layer kernels (Layer B): ``nmc_matmul`` (W8A8 with a fused
-epilogue) and ``flash_attention``, each a hand-written CUDA kernel with its
-plain PyTorch version beside it, the oracles in :mod:`ref`, and the
-dispatching entry points in :mod:`ops`.  Nothing is built at import time."""
+"""The Layer B kernels: ``nmc_matmul`` (W8A8 with a fused epilogue),
+``flash_attention`` and ``vrf_alu`` (the NM-Carus VPU running a
+program-as-data), each a hand-written CUDA kernel with its plain PyTorch
+version beside it, the oracles in :mod:`ref`, and the dispatching entry
+points in :mod:`ops`.  Nothing is built at import time."""
 
-from repro_torch.kernels import flash_attention, nmc_matmul, ops, ref
+from repro_torch.kernels import flash_attention, nmc_matmul, ops, ref, \
+    vrf_alu
 
 #: the kernel wrappers; each counts its launches in ``.launches``
-KERNELS = (nmc_matmul.nmc_matmul, flash_attention.flash_attention)
+KERNELS = (nmc_matmul.nmc_matmul, flash_attention.flash_attention,
+           vrf_alu.vrf_alu)
 
 
 def reset_launch_counts() -> None:
@@ -15,4 +18,4 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "flash_attention", "nmc_matmul", "ops", "ref",
-           "reset_launch_counts"]
+           "reset_launch_counts", "vrf_alu"]

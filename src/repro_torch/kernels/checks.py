@@ -1,5 +1,6 @@
-"""The LM-layer kernels against their plain versions, at the serving path's
-shapes, with the tolerances stated.
+"""The Layer B kernels against their plain versions, at the serving path's
+shapes (``nmc_matmul``, ``flash_attention``) and on the kernels demo's
+programs and more (``vrf_alu``), with the tolerances stated.
 
 Shared by ``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py``: each
 check makes its inputs from a seed on the given device, runs the kernel
@@ -18,15 +19,18 @@ Tolerances:
     (the tolerance of the reference's kernel tests: another summation
     order); bfloat16 within atol 1e-2 / rtol 1.6e-2 (one bf16 ulp of the
     output).
+  * ``vrf_alu``: equal bit for bit (integer programs).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import nmc_matmul as _mm
 from repro_torch.kernels import ref
+from repro_torch.kernels import vrf_alu as _vrf
 
 #: decode (1 and 4 slots) and prefill row counts of the serving path
 MATMUL_M = (1, 4, 384)
@@ -134,3 +138,112 @@ def check_attention(name: str, dtype, device, seed: int = 0) -> float:
     want = _fa.chunked_attention(q, k, v, **kw)
     return close(f"flash_attention {name} {dtype}", got, want,
                  *attention_tolerance(dtype))
+
+
+# ---------------------------------------------------------------------------
+# vrf_alu
+# ---------------------------------------------------------------------------
+
+VV, VX = ref.VRF_MODE_VV, ref.VRF_MODE_VX
+#: the kernels demo's two programs (examples/nmc_kernels_demo.py)
+VRF_DEMO_PROGRAMS = {
+    # leaky-relu of v1 into v3 via the paper's max(x, x >> 2) trick
+    "leaky_relu": [("sra", 2, 0, 1, 2, VX), ("max", 3, 2, 1, 0, VV)],
+    # fused (v1 * v4 + v5) ^ v1, then clamp to [-100, 100]
+    "fused_chain": [("mul", 6, 4, 1, 0, VV), ("add", 6, 5, 6, 0, VV),
+                    ("xor", 7, 1, 6, 0, VV), ("min", 7, 0, 7, 100, VX),
+                    ("max", 7, 0, 7, -100, VX)],
+}
+#: the demo's file: 32 registers of 4096 elements
+VRF_DEMO_SHAPE = (32, 4096)
+#: a VL that is a multiple of the kernel's 256-thread block, and one that
+#: is not
+VRF_VLS = (4096, 4096 + 77)
+VRF_DTYPES = ref.VRF_DTYPES
+_NP = {torch.int8: np.int8, torch.int16: np.int16, torch.int32: np.int32}
+
+
+def vrf_every_op_program() -> list:
+    """Every op in vv and in vx mode, each into its own register, with vx
+    scalars past the element range (truncated first) and negative shift
+    amounts (taken mod the width)."""
+    entries = []
+    for i, op in enumerate(ref.VRF_OPS):
+        entries.append((op, 8 + i, 1, 2, 0, VV))
+        entries.append((op, 20 + i % 12, 0, 3, (-1) ** i * (300 + 37 * i),
+                        VX))
+    entries.append(("sll", 4, 5, 2, 0, VV))
+    entries.append(("mv", 5, 0, 0, -129, VX))
+    return entries
+
+
+def vrf_wrap_extremes(dtype) -> tuple:
+    """The wrap-extremes case of the reference's kernel tests: a (16, 256)
+    file with the type's extremes, and a program whose mul / add / sub /
+    shifts must wrap two's-complement."""
+    info = np.iinfo(_NP[dtype])
+    bits = info.bits
+    vrf = np.zeros((16, 256), _NP[dtype])
+    vrf[1, :] = info.min
+    vrf[2, :] = info.max
+    vrf[3, :] = np.tile(np.array([info.min, info.max, -1, 1], vrf.dtype), 64)
+    entries = [("mul", 4, 1, 2, 0, VV), ("add", 5, 2, 4, 0, VV),
+               ("sub", 6, 1, 5, 0, VV), ("mul", 7, 3, 3, 0, VV),
+               ("sll", 8, 0, 7, bits - 1, VX), ("srl", 9, 0, 1, 1, VX),
+               ("sra", 10, 0, 1, 1, VX), ("add", 11, 0, 2, 1, VX)]
+    return vrf, entries
+
+
+def vrf_random_program(rng, n_instr: int, n_regs: int) -> list:
+    ops = ref.VRF_OPS
+    return [(ops[rng.integers(len(ops))], int(rng.integers(n_regs)),
+             int(rng.integers(n_regs)), int(rng.integers(n_regs)),
+             int(rng.integers(-2 ** 31, 2 ** 31)), int(rng.integers(2)))
+            for _ in range(n_instr)]
+
+
+def vrf_random_file(rng, shape: tuple, dtype) -> np.ndarray:
+    info = np.iinfo(_NP[dtype])
+    return rng.integers(info.min, info.max + 1, shape, dtype=_NP[dtype])
+
+
+def check_vrf_alu(vrf: np.ndarray, entries: list, device) -> int:
+    """Kernel vs plain on one file and program, both on ``device``: the
+    kernel's in-place result must equal the plain version's bit for bit.
+    Returns the max abs difference (0)."""
+    prog = _vrf.make_prog(entries)
+    base = torch.as_tensor(vrf, device=device)
+    got = _vrf.vrf_alu(base.clone(), prog)
+    want = ref.vrf_alu(base.clone(), prog)
+    err = int((got.long() - want.long()).abs().max())
+    if err or not torch.equal(got, want):
+        raise AssertionError(f"vrf_alu {tuple(vrf.shape)} {vrf.dtype}: "
+                             f"kernel != plain (max abs err {err})")
+    return err
+
+
+def vrf_cases(seed: int = 0, n_random: int = 50) -> list:
+    """``(label, file, entries)`` cases: both demo programs, every op in both
+    modes and the wrap extremes at int8, int16 and int32, on a
+    block-multiple and a ragged VL, and ``n_random`` random programs of
+    1-64 instructions spread over the types and VLs."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for dtype in VRF_DTYPES:
+        for vl in VRF_VLS:
+            f = vrf_random_file(rng, (VRF_DEMO_SHAPE[0], vl), dtype)
+            for name, entries in VRF_DEMO_PROGRAMS.items():
+                cases.append((f"{name}/{dtype}/VL{vl}", f, entries))
+            cases.append((f"every-op/{dtype}/VL{vl}", f,
+                          vrf_every_op_program()))
+        vrf, entries = vrf_wrap_extremes(dtype)
+        cases.append((f"wrap-extremes/{dtype}", vrf, entries))
+    for i in range(n_random):
+        dtype = VRF_DTYPES[i % len(VRF_DTYPES)]
+        vl = VRF_VLS[(i // len(VRF_DTYPES)) % len(VRF_VLS)]
+        n_regs = int(rng.integers(1, 33))
+        f = vrf_random_file(rng, (n_regs, vl), dtype)
+        cases.append((f"random-{i}/{dtype}/VL{vl}", f,
+                      vrf_random_program(rng, int(rng.integers(1, 65)),
+                                         n_regs)))
+    return cases

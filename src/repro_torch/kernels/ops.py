@@ -3,11 +3,12 @@ tensors, its plain version on CPU tensors.
 
 The counterpart of the JAX package's ``kernels/ops.py`` (Pallas on a TPU,
 XLA elsewhere).  Here the implementation follows the tensors' device: on
-the card :func:`nmc_matmul` and :func:`attention` launch the CUDA kernels,
-on the CPU they run the plain PyTorch versions.  :func:`force_plain` is a
-scoped override that makes them run the plain versions on any device, so
-that a test or the smoke run can hold one against the other on the same
-inputs; nothing on the serving path enters it.
+the card :func:`nmc_matmul`, :func:`attention` and :func:`vrf_alu` launch
+the CUDA kernels, on the CPU they run the plain PyTorch versions.
+:func:`force_plain` is a scoped override that makes them run the plain
+versions on any device, so that a test or the smoke run can hold one
+against the other on the same inputs; nothing on the serving path
+enters it.
 
 :func:`chunked_attention` and :func:`decode_attention` are plain PyTorch
 everywhere: in the reference they are XLA, not Pallas.
@@ -23,10 +24,11 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import nmc_matmul as _mm
 from repro_torch.kernels import ref
+from repro_torch.kernels import vrf_alu as _vrf
 from repro_torch.kernels.flash_attention import NEG_INF, chunked_attention
 
 __all__ = ["attention", "chunked_attention", "decode_attention",
-           "force_plain", "nmc_matmul"]
+           "force_plain", "nmc_matmul", "vrf_alu"]
 
 _PLAIN = contextvars.ContextVar("repro_torch_force_plain", default=False)
 
@@ -49,6 +51,13 @@ def nmc_matmul(x_q, w_q, scale, bias=None, *, act: str = "none",
                               out_dtype=out_dtype)
     return _mm.nmc_matmul(x_q, w_q, scale, bias, act=act,
                           out_dtype=out_dtype)
+
+
+def vrf_alu(vrf, prog):
+    """Execute an ``(n_instr, 6)`` VRF program over ``vrf`` in place."""
+    if _PLAIN.get():
+        return ref.vrf_alu(vrf, prog)
+    return _vrf.vrf_alu(vrf, prog)
 
 
 def attention(q, k, v, *, causal=True, window=None, q_offset=0):

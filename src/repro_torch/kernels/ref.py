@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the LM-layer kernels (the port's oracles).
 
 The counterpart of the JAX package's ``kernels/ref.py``: the W8A8 matmul
-with its fused epilogue, the activation table, the two int8 quantizers and
-plain-softmax attention.  Each runs on the device of its tensors.  The VRF
-ALU half of the reference waits for the ``vrf_alu`` slice of the port.
+with its fused epilogue, the activation table, the two int8 quantizers,
+the NM-Carus VRF ALU (``vrf_alu``, a program-as-data interpreter) and
+plain-softmax attention.  Each runs on the device of its tensors.
 """
 
 from __future__ import annotations
@@ -70,6 +70,112 @@ def quantize_dynamic(x: torch.Tensor):
     s = torch.clamp_min(amax, 1e-8) / 127.0
     xq = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
     return xq, s
+
+
+# ---------------------------------------------------------------------------
+# vrf_alu: the NM-Carus VPU as a fused element-wise program interpreter
+# ---------------------------------------------------------------------------
+
+# op ids (shared with the CUDA kernel, csrc/vrf_alu.cu)
+VRF_OPS = ("add", "sub", "mul", "min", "max", "and", "or", "xor",
+           "sll", "srl", "sra", "mv")
+VRF_OP_ID = {n: i for i, n in enumerate(VRF_OPS)}
+VRF_MODE_VV, VRF_MODE_VX = 0, 1
+#: the columns of an ``(n_instr, 6)`` int32 program
+VRF_FIELDS = ("op", "vd", "vs1", "vs2", "scalar", "mode")
+VRF_DTYPES = (torch.int8, torch.int16, torch.int32)
+
+
+def _wrap(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """int64 values -> their two's-complement value at ``bits``, in int64."""
+    half = 1 << (bits - 1)
+    return ((x + half) & ((1 << bits) - 1)) - half
+
+
+def _vrf_binop(opid: int, a: torch.Tensor, b: torch.Tensor,
+               bits: int) -> torch.Tensor:
+    """One VRF op on int64 lanes holding ``bits``-wide signed values; the
+    result is wrapped to ``bits``.  The shift amount is ``b`` as an
+    unsigned 32-bit value mod ``bits``, so -3 shifts by 5 at 8 bits;
+    ``sll`` / ``srl`` shift the unsigned view, ``sra`` the signed one;
+    ``mv`` broadcasts ``b``."""
+    mask = (1 << bits) - 1
+    sh = b & (bits - 1)            # == (b mod 2^32) mod bits: bits | 2^32
+    op = VRF_OPS[opid]
+    if op == "add":
+        r = a + b
+    elif op == "sub":
+        r = a - b
+    elif op == "mul":
+        r = a * b
+    elif op == "min":
+        r = torch.minimum(a, b)
+    elif op == "max":
+        r = torch.maximum(a, b)
+    elif op == "and":
+        r = a & b
+    elif op == "or":
+        r = a | b
+    elif op == "xor":
+        r = a ^ b
+    elif op == "sll":
+        r = (a & mask) << sh
+    elif op == "srl":
+        r = (a & mask) >> sh
+    elif op == "sra":
+        r = a >> sh
+    else:                          # mv
+        r = b.expand_as(a)
+    return _wrap(r, bits)
+
+
+def check_vrf_program(prog, n_regs: int) -> list:
+    """Validate an ``(n_instr, 6)`` program against an ``n_regs`` file and
+    return its rows as host ints.  Raises ``ValueError`` on an unknown op
+    or a register index outside ``[0, n_regs)``: the reference clamps an
+    out-of-range ``vd`` in its kernel and drops the write in its oracle,
+    and the port takes neither reading."""
+    prog = torch.as_tensor(prog)
+    if prog.dim() != 2 or prog.shape[1] != len(VRF_FIELDS):
+        raise ValueError(f"vrf_alu: program must be (n_instr, "
+                         f"{len(VRF_FIELDS)}), got {tuple(prog.shape)}")
+    if prog.dtype != torch.int32:
+        raise TypeError(f"vrf_alu: program must be int32, got {prog.dtype}")
+    rows = prog.cpu().tolist()
+    for t, (op, vd, vs1, vs2, _, _) in enumerate(rows):
+        if not 0 <= op < len(VRF_OPS):
+            raise ValueError(f"vrf_alu: instruction {t}: unknown op {op}")
+        for name, r in (("vd", vd), ("vs1", vs1), ("vs2", vs2)):
+            if not 0 <= r < n_regs:
+                raise ValueError(f"vrf_alu: instruction {t}: {name}={r} "
+                                 f"outside the {n_regs}-register file")
+    return rows
+
+
+def vrf_alu(vrf: torch.Tensor, prog) -> torch.Tensor:
+    """Execute ``prog`` (int32 ``(n_instr, 6)``: op, vd, vs1, vs2, scalar,
+    mode) over ``vrf`` (``(n_regs, VL)`` int8/int16/int32) **in place** and
+    return ``vrf``, one tensor op per instruction on the device of ``vrf``.
+
+    Mode 0 (vv) takes operand b from ``vrf[vs1]``; any other mode (vx)
+    takes the scalar truncated to the element type (300 acts as 44 at
+    int8).  Every result wraps two's-complement at the element width."""
+    if vrf.dtype not in VRF_DTYPES:
+        raise TypeError(f"vrf_alu: VRF must be one of {VRF_DTYPES}, got "
+                        f"{vrf.dtype}")
+    if vrf.dim() != 2:
+        raise ValueError("vrf_alu: VRF must be (n_regs, VL)")
+    bits = vrf.element_size() * 8
+    for op, vd, vs1, vs2, scalar, mode in check_vrf_program(prog,
+                                                             vrf.shape[0]):
+        a = vrf[vs2].to(torch.int64)
+        if mode == VRF_MODE_VV:
+            b = vrf[vs1].to(torch.int64)
+        else:
+            b = _wrap(torch.tensor(scalar, dtype=torch.int64,
+                                   device=vrf.device), bits)
+        vrf[vd] = _vrf_binop(op, a, b, bits).to(vrf.dtype)
+    return vrf
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

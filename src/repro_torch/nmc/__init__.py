@@ -11,6 +11,9 @@ Authoring — write numpy-style Python, get the whole stack::
     out = fused(xs, ys)               # sync: lower, schedule, run, extract
     fut = fused.call_async(xs, ys)    # async future — bit-exact vs sync
 
+    wide = nmc.jit(fused.fn, tiles=4) # shard one kernel across 4 tiles
+    assert (wide(xs, ys) == out).all()  # bit-exact vs single-tile
+
 Calls run on the card by default (``backend="cuda"``); on the CPU pass a
 runtime built with ``NmcRuntime(backend="torch")``.
 
@@ -36,11 +39,18 @@ Layers (each usable directly for expert control):
 * :mod:`repro_torch.nmc.runtime` — the async double-buffered
   :class:`DispatchQueue`: futures, shadow-buffer staging, batched launch
   waves.
+* :mod:`repro_torch.nmc.partition` — the tile-parallel partitioning
+  planner: shards one traced kernel across the tile array
+  (``nmc.jit(fn, tiles=N)``), reassembled by :class:`GatherFuture` —
+  bit-exact vs the single-tile path by construction.
+* :mod:`repro_torch.nmc.schedule` — the cost-model-driven wave scheduler
+  and plan autotuner: searches partition strategy x chunk skew x
+  per-shard engine assignment x dispatch order against
+  :func:`repro_torch.core.timing.wave_cycles`
+  (``nmc.jit(fn, tiles=N, schedule="auto")``), caching winning
+  :class:`SchedulePlan` objects in a content-keyed blake2b-LRU registry.
 * :mod:`repro_torch.nmc.check` and :mod:`repro_torch.nmc.opt` — the static
   verifier and the translation-validated IR optimizer.
-
-The partitioning planner and the wave scheduler (``tiles > 1``) are not
-ported yet.
 """
 
 from repro_torch.nmc.program import (PROG_DTYPE, Program, caesar_entry,
@@ -60,11 +70,17 @@ from repro_torch.nmc.frontend import (CompiledKernel, LoweredKernel,
                                       ProgramBuilder, TileContext,
                                       UnsupportedOnEngine, jit, kernel, mac,
                                       select_engine)
+from repro_torch.nmc.partition import (PartitionError, PartitionPlan,
+                                       slide_halo, plan as plan_partition)
+from repro_torch.nmc.schedule import (SCHEDULE_MODES, SchedulePlan,
+                                      autotune, clear_plan_cache, plan_wave,
+                                      uniform_plan)
 from repro_torch.nmc.check import (CHECK_MODES, CheckReport, Diagnostic,
                                    VerificationError, assert_submittable,
                                    assert_wave, verify_chained_waves,
-                                   verify_lowered, verify_program,
-                                   verify_resident)
+                                   verify_lowered, verify_plan,
+                                   verify_program, verify_resident,
+                                   verify_wave)
 from repro_torch.nmc.opt import (OPT_LEVELS, OptError, OptReport,
                                  RewriteRecord, optimize)
 
@@ -75,10 +91,16 @@ __all__ = [
     "select_engine",
     # static verification
     "CHECK_MODES", "CheckReport", "Diagnostic", "VerificationError",
-    "verify_program", "verify_lowered", "verify_resident",
-    "verify_chained_waves", "assert_wave", "assert_submittable",
+    "verify_program", "verify_lowered", "verify_plan", "verify_wave",
+    "verify_resident", "verify_chained_waves",
+    "assert_wave", "assert_submittable", "slide_halo",
     # analysis-driven IR optimizer
     "OPT_LEVELS", "OptError", "OptReport", "RewriteRecord", "optimize",
+    # tile-parallel partitioning planner
+    "plan_partition", "PartitionPlan", "PartitionError",
+    # wave scheduler + plan autotuner
+    "SCHEDULE_MODES", "SchedulePlan", "autotune", "uniform_plan",
+    "plan_wave", "clear_plan_cache",
     # shared execution runtime
     "NmcRuntime", "default_runtime", "set_default_runtime",
     # unified program IR

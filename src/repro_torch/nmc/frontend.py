@@ -55,9 +55,11 @@ Re-tracing happens per call (programs embed ``t.consts`` scalar values,
 faithfully modeling the eCPU reading taps at runtime); executor builds do
 not — lowered programs hit the shared bucketed executor cache.
 
-Partitioned calls (``tiles > 1``) need the partitioning planner and the
-wave scheduler, which the port does not have yet: they raise
-``NotImplementedError``.
+Partitioned calls (``tiles > 1``) go through the partitioning planner
+(:mod:`repro_torch.nmc.partition`) and the wave scheduler
+(:mod:`repro_torch.nmc.schedule`): the traced tape is sharded across the
+runtime's tile set, every shard runs on its own tile in one launch wave,
+and a gather future reassembles the caller's array.
 """
 
 from __future__ import annotations
@@ -71,7 +73,8 @@ from repro_torch.core import alu
 from repro_torch.core import constants as C
 from repro_torch.core import isa
 from repro_torch.core.isa import CaesarOp, VOp
-from repro_torch.nmc.program import Program, caesar_entry, carus_entry
+from repro_torch.nmc.program import (Program, caesar_entry, carus_entry,
+                                     instr_bucket)
 from repro_torch.nmc.registry import BINOPS, NmcRuntime, default_runtime
 
 ENGINES = ("caesar", "carus")
@@ -1147,26 +1150,18 @@ def _check_checkmode(check: str) -> str:
     return check
 
 
-#: The wave scheduler's mode names (``repro.nmc.schedule.SCHEDULE_MODES``
-#: in the reference); the port's scheduler is not there yet.
-SCHEDULE_MODES = ("auto", "uniform")
-
-
 def _check_schedule(schedule):
-    """Validate a ``schedule=`` argument: a mode name.  (Explicit
-    ``SchedulePlan`` objects arrive with the port's wave scheduler.)"""
+    """Validate a ``schedule=`` argument: a mode name or an explicit
+    :class:`repro_torch.nmc.schedule.SchedulePlan` (deferred import — the
+    scheduler builds on this module)."""
+    from repro_torch.nmc.schedule import SCHEDULE_MODES, SchedulePlan
+    if isinstance(schedule, SchedulePlan):
+        return schedule
     if schedule not in SCHEDULE_MODES:
         raise ValueError(
-            f"unknown schedule {schedule!r}: expected one of "
-            f"{SCHEDULE_MODES}")
+            f"unknown schedule {schedule!r}: expected a SchedulePlan or "
+            f"one of {SCHEDULE_MODES}")
     return schedule
-
-
-def _no_partitioning(what: str):
-    raise NotImplementedError(
-        f"{what} needs the partitioning planner and wave scheduler "
-        f"(nmc/partition.py, nmc/schedule.py), which the PyTorch port does "
-        f"not have yet; call with tiles=1")
 
 
 def _check_opt(opt: str) -> str:
@@ -1256,6 +1251,9 @@ class CompiledKernel:
     def select_engine(self, *args, sew: Optional[int] = None) -> str:
         return select_engine(self.trace(*args, sew=sew))
 
+    def _schedule_mode(self, schedule):
+        return self.schedule if schedule is None else _check_schedule(schedule)
+
     def _check_mode(self, check: Optional[str]) -> str:
         return self.check if check is None else _check_checkmode(check)
 
@@ -1291,26 +1289,63 @@ class CompiledKernel:
     # -- partitioning (DESIGN.md §9) -----------------------------------------
     def plan_partition(self, *args, tiles: Optional[int] = None,
                        sew: Optional[int] = None):
-        """Shard the traced tape across the tile array (the planner
-        layer).  Raises ``NotImplementedError`` until the port's
-        partitioning planner lands."""
-        _no_partitioning("plan_partition")
+        """Trace the kernel and shard its tape across the tile array via
+        :func:`repro_torch.nmc.partition.plan` (the planner layer)."""
+        from repro_torch.nmc import partition as P
+        n = self.tiles if tiles is None else _check_tiles(tiles)
+        return P.plan(self.trace(*args, sew=sew), n, self.partition)
 
     def plan_schedule(self, *args, tiles: Optional[int] = None,
                       engine: Optional[str] = None, schedule=None):
-        """The wave scheduler's plan for this kernel.  Raises
-        ``NotImplementedError`` until the port's scheduler lands."""
-        _no_partitioning("plan_schedule")
+        """Trace the kernel and return the :class:`SchedulePlan` the wave
+        scheduler picks for it (DESIGN.md §14) — cached, so a following
+        call/``lower_wave`` with the same policy reuses the search."""
+        from repro_torch.nmc import schedule as S
+        n = self.tiles if tiles is None else _check_tiles(tiles)
+        eng = _check_engine(engine) if engine is not None else self.engine
+        mode = self._schedule_mode(schedule)
+        return S.plan_wave(self.trace(*args), n, partition=self.partition,
+                           engine=eng, mode=mode)[0]
 
     def lower_wave(self, *args, engine: Optional[str] = None,
                    tiles: Optional[int] = None,
                    check: Optional[str] = None,
                    opt: Optional[str] = None,
                    schedule=None):
-        """Lower a scheduled multi-tile wave.  Raises
-        ``NotImplementedError`` until the port's partitioning planner and
-        wave scheduler land."""
-        _no_partitioning("lower_wave")
+        """Lower a scheduled wave: returns ``(plan, lowered_shards)`` in
+        dispatch order, with every shard program NOP-padded to its
+        *engine group's* common instruction bucket — a single-engine wave
+        lands in one bucketed group (one kernel handle, one batched
+        dispatch), while a mixed Caesar+Carus wave pads per engine so each
+        group batches on its own wave kernel."""
+        from repro_torch.nmc import schedule as S
+        n = self.tiles if tiles is None else _check_tiles(tiles)
+        eng = _check_engine(engine) if engine is not None else self.engine
+        mode = self._schedule_mode(schedule)
+        splan, pplan, lks = S.plan_wave(
+            self.trace(*args), n, partition=self.partition, engine=eng,
+            mode=mode)
+        level = self._opt_level(opt)
+        if level != "off":
+            # shards optimize *before* the common-bucket agreement: a
+            # compacted wave drops into the smaller bucket as a unit
+            from repro_torch.nmc import opt as _opt
+            for lk in lks:
+                _opt.optimize(lk, level)
+        for group in sorted({lk.engine for lk in lks}):
+            members = [lk for lk in lks if lk.engine == group]
+            bucket = instr_bucket(max(lk.program.n_instr
+                                      for lk in members))
+            for lk in members:
+                lk.pad_to(bucket)
+        cmode = self._check_mode(check)
+        if cmode != "off":
+            # partition safety + per-shard verification, over the *padded*
+            # shard programs — the exact wave the scheduler will dispatch
+            from repro_torch.nmc import check as _chk
+            _apply_report(_chk.verify_wave(pplan.parent, pplan, lks,
+                                           kernel=self.__name__), cmode)
+        return pplan, lks
 
     # -- execution -----------------------------------------------------------
     def __call__(self, *args, engine: Optional[str] = None,
@@ -1345,11 +1380,18 @@ class CompiledKernel:
         """Submit through the runtime's DispatchQueue; returns the future
         immediately (double-buffered staging, batched launch waves).
 
-        The kernel runs whole on the runtime's shared head tile and the
-        result is an :class:`repro_torch.nmc.runtime.NMCFuture`; per-tile
-        FIFO order keeps any number of in-flight futures correct.
-        ``tiles=N > 1`` raises ``NotImplementedError`` until the port's
-        partitioning planner lands."""
+        With ``tiles=1`` the kernel runs whole on the runtime's shared
+        head tile and the result is an
+        :class:`repro_torch.nmc.runtime.NMCFuture`.  With ``tiles=N > 1``
+        the partitioning planner shards the traced tape across the
+        runtime's tile set (``jit_tiles``): every shard submits to its own
+        tile — the queue batches them into one launch wave and, since the
+        shard programs are pre-padded to one common instruction bucket per
+        engine, one kernel handle covers each engine group — and the
+        result is a :class:`repro_torch.nmc.runtime.GatherFuture` whose
+        ``result()`` reassembles the caller's array (bit-exact vs the
+        single-tile path by construction).  Per-tile FIFO order keeps any
+        number of in-flight futures correct either way."""
         n = self.tiles if tiles is None else _check_tiles(tiles)
         bk = self.resolve_backend(backend)
         rt = self.runtime
@@ -1358,7 +1400,14 @@ class CompiledKernel:
             return rt.queue.submit(rt.jit_tile, lk.program, image=lk.mem,
                                    out_slice=lk.out_slice, post=lk.post,
                                    backend=bk)
-        _no_partitioning(f"a call with tiles={n}")
+        from repro_torch.nmc.runtime import GatherFuture
+        pplan, lks = self.lower_wave(*args, engine=engine, tiles=n, opt=opt,
+                                     schedule=schedule)
+        futs = [rt.queue.submit(tile, lk.program, image=lk.mem,
+                                out_slice=lk.out_slice, post=lk.post,
+                                backend=bk)
+                for tile, lk in zip(rt.jit_tiles(len(lks)), lks)]
+        return GatherFuture(futs, pplan.gather)
 
 
 def jit(fn: Optional[Callable] = None, *, engine: str = "auto", sew: int = 8,
@@ -1373,10 +1422,8 @@ def jit(fn: Optional[Callable] = None, *, engine: str = "auto", sew: int = 8,
     op.  ``sew`` is the element width (8/16/32).  ``tiles`` shards every
     call across that many tiles through the partitioning planner
     (DESIGN.md §9) — ``partition`` picks the split strategy (``"auto"``,
-    ``"rows"``, ``"axis"``) — both need the partitioning planner, which the
-    port does not have yet, so ``tiles > 1`` raises
-    ``NotImplementedError`` at call time.  ``backend`` picks the executor:
-    ``"torch" (plain PyTorch engines), ``"cuda"`` (hand-written
+    ``"rows"``, ``"axis"``).  ``backend`` picks the executor:
+    ``"torch"`` (plain PyTorch engines), ``"cuda"`` (hand-written
     kernels), or ``"auto"`` (the runtime's backend, the card by default).
     ``check`` runs the static verifier (:mod:`repro_torch.nmc.check`,
     DESIGN.md §11) on every lowered program: ``"error"`` (default —
@@ -1391,8 +1438,8 @@ def jit(fn: Optional[Callable] = None, *, engine: str = "auto", sew: int = 8,
     DESIGN.md §14): ``"uniform"`` (default — seed strategy and engine,
     cost-picked uniform chunking and tail placement), ``"auto"`` (the
     full autotuner: chunk skew, per-shard engine mix, dispatch order) or
-    (explicit ``SchedulePlan`` objects arrive with the port's scheduler);
-    overridable per call.  All kwargs validate eagerly with ``ValueError``.  Usable
+    an explicit :class:`repro_torch.nmc.schedule.SchedulePlan`; overridable
+    per call.  All kwargs validate eagerly with ``ValueError``.  Usable
     as a decorator (``@nmc.jit`` / ``@nmc.jit(engine="carus", tiles=4)``)
     or a call."""
     if fn is None:

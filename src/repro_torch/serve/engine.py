@@ -18,9 +18,10 @@ the first cache merge.
 
 The engine runs on the card unless ``device="cpu"`` is asked for.
 W8A8 projections offloaded to the simulated NMC tile array
-(:meth:`ServeEngine.nmc_project`) run on one tile: sharding across tiles
-and the resident-block path wait for the port's partitioning planner and
-``serve/block.py``.
+(:meth:`ServeEngine.nmc_project`) are column-sharded across ``nmc_tiles``
+tiles by the partitioning planner, and :meth:`ServeEngine.resident_block`
+serves one decoder layer with its weights resident on the tile array
+(:mod:`repro_torch.serve.block`).
 """
 
 from __future__ import annotations
@@ -113,25 +114,33 @@ class ServeEngine:
 
     # -- NMC tile-array offload ----------------------------------------------
     def nmc_project(self, x8, w8, sew: int = 8) -> np.ndarray:
-        """One W8A8 projection ``y = x8 @ w8`` executed on the simulated
-        NMC tile array through this engine's dispatch queue: activation
-        entries are scalar taps, weight rows resident vectors.  At the
-        default ``sew=8`` the result wraps at 8 bits (two's complement),
-        like the quantized kernels the Table V matmul models; ``sew=32``
-        widens the int8 operands for exact int32 accumulation.  Runs on
-        one tile: ``nmc_tiles > 1`` raises ``NotImplementedError`` until
-        the port's partitioning planner lands."""
-        if self.nmc_tiles > 1:
-            raise NotImplementedError(
-                "nmc_project with nmc_tiles > 1 needs the partitioning "
-                "planner (nmc/partition.py), which the PyTorch port does "
-                "not have yet; use nmc_tiles=1")
+        """One W8A8 projection ``y = x8 @ w8`` executed on the NMC tile
+        array, sharded across ``nmc_tiles`` tiles by the partitioning
+        planner: activation entries are scalar taps, weight rows are
+        resident vectors, and the ``"axis"`` strategy gives each tile a
+        contiguous column slice of every weight row (the same layout the
+        resident-block path keeps on-array), the gather reassembling
+        ``(m, n)``.  At the default ``sew=8`` the result carries bit-exact
+        int8 wrap-at-8 semantics (two's complement), matching the quantized
+        kernels the Table V matmul models; ``sew=32`` widens the int8
+        operands into 32-bit lanes for exact int32 accumulation (the
+        resident-block serving contract).
+
+        Projections routed here run on the simulated tile array through
+        the same planner and bucketed executor cache as ``nmc.jit``
+        kernels, submitted to *this engine's* dispatch queue
+        (``nmc_queue``), so prefill/decode work and projection waves drain
+        through one discipline.  Demo-scale by design — one projection per
+        call, shapes bounded by a tile's SRAM macro."""
         x8 = np.asarray(x8, np.int8)
         w8 = np.asarray(w8, np.int8)
         m, k = x8.shape
         if w8.shape[0] != k:
             raise ValueError(f"shapes {x8.shape} @ {w8.shape} do not chain")
         n = int(w8.shape[1])
+        # keyed on the full shape (m, k, n) plus sew: two weights with the
+        # same (m, k) but different output widths n must not share a cache
+        # entry, and sew=32 callers must not collide with sew=8
         kern = self._nmc_proj.get((m, k, n, sew))
         if kern is None:
             def proj(t, X, W):
@@ -142,20 +151,42 @@ class ServeEngine:
                     for kk in range(k):
                         acc = nmc.mac(acc, a[i, kk], rows[kk])
                     t.store(acc)
-            kern = nmc.jit(proj, sew=sew, tiles=1, runtime=self._nmc_rt)
+            # "axis" column-shards the weight loads (each tile holds its
+            # slice of W, cpool replicated) — the layout wide projections
+            # need to fit a tile's bank, and the one ResidentProjection
+            # keeps on-array
+            kern = nmc.jit(proj, sew=sew, tiles=self.nmc_tiles,
+                           partition="axis", runtime=self._nmc_rt)
             self._nmc_proj[(m, k, n, sew)] = kern
         if sew == 8:
             return np.asarray(kern(x8, w8)).reshape(m, n)
+        # widen int8 operands into sew-bit lanes: accumulation is exact
+        # (k * 127^2 < 2^31 for any tile-resident k), true W8A8 GEMM
         return np.asarray(kern(x8.astype(np.int32),
                                w8.astype(np.int32))).reshape(m, n)
 
     def resident_block(self, layer: int = 0, rows: Optional[int] = None,
                        tiles: Optional[int] = None):
-        """The resident W8A8 decoder block on the tile array: not ported
-        yet."""
-        raise NotImplementedError(
-            "resident_block needs serve/block.py, which the PyTorch port "
-            "does not have yet (ROADMAP.md, queue 1)")
+        """Build a :class:`repro_torch.serve.block.ResidentBlock` over one
+        decoder layer's weights: the whole W8A8 block (q/k/v/o projections
+        + MLP) runs as chained partitioned waves on the tile array with the
+        quantized weights resident — loaded once, reused every token; only
+        activation words cross the bus per call.
+
+        ``rows`` is the per-call token-row count (defaults to this engine's
+        slot count); ``tiles`` the per-projection shard width (defaults to
+        ``nmc_tiles``).  Dispatches through this engine's queue, so block
+        waves and serving traffic share one discipline."""
+        from repro_torch.serve.block import ResidentBlock, layer_params
+        if self.cfg.family not in ("dense", "vlm"):
+            raise ValueError(
+                f"resident_block supports stacked dense decoder layers, "
+                f"not family {self.cfg.family!r}")
+        lp = layer_params(self.params.layers[layer])
+        return ResidentBlock(self.cfg, lp, queue=self.nmc_queue,
+                             rows=rows if rows is not None else self.n_slots,
+                             tiles=tiles if tiles is not None
+                             else self.nmc_tiles)
 
     # -- admission -----------------------------------------------------------
     def submit(self, req: Request):

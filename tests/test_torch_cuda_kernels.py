@@ -118,6 +118,7 @@ def test_wrappers_check_their_inputs(card):
 from repro_torch.kernels import checks  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import nmc_matmul as mm  # noqa: E402
+from repro_torch.kernels import vrf_alu as vrf  # noqa: E402
 
 
 @pytest.mark.parametrize("m", checks.MATMUL_M)
@@ -172,3 +173,28 @@ def test_lm_kernel_wrappers_check_their_inputs(card):
         fa.flash_attention(q.transpose(2, 3), k, v)
     with pytest.raises(ValueError):
         fa.flash_attention(q, k[:, :5], v[:, :5])
+
+
+def test_vrf_alu_equals_plain(card):
+    """Every ``vrf_alu`` case of kernels/checks.py (both demo programs,
+    every op in both modes, the wrap extremes, at int8 / int16 / int32 on
+    a block-multiple and a ragged VL, and random programs) bit for bit."""
+    before = vrf.vrf_alu.launches
+    cases = checks.vrf_cases(n_random=20)
+    for label, f, entries in cases:
+        assert checks.check_vrf_alu(f, entries, card) == 0, label
+    torch.cuda.synchronize()
+    assert vrf.vrf_alu.launches - before == len(cases)
+
+
+def test_vrf_alu_wrapper_checks_its_inputs(card):
+    prog = vrf.make_prog(checks.VRF_DEMO_PROGRAMS["leaky_relu"])
+    file = torch.zeros((8, 300), dtype=torch.int16, device=card)
+    with pytest.raises(TypeError):
+        vrf.vrf_alu(file.float(), prog)
+    with pytest.raises(ValueError):
+        vrf.vrf_alu(file.t(), prog)
+    with pytest.raises(ValueError, match="register"):
+        vrf.vrf_alu(file, vrf.make_prog([("add", 8, 0, 1, 0, 0)]))
+    got = vrf.vrf_alu(file, prog.to(card))
+    assert got is file

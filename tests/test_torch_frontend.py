@@ -2,8 +2,9 @@
 kernel (``ALL_KERNELS`` + ``HETERO_KERNELS``) builds byte-identical lowered
 Programs (entries, image, ``out_slice``, oracle) at reduced sizes, and the
 traced ``nmc.jit`` frontend lowers and runs bit-exact, sync and async, on
-the plain PyTorch backend.  Partitioned calls (``tiles > 1``) raise until
-the partitioning planner is ported."""
+the plain PyTorch backend.  Partitioned calls (``tiles > 1``) shard
+across tiles like the reference's (details in
+``tests/test_torch_partition.py``)."""
 
 import dataclasses
 
@@ -115,20 +116,30 @@ def test_jit_sync_async_match_reference_runtime(sew):
 
 
 def test_partitioned_calls_raise_until_ported():
+    """Partitioned calls (``tiles > 1``) work: the planner, the scheduler
+    and the wave lowering match the reference, and sync / async calls are
+    bit-exact vs the single-tile path."""
+    ref_rt = ref_nmc.NmcRuntime(backend="scan")
     rt = nmc.NmcRuntime(backend="torch")
 
-    @nmc.jit(runtime=rt, tiles=2)
-    def k(t, x):
+    def body(t, x):
         t.store(t.load(x) + 1)
 
+    ref_k = ref_nmc.jit(body, runtime=ref_rt, tiles=2)
+    k = nmc.jit(body, runtime=rt, tiles=2)
     x = np.arange(64, dtype=np.int8)
-    with pytest.raises(NotImplementedError, match="partition"):
-        k(x)
-    with pytest.raises(NotImplementedError, match="partition"):
-        k.plan_partition(x)
-    with pytest.raises(NotImplementedError, match="partition"):
-        k.lower_wave(x)
-    assert np.array_equal(k(x, tiles=1), (x + 1).astype(np.int8))
+    want = (x + 1).astype(np.int8)
+    assert np.array_equal(k(x), want)
+    assert np.array_equal(k.call_async(x, tiles=4).result(), want)
+    assert k.plan_partition(x).signature == ref_k.plan_partition(x).signature
+    assert dataclasses.astuple(k.plan_schedule(x)) == \
+        dataclasses.astuple(ref_k.plan_schedule(x))
+    plan, lks = k.lower_wave(x)
+    ref_plan, ref_lks = ref_k.lower_wave(x)
+    assert plan.n_shards == ref_plan.n_shards == 2
+    assert [lk.program.entries.tobytes() for lk in lks] == \
+        [lk.program.entries.tobytes() for lk in ref_lks]
+    assert np.array_equal(k(x, tiles=1), want)
 
 
 def test_jit_kwargs_validate_eagerly():
@@ -165,12 +176,12 @@ def test_check_reports_match_reference():
 
 def test_check_cli_sweep_report_matches_reference(tmp_path, capsys):
     """``python -m repro_torch.nmc.check --all`` over every registry kernel
-    x engine x SEW at paper shapes writes the reference's report.  (Its
-    partitioned-wave section waits for the partitioning planner.)"""
+    x engine x SEW at paper shapes, and its partitioned-wave section,
+    writes the reference's report."""
     from repro.nmc import check as ref_check
     from repro_torch.nmc import check
     mine, ref = tmp_path / "mine.json", tmp_path / "ref.json"
-    assert check.main(["--all", "--no-waves", "--report", str(mine)]) == 0
-    assert ref_check.main(["--all", "--no-waves", "--report", str(ref)]) == 0
+    assert check.main(["--all", "--report", str(mine)]) == 0
+    assert ref_check.main(["--all", "--report", str(ref)]) == 0
     capsys.readouterr()
     assert mine.read_text() == ref.read_text()

@@ -2,7 +2,8 @@
 continuous batching returns the reference engine's tokens for the same
 requests (danube-smoke in float32, params carried across by
 ``params_from_jax``), exact ``max_new`` counts, the ``max_prefills`` bound,
-``max_len`` truncation, and the tile-array projection at one tile."""
+``max_len`` truncation, and the tile-array projection at one and two
+tiles with the resident block over it."""
 
 import jax
 import jax.numpy as jnp
@@ -130,6 +131,9 @@ def test_dispatch_queue_counts_device_work():
 
 
 def test_nmc_project_on_one_tile():
+    """``nmc_project`` on one tile and on two (exact at SEW 8 and 32, one
+    cached projection per shape), and the engine's resident block bit-exact
+    against its plain GEMM."""
     _, tcfg, _, tp = _pair("qwen1.5-0.5b", nmc_mode="w8a8")
     eng = ServeEngine(tcfg, quantize_params(tp, tcfg), n_slots=1, max_len=32,
                       device="cpu")
@@ -141,9 +145,15 @@ def test_nmc_project_on_one_tile():
     assert (eng.nmc_project(x8, w8, sew=32) == exact).all()
     assert (4, 4, 24, 8) in eng._nmc_proj and (4, 4, 24, 32) in eng._nmc_proj
     assert eng.nmc_queue.submitted == 2
-    wide = ServeEngine(tcfg, tp, n_slots=1, max_len=32, nmc_tiles=2,
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="partition"):
-        wide.nmc_project(x8, w8)
-    with pytest.raises(NotImplementedError, match="serve/block.py"):
-        eng.resident_block()
+    wide = ServeEngine(tcfg, quantize_params(tp, tcfg), n_slots=1,
+                       max_len=32, nmc_tiles=2, device="cpu")
+    assert (wide.nmc_project(x8, w8) == exact.astype(np.int8)).all()
+    assert (wide.nmc_project(x8, w8, sew=32) == exact).all()
+    assert wide._nmc_proj[(4, 4, 24, 8)].tiles == 2
+    blk = wide.resident_block()
+    assert blk.static and blk.n_shards == 14 and blk.m == 1
+    x = np.random.default_rng(4).normal(size=(1, tcfg.d_model)) \
+        .astype(np.float32)
+    got, _ = blk.step(x, blk.init_state(4))
+    want, _ = blk.step(x, blk.init_state(4), mm=blk.torch_mm)
+    assert np.array_equal(got, want)
