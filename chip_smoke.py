@@ -176,13 +176,47 @@ def time_plain(engine: str, fields, state, sew: int) -> float:
 def phase_build(report: dict) -> None:
     from repro_torch import cuda_build
     t0 = time.perf_counter()
-    cuda_build.build_all()
+    paths = cuda_build.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"build: {report['build_s']:.1f} s for "
         f"{[s.name for s in cuda_build.sources()]}")
     for stem, info in cuda_build.BUILD_LOG.items():
         for line in ptxas_summary(info["ptxas"]):
             log(f"  ptxas {stem}: {line}")
+    report["flash_attention_sass"] = sass_evidence(paths["flash_attention"])
+
+
+#: SASS opcodes that show the tensor-core attention kernel's design: the
+#: bf16 mma.sync (HMMA ... BF16), cp.async (LDGSTS) and ldmatrix (LDSM)
+SASS_OPS = {"hmma_bf16": ("HMMA.", "BF16"), "ldgsts": ("LDGSTS",),
+            "ldsm": ("LDSM",)}
+
+
+def sass_evidence(lib) -> dict:
+    """Count, in each tensor-core attention kernel of the built library,
+    the SASS instructions of :data:`SASS_OPS` (``cuobjdump -sass``, from
+    the toolkit beside nvcc); fails if a kernel lacks one of them."""
+    from repro_torch import cuda_build
+    tool = pathlib.Path(cuda_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = name if "flash_attention_tc_kernel" in name else None
+            if fn:
+                counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn:
+            for op, keys in SASS_OPS.items():
+                counts[fn][op] += all(k in line for k in keys)
+    if not counts or any(not all(c.values()) for c in counts.values()):
+        raise AssertionError(f"flash_attention: a tensor-core kernel without "
+                             f"HMMA BF16 / LDGSTS / LDSM in its SASS: "
+                             f"{counts}")
+    for fn_name, c in counts.items():
+        log(f"  sass flash_attention {fn_name}: {c}")
+    return counts
 
 
 def phase_kernels_vs_plain(report: dict, device) -> dict:
@@ -355,11 +389,18 @@ LM_KERNEL_META = {
 #: 384-token prompt, and that prompt's attention
 ROW_MATMUL = (384, 1024, 151936)
 ROW_ATTENTION = 384
+#: attention's timed shapes: a causal prefill of qwen1.5-0.5B (16 heads of
+#: 64) at three prompt lengths in bf16, and once in float32
+ATTENTION_SHAPES = ((128, "bfloat16"), (384, "bfloat16"), (1000, "bfloat16"),
+                    (384, "float32"))
+ATTENTION_REPS = 50
+SLEEP_CYCLES = 1_000_000             # about 0.5 ms at the H100's clock
 
 
 def events_ms(fn, reps: int, flush=None) -> float:
     """Mean ms per call by CUDA events around each call, after a warm-up;
-    ``flush`` (outside the timed span) evicts the 50 MB L2 first."""
+    ``flush`` runs first, outside the timed span: :func:`l2_flush` evicts
+    the 50 MB L2, :func:`host_ahead` only lets the host get ahead."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -385,6 +426,15 @@ def l2_flush(device):
     import torch
     buf = torch.ones(128 << 20, dtype=torch.float32, device=device)
     return lambda: buf.max()
+
+
+def host_ahead() -> None:
+    """A flush for :func:`events_ms` that keeps the device busy for about
+    0.5 ms and nothing else: the host enqueues the timed call meanwhile, so
+    the events bracket device work alone, without the wrapper's host time
+    (the L2 is left as the previous call left it)."""
+    import torch
+    torch.cuda._sleep(SLEEP_CYCLES)
 
 
 def matmul_bound_ms(m: int, k: int, n: int, out_bytes: int) -> tuple:
@@ -414,6 +464,7 @@ def phase_lm_kernels_vs_plain(report: dict, device) -> dict:
     import torch
     from repro_torch.kernels import checks
     worst = {"nmc_matmul": 0.0, "flash_attention": 0.0}
+    attn_by_route = {"tensor_core": 0.0, "cuda_core": 0.0}
     cases = []
     shapes = [(m, k, n) for m in checks.MATMUL_M
               for k, n in checks.MATMUL_KN] + list(checks.MATMUL_RAGGED)
@@ -429,28 +480,34 @@ def phase_lm_kernels_vs_plain(report: dict, device) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             err = checks.check_attention(name, dtype, device)
             torch.cuda.synchronize()
-            if dtype == torch.float32:
-                worst["flash_attention"] = max(worst["flash_attention"], err)
+            kind = checks.attention_route(name, dtype)
+            attn_by_route[kind] = max(attn_by_route[kind], err)
             cases.append({"kernel": "flash_attention", "case": name,
-                          "dtype": str(dtype), "max_abs_err": err})
-            log(f"lm kernel vs plain: flash_attention {name} {dtype}: "
-                f"max_abs_err={err:.3g}")
+                          "dtype": str(dtype), "route": kind,
+                          "max_abs_err": err})
+            log(f"lm kernel vs plain: flash_attention {name} {dtype} "
+                f"({kind} route): max_abs_err={err:.3g}")
+    worst["flash_attention"] = attn_by_route
     report["lm_cases"] = cases
     report["lm_max_abs_err"] = worst
     return worst
 
 
 @contextlib.contextmanager
-def recorded_lm_kernel_calls():
-    """Record the inputs and output of every LM-kernel launch the models
-    make inside the block, at the dispatch layer (``kernels/ops.py``): the
-    wrappers themselves run, and count, as usual."""
+def recorded_lm_kernel_calls(names=("nmc_matmul", "flash_attention")):
+    """Record the inputs and output of every launch of the LM kernels in
+    ``names`` that the models make inside the block, at the dispatch layer
+    (``kernels/ops.py``): the wrappers themselves run, and count, as
+    usual."""
     import types
     from repro_torch.kernels import ops
     calls = []
     orig_mm, orig_fa = ops._mm, ops._fa
 
     def recorder(name, fn):
+        if name not in names:
+            return fn
+
         def wrapper(*args, **kw):
             out = fn(*args, **kw)
             calls.append((name, args, kw, out))
@@ -581,7 +638,7 @@ def phase_serving(report: dict, device, seed: int = 0) -> dict:
     import numpy as np
     import torch
     from repro_torch import configs, kernels
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa, ops
     from repro_torch.models import lm
     from repro_torch.serve.engine import Request, ServeEngine, \
         quantize_params
@@ -594,10 +651,14 @@ def phase_serving(report: dict, device, seed: int = 0) -> dict:
                            SERVE["requests"])
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in lengths]
-    eng = ServeEngine(cfg, params, n_slots=SERVE["n_slots"],
-                      max_len=SERVE["max_len"], device=device)
-    for i, pr in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=pr, max_new=SERVE["max_new"]))
+
+    def engine():
+        eng = ServeEngine(cfg, params, n_slots=SERVE["n_slots"],
+                          max_len=SERVE["max_len"], device=device)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=pr, max_new=SERVE["max_new"]))
+        return eng
+    eng = engine()
     calls0 = eng.nmc_queue.calls
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -606,6 +667,7 @@ def phase_serving(report: dict, device, seed: int = 0) -> dict:
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    attn_routes = dict(fa.flash_attention.launches_by_route)
     prefills = len(prompts)
     decode_steps = eng.nmc_queue.calls - calls0 - prefills
     per_forward = cfg.n_layers * 7 + 1
@@ -623,6 +685,28 @@ def phase_serving(report: dict, device, seed: int = 0) -> dict:
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']} != "
                              f"{cfg.n_layers} x {prefills}")
+    if attn_routes["tensor_core"] != launches["flash_attention"]:
+        raise AssertionError(f"bf16 serving attention off the tensor-core "
+                             f"route: {attn_routes}")
+    # the same run once more, recording every attention launch, each then
+    # held against the plain version on its own inputs (not counted: the
+    # main path's counts were read above; not in the timed run, whose
+    # allocator the recording's live tensors would change)
+    eng = engine()
+    t0 = time.perf_counter()
+    with recorded_lm_kernel_calls(("flash_attention",)) as attn_calls:
+        eng.run()
+        torch.cuda.synchronize()
+    recorded_s = time.perf_counter() - t0
+    attn_replay = replay_against_plain(attn_calls)
+    del attn_calls, eng
+    if attn_replay["launches"]["flash_attention"] != cfg.n_layers * prefills:
+        raise AssertionError(f"the recorded run launched attention "
+                             f"{attn_replay['launches']} times")
+    log(f"serving: {attn_replay['launches']['flash_attention']} attention "
+        f"launches (routes {attn_routes}) replayed through the plain "
+        f"version, max abs err {attn_replay['max_abs_err']['flash_attention']}"
+        f"; the recorded run took {recorded_s:.3f} s")
     tokens = [t for r in done for t in r.out]
     if not all(0 <= t < cfg.vocab_size for t in tokens):
         raise AssertionError("a token outside the vocabulary")
@@ -653,7 +737,8 @@ def phase_serving(report: dict, device, seed: int = 0) -> dict:
     report["serving"] = dict(
         arch=SERVE_ARCH, **SERVE, prompt_lengths=[int(n) for n in lengths],
         seconds=serve_s, prefills=prefills, decode_steps=decode_steps,
-        launches=launches, logits=logits, prefill_ms=prefill_ms,
+        launches=launches, attention_routes=attn_routes,
+        attention_replay=attn_replay, recorded_run_seconds=recorded_s, logits=logits, prefill_ms=prefill_ms,
         decode_step_ms=step_ms, param_count=cfg.param_count())
     return launches
 
@@ -672,11 +757,37 @@ def int_mm_library(x, w, scale, bias, out_dtype):
             .to(out_dtype)), None
 
 
+def time_attention(s: int, dtype, device) -> dict:
+    """The kernel's and SDPA's ms on one causal prefill of ``s`` tokens at
+    qwen1.5-0.5B's heads: ``ms`` / ``library_ms`` by events around each
+    call (host work included, as PR 12 and 13 measured it), ``device_ms``
+    / ``library_device_ms`` behind :func:`host_ahead` (device time
+    alone)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import checks, flash_attention as fa
+    q, k, v = checks.attention_inputs(attention_case(s), dtype, device)
+
+    def kern():
+        return fa.flash_attention(q, k, v, causal=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    return dict(ms=events_ms(kern, ATTENTION_REPS),
+                device_ms=events_ms(kern, ATTENTION_REPS, flush=host_ahead),
+                library_ms=events_ms(sdpa, ATTENTION_REPS),
+                library_device_ms=events_ms(sdpa, ATTENTION_REPS,
+                                            flush=host_ahead))
+
+
+def attention_case(s: int) -> dict:
+    return dict(b=1, hq=16, hkv=16, sq=s, skv=s, d=64, dv=64)
+
+
 def phase_lm_timing(report: dict, device) -> dict:
     """ms per launch of both LM kernels at the serving path's shapes,
     beside the plain version, the bound and one PyTorch library call."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import checks, flash_attention as fa, \
         nmc_matmul as mm, ref
     flush = l2_flush(device)
@@ -701,28 +812,34 @@ def phase_lm_timing(report: dict, device) -> dict:
             log(f"timing: nmc_matmul M={m} K={k} N={n} bf16: kernel "
                 f"{ms:.4f} ms, plain {plain:.3f} ms, library {lib_txt}, "
                 f"bound {bms:.4f} ms ({by})")
-    for s in (128, 384, 1000):
-        case = dict(b=1, hq=16, hkv=16, sq=s, skv=s, d=64, dv=64)
-        q, k, v = checks.attention_inputs(case, torch.bfloat16, device)
-        ms = events_ms(lambda: fa.flash_attention(q, k, v, causal=True),
-                       reps=20)
+    for s, dtype_name in ATTENTION_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        case = attention_case(s)
+        row = time_attention(s, dtype, device)
+        kind = fa.route(dtype, case["d"], case["dv"])
+        q, k, v = checks.attention_inputs(case, dtype, device)
         plain = events_ms(lambda: fa.chunked_attention(q, k, v, causal=True),
                           reps=3)
-        lib = events_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), reps=20)
-        bound = attention_bound_ms(1, 16, 16, s, 64, 64, 2)
-        rows.append(dict(kernel="flash_attention", shape=[1, 16, s, 64],
-                         ms=ms, plain_ms=plain, library_ms=lib, **bound))
-        log(f"timing: flash_attention B=1 H=16 S={s} D=64 bf16 causal: "
-            f"kernel {ms:.4f} ms, plain {plain:.3f} ms, library {lib:.4f} "
-            f"ms, bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}; "
+        bound = attention_bound_ms(1, case["hq"], case["hkv"], s, case["d"],
+                                   case["dv"], dtype.itemsize)
+        rows.append(dict(kernel="flash_attention", shape=[1, case["hq"], s,
+                                                          case["d"]],
+                         dtype=str(dtype), kernel_route=kind, **row,
+                         plain_ms=plain, **bound))
+        log(f"timing: flash_attention B=1 H={case['hq']} S={s} "
+            f"D={case['d']} {dtype} causal ({kind} route): kernel "
+            f"{row['device_ms']:.5f} ms device / {row['ms']:.4f} ms events, "
+            f"plain {plain:.3f} ms, SDPA {row['library_device_ms']:.5f} ms "
+            f"device / {row['library_ms']:.4f} ms events, bound "
+            f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}; "
             f"{bound['bound_f32_ms']:.5f} ms at the f32 peak)")
     report["lm_timing"] = rows
     return {"nmc_matmul": next(r for r in rows if r["kernel"] == "nmc_matmul"
                                and r["shape"] == list(ROW_MATMUL)),
             "flash_attention": next(r for r in rows
                                     if r["kernel"] == "flash_attention"
-                                    and r["shape"][2] == ROW_ATTENTION)}
+                                    and r["shape"][2] == ROW_ATTENTION
+                                    and r["dtype"] == str(torch.bfloat16))}
 
 
 # ---------------------------------------------------------------------------
@@ -1022,15 +1139,28 @@ def main() -> int:
                         "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": None})
+    # attention's error by route, the serving replay (all on the tensor
+    # cores) folded in; its row reports the route that its times are of
+    attn_errs = dict(lm_errs["flash_attention"])
+    attn_errs["tensor_core"] = max(
+        attn_errs["tensor_core"],
+        report["serving"]["attention_replay"]["max_abs_err"][
+            "flash_attention"])
     for kname, meta in LM_KERNEL_META.items():
         row = lm_timed[kname]
+        extra, err = {}, lm_errs[kname]
+        if kname == "flash_attention":
+            extra = {k: row[k] for k in ("device_ms", "library_device_ms",
+                                         "kernel_route")}
+            extra["max_abs_err_by_route"] = attn_errs
+            err = attn_errs[row["kernel_route"]]
         kernels.append({"name": kname, **meta, "route": "cuda",
                         "launches": lm_launches[kname],
-                        "max_abs_err": lm_errs[kname], "ms": row["ms"],
+                        "max_abs_err": err, "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+                        "library_ms": row["library_ms"], **extra})
     kernels.append({**VRF_META, "route": "cuda",
                     "launches": demo_launches["vrf_alu"],
                     "max_abs_err": vrf_err, "ms": vrf_row["ms"],

@@ -15,6 +15,8 @@ KERNELS = (nmc_matmul.nmc_matmul, flash_attention.flash_attention,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    flash_attention.flash_attention.launches_by_route = dict.fromkeys(
+        flash_attention.ROUTE_ID, 0)
 
 
 __all__ = ["KERNELS", "flash_attention", "nmc_matmul", "ops", "ref",

@@ -55,6 +55,18 @@ ATTENTION_CASES = {
     # non-causal, ragged Sq and Skv, two batches
     "ragged-noncausal": dict(b=2, hq=4, hkv=2, sq=33, skv=100, d=32, dv=48,
                              causal=False),
+    # the edges of the tensor-core kernel's 64-key tiles and 16-row warps:
+    # a prompt of exactly one tile and one of a partial tile
+    "qwen-64": dict(b=1, hq=16, hkv=16, sq=64, skv=64, d=64, dv=64),
+    "qwen-50": dict(b=1, hq=16, hkv=16, sq=50, skv=50, d=64, dv=64),
+    # a ragged causal prompt, not a multiple of 64
+    "qwen-500": dict(b=1, hq=16, hkv=16, sq=500, skv=500, d=64, dv=64),
+    # a prefill continuing a cache: q rows at kv positions 200..299
+    "prefill-continue": dict(b=1, hq=16, hkv=16, sq=100, skv=300, d=64,
+                             dv=64, q_offset=200),
+    # a window edge inside a 64-key tile, GQA 8/2
+    "window-mid-tile": dict(b=1, hq=8, hkv=2, sq=256, skv=256, d=64, dv=64,
+                            window=100),
 }
 
 BF16_ULP = 2.0 ** -7
@@ -125,6 +137,13 @@ def attention_inputs(case: dict, dtype, device, seed: int = 0) -> tuple:
     return (rand(c["b"], c["hq"], c["sq"], c["d"]),
             rand(c["b"], c["hkv"], c["skv"], c["d"]),
             rand(c["b"], c["hkv"], c["skv"], c["dv"]))
+
+
+def attention_route(name: str, dtype) -> str:
+    """The route (``flash_attention.route``) a case of
+    :data:`ATTENTION_CASES` takes in ``dtype``."""
+    case = ATTENTION_CASES[name]
+    return _fa.route(dtype, case["d"], case["dv"])
 
 
 def check_attention(name: str, dtype, device, seed: int = 0) -> float:

@@ -18,7 +18,23 @@ outright.  No such row occurs on the serving path (causal attention with
 XLA fallback of the same name): the same online softmax over KV chunks in
 PyTorch ops.  :func:`flash_attention` runs it on CPU tensors, and only
 because they lie on the CPU; on CUDA tensors it launches the kernel or
-raises.  ``flash_attention.launches`` counts the launches.
+raises.
+
+The CUDA source holds two kernel bodies, and its entry picks one from
+the dtype and head dims before the launch and reports it; :func:`route`
+states the same rule, which the wrapper applies first (and raises if the
+entry took another route):
+
+* ``"tensor_core"``: bf16 with D and Dv at most 128, each a multiple of 8
+  (qwen's 64, danube's 80): ``mma.sync`` bf16 products with f32
+  accumulation, P rounded to bf16 before the P V product.
+* ``"cuda_core"``: everything else, in f32 on the CUDA cores: f32 inputs
+  (whose 2e-5 tolerance rules out bf16 or TF32 products), and bf16 with a
+  head dim over 128 (only an MLA-like D = 192 has one; no ported model
+  does).
+
+``flash_attention.launches`` counts the launches and
+``flash_attention.launches_by_route`` splits them by route.
 """
 
 from __future__ import annotations
@@ -33,10 +49,34 @@ from repro_torch import cuda_build
 NEG_INF = -1e30                    # the Pallas kernel's masked logit
 DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+#: the kernel bodies, by their id in the C source's ``enum Route``
+ROUTE_ID = {"cuda_core": 0, "tensor_core": 1}
+ROUTE_NAME = {i: name for name, i in ROUTE_ID.items()}
+#: the tensor-core route's head dims: at most 128, a multiple of 8 (one
+#: 16-byte copy per 8 bf16)
+TC_MAX_HEAD_DIM = 128
+TC_HEAD_DIM_MULTIPLE = 8
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the C interface of csrc/flash_attention.cu: q, k, v, out, B, Hq, Hkv, Sq,
-#: Skv, D, Dv, scale, causal, has_window, window, q_offset, dtype, stream
-ARGTYPES = [_VP] * 4 + [_I] * 7 + [_F] + [_I] * 5 + [_VP]
+#: Skv, D, Dv, scale, causal, has_window, window, q_offset, dtype, the
+#: route taken (out), stream
+ARGTYPES = [_VP] * 4 + [_I] * 7 + [_F] + [_I] * 5 + [_VP] * 2
+
+
+def route(dtype, d: int, dv: int) -> str:
+    """The kernel body a launch with this dtype and these head dims takes:
+    ``"tensor_core"`` or ``"cuda_core"`` (module docstring)."""
+    if dtype not in DTYPE_ID:
+        raise TypeError(f"flash_attention: dtype must be one of "
+                        f"{list(DTYPE_ID)}, got {dtype}")
+    if not (1 <= d <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention: head dims 1..{MAX_HEAD_DIM}, "
+                         f"got D={d}, Dv={dv}")
+    if dtype == torch.bfloat16 and max(d, dv) <= TC_MAX_HEAD_DIM \
+            and d % TC_HEAD_DIM_MULTIPLE == 0 \
+            and dv % TC_HEAD_DIM_MULTIPLE == 0:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
@@ -103,31 +143,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     dv = v.shape[-1]
-    if q.dtype not in DTYPE_ID:
-        raise TypeError(f"flash_attention: dtype must be one of "
-                        f"{list(DTYPE_ID)}, got {q.dtype}")
+    kind = route(q.dtype, d, dv)
     if hkv < 1 or hq % hkv or sq < 1 or skv < 1:
         raise ValueError(f"flash_attention: need Hq a multiple of Hkv and "
                          f"Sq, Skv >= 1, got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
-    if max(d, dv) > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dims up to {MAX_HEAD_DIM}, "
-                         f"got D={d}, Dv={dv}")
     dev = q.device
     _check("q", q, q.dtype, (b, hq, sq, d), dev)
     _check("k", k, q.dtype, (b, hkv, skv, d), dev)
     _check("v", v, q.dtype, (b, hkv, skv, dv), dev)
+    if kind == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the tensor-core route copies 16 "
+                         "bytes at a time and needs q, k and v 16-byte "
+                         "aligned")
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=dev)
     fn = cuda_build.entry("flash_attention", ARGTYPES)
+    taken = _I(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, hq, hkv, sq, skv, d, dv, 1.0 / math.sqrt(d), int(causal),
                 int(window is not None), 0 if window is None else window,
-                q_offset, DTYPE_ID[q.dtype], stream)
+                q_offset, DTYPE_ID[q.dtype], ctypes.byref(taken), stream)
     cuda_build.check_launch("flash_attention", rc)
+    took = ROUTE_NAME.get(taken.value)
+    if took != kind:
+        raise RuntimeError(f"flash_attention: the kernel took route "
+                           f"{taken.value}, the wrapper's rule says {kind}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[took] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTE_ID, 0)

@@ -147,10 +147,27 @@ def test_nmc_matmul_exact_worst_case_accumulator(card):
 @pytest.mark.parametrize("name", sorted(checks.ATTENTION_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_equals_plain(card, name, dtype):
+    """Every case within its tolerance, through the route it should take:
+    each bf16 case with head dims up to 128 on the tensor cores."""
+    kind = checks.attention_route(name, dtype)
+    if dtype == torch.bfloat16 and name != "dv-ne-d":
+        assert kind == "tensor_core"
     before = fa.flash_attention.launches
+    by_route = dict(fa.flash_attention.launches_by_route)
     checks.check_attention(name, dtype, card)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
+    assert fa.flash_attention.launches_by_route == {
+        r: n + (r == kind) for r, n in by_route.items()}
+
+
+def test_flash_attention_tensor_core_route_needs_aligned_inputs(card):
+    q, k, v = checks.attention_inputs(checks.ATTENTION_CASES["qwen-64"],
+                                      torch.bfloat16, card)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
+    shifted[1:] = q.flatten()
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(shifted[1:].view(q.shape), k, v)
 
 
 def test_lm_kernel_wrappers_check_their_inputs(card):

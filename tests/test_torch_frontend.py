@@ -115,7 +115,7 @@ def test_jit_sync_async_match_reference_runtime(sew):
          ref_rt.bucketed.compiles)
 
 
-def test_partitioned_calls_raise_until_ported():
+def test_partitioned_calls_match_reference():
     """Partitioned calls (``tiles > 1``) work: the planner, the scheduler
     and the wave lowering match the reference, and sync / async calls are
     bit-exact vs the single-tile path."""

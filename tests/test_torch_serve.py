@@ -130,7 +130,7 @@ def test_dispatch_queue_counts_device_work():
     assert own.calls == 3                  # one prefill + two decode steps
 
 
-def test_nmc_project_on_one_tile():
+def test_nmc_project_and_resident_block():
     """``nmc_project`` on one tile and on two (exact at SEW 8 and 32, one
     cached projection per shape), and the engine's resident block bit-exact
     against its plain GEMM."""
