@@ -14,12 +14,15 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   async on both engines; both kernels timed beside their plain versions
   and their bounds.
 * W8A8 serving: ``nmc_matmul`` and ``flash_attention`` against their plain
-  versions at the serving path's shapes; qwen1.5-0.5B at full width (random
-  weights from a seed, quantized) served by ``ServeEngine``, with every
-  projection through ``nmc_matmul`` and every prefill layer's attention
+  versions at the serving path's shapes and at the edges of their routes;
+  qwen1.5-0.5B at full width (random weights from a seed, quantized)
+  served by ``ServeEngine``, with every projection through ``nmc_matmul``
+  (all on its tensor-core route) and every prefill layer's attention
   through ``flash_attention``; one prefill's logits through the kernels
-  against the plain versions; both kernels timed beside their plain
-  versions, their bounds and one PyTorch library call.
+  against the plain versions, beside the model's own spread under 1-ulp
+  input noise; the device time of a decode step's kernels (profiler);
+  both kernels timed beside their plain versions, their bounds and one
+  PyTorch library call.
 * The kernels demo (``python -m repro_torch.examples.nmc_kernels_demo``):
   ``vrf_alu`` against its plain version bit for bit (both demo programs,
   every op in both modes and the wrap extremes at int8 / int16 / int32 on
@@ -39,6 +42,11 @@ Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 ``chiprun_out/chip_smoke.json``.  Any failed phase exits non-zero; without
 a card, or outside a checkout of the repository, it fails before printing a
 result.  Imports nothing of JAX or of the JAX package ``repro``.
+
+    python3 chip_smoke.py --time-checkout DIR
+
+times the checkout at DIR alone: its serving phase and its ``nmc_matmul``
+(:func:`time_checkout`), to compare two checkouts in one call.
 """
 
 from __future__ import annotations
@@ -183,20 +191,30 @@ def phase_build(report: dict) -> None:
     for stem, info in cuda_build.BUILD_LOG.items():
         for line in ptxas_summary(info["ptxas"]):
             log(f"  ptxas {stem}: {line}")
-    report["flash_attention_sass"] = sass_evidence(paths["flash_attention"])
+    report["sass"] = {stem: sass_evidence(stem, paths[stem])
+                      for stem in SASS_OPS}
 
 
-#: SASS opcodes that show the tensor-core attention kernel's design: the
-#: bf16 mma.sync (HMMA ... BF16), cp.async (LDGSTS) and ldmatrix (LDSM)
-SASS_OPS = {"hmma_bf16": ("HMMA.", "BF16"), "ldgsts": ("LDGSTS",),
-            "ldsm": ("LDSM",)}
+#: SASS opcodes that show each tensor-core kernel's design, by source and
+#: kernel name: the bf16 (HMMA ... BF16) or int8 (IMMA ... S8) mma.sync,
+#: cp.async (LDGSTS) and ldmatrix (LDSM)
+SASS_OPS = {
+    "flash_attention": ("flash_attention_tc_kernel",
+                        {"hmma_bf16": ("HMMA.", "BF16"),
+                         "ldgsts": ("LDGSTS",), "ldsm": ("LDSM",)}),
+    "nmc_matmul": ("nmc_matmul_tc_kernel",
+                   {"imma_s8": ("IMMA.", "S8"), "ldgsts": ("LDGSTS",),
+                    "ldsm": ("LDSM",)}),
+}
 
 
-def sass_evidence(lib) -> dict:
-    """Count, in each tensor-core attention kernel of the built library,
-    the SASS instructions of :data:`SASS_OPS` (``cuobjdump -sass``, from
-    the toolkit beside nvcc); fails if a kernel lacks one of them."""
+def sass_evidence(stem: str, lib) -> dict:
+    """Count, in each tensor-core kernel of the library built from
+    ``csrc/<stem>.cu``, the SASS instructions of :data:`SASS_OPS`
+    (``cuobjdump -sass``, from the toolkit beside nvcc); fails if a kernel
+    lacks one of them."""
     from repro_torch import cuda_build
+    kernel_name, ops = SASS_OPS[stem]
     tool = pathlib.Path(cuda_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -204,18 +222,17 @@ def sass_evidence(lib) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            fn = name if "flash_attention_tc_kernel" in name else None
+            fn = name if kernel_name in name else None
             if fn:
-                counts[fn] = dict.fromkeys(SASS_OPS, 0)
+                counts[fn] = dict.fromkeys(ops, 0)
         elif fn:
-            for op, keys in SASS_OPS.items():
+            for op, keys in ops.items():
                 counts[fn][op] += all(k in line for k in keys)
     if not counts or any(not all(c.values()) for c in counts.values()):
-        raise AssertionError(f"flash_attention: a tensor-core kernel without "
-                             f"HMMA BF16 / LDGSTS / LDSM in its SASS: "
-                             f"{counts}")
+        raise AssertionError(f"{stem}: a tensor-core kernel without "
+                             f"{' / '.join(ops)} in its SASS: {counts}")
     for fn_name, c in counts.items():
-        log(f"  sass flash_attention {fn_name}: {c}")
+        log(f"  sass {stem} {fn_name}: {c}")
     return counts
 
 
@@ -395,16 +412,26 @@ ATTENTION_SHAPES = ((128, "bfloat16"), (384, "bfloat16"), (1000, "bfloat16"),
                     (384, "float32"))
 ATTENTION_REPS = 50
 SLEEP_CYCLES = 1_000_000             # about 0.5 ms at the H100's clock
+MATMUL_REPS = 10
+#: decode steps profiled for their kernels' device time
+PROFILED_STEPS = 5
+#: the rows ``torch._int_mm`` (which needs M > 16) gets at decode: x
+#: zero-padded, the product sliced back
+LIBRARY_PADDED_ROWS = 32
+#: ``nmc_matmul`` calls per host-time reading, and the device sleep (about
+#: 25 ms) that keeps every one of them from waiting on the card
+HOST_CALLS = 200
+HOST_SLEEP_CYCLES = 50_000_000
 
 
-def events_ms(fn, reps: int, flush=None) -> float:
-    """Mean ms per call by CUDA events around each call, after a warm-up;
-    ``flush`` runs first, outside the timed span: :func:`l2_flush` evicts
-    the 50 MB L2, :func:`host_ahead` only lets the host get ahead."""
+def event_times(fn, reps: int, flush=None) -> list:
+    """ms of each of ``reps`` calls by CUDA events around the call, after a
+    warm-up; ``flush`` runs first, outside the timed span: :func:`l2_flush`
+    evicts the 50 MB L2, :func:`host_ahead` only lets the host get ahead."""
     import torch
     fn()
     torch.cuda.synchronize()
-    total = 0.0
+    times = []
     for _ in range(reps):
         if flush is not None:
             flush()
@@ -414,8 +441,20 @@ def events_ms(fn, reps: int, flush=None) -> float:
         fn()
         end.record()
         torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def events_ms(fn, reps: int, flush=None) -> float:
+    """Mean ms per call of :func:`event_times`."""
+    return sum(event_times(fn, reps, flush)) / reps
+
+
+def events_mean_median(fn, reps: int, flush=None) -> tuple:
+    """(mean, median) ms per call of :func:`event_times`."""
+    import statistics
+    times = event_times(fn, reps, flush)
+    return sum(times) / reps, statistics.median(times)
 
 
 def l2_flush(device):
@@ -466,15 +505,29 @@ def phase_lm_kernels_vs_plain(report: dict, device) -> dict:
     worst = {"nmc_matmul": 0.0, "flash_attention": 0.0}
     attn_by_route = {"tensor_core": 0.0, "cuda_core": 0.0}
     cases = []
-    shapes = [(m, k, n) for m in checks.MATMUL_M
-              for k, n in checks.MATMUL_KN] + list(checks.MATMUL_RAGGED)
-    for m, k, n in shapes:
+    from repro_torch.kernels import nmc_matmul as mm
+    serving = [(m, k, n) for m in checks.MATMUL_M
+               for k, n in checks.MATMUL_KN]
+    for m, k, n in serving + list(checks.MATMUL_RAGGED) \
+            + list(checks.MATMUL_EDGES):
+        kind = mm.route(k, n)
+        if (m, k, n) in serving and kind != "tensor_core" or \
+                (m, k, n) in checks.MATMUL_RAGGED and kind != "dp4a":
+            raise AssertionError(f"nmc_matmul {m}x{k}x{n}: route {kind}")
+        by_route = dict(mm.nmc_matmul.launches_by_route)
         errs = checks.check_matmul(m, k, n, device)
         torch.cuda.synchronize()
+        if mm.nmc_matmul.launches_by_route[kind] != by_route[kind] + 9:
+            raise AssertionError(f"nmc_matmul {m}x{k}x{n}: launches by "
+                                 f"route {mm.nmc_matmul.launches_by_route}")
         f32 = max(v for c, v in errs.items() if not c.endswith("bf16"))
         worst["nmc_matmul"] = max(worst["nmc_matmul"], f32)
-        cases.append({"kernel": "nmc_matmul", "shape": [m, k, n], **errs})
-        log(f"lm kernel vs plain: nmc_matmul M={m} K={k} N={n}: "
+        plan = mm.plan(m, n, k, mm.sm_count(device.index)) \
+            if kind == "tensor_core" else None
+        cases.append({"kernel": "nmc_matmul", "shape": [m, k, n],
+                      "route": kind, "plan": plan, **errs})
+        log(f"lm kernel vs plain: nmc_matmul M={m} K={k} N={n} ({kind} "
+            f"route, plan {plan}): "
             + " ".join(f"{c}={v:.3g}" for c, v in errs.items()))
     for name in checks.ATTENTION_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -544,14 +597,18 @@ def replay_against_plain(calls) -> dict:
 
 def perturbed_plain_logits(params, tokens, cfg, seed: int = 1):
     """The plain path's logits with half the embedded inputs moved by one
-    float32 ulp: the model's own sensitivity to last-bit noise."""
+    ulp of the working type (``cfg.dtype``; the step is taken on the host,
+    where ``nextafter`` takes every float type): the model's own
+    sensitivity to last-bit noise."""
     import torch
     from repro_torch.kernels import ops
     with torch.inference_mode(), ops.force_plain():
         x = params.embed(tokens, cfg.dtype)
         gen = torch.Generator(device=x.device).manual_seed(seed)
         flip = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
-        x = torch.where(flip, torch.nextafter(x, torch.full_like(x, 1e30)), x)
+        host = x.cpu()
+        up = torch.nextafter(host, torch.full_like(host, 1e30)).to(x.device)
+        x = torch.where(flip, up, x)
         for blk in params.layers:
             x = blk(x, cfg)
         return params.logits(x, cfg)
@@ -569,8 +626,8 @@ def compare_logits(params, cfg, prompt, device) -> dict:
        W8A8 with a per-tensor dynamic scale is discontinuous: where the two
        attention versions differ in the last bit (another summation
        order), an int8 rounding flips, and 24 layers carry it on.  Moving
-       the plain path's inputs by one float32 ulp shows the model's own
-       spread, printed beside.  The float32 prefill's top-1 token must
+       the plain path's inputs by one ulp of the working type shows the
+       model's own spread, printed beside, for both dtypes.  The float32 prefill's top-1 token must
        agree; for both dtypes the RMS difference must stay under 25% of
        the logit scale and the top-1 tokens agree at half the positions
        or more, which a wrong kernel (unrelated logits: RMS about 140%,
@@ -601,13 +658,12 @@ def compare_logits(params, cfg, prompt, device) -> dict:
                   last_top1_kernels=int(got[-1].argmax()),
                   last_top1_plain=int(want[-1].argmax()),
                   plain_top2_gap=float(top2[0] - top2[1]))
-        if dtype == torch.float32:
-            pert = perturbed_plain_logits(params, tokens, c)[0].float()
-            st["ulp_perturbed_plain"] = dict(
-                max_abs_diff=float((pert - want).abs().max()),
-                rms_diff=float((pert - want).pow(2).mean().sqrt()),
-                top1_agreement=float((pert.argmax(-1) == want.argmax(-1))
-                                     .float().mean()))
+        pert = perturbed_plain_logits(params, tokens, c)[0].float()
+        st["ulp_perturbed_plain"] = dict(
+            max_abs_diff=float((pert - want).abs().max()),
+            rms_diff=float((pert - want).pow(2).mean().sqrt()),
+            top1_agreement=float((pert.argmax(-1) == want.argmax(-1))
+                                 .float().mean()))
         out[str(dtype)] = st
         log(f"serving: {dtype} forward of a {len(prompt)}-token prompt: "
             f"{replay['launches']} launches replayed through the plain "
@@ -618,7 +674,7 @@ def compare_logits(params, cfg, prompt, device) -> dict:
             f"kernels {st['last_top1_kernels']} plain "
             f"{st['last_top1_plain']} (plain top-2 gap "
             f"{st['plain_top2_gap']:.4g}); plain vs plain with 1-ulp "
-            f"inputs: {st.get('ulp_perturbed_plain', 'not run')}")
+            f"inputs: {st['ulp_perturbed_plain']}")
         if st["rms_diff"] > 0.25 * st["logit_std"] \
                 or st["top1_agreement"] < 0.5:
             raise AssertionError(f"{dtype} logits through the kernels stray "
@@ -630,6 +686,19 @@ def compare_logits(params, cfg, prompt, device) -> dict:
     return out
 
 
+def serving_model(device, seed: int = 0) -> tuple:
+    """``(cfg, params)`` of the serving phase: qwen1.5-0.5B in W8A8 at full
+    width, random weights from ``seed``, quantized; built by whichever
+    ``repro_torch`` is imported."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import quantize_params
+    cfg = configs.get(SERVE_ARCH).scaled(nmc_mode="w8a8")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return cfg, quantize_params(lm.init_params(cfg, gen, device), cfg)
+
+
 def phase_serving(report: dict, device, seed: int = 0) -> dict:
     """The port's W8A8 serving path at qwen1.5-0.5B's full width: random
     weights from a seeded generator, quantized, served by ServeEngine.
@@ -639,13 +708,12 @@ def phase_serving(report: dict, device, seed: int = 0) -> dict:
     import torch
     from repro_torch import configs, kernels
     from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.kernels import nmc_matmul as mm
     from repro_torch.models import lm
     from repro_torch.serve.engine import Request, ServeEngine, \
         quantize_params
 
-    cfg = configs.get(SERVE_ARCH).scaled(nmc_mode="w8a8")
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = quantize_params(lm.init_params(cfg, gen, device), cfg)
+    cfg, params = serving_model(device, seed)
     rng = np.random.default_rng(seed)
     lengths = rng.integers(SERVE["prompt_lo"], SERVE["prompt_hi"] + 1,
                            SERVE["requests"])
@@ -668,6 +736,7 @@ def phase_serving(report: dict, device, seed: int = 0) -> dict:
     serve_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     attn_routes = dict(fa.flash_attention.launches_by_route)
+    mm_routes = dict(mm.nmc_matmul.launches_by_route)
     prefills = len(prompts)
     decode_steps = eng.nmc_queue.calls - calls0 - prefills
     per_forward = cfg.n_layers * 7 + 1
@@ -688,6 +757,10 @@ def phase_serving(report: dict, device, seed: int = 0) -> dict:
     if attn_routes["tensor_core"] != launches["flash_attention"]:
         raise AssertionError(f"bf16 serving attention off the tensor-core "
                              f"route: {attn_routes}")
+    if mm_routes["tensor_core"] != launches["nmc_matmul"]:
+        raise AssertionError(f"a serving projection off the tensor-core "
+                             f"route: {mm_routes}")
+    log(f"serving: nmc_matmul launches by route {mm_routes}")
     # the same run once more, recording every attention launch, each then
     # held against the plain version on its own inputs (not counted: the
     # main path's counts were read above; not in the timed run, whose
@@ -730,31 +803,133 @@ def phase_serving(report: dict, device, seed: int = 0) -> dict:
                       device=device)
     step_ms = events_ms(
         lambda: lm.decode_step(params, step_toks, caches, clen, cfg), reps=20)
+    step_kernels = decode_step_kernel_ms(device, params, cfg)
     log(f"serving: prefill ms by prompt length "
         f"{ {n: round(v, 3) for n, v in prefill_ms.items()} }; decode step "
         f"{step_ms:.3f} ms at {SERVE['n_slots']} slots = "
-        f"{1e3 / step_ms:.1f} steps/s")
+        f"{1e3 / step_ms:.1f} steps/s; device time per step (profiler): "
+        f"{step_kernels}")
     report["serving"] = dict(
         arch=SERVE_ARCH, **SERVE, prompt_lengths=[int(n) for n in lengths],
         seconds=serve_s, prefills=prefills, decode_steps=decode_steps,
         launches=launches, attention_routes=attn_routes,
+        matmul_routes=mm_routes,
         attention_replay=attn_replay, recorded_run_seconds=recorded_s, logits=logits, prefill_ms=prefill_ms,
-        decode_step_ms=step_ms, param_count=cfg.param_count())
+        decode_step_ms=step_ms, decode_step_kernels=step_kernels,
+        param_count=cfg.param_count())
     return launches
 
 
 def int_mm_library(x, w, scale, bias, out_dtype):
-    """``torch._int_mm`` plus the epilogue as torch ops, as a callable, or
-    None and the reason why there is none for this shape."""
+    """``torch._int_mm`` plus the epilogue as torch ops, as a callable; the
+    rows x is zero-padded to (``_int_mm`` needs M > 16, so M <= 16 runs on
+    :data:`LIBRARY_PADDED_ROWS` rows and the product is sliced back), or
+    None; and the reason why there is no callable for this shape."""
     import torch
-    if x.shape[0] <= 16:
-        return None, "torch._int_mm needs M > 16"
+    m = x.shape[0]
+    pad = LIBRARY_PADDED_ROWS if m <= 16 else None
+    if pad is not None:
+        x = torch.cat([x, x.new_zeros((pad - m, x.shape[1]))])
     try:
         torch._int_mm(x, w)
     except RuntimeError as exc:
-        return None, f"torch._int_mm refused: {str(exc).splitlines()[0]}"
-    return (lambda: (torch._int_mm(x, w).float() * scale + bias)
-            .to(out_dtype)), None
+        return None, pad, f"torch._int_mm refused: " \
+            f"{str(exc).splitlines()[0]}"
+    return (lambda: (torch._int_mm(x, w)[:m].float() * scale + bias)
+            .to(out_dtype)), pad, None
+
+
+def matmul_per_forward(cfg) -> dict:
+    """``nmc_matmul`` launches of each (K, N) in one forward of ``cfg``:
+    q, k, v, o, up, gate and down once per layer, the LM head once."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+                 (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d),
+                 (d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+    counts = {(d, cfg.vocab_size): 1}
+    for kn in per_layer:
+        counts[kn] = counts.get(kn, 0) + cfg.n_layers
+    return counts
+
+
+def decode_step_kernel_ms(device, params, cfg) -> dict:
+    """Device ms per decode step of the model ``params`` / ``cfg`` (from
+    :func:`serving_model`) at ``SERVE["n_slots"]`` slots (cache length
+    300), by ``torch.profiler`` over :data:`PROFILED_STEPS` steps: every
+    kernel's, and ``nmc_matmul``'s (kernels named ``nmc_matmul...``);
+    ``None`` where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    n = SERVE["n_slots"]
+    caches = lm.init_caches(params, cfg, n, SERVE["max_len"],
+                            dtype=cfg.dtype)
+    toks = torch.zeros((n, 1), dtype=torch.long, device=device)
+    clen = torch.full((n,), 300, dtype=torch.int32, device=device)
+    lm.decode_step(params, toks, caches, clen, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_STEPS):
+            lm.decode_step(params, toks, caches, clen, cfg)
+        torch.cuda.synchronize()
+    total = gemm = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        total += us
+        if "nmc_matmul" in ev.key:
+            gemm += us
+    per = 1e-3 / PROFILED_STEPS
+    return {"steps": PROFILED_STEPS,
+            "all_kernels_ms": total * per if total else None,
+            "nmc_matmul_ms": gemm * per if total else None}
+
+
+def matmul_kernel_ms(device) -> dict:
+    """``{"ms": mean, "median_ms": median}`` of :data:`MATMUL_REPS` calls of
+    ``nmc_matmul`` (bf16 out, act none, the L2 evicted before each) at the
+    serving path's 12 shapes, keyed ``"MxKxN"``, for whichever
+    ``repro_torch`` is imported: with another checkout's ``src`` first on
+    ``sys.path``, that checkout's kernel, in the same call.  Uses only what
+    every version of the port has."""
+    import torch
+    from repro_torch.kernels import checks, nmc_matmul as mm
+    flush = l2_flush(device)
+    out = {}
+    for m in checks.MATMUL_M:
+        for k, n in checks.MATMUL_KN:
+            x, w, scale, bias = checks.matmul_inputs(m, k, n, device)
+            mean, median = events_mean_median(
+                lambda: mm.nmc_matmul(x, w, scale, bias, act="none",
+                                      out_dtype=torch.bfloat16),
+                reps=MATMUL_REPS, flush=flush)
+            out[f"{m}x{k}x{n}"] = {"ms": mean, "median_ms": median}
+            del x, w, scale, bias
+    return out
+
+
+def matmul_host_us(device) -> dict:
+    """Host us per ``nmc_matmul`` call (the wrapper's checks, plan and
+    allocations and the ctypes launch) at a decode step's shapes (M = 4,
+    the four (K, N)), keyed ``"MxKxN"``: :data:`HOST_CALLS` calls on the
+    host clock while the device sleeps, so that no call waits on the card;
+    for whichever ``repro_torch`` is imported."""
+    import torch
+    from repro_torch.kernels import checks, nmc_matmul as mm
+    out = {}
+    for k, n in checks.MATMUL_KN:
+        x, w, scale, bias = checks.matmul_inputs(4, k, n, device)
+        mm.nmc_matmul(x, w, scale, bias, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOST_SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            mm.nmc_matmul(x, w, scale, bias, out_dtype=torch.bfloat16)
+        out[f"4x{k}x{n}"] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+        torch.cuda.synchronize()
+        del x, w, scale, bias
+    return out
 
 
 def time_attention(s: int, dtype, device) -> dict:
@@ -788,30 +963,44 @@ def phase_lm_timing(report: dict, device) -> dict:
     """ms per launch of both LM kernels at the serving path's shapes,
     beside the plain version, the bound and one PyTorch library call."""
     import torch
+    from repro_torch import configs
     from repro_torch.kernels import checks, flash_attention as fa, \
         nmc_matmul as mm, ref
     flush = l2_flush(device)
+    per_forward = matmul_per_forward(configs.get(SERVE_ARCH))
+    kernel_ms = matmul_kernel_ms(device)
     rows = []
     for m in checks.MATMUL_M:
         for k, n in checks.MATMUL_KN:
             x, w, scale, bias = checks.matmul_inputs(m, k, n, device)
             kw = dict(act="none", out_dtype=torch.bfloat16)
-            ms = events_ms(lambda: mm.nmc_matmul(x, w, scale, bias, **kw),
-                           reps=10, flush=flush)
+            ms = kernel_ms[f"{m}x{k}x{n}"]["ms"]
+            median = kernel_ms[f"{m}x{k}x{n}"]["median_ms"]
             plain = events_ms(lambda: ref.nmc_matmul(x, w, scale, bias, **kw),
                               reps=2, flush=flush)
-            lib_fn, why = int_mm_library(x, w, scale, bias, torch.bfloat16)
-            lib = None if lib_fn is None else events_ms(lib_fn, reps=10,
-                                                        flush=flush)
+            lib_fn, pad, why = int_mm_library(x, w, scale, bias,
+                                              torch.bfloat16)
+            lib, lib_median = (None, None) if lib_fn is None else \
+                events_mean_median(lib_fn, reps=MATMUL_REPS, flush=flush)
             bms, by = matmul_bound_ms(m, k, n, 2)
-            rows.append(dict(kernel="nmc_matmul", shape=[m, k, n], ms=ms,
-                             plain_ms=plain, library_ms=lib,
+            plan = mm.plan(m, n, k, mm.sm_count(device.index))
+            rows.append(dict(kernel="nmc_matmul", shape=[m, k, n],
+                             kernel_route=mm.route(k, n), plan=plan, ms=ms,
+                             median_ms=median, plain_ms=plain,
+                             library_ms=lib, library_median_ms=lib_median,
+                             library_padded_rows=pad,
                              library_null_reason=why, bound_ms=bms,
-                             bound_by=by))
+                             bound_by=by,
+                             launches_per_forward=per_forward[(k, n)]))
             lib_txt = f"{lib:.4f} ms" if lib is not None else f"null ({why})"
-            log(f"timing: nmc_matmul M={m} K={k} N={n} bf16: kernel "
-                f"{ms:.4f} ms, plain {plain:.3f} ms, library {lib_txt}, "
-                f"bound {bms:.4f} ms ({by})")
+            if pad is not None:
+                lib_txt += f" (x padded to {pad} rows)"
+            log(f"timing: nmc_matmul M={m} K={k} N={n} bf16 (plan {plan}, "
+                f"{per_forward[(k, n)]} per forward): kernel {ms:.4f} ms "
+                f"(median {median:.4f}), "
+                f"plain {plain:.3f} ms, library {lib_txt}, bound "
+                f"{bms:.4f} ms ({by})")
+            del x, w, scale, bias, lib_fn
     for s, dtype_name in ATTENTION_SHAPES:
         dtype = getattr(torch, dtype_name)
         case = attention_case(s)
@@ -1096,6 +1285,43 @@ def phase_resident_block(report: dict, device, seed: int = 0) -> dict:
 
 
 
+def time_checkout(root: pathlib.Path) -> int:
+    """``python3 chip_smoke.py --time-checkout DIR``: the serving phase of
+    the checkout at DIR (its own ``chip_smoke.phase_serving``), alone in
+    this process once its kernels are built, then this script's
+    ``nmc_matmul`` timings of that checkout's package: device ms with the
+    L2 evicted, host us per call, a decode step's device ms (profiler).
+    Prints them as one JSON line.  Run it in fresh processes on two
+    checkouts in one call, alternating (parent, change, change, parent), to
+    compare them on one card."""
+    import importlib.util
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    root = root.resolve()
+    sys.path.insert(0, str(root / "src"))
+    import repro_torch
+    from repro_torch import cuda_build
+    spec = importlib.util.spec_from_file_location("checkout_smoke",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    device = torch.device("cuda", 0)
+    cuda_build.build_all()
+    report = {}
+    smoke.phase_serving(report, device)
+    cfg, params = serving_model(device)
+    print(json.dumps({
+        "smi": nvidia_smi_line(), "package": repro_torch.__file__,
+        "serving": {k: report["serving"][k]
+                    for k in ("seconds", "decode_step_ms", "prefill_ms")},
+        "decode_step_kernels": decode_step_kernel_ms(device, params, cfg),
+        "matmul_ms": matmul_kernel_ms(device),
+        "matmul_host_us": matmul_host_us(device)}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1154,6 +1380,11 @@ def main() -> int:
                                          "kernel_route")}
             extra["max_abs_err_by_route"] = attn_errs
             err = attn_errs[row["kernel_route"]]
+        else:
+            extra = {k: row[k] for k in ("kernel_route", "plan", "median_ms",
+                                         "library_median_ms",
+                                         "library_padded_rows")}
+            extra["launches_by_route"] = report["serving"]["matmul_routes"]
         kernels.append({"name": kname, **meta, "route": "cuda",
                         "launches": lm_launches[kname],
                         "max_abs_err": err, "ms": row["ms"],
@@ -1183,4 +1414,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time-checkout"]:
+        sys.exit(time_checkout(pathlib.Path(sys.argv[2])))
     sys.exit(main())

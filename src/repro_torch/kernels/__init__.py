@@ -17,6 +17,8 @@ def reset_launch_counts() -> None:
         k.launches = 0
     flash_attention.flash_attention.launches_by_route = dict.fromkeys(
         flash_attention.ROUTE_ID, 0)
+    nmc_matmul.nmc_matmul.launches_by_route = dict.fromkeys(
+        nmc_matmul.ROUTE_ID, 0)
 
 
 __all__ = ["KERNELS", "flash_attention", "nmc_matmul", "ops", "ref",

@@ -36,8 +36,17 @@ from repro_torch.kernels import vrf_alu as _vrf
 MATMUL_M = (1, 4, 384)
 #: qwen1.5-0.5B's projections: q/k/v/o, up/gate, down, the LM head
 MATMUL_KN = ((1024, 1024), (1024, 2816), (2816, 1024), (1024, 151936))
-#: ragged shapes: no dimension a multiple of the kernel's tiles
+#: ragged shapes: no dimension a multiple of the kernel's tiles (the
+#: ``dp4a`` route)
 MATMUL_RAGGED = ((7, 33, 70), (17, 2817, 129), (65, 5, 3))
+#: the edges of the tensor-core route (``nmc_matmul.plan``): the last M of
+#: the 16-row tile and the first of the 128-row one, split K with K not a
+#: multiple of the split (a partial last slab), a partial second tile in M
+#: and in N, the smallest K, a 64-token prefill; and N = 8 and 136, not
+#: multiples of 16 (the ``dp4a`` route)
+MATMUL_EDGES = ((16, 1024, 1024), (17, 1024, 1024), (4, 2832, 1024),
+                (5, 1040, 144), (130, 1040, 272), (1, 32, 151936),
+                (64, 2816, 1024), (3, 64, 8), (5, 1040, 136))
 
 ATTENTION_CASES = {
     # qwen1.5-0.5B prefill: 16 heads of 64, causal

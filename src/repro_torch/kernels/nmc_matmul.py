@@ -10,12 +10,32 @@ needed every dimension to divide its tiles, which qwen1.5-0.5B's
 
 On CPU tensors the wrapper runs the plain version (:func:`ref.nmc_matmul`),
 and only because the tensors lie on the CPU; on CUDA tensors it launches
-the kernel or raises.  ``nmc_matmul.launches`` counts the launches.
+the kernel or raises.
+
+The CUDA source holds two kernel bodies, and its entry picks one before
+the launch and reports it; :func:`route` states the same rule, which the
+wrapper applies first (and raises if the entry took another route):
+
+* ``"tensor_core"``: K a positive multiple of 16, N a multiple of 16, x
+  and w 16-byte aligned (every serving shape): ``mma.sync`` m16n8k32 int8
+  products with int32 accumulation, x brought in by ``cp.async``, w
+  transposed to K-major on its way into shared memory.  :func:`plan`
+  chooses its tile and how K is split across blocks; with more than one
+  split each block stores its int32 partial sums in a workspace that the
+  wrapper allocates, and a second, small kernel adds them in split order
+  and runs the epilogue on the finished sums (exact).
+* ``"dp4a"``: every other shape (``checks.MATMUL_RAGGED``), on the CUDA
+  cores with ``__dp4a``, exact for any M, N and K.
+
+``nmc_matmul.launches`` counts the launches and
+``nmc_matmul.launches_by_route`` splits them by route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -24,10 +44,64 @@ from repro_torch.kernels import ref
 
 ACT_ID = {name: i for i, name in enumerate(ref.ACTS)}
 OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+#: the kernel bodies, by their id in the C source's ``enum Route``
+ROUTE_ID = {"dp4a": 0, "tensor_core": 1}
+ROUTE_NAME = {i: name for name, i in ROUTE_ID.items()}
+#: the tensor-core route's K and N multiple (16 bytes: one ``cp.async``)
+TC_MULTIPLE = 16
+#: the tensor-core kernel's compiled tiles, (BM, BN, BK), as in the C
+#: source's ``TileThin`` / ``TileWide``: 16-row tiles for decode (M <= 16),
+#: 128-row tiles for prefill
+TILE_THIN = (16, 128, 64)
+TILE_WIDE = (128, 128, 64)
+#: the card's SM count (H100 SXM); on the card the wrapper reads the
+#: device's own (:func:`sm_count`)
+SM_COUNT = 132
+#: split K until the grid holds one block per SM, but no split shorter
+#: than this many BK slabs (the best split counts measured on the card,
+#: PERF.md)
+MIN_SPLIT_SLABS = 4
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-#: the C interface of csrc/nmc_matmul.cu: x, w, scale, bias, out, M, N, K,
-#: act, out_kind, stream
-ARGTYPES = [_VP] * 5 + [_I] * 5 + [_VP]
+#: the C interface of csrc/nmc_matmul.cu: x, w, scale, bias, out, ws, M, N,
+#: K, act, out_kind, bm, bn, splits, k_per_split, the route taken (out),
+#: stream
+ARGTYPES = [_VP] * 6 + [_I] * 9 + [_VP] * 2
+
+
+def route(k: int, n: int, aligned: bool = True) -> str:
+    """The kernel body a launch with this K and N takes (``aligned``: x and
+    w 16-byte aligned): ``"tensor_core"`` or ``"dp4a"`` (module
+    docstring)."""
+    if k > 0 and k % TC_MULTIPLE == 0 and n % TC_MULTIPLE == 0 and aligned:
+        return "tensor_core"
+    return "dp4a"
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, n: int, k: int, sm_count: int = SM_COUNT) -> tuple:
+    """``(bm, bn, splits, k_per_split)`` of the tensor-core kernel for an
+    ``m x k x n`` product: the tile (:data:`TILE_THIN` for ``m <= 16``,
+    else :data:`TILE_WIDE`), and K cut into ``splits`` ranges of
+    ``k_per_split`` (whole BK slabs; the last range may be shorter) so that
+    the output tiles times the splits reach ``sm_count`` blocks, each range
+    at least :data:`MIN_SPLIT_SLABS` slabs long (or all of K).  Split ``z``
+    covers K indices ``[z * k_per_split, min(k, (z + 1) * k_per_split))``.
+    """
+    if m < 1 or n < 1 or k < 1:
+        raise ValueError(f"nmc_matmul.plan: need M, N, K >= 1, got "
+                         f"{m}x{k}x{n}")
+    bm, bn, bk = TILE_THIN if m <= TILE_THIN[0] else TILE_WIDE
+    tiles = math.ceil(m / bm) * math.ceil(n / bn)
+    slabs = math.ceil(k / bk)
+    want = math.ceil(sm_count / tiles)
+    per = min(slabs, max(MIN_SPLIT_SLABS, slabs // want))
+    return bm, bn, math.ceil(slabs / per), per * bk
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SM count of CUDA device ``device_index``."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape: tuple, device) -> None:
@@ -74,17 +148,33 @@ def nmc_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
         if bias is not None:
             bias = bias.to(torch.float32)
             _check("bias", bias, torch.float32, (n,), dev)
+    kind = route(k, n, x_q.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    bm = bn = splits = k_per_split = 0
+    ws = None
+    if kind == "tensor_core" and m > 0:
+        bm, bn, splits, k_per_split = plan(m, n, k, sm_count(dev.index or 0))
+        if splits > 1:                    # each split's partial sums
+            ws = torch.empty(splits * m * n, dtype=torch.int32, device=dev)
     fn = cuda_build.entry("nmc_matmul", ARGTYPES)
+    taken = _I(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x_q.data_ptr(), w_q.data_ptr(),
                 None if scale is None else scale.data_ptr(),
                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                m, n, k, ACT_ID[act], OUT_KIND[out_dtype], stream)
+                None if ws is None else ws.data_ptr(), m, n, k, ACT_ID[act],
+                OUT_KIND[out_dtype], bm, bn, splits, k_per_split,
+                ctypes.byref(taken), stream)
     cuda_build.check_launch("nmc_matmul", rc)
+    took = ROUTE_NAME.get(taken.value)
+    if took != kind:
+        raise RuntimeError(f"nmc_matmul: the kernel took route "
+                           f"{taken.value}, the wrapper's rule says {kind}")
     nmc_matmul.launches += 1
+    nmc_matmul.launches_by_route[took] += 1
     return out
 
 
 nmc_matmul.launches = 0
+nmc_matmul.launches_by_route = dict.fromkeys(ROUTE_ID, 0)

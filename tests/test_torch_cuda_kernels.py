@@ -118,30 +118,63 @@ def test_wrappers_check_their_inputs(card):
 from repro_torch.kernels import checks  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import nmc_matmul as mm  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import vrf_alu as vrf  # noqa: E402
+
+
+def _check_matmul_route(m, k, n, card, want):
+    """check_matmul at one shape; its 9 launches all on route ``want``."""
+    assert mm.route(k, n) == want
+    before = dict(mm.nmc_matmul.launches_by_route)
+    errs = checks.check_matmul(m, k, n, card)
+    torch.cuda.synchronize()
+    assert mm.nmc_matmul.launches_by_route == {
+        r: c + 9 * (r == want) for r, c in before.items()}
+    return errs
 
 
 @pytest.mark.parametrize("m", checks.MATMUL_M)
 @pytest.mark.parametrize("k,n", checks.MATMUL_KN)
 def test_nmc_matmul_equals_plain_at_serving_shapes(card, m, k, n):
     before = mm.nmc_matmul.launches
-    errs = checks.check_matmul(m, k, n, card)
-    torch.cuda.synchronize()
+    errs = _check_matmul_route(m, k, n, card, "tensor_core")
     assert errs["acc"] == 0 and errs["none/f32"] == 0
     assert mm.nmc_matmul.launches == before + 9
 
 
 @pytest.mark.parametrize("m,k,n", checks.MATMUL_RAGGED)
 def test_nmc_matmul_equals_plain_at_ragged_shapes(card, m, k, n):
-    checks.check_matmul(m, k, n, card)
+    _check_matmul_route(m, k, n, card, "dp4a")
 
 
-def test_nmc_matmul_exact_worst_case_accumulator(card):
-    k = 2816
-    x = torch.full((4, k), -128, dtype=torch.int8, device=card)
-    w = torch.full((k, 64), -128, dtype=torch.int8, device=card)
+@pytest.mark.parametrize("m,k,n", checks.MATMUL_EDGES)
+def test_nmc_matmul_equals_plain_at_edge_shapes(card, m, k, n):
+    """The tensor-core kernel's edges (M = 16 / 17, split K with a partial
+    last slab, partial tiles, K = 32) and N = 8 / 136 on the dp4a route."""
+    errs = _check_matmul_route(m, k, n, card, mm.route(k, n))
+    assert errs["acc"] == 0 and errs["none/f32"] == 0
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2816, 64), (4, 2816, 1024),
+                                   (384, 2816, 1024)])
+def test_nmc_matmul_exact_worst_case_accumulator(card, m, k, n):
+    """All -128: the int32 sums at their extreme, through split K on both
+    tiles."""
+    assert mm.plan(m, n, k)[2] > 1
+    x = torch.full((m, k), -128, dtype=torch.int8, device=card)
+    w = torch.full((k, n), -128, dtype=torch.int8, device=card)
     acc = mm.nmc_matmul(x, w, None, out_dtype=torch.int32)
     assert int(acc[0, 0]) == 128 * 128 * k and bool((acc == acc[0, 0]).all())
+
+
+def test_nmc_matmul_unaligned_input_takes_the_dp4a_route(card):
+    x, w, scale, bias = checks.matmul_inputs(4, 1024, 1024, card)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
+    shifted[1:] = x.flatten()
+    before = dict(mm.nmc_matmul.launches_by_route)
+    got = mm.nmc_matmul(shifted[1:].view(x.shape), w, scale, bias)
+    assert mm.nmc_matmul.launches_by_route["dp4a"] == before["dp4a"] + 1
+    assert torch.equal(got, ref.nmc_matmul(x, w, scale, bias))
 
 
 @pytest.mark.parametrize("name", sorted(checks.ATTENTION_CASES))
