@@ -8,11 +8,13 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 
 * NMC execution: the two wave kernels against their plain PyTorch versions
   on the card (bit for bit, on random verifier-clean waves at the largest
-  Table V buckets and on every golden opcode program); the Table V
+  Table V buckets, on Caesar waves dense with conflicts and the serial
+  chain, and on every golden opcode program); the Table V
   ``verify_sweep`` through ``BucketedPool``, the same builds through
   ``ResidentPool`` + ``DispatchQueue``, and an ``nmc.jit`` kernel sync and
   async on both engines; both kernels timed beside their plain versions
-  and their bounds.
+  and their bounds, and the Caesar kernel on the Table V gemm and
+  leaky_relu waves and the serial chain, with their rounds per window.
 * W8A8 serving: ``nmc_matmul`` and ``flash_attention`` against their plain
   versions at the serving path's shapes and at the edges of their routes;
   qwen1.5-0.5B at full width (random weights from a seed, quantized)
@@ -43,10 +45,12 @@ Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 a card, or outside a checkout of the repository, it fails before printing a
 result.  Imports nothing of JAX or of the JAX package ``repro``.
 
-    python3 chip_smoke.py --time-checkout DIR
+    python3 chip_smoke.py --time-checkout DIR [--waves-only]
 
-times the checkout at DIR alone: its serving phase and its ``nmc_matmul``
-(:func:`time_checkout`), to compare two checkouts in one call.
+times the checkout at DIR alone: its ``caesar_wave`` on this script's
+Caesar waves, then (unless ``--waves-only``) its serving phase and its
+``nmc_matmul`` (:func:`time_checkout`), to compare two checkouts in one
+call.
 """
 
 from __future__ import annotations
@@ -195,10 +199,17 @@ def phase_build(report: dict) -> None:
                       for stem in SASS_OPS}
 
 
-#: SASS opcodes that show each tensor-core kernel's design, by source and
-#: kernel name: the bf16 (HMMA ... BF16) or int8 (IMMA ... S8) mma.sync,
-#: cp.async (LDGSTS) and ldmatrix (LDSM)
+#: SASS opcodes that show each kernel's design, by source and kernel
+#: name: the bf16 (HMMA ... BF16) or int8 (IMMA ... S8) mma.sync, cp.async
+#: (LDGSTS) and ldmatrix (LDSM) of the tensor-core kernels; the warp
+#: shuffles (SHFL) and votes (VOTE), the writer table's shared atomic OR
+#: (ATOMS.OR), the record ring's named barriers (BAR.ARV) and the field
+#: ring's cp.async of the Caesar window kernel
 SASS_OPS = {
+    "caesar_wave": ("caesar_wave_kernel",
+                    {"shfl": ("SHFL",), "vote": ("VOTE",),
+                     "atoms_or": ("ATOMS.OR",), "bar_arv": ("BAR.ARV",),
+                     "ldgsts": ("LDGSTS",)}),
     "flash_attention": ("flash_attention_tc_kernel",
                         {"hmma_bf16": ("HMMA.", "BF16"),
                          "ldgsts": ("LDGSTS",), "ldsm": ("LDSM",)}),
@@ -209,8 +220,8 @@ SASS_OPS = {
 
 
 def sass_evidence(stem: str, lib) -> dict:
-    """Count, in each tensor-core kernel of the library built from
-    ``csrc/<stem>.cu``, the SASS instructions of :data:`SASS_OPS`
+    """Count, in each kernel of :data:`SASS_OPS` in the library built from
+    ``csrc/<stem>.cu``, the SASS instructions that show its design
     (``cuobjdump -sass``, from the toolkit beside nvcc); fails if a kernel
     lacks one of them."""
     from repro_torch import cuda_build
@@ -229,16 +240,35 @@ def sass_evidence(stem: str, lib) -> dict:
             for op, keys in ops.items():
                 counts[fn][op] += all(k in line for k in keys)
     if not counts or any(not all(c.values()) for c in counts.values()):
-        raise AssertionError(f"{stem}: a tensor-core kernel without "
+        raise AssertionError(f"{stem}: a {kernel_name} without "
                              f"{' / '.join(ops)} in its SASS: {counts}")
     for fn_name, c in counts.items():
         log(f"  sass {stem} {fn_name}: {c}")
     return counts
 
 
+#: instructions of the conflict-dense and serial-chain checks (the plain
+#: version takes about a millisecond per instruction on the card)
+DENSE_N = 2048
+
+
+def dense_caesar_waves(sew: int) -> dict:
+    """Caesar waves whose windows are dense with conflicts: addresses from
+    8 and from 32 words, and the serial chain (every instruction reads the
+    word the one before it wrote)."""
+    from repro_torch.nmc import conformance
+    waves = {f"{n} words": conformance.random_wave(
+        "caesar", sew, WAVE_TILES, DENSE_N, seed=sew + n, n_words=n)
+        for n in (8, 32)}
+    waves["serial chain"] = conformance.chain_wave(sew, WAVE_TILES, DENSE_N,
+                                                   seed=sew)
+    return waves
+
+
 def phase_kernels_vs_plain(report: dict, device) -> dict:
     """Every kernel against its plain version: random waves at the largest
-    Table V buckets, every SEW, then every golden opcode program."""
+    Table V buckets, every SEW; Caesar waves dense with conflicts and the
+    serial chain, every SEW; then every golden opcode program."""
     from repro_torch.nmc import check, conformance
     from repro_torch.nmc.program import Program
     errs = {"caesar": 0, "carus": 0}
@@ -258,6 +288,17 @@ def phase_kernels_vs_plain(report: dict, device) -> dict:
                 raise AssertionError(f"{engine} sew={sew}: kernel != plain")
             errs[engine] = max(errs[engine], err)
             waves[(engine, sew)] = (progs, states)
+    for sew in SEWS:
+        for label, (progs, states) in dense_caesar_waves(sew).items():
+            check.assert_wave(progs)
+            fields, state = wave_tensors(progs, states, device)
+            err = compare("caesar", fields, state, sew)
+            log(f"kernel vs plain: caesar {label} sew={sew} T={len(progs)} "
+                f"n={progs[0].n_instr}: max_abs_err={err}")
+            if err:
+                raise AssertionError(f"caesar {label} sew={sew}: kernel != "
+                                     f"plain")
+            errs["caesar"] = max(errs["caesar"], err)
     n_golden = 0
     for engine, label, entries in conformance.golden_cases():
         for sew in SEWS:
@@ -362,7 +403,10 @@ def phase_main_path(report: dict) -> dict:
 
 def phase_timing(report: dict, waves: dict, device) -> dict:
     """ms per launch at T in {1, 128} at the largest Table V bucket; the
-    plain version is timed at T=128 only (it takes seconds per wave)."""
+    plain version is timed at T=128 only (it takes seconds per wave).
+    Then the Caesar waves of :func:`caesar_timed_waves` (Table V gemm and
+    leaky_relu, the serial chain), each with its rounds per window."""
+    from repro_torch.nmc import cuda_engine
     rows = []
     for (engine, sew), (progs, states) in sorted(waves.items()):
         for n_tiles in (1, WAVE_TILES):
@@ -376,13 +420,80 @@ def phase_timing(report: dict, waves: dict, device) -> dict:
             rows.append(dict(engine=engine, sew=sew, tiles=n_tiles,
                              n_instr=ps[0].n_instr, ms=ms, plain_ms=plain,
                              bound_ms=bms, bound_by=by))
+            extra = ""
+            if engine == "caesar":
+                rounds = cuda_engine.caesar_window_rounds(ps[0].entries)
+                rows[-1]["rounds_per_window"] = float(rounds.mean())
+                extra = f", {rounds.mean():.3f} rounds per window"
             plain_txt = "not timed" if plain is None else f"{plain:.2f} ms"
             log(f"timing: {engine} sew={sew} T={n_tiles} "
                 f"n={ps[0].n_instr}: kernel {ms:.4f} ms, plain "
-                f"{plain_txt}, bound {bms:.5f} ms ({by})")
+                f"{plain_txt}, bound {bms:.5f} ms ({by}){extra}")
     report["timing"] = rows
+    report["caesar_waves"] = time_caesar_waves(
+        caesar_timed_waves(random=False), device)
     return {r["engine"]: r for r in rows
             if r["sew"] == 8 and r["tiles"] == WAVE_TILES}
+
+
+def numpy_wave(label: str, sew: int, progs, states) -> dict:
+    """A Caesar wave as numpy arrays, with its bound and the rounds per
+    window of its first program (``cuda_engine.caesar_window_rounds``)."""
+    import numpy as np
+    from repro_torch.nmc import cuda_engine
+    from repro_torch.nmc.program import stack_programs
+    rounds = cuda_engine.caesar_window_rounds(progs[0].entries)
+    bms, by = bound_ms("caesar", progs)
+    return dict(label=label, sew=sew, tiles=len(progs),
+                n_instr=progs[0].n_instr,
+                rounds_per_window=float(rounds.mean()), bound_ms=bms,
+                bound_by=by, fields=stack_programs(progs),
+                states=np.ascontiguousarray(states))
+
+
+def caesar_timed_waves(random: bool) -> list[dict]:
+    """Caesar waves to time, as numpy arrays, so that another checkout's
+    kernel can run them too: with ``random`` the random waves of
+    :func:`phase_kernels_vs_plain` (every SEW, T in {1, 128}); then, at
+    T=128 and SEW 8, the Table V Caesar programs with the deepest windows
+    (gemm: 4 rounds, leaky_relu: 2) and the serial chain (32 rounds)."""
+    import numpy as np
+    from repro_torch.core import programs as P
+    from repro_torch.nmc import conformance
+    n = LARGEST_BUCKET["caesar"]
+    waves = []
+    for sew in SEWS if random else ():
+        progs, states = conformance.random_wave("caesar", sew, WAVE_TILES, n,
+                                                seed=sew)
+        waves += [numpy_wave("random", sew, progs[:t], states[:t])
+                  for t in (1, WAVE_TILES)]
+    for name in ("gemm", "leaky_relu"):
+        eb = P.build(name, 8).caesar
+        waves.append(numpy_wave(f"table_v {name}", 8,
+                                [eb.program] * WAVE_TILES,
+                                np.stack([eb.mem] * WAVE_TILES)))
+    progs, states = conformance.chain_wave(8, WAVE_TILES, n, seed=8)
+    waves.append(numpy_wave("serial chain", 8, progs, states))
+    return waves
+
+
+def time_caesar_waves(waves: list[dict], device) -> list[dict]:
+    """ms per launch of ``caesar_wave`` (the package imported now) on each
+    wave of :func:`caesar_timed_waves`."""
+    import torch
+    rows = []
+    for w in waves:
+        fields = {k: torch.as_tensor(v, device=device)
+                  for k, v in w["fields"].items()}
+        state = torch.as_tensor(w["states"], device=device)
+        row = {k: v for k, v in w.items() if k not in ("fields", "states")}
+        row["ms"] = time_kernel("caesar", fields, state, w["sew"], reps=20)
+        rows.append(row)
+        log(f"timing: caesar {w['label']} sew={w['sew']} T={w['tiles']} "
+            f"n={w['n_instr']}: kernel {row['ms']:.4f} ms, bound "
+            f"{w['bound_ms']:.5f} ms ({w['bound_by']}), "
+            f"{w['rounds_per_window']:.3f} rounds per window")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1285,40 +1396,52 @@ def phase_resident_block(report: dict, device, seed: int = 0) -> dict:
 
 
 
-def time_checkout(root: pathlib.Path) -> int:
-    """``python3 chip_smoke.py --time-checkout DIR``: the serving phase of
-    the checkout at DIR (its own ``chip_smoke.phase_serving``), alone in
-    this process once its kernels are built, then this script's
-    ``nmc_matmul`` timings of that checkout's package: device ms with the
-    L2 evicted, host us per call, a decode step's device ms (profiler).
-    Prints them as one JSON line.  Run it in fresh processes on two
-    checkouts in one call, alternating (parent, change, change, parent), to
-    compare them on one card."""
+def time_checkout(root: pathlib.Path, waves_only: bool = False) -> int:
+    """``python3 chip_smoke.py --time-checkout DIR [--waves-only]``: times
+    the checkout at DIR.  First its ``caesar_wave`` on the waves of
+    :func:`caesar_timed_waves` (made by this tree's package, so that both
+    checkouts run the same waves); then, unless ``--waves-only``, its
+    serving phase (its own ``chip_smoke.phase_serving``) alone in this
+    process, and this script's ``nmc_matmul`` timings of that checkout's
+    package: device ms with the L2 evicted, host us per call, a decode
+    step's device ms (profiler).  Prints them as one JSON line.  Run it in
+    fresh processes on two checkouts in one call, alternating (parent,
+    change, change, parent), to compare them on one card."""
     import importlib.util
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     root = root.resolve()
+    sys.path.insert(0, str(REPO / "src"))
+    waves = caesar_timed_waves(random=True)
+    # from here on, the package under test is the checkout's
+    sys.path.remove(str(REPO / "src"))
+    for name in [m for m in sys.modules
+                 if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
     sys.path.insert(0, str(root / "src"))
     import repro_torch
     from repro_torch import cuda_build
-    spec = importlib.util.spec_from_file_location("checkout_smoke",
-                                                  root / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     device = torch.device("cuda", 0)
     cuda_build.build_all()
-    report = {}
-    smoke.phase_serving(report, device)
-    cfg, params = serving_model(device)
-    print(json.dumps({
-        "smi": nvidia_smi_line(), "package": repro_torch.__file__,
-        "serving": {k: report["serving"][k]
-                    for k in ("seconds", "decode_step_ms", "prefill_ms")},
-        "decode_step_kernels": decode_step_kernel_ms(device, params, cfg),
-        "matmul_ms": matmul_kernel_ms(device),
-        "matmul_host_us": matmul_host_us(device)}))
+    out = {"smi": nvidia_smi_line(), "package": repro_torch.__file__,
+           "caesar_waves": time_caesar_waves(waves, device)}
+    if not waves_only:
+        spec = importlib.util.spec_from_file_location(
+            "checkout_smoke", root / "chip_smoke.py")
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        report = {}
+        smoke.phase_serving(report, device)
+        cfg, params = serving_model(device)
+        out.update(
+            serving={k: report["serving"][k]
+                     for k in ("seconds", "decode_step_ms", "prefill_ms")},
+            decode_step_kernels=decode_step_kernel_ms(device, params, cfg),
+            matmul_ms=matmul_kernel_ms(device),
+            matmul_host_us=matmul_host_us(device))
+    print(json.dumps(out))
     return 0
 
 
@@ -1415,5 +1538,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-checkout"]:
-        sys.exit(time_checkout(pathlib.Path(sys.argv[2])))
+        sys.exit(time_checkout(pathlib.Path(sys.argv[2]),
+                               waves_only="--waves-only" in sys.argv[3:]))
     sys.exit(main())

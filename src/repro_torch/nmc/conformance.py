@@ -6,7 +6,12 @@
   CPU tests check that the two lists are identical).
 * :func:`random_wave` — a wave of random, verifier-clean programs over every
   opcode and operand mode (slides, EMVV/EMVX, indirect register addressing
-  and dynamic VL included), with random images.
+  and dynamic VL included), with random images; Caesar waves can draw
+  their addresses from a few words (``n_words``), so that instructions
+  close together read and write the same words.
+* :func:`chain_wave` — Caesar programs in which every instruction reads
+  the word the one before it wrote: the serial worst case of the
+  ``caesar_wave`` kernel's windows.
 
 Everything is made from a seed with numpy, so the kernels and their plain
 versions see the same inputs on any device.
@@ -111,13 +116,19 @@ _MAC = (CaesarOp.MAC_INIT, CaesarOp.MAC, CaesarOp.MAC_STORE)
 _DOT = (CaesarOp.DOT_INIT, CaesarOp.DOT, CaesarOp.DOT_STORE)
 
 
-def random_caesar_entries(rng, n_instr: int) -> np.ndarray:
-    """Random bus ops over the whole opcode set and image, as PROG_DTYPE
-    entries; accumulator body and store ops always follow their INIT (a
-    STORE closes the chain), and CSRW / NOP carry zero fields (the
-    verifier's rules for a well-formed stream)."""
+def random_caesar_entries(rng, n_instr: int,
+                          n_words: int | None = None) -> np.ndarray:
+    """Random bus ops over the whole opcode set, as PROG_DTYPE entries;
+    accumulator body and store ops always follow their INIT (a STORE closes
+    the chain), and CSRW / NOP carry zero fields (the verifier's rules for a
+    well-formed stream).  Addresses span the whole image, or with
+    ``n_words`` a random set of that many words."""
     ops = rng.integers(len(CaesarOp), size=n_instr)
-    addr = rng.integers(CAESAR_MEM_WORDS, size=(3, n_instr))
+    if n_words is None:
+        addr = rng.integers(CAESAR_MEM_WORDS, size=(3, n_instr))
+    else:
+        words = rng.choice(CAESAR_MEM_WORDS, n_words, replace=False)
+        addr = words[rng.integers(n_words, size=(3, n_instr))]
     open_acc = {_MAC: False, _DOT: False}
     for i, op in enumerate(ops.tolist()):
         for chain in (_MAC, _DOT):
@@ -171,20 +182,50 @@ def random_carus_entries(rng, n_instr: int, sew: int) -> np.ndarray:
 
 
 def random_wave(engine: str, sew: int, n_tiles: int, n_instr: int,
-                seed: int = 0) -> tuple[list[Program], np.ndarray]:
+                seed: int = 0, n_words: int | None = None
+                ) -> tuple[list[Program], np.ndarray]:
     """``n_tiles`` random programs of exactly ``n_instr`` instructions and
-    their random int32 images, stacked ``[n_tiles, ...]``."""
+    their random int32 images, stacked ``[n_tiles, ...]``.  ``n_words``
+    (Caesar only) draws each program's addresses from that many words."""
     rng = np.random.default_rng(seed)
     if engine == "caesar":
-        progs = [Program.from_entries("caesar", sew,
-                                      random_caesar_entries(rng, n_instr))
+        progs = [Program.from_entries(
+                     "caesar", sew,
+                     random_caesar_entries(rng, n_instr, n_words))
                  for _ in range(n_tiles)]
         shape = (n_tiles, CAESAR_MEM_WORDS)
     else:
+        if n_words is not None:
+            raise ValueError("n_words applies to Caesar waves only")
         progs = [Program.from_entries("carus", sew,
                                       random_carus_entries(rng, n_instr, sew))
                  for _ in range(n_tiles)]
         shape = (n_tiles, 32, 256)
     states = rng.integers(-2**31, 2**31, shape,
+                          dtype=np.int64).astype(np.int32)
+    return progs, states
+
+
+CAESAR_ALU_OPS = np.array(sorted(int(o) for o in isa.CAESAR_STORE_OPS
+                             - isa.CAESAR_MAC_OPS - isa.CAESAR_DOT_OPS))
+
+
+def chain_wave(sew: int, n_tiles: int, n_instr: int,
+               seed: int = 0) -> tuple[list[Program], np.ndarray]:
+    """``n_tiles`` Caesar programs of random ALU ops in which every
+    instruction's ``src1`` is the word the one before it wrote (the other
+    addresses random), and their random images: one read-after-write chain
+    through the whole stream."""
+    rng = np.random.default_rng(seed)
+    progs = []
+    for _ in range(n_tiles):
+        entries = np.zeros(n_instr, dtype=PROG_DTYPE)
+        entries["op"] = rng.choice(CAESAR_ALU_OPS, n_instr)
+        entries["dest"] = rng.integers(CAESAR_MEM_WORDS, size=n_instr)
+        entries["src1"][0] = rng.integers(CAESAR_MEM_WORDS)
+        entries["src1"][1:] = entries["dest"][:-1]
+        entries["src2"] = rng.integers(CAESAR_MEM_WORDS, size=n_instr)
+        progs.append(Program.from_entries("caesar", sew, entries))
+    states = rng.integers(-2**31, 2**31, (n_tiles, CAESAR_MEM_WORDS),
                           dtype=np.int64).astype(np.int32)
     return progs, states

@@ -20,6 +20,17 @@ Lowering contract:
   a program's contents, only on SEW (one template instance per width), so
   the pools' kernel-handle cache keys on shape alone.
 
+The Caesar kernel runs a tile's stream in windows of
+:data:`CAESAR_WINDOW` instructions, one per lane of a warp.  One warp
+analyses the windows ahead, value-free: for each source the latest earlier
+writer of the word in the window, for each word its last writer.  Another
+warp executes them: lanes compute in rounds, forwarding operands from their
+producer lanes by warp shuffles, the MAC and DOT accumulators run as
+segmented scans over the window, and only each word's last writer stores
+it.  A tile's time is its windows times a window's latency, which grows by
+one round per level of the read-after-write chain inside the window
+(:func:`caesar_window_rounds`); bytes play no part.
+
 The wrappers :func:`caesar_wave` and :func:`carus_wave` check device, dtype,
 shape and contiguity, launch on ``torch.cuda.current_stream()`` and count
 their launches in a plain integer (``caesar_wave.launches``).  On CPU
@@ -33,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch import cuda_build
@@ -42,6 +54,9 @@ from repro_torch.core.carus import CarusVPU
 from repro_torch.nmc.engine import CaesarTile, CarusTile
 
 CAESAR_FIELDS = isa.CAESAR_TRACE_DTYPE.names
+#: instructions per window of the Caesar kernel (``kWindow`` in
+#: ``csrc/caesar_wave.cu``): one per lane of a warp
+CAESAR_WINDOW = 32
 CARUS_FIELDS = isa.CARUS_TRACE_DTYPE.names
 
 _VP = ctypes.c_void_p
@@ -83,6 +98,42 @@ def caesar_wave(fields: dict, mem: torch.Tensor, sew: int) -> torch.Tensor:
     cuda_build.check_launch("caesar_wave", rc)
     caesar_wave.launches += 1
     return mem
+
+
+_WRITES = frozenset(int(o) for o in isa.CAESAR_STORE_OPS)
+_ACCUMULATES = {int(o): chain for chain, ops in (
+    ("mac", isa.CAESAR_MAC_OPS), ("dot", isa.CAESAR_DOT_OPS)) for o in ops}
+_INITS = (int(isa.CaesarOp.MAC_INIT), int(isa.CaesarOp.DOT_INIT))
+
+
+def caesar_window_rounds(entries) -> np.ndarray:
+    """Rounds the Caesar kernel takes for each window of one program
+    (``op``, ``dest``, ``src1``, ``src2`` fields): the depth of the
+    read-after-write chain inside the window.  A lane computes one round
+    after the latest earlier writers of its sources in the window are done
+    (round 1 without any); an accumulator lane is done once every lane of
+    its MAC or DOT segment up to it has its operands.  Value-free."""
+    fields = [np.asarray(entries[k]).tolist()
+              for k in ("op", "dest", "src1", "src2")]
+    n = len(fields[0])
+    rounds = np.zeros(-(-n // CAESAR_WINDOW), dtype=np.int64)
+    for w in range(len(rounds)):
+        writer_round: dict[int, int] = {}      # word -> its latest writer's
+        segment = {"mac": 0, "dot": 0}
+        for op, dest, s1, s2 in zip(*(f[w * CAESAR_WINDOW:
+                                         (w + 1) * CAESAR_WINDOW]
+                                      for f in fields)):
+            chain = _ACCUMULATES.get(op)
+            if op not in _WRITES and chain is None:
+                continue                        # CSRW, NOP
+            r = 1 + max(writer_round.get(s1, 0), writer_round.get(s2, 0))
+            if chain is not None:
+                segment[chain] = r if op in _INITS else max(segment[chain], r)
+                r = segment[chain]
+            if op in _WRITES:
+                writer_round[dest] = r
+            rounds[w] = max(rounds[w], r)
+    return rounds
 
 
 def carus_wave(fields: dict, vrf: torch.Tensor, sew: int) -> torch.Tensor:

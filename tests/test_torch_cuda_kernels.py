@@ -15,7 +15,7 @@ from repro_torch.core import programs
 from repro_torch.core.caesar import CaesarEngine
 from repro_torch.core.carus import CarusVPU
 from repro_torch.nmc import conformance, cuda_engine
-from repro_torch.nmc.program import Program, stack_programs
+from repro_torch.nmc.program import PROG_DTYPE, Program, stack_programs
 
 pytestmark = pytest.mark.gpu
 SEWS = (8, 16, 32)
@@ -76,6 +76,57 @@ def test_kernel_equals_plain_on_golden_programs(card, engine):
             got = _kernel(eng)(fields, state.clone(), sew)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (label, sew)
+
+
+def _caesar_equals_plain(progs, states, sew, card):
+    fields, state = _tensors(progs, states, card)
+    want = _plain("caesar", fields, state, sew)
+    got = cuda_engine.caesar_wave(fields, state.clone(), sew)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_words", [8, 32])
+@pytest.mark.parametrize("sew", SEWS)
+def test_caesar_equals_plain_on_conflict_dense_waves(card, sew, n_words):
+    """Addresses from a few words: deep read-after-write chains, many
+    writers of one word and write-after-read pairs in every window."""
+    progs, states = conformance.random_wave("caesar", sew, 16, 1024,
+                                            seed=sew, n_words=n_words)
+    _caesar_equals_plain(progs, states, sew, card)
+
+
+@pytest.mark.parametrize("sew", SEWS)
+def test_caesar_equals_plain_on_the_serial_chain(card, sew):
+    progs, states = conformance.chain_wave(sew, 16, 1024, seed=sew)
+    _caesar_equals_plain(progs, states, sew, card)
+
+
+@pytest.mark.parametrize("sew", SEWS)
+def test_caesar_equals_plain_when_all_lanes_write_one_word(card, sew):
+    """Every lane of every window writes word 5 (reading it and its
+    neighbours); the last writer must win."""
+    rng = np.random.default_rng(sew)
+    alu = [int(o) for o in conformance.CAESAR_ALU_OPS]
+    progs = []
+    for _ in range(4):
+        entries = np.zeros(256, dtype=PROG_DTYPE)
+        entries["op"] = rng.choice(alu, 256)
+        entries["dest"] = 5
+        entries["src1"] = rng.integers(4, 7, 256)
+        entries["src2"] = rng.integers(4, 7, 256)
+        progs.append(Program.from_entries("caesar", sew, entries))
+    states = rng.integers(-2**31, 2**31, (4, conformance.CAESAR_MEM_WORDS),
+                          dtype=np.int64).astype(np.int32)
+    _caesar_equals_plain(progs, states, sew, card)
+
+
+@pytest.mark.parametrize("n_instr", [1, 31, 33, 1001])
+@pytest.mark.parametrize("sew", SEWS)
+def test_caesar_equals_plain_off_the_window(card, sew, n_instr):
+    progs, states = conformance.random_wave("caesar", sew, 8, n_instr,
+                                            seed=n_instr, n_words=16)
+    _caesar_equals_plain(progs, states, sew, card)
 
 
 def test_cuda_pools_equal_torch_pools(card):
