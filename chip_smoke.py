@@ -9,12 +9,14 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 * NMC execution: the two wave kernels against their plain PyTorch versions
   on the card (bit for bit, on random verifier-clean waves at the largest
   Table V buckets, on Caesar waves dense with conflicts and the serial
-  chain, and on every golden opcode program); the Table V
-  ``verify_sweep`` through ``BucketedPool``, the same builds through
-  ``ResidentPool`` + ``DispatchQueue``, and an ``nmc.jit`` kernel sync and
-  async on both engines; both kernels timed beside their plain versions
-  and their bounds, and the Caesar kernel on the Table V gemm and
-  leaky_relu waves and the serial chain, with their rounds per window.
+  chain, on slide-dense and long Carus waves, and on every golden opcode
+  program); the Table V ``verify_sweep`` through ``BucketedPool``, the
+  same builds through ``ResidentPool`` + ``DispatchQueue``, and an
+  ``nmc.jit`` kernel sync and async on both engines; both kernels timed
+  beside their plain versions and their bounds, the Caesar kernel on the
+  Table V gemm and leaky_relu waves and the serial chain (with their
+  rounds per window), the Carus kernel on the Table V gemm, matmul and
+  conv2d waves and a slide-dense wave (with their records and barriers).
 * W8A8 serving: ``nmc_matmul`` and ``flash_attention`` against their plain
   versions at the serving path's shapes and at the edges of their routes;
   qwen1.5-0.5B at full width (random weights from a seed, quantized)
@@ -47,10 +49,10 @@ result.  Imports nothing of JAX or of the JAX package ``repro``.
 
     python3 chip_smoke.py --time-checkout DIR [--waves-only]
 
-times the checkout at DIR alone: its ``caesar_wave`` on this script's
-Caesar waves, then (unless ``--waves-only``) its serving phase and its
-``nmc_matmul`` (:func:`time_checkout`), to compare two checkouts in one
-call.
+times the checkout at DIR alone: its ``caesar_wave`` and ``carus_wave`` on
+this script's waves, then (unless ``--waves-only``) its serving phase and
+its ``nmc_matmul`` (:func:`time_checkout`), to compare two checkouts in
+one call.
 """
 
 from __future__ import annotations
@@ -151,7 +153,11 @@ def bound_ms(engine: str, programs) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_kernel(engine: str, fields, state, sew: int, reps: int) -> float:
+def time_kernel(engine: str, fields, state, sew: int, reps: int) -> dict:
+    """ms per launch of a wave kernel by CUDA events: ``ms``, ``reps``
+    launches back to back over their count (the wrapper's host time, ~40
+    us, where it exceeds the kernel's), and ``device_ms``, the device time
+    alone (each launch behind :func:`host_ahead`, mean of ``reps``)."""
     import torch
     fn = kernel(engine)
     buf = state.clone()
@@ -164,7 +170,9 @@ def time_kernel(engine: str, fields, state, sew: int, reps: int) -> float:
         fn(fields, buf, sew)
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return {"ms": start.elapsed_time(end) / reps,
+            "device_ms": events_ms(lambda: fn(fields, buf, sew), reps,
+                                   flush=host_ahead)}
 
 
 def time_plain(engine: str, fields, state, sew: int) -> float:
@@ -204,12 +212,18 @@ def phase_build(report: dict) -> None:
 #: (LDGSTS) and ldmatrix (LDSM) of the tensor-core kernels; the warp
 #: shuffles (SHFL) and votes (VOTE), the writer table's shared atomic OR
 #: (ATOMS.OR), the record ring's named barriers (BAR.ARV) and the field
-#: ring's cp.async of the Caesar window kernel
+#: ring's cp.async of the Caesar window kernel; the Carus kernel's
+#: broadcast record loads (LDS.128), its cp.async staging (LDGSTS) and its
+#: block barriers (BAR.SYNC: per chunk, around slides, before the image
+#: goes out)
 SASS_OPS = {
     "caesar_wave": ("caesar_wave_kernel",
                     {"shfl": ("SHFL",), "vote": ("VOTE",),
                      "atoms_or": ("ATOMS.OR",), "bar_arv": ("BAR.ARV",),
                      "ldgsts": ("LDGSTS",)}),
+    "carus_wave": ("carus_wave_kernel",
+                   {"lds128": ("LDS.128",), "ldgsts": ("LDGSTS",),
+                    "bar_sync": ("BAR.SYNC",)}),
     "flash_attention": ("flash_attention_tc_kernel",
                         {"hmma_bf16": ("HMMA.", "BF16"),
                          "ldgsts": ("LDGSTS",), "ldsm": ("LDSM",)}),
@@ -265,10 +279,26 @@ def dense_caesar_waves(sew: int) -> dict:
     return waves
 
 
+def dense_carus_waves(sew: int) -> dict:
+    """Carus waves that stress the kernel's barriers and chunks: slide-dense
+    (every other op a slide, half in place) at the largest bucket and at
+    ``DENSE_N``, and a random wave of ``DENSE_N`` instructions (8 chunks,
+    VL carried across them)."""
+    from repro_torch.nmc import conformance
+    n = LARGEST_BUCKET["carus"]
+    return {"slide-dense": conformance.slide_wave(sew, WAVE_TILES, n,
+                                                  seed=sew),
+            "slide-dense long": conformance.slide_wave(sew, WAVE_TILES,
+                                                       DENSE_N, seed=sew + 1),
+            "random long": conformance.random_wave("carus", sew, WAVE_TILES,
+                                                   DENSE_N, seed=sew + 2)}
+
+
 def phase_kernels_vs_plain(report: dict, device) -> dict:
     """Every kernel against its plain version: random waves at the largest
     Table V buckets, every SEW; Caesar waves dense with conflicts and the
-    serial chain, every SEW; then every golden opcode program."""
+    serial chain, Carus waves dense with slides and longer than one chunk,
+    every SEW; then every golden opcode program."""
     from repro_torch.nmc import check, conformance
     from repro_torch.nmc.program import Program
     errs = {"caesar": 0, "carus": 0}
@@ -288,17 +318,20 @@ def phase_kernels_vs_plain(report: dict, device) -> dict:
                 raise AssertionError(f"{engine} sew={sew}: kernel != plain")
             errs[engine] = max(errs[engine], err)
             waves[(engine, sew)] = (progs, states)
-    for sew in SEWS:
-        for label, (progs, states) in dense_caesar_waves(sew).items():
-            check.assert_wave(progs)
-            fields, state = wave_tensors(progs, states, device)
-            err = compare("caesar", fields, state, sew)
-            log(f"kernel vs plain: caesar {label} sew={sew} T={len(progs)} "
-                f"n={progs[0].n_instr}: max_abs_err={err}")
-            if err:
-                raise AssertionError(f"caesar {label} sew={sew}: kernel != "
-                                     f"plain")
-            errs["caesar"] = max(errs["caesar"], err)
+    for engine, dense in (("caesar", dense_caesar_waves),
+                          ("carus", dense_carus_waves)):
+        for sew in SEWS:
+            for label, (progs, states) in dense(sew).items():
+                check.assert_wave(progs)
+                fields, state = wave_tensors(progs, states, device)
+                err = compare(engine, fields, state, sew)
+                log(f"kernel vs plain: {engine} {label} sew={sew} "
+                    f"T={len(progs)} n={progs[0].n_instr}: "
+                    f"max_abs_err={err}")
+                if err:
+                    raise AssertionError(f"{engine} {label} sew={sew}: "
+                                         f"kernel != plain")
+                errs[engine] = max(errs[engine], err)
     n_golden = 0
     for engine, label, entries in conformance.golden_cases():
         for sew in SEWS:
@@ -405,49 +438,67 @@ def phase_timing(report: dict, waves: dict, device) -> dict:
     """ms per launch at T in {1, 128} at the largest Table V bucket; the
     plain version is timed at T=128 only (it takes seconds per wave).
     Then the Caesar waves of :func:`caesar_timed_waves` (Table V gemm and
-    leaky_relu, the serial chain), each with its rounds per window."""
-    from repro_torch.nmc import cuda_engine
+    leaky_relu, the serial chain), each with its rounds per window, and
+    the Carus waves of :func:`carus_timed_waves` (Table V gemm, matmul and
+    conv2d, slide-dense), each with its records and barriers."""
     rows = []
     for (engine, sew), (progs, states) in sorted(waves.items()):
         for n_tiles in (1, WAVE_TILES):
             ps, st = progs[:n_tiles], states[:n_tiles]
             fields, state = wave_tensors(ps, st, device)
-            ms = time_kernel(engine, fields, state, sew,
-                             reps=20 if engine == "caesar" else 100)
+            times = time_kernel(engine, fields, state, sew,
+                                reps=20 if engine == "caesar" else 100)
             plain = time_plain(engine, fields, state, sew) \
                 if n_tiles == WAVE_TILES else None
             bms, by = bound_ms(engine, ps)
             rows.append(dict(engine=engine, sew=sew, tiles=n_tiles,
-                             n_instr=ps[0].n_instr, ms=ms, plain_ms=plain,
+                             n_instr=ps[0].n_instr, **times, plain_ms=plain,
                              bound_ms=bms, bound_by=by))
-            extra = ""
-            if engine == "caesar":
-                rounds = cuda_engine.caesar_window_rounds(ps[0].entries)
-                rows[-1]["rounds_per_window"] = float(rounds.mean())
-                extra = f", {rounds.mean():.3f} rounds per window"
+            cost = wave_cost(engine, ps)
+            rows[-1].update(cost)
             plain_txt = "not timed" if plain is None else f"{plain:.2f} ms"
             log(f"timing: {engine} sew={sew} T={n_tiles} "
-                f"n={ps[0].n_instr}: kernel {ms:.4f} ms, plain "
-                f"{plain_txt}, bound {bms:.5f} ms ({by}){extra}")
+                f"n={ps[0].n_instr}: kernel {times['ms']:.4f} ms (device "
+                f"{times['device_ms']:.4f}), plain "
+                f"{plain_txt}, bound {bms:.5f} ms ({by}), "
+                f"{cost_text(cost)}")
     report["timing"] = rows
-    report["caesar_waves"] = time_caesar_waves(
-        caesar_timed_waves(random=False), device)
+    report["caesar_waves"] = time_waves(
+        "caesar", caesar_timed_waves(random=False), device)
+    report["carus_waves"] = time_waves(
+        "carus", carus_timed_waves(random=False), device)
     return {r["engine"]: r for r in rows
             if r["sew"] == 8 and r["tiles"] == WAVE_TILES}
 
 
-def numpy_wave(label: str, sew: int, progs, states) -> dict:
-    """A Caesar wave as numpy arrays, with its bound and the rounds per
-    window of its first program (``cuda_engine.caesar_window_rounds``)."""
-    import numpy as np
+def wave_cost(engine: str, progs) -> dict:
+    """The kernel's value-free cost of a wave's first program: Caesar's
+    rounds per window (``cuda_engine.caesar_window_rounds``), Carus's
+    executed records and barriers (``cuda_engine.carus_schedule``)."""
     from repro_torch.nmc import cuda_engine
+    if engine == "caesar":
+        rounds = cuda_engine.caesar_window_rounds(progs[0].entries)
+        return {"rounds_per_window": float(rounds.mean())}
+    sched = cuda_engine.carus_schedule(progs[0].entries, progs[0].sew)
+    return {"records": len(sched.records), "barriers": sched.barriers,
+            "slide_barriers": sched.slide_barriers}
+
+
+def cost_text(cost: dict) -> str:
+    if "rounds_per_window" in cost:
+        return f"{cost['rounds_per_window']:.3f} rounds per window"
+    return (f"{cost['records']} records, {cost['barriers']} barriers "
+            f"({cost['slide_barriers']} around slides)")
+
+
+def numpy_wave(engine: str, label: str, sew: int, progs, states) -> dict:
+    """A wave as numpy arrays, with its bound and :func:`wave_cost`."""
+    import numpy as np
     from repro_torch.nmc.program import stack_programs
-    rounds = cuda_engine.caesar_window_rounds(progs[0].entries)
-    bms, by = bound_ms("caesar", progs)
+    bms, by = bound_ms(engine, progs)
     return dict(label=label, sew=sew, tiles=len(progs),
-                n_instr=progs[0].n_instr,
-                rounds_per_window=float(rounds.mean()), bound_ms=bms,
-                bound_by=by, fields=stack_programs(progs),
+                n_instr=progs[0].n_instr, **wave_cost(engine, progs),
+                bound_ms=bms, bound_by=by, fields=stack_programs(progs),
                 states=np.ascontiguousarray(states))
 
 
@@ -465,21 +516,50 @@ def caesar_timed_waves(random: bool) -> list[dict]:
     for sew in SEWS if random else ():
         progs, states = conformance.random_wave("caesar", sew, WAVE_TILES, n,
                                                 seed=sew)
-        waves += [numpy_wave("random", sew, progs[:t], states[:t])
+        waves += [numpy_wave("caesar", "random", sew, progs[:t], states[:t])
                   for t in (1, WAVE_TILES)]
     for name in ("gemm", "leaky_relu"):
         eb = P.build(name, 8).caesar
-        waves.append(numpy_wave(f"table_v {name}", 8,
+        waves.append(numpy_wave("caesar", f"table_v {name}", 8,
                                 [eb.program] * WAVE_TILES,
                                 np.stack([eb.mem] * WAVE_TILES)))
     progs, states = conformance.chain_wave(8, WAVE_TILES, n, seed=8)
-    waves.append(numpy_wave("serial chain", 8, progs, states))
+    waves.append(numpy_wave("caesar", "serial chain", 8, progs, states))
     return waves
 
 
-def time_caesar_waves(waves: list[dict], device) -> list[dict]:
-    """ms per launch of ``caesar_wave`` (the package imported now) on each
-    wave of :func:`caesar_timed_waves`."""
+def carus_timed_waves(random: bool) -> list[dict]:
+    """Carus waves to time, as numpy arrays: with ``random`` the random
+    waves of :func:`phase_kernels_vs_plain` (every SEW, T in {1, 128});
+    then, at T=128 and SEW 8, the Table V Carus programs padded to their
+    buckets (gemm and matmul: 256, a third of it and more compacted out;
+    conv2d: 128 with 16 slides) and the slide-dense wave."""
+    import numpy as np
+    from repro_torch.core import programs as P
+    from repro_torch.nmc import conformance
+    from repro_torch.nmc.program import instr_bucket
+    n = LARGEST_BUCKET["carus"]
+    waves = []
+    for sew in SEWS if random else ():
+        progs, states = conformance.random_wave("carus", sew, WAVE_TILES, n,
+                                                seed=sew)
+        waves += [numpy_wave("carus", "random", sew, progs[:t], states[:t])
+                  for t in (1, WAVE_TILES)]
+    for name in ("gemm", "matmul", "conv2d"):
+        eb = P.build(name, 8).carus
+        prog = eb.program.pad_to(instr_bucket(eb.program.n_instr))
+        waves.append(numpy_wave("carus", f"table_v {name}", 8,
+                                [prog] * WAVE_TILES,
+                                np.stack([eb.mem] * WAVE_TILES)))
+    progs, states = conformance.slide_wave(8, WAVE_TILES, n, seed=8)
+    waves.append(numpy_wave("carus", "slide-dense", 8, progs, states))
+    return waves
+
+
+def time_waves(engine: str, waves: list[dict], device) -> list[dict]:
+    """ms per launch of the wave kernel of ``engine`` (the package
+    imported now) on each wave of :func:`caesar_timed_waves` or
+    :func:`carus_timed_waves`."""
     import torch
     rows = []
     for w in waves:
@@ -487,12 +567,13 @@ def time_caesar_waves(waves: list[dict], device) -> list[dict]:
                   for k, v in w["fields"].items()}
         state = torch.as_tensor(w["states"], device=device)
         row = {k: v for k, v in w.items() if k not in ("fields", "states")}
-        row["ms"] = time_kernel("caesar", fields, state, w["sew"], reps=20)
+        row.update(time_kernel(engine, fields, state, w["sew"],
+                               reps=20 if engine == "caesar" else 100))
         rows.append(row)
-        log(f"timing: caesar {w['label']} sew={w['sew']} T={w['tiles']} "
-            f"n={w['n_instr']}: kernel {row['ms']:.4f} ms, bound "
-            f"{w['bound_ms']:.5f} ms ({w['bound_by']}), "
-            f"{w['rounds_per_window']:.3f} rounds per window")
+        log(f"timing: {engine} {w['label']} sew={w['sew']} T={w['tiles']} "
+            f"n={w['n_instr']}: kernel {row['ms']:.4f} ms (device "
+            f"{row['device_ms']:.4f}), bound "
+            f"{w['bound_ms']:.5f} ms ({w['bound_by']}), {cost_text(row)}")
     return rows
 
 
@@ -1398,9 +1479,10 @@ def phase_resident_block(report: dict, device, seed: int = 0) -> dict:
 
 def time_checkout(root: pathlib.Path, waves_only: bool = False) -> int:
     """``python3 chip_smoke.py --time-checkout DIR [--waves-only]``: times
-    the checkout at DIR.  First its ``caesar_wave`` on the waves of
-    :func:`caesar_timed_waves` (made by this tree's package, so that both
-    checkouts run the same waves); then, unless ``--waves-only``, its
+    the checkout at DIR.  First its ``caesar_wave`` and ``carus_wave`` on
+    the waves of :func:`caesar_timed_waves` and :func:`carus_timed_waves`
+    (made by this tree's package, so that both checkouts run the same
+    waves); then, unless ``--waves-only``, its
     serving phase (its own ``chip_smoke.phase_serving``) alone in this
     process, and this script's ``nmc_matmul`` timings of that checkout's
     package: device ms with the L2 evicted, host us per call, a decode
@@ -1414,7 +1496,8 @@ def time_checkout(root: pathlib.Path, waves_only: bool = False) -> int:
         return 1
     root = root.resolve()
     sys.path.insert(0, str(REPO / "src"))
-    waves = caesar_timed_waves(random=True)
+    waves = {"caesar": caesar_timed_waves(random=True),
+             "carus": carus_timed_waves(random=True)}
     # from here on, the package under test is the checkout's
     sys.path.remove(str(REPO / "src"))
     for name in [m for m in sys.modules
@@ -1426,7 +1509,8 @@ def time_checkout(root: pathlib.Path, waves_only: bool = False) -> int:
     device = torch.device("cuda", 0)
     cuda_build.build_all()
     out = {"smi": nvidia_smi_line(), "package": repro_torch.__file__,
-           "caesar_waves": time_caesar_waves(waves, device)}
+           **{f"{e}_waves": time_waves(e, w, device)
+              for e, w in waves.items()}}
     if not waves_only:
         spec = importlib.util.spec_from_file_location(
             "checkout_smoke", root / "chip_smoke.py")
@@ -1485,7 +1569,8 @@ def main() -> int:
         kernels.append({**meta, "route": "cuda",
                         "launches": launches[engine],
                         "max_abs_err": report["max_abs_err"][engine],
-                        "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "ms": row["ms"], "device_ms": row["device_ms"],
+                        "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": None})
     # attention's error by route, the serving replay (all on the tensor

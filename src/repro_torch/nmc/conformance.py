@@ -12,6 +12,9 @@
 * :func:`chain_wave` — Caesar programs in which every instruction reads
   the word the one before it wrote: the serial worst case of the
   ``caesar_wave`` kernel's windows.
+* :func:`slide_wave` — Carus programs in which every other op is a slide,
+  half of them in place (``vd == vs2``), over registers the ops between
+  them write: the cross-thread case of the ``carus_wave`` kernel.
 
 Everything is made from a seed with numpy, so the kernels and their plain
 versions see the same inputs on any device.
@@ -227,5 +230,79 @@ def chain_wave(sew: int, n_tiles: int, n_instr: int,
         entries["src2"] = rng.integers(CAESAR_MEM_WORDS, size=n_instr)
         progs.append(Program.from_entries("caesar", sew, entries))
     states = rng.integers(-2**31, 2**31, (n_tiles, CAESAR_MEM_WORDS),
+                          dtype=np.int64).astype(np.int32)
+    return progs, states
+
+
+#: registers a slide-dense program uses, so that its slides read what the
+#: ops just before them wrote
+SLIDE_REGS = 6
+_CARUS_LOCAL_OPS = (VOp.VADD, VOp.VSUB, VOp.VMUL, VOp.VMACC, VOp.VAND,
+                    VOp.VOR, VOp.VXOR, VOp.VMIN, VOp.VMINU, VOp.VMAX,
+                    VOp.VMAXU, VOp.VSLL, VOp.VSRL, VOp.VSRA, VOp.VMV,
+                    VOp.EMVV)
+
+
+def slide_carus_entries(rng, n_instr: int, sew: int) -> np.ndarray:
+    """Every even instruction a slide (up or down, half of them slide1,
+    half in place with ``vd == vs2``), its offset small, near +-VL, near
+    +-VLMAX or anywhere in int32; every odd one an element-local op in
+    vv / vx / vi mode or EMVV, and one in five a VSETVL to a negative
+    (down to -2**31), zero, partial, full or oversized length.  Registers
+    come from the first :data:`SLIDE_REGS`.  PROG_DTYPE entries."""
+    vlmax = CarusConfig().vlmax(sew)
+    cid = isa.COMPACT_ID
+    entries = np.zeros(n_instr, dtype=PROG_DTYPE)
+    vl = vlmax
+    for i in range(n_instr):
+        e = entries[i]
+        vd, vs1, vs2 = (int(r) for r in rng.integers(SLIDE_REGS, size=3))
+        if i % 2 == 0:
+            e["op"] = cid[VOp.VSLIDEUP if rng.random() < 0.5
+                          else VOp.VSLIDEDOWN]
+            if rng.random() < 0.5:
+                vs2 = vd
+            kind = int(rng.integers(5))
+            off = (int(rng.integers(-3, 4)) if kind == 0 else
+                   vl + int(rng.integers(-3, 4)) if kind == 1 else
+                   -vl + int(rng.integers(-3, 4)) if kind == 2 else
+                   vlmax * int(rng.choice([-1, 1])) + int(rng.integers(-3, 4))
+                   if kind == 3 else int(rng.integers(-2**31, 2**31)))
+            mode = isa.MODE_VI if kind == 0 and rng.random() < 0.5 \
+                else isa.MODE_VX
+            off = (off + 2**31) % 2**32 - 2**31       # int32, wrapping
+            e["sval1"], e["imm"] = off, off if mode == isa.MODE_VI else 0
+            if rng.random() < 0.5:
+                mode |= isa.MODE_SLIDE1
+                e["sval1"] = int(rng.integers(-2**31, 2**31))
+            e["mode"] = mode
+        elif rng.random() < 0.2:
+            e["op"] = cid[VOp.VSETVL]
+            e["sval1"] = int(rng.choice([-2**31, -5, 0, 1,
+                                         int(rng.integers(1, vlmax)), vlmax,
+                                         vlmax + 7]))
+            vl = min(int(e["sval1"]), vlmax)
+            vd = vs1 = vs2 = 0
+        else:
+            op = _CARUS_LOCAL_OPS[int(rng.integers(len(_CARUS_LOCAL_OPS)))]
+            e["op"] = cid[op]
+            e["sval1"] = int(rng.integers(-2**31, 2**31))
+            e["sval2"] = int(rng.integers(-2**31, 2**31))
+            e["imm"] = int(rng.integers(-16, 16))
+            e["mode"] = isa.MODE_VX if op == VOp.EMVV \
+                else int(rng.integers(3))
+        e["dest"], e["src1"], e["src2"] = vd, vs1, vs2
+    return entries
+
+
+def slide_wave(sew: int, n_tiles: int, n_instr: int,
+               seed: int = 0) -> tuple[list[Program], np.ndarray]:
+    """``n_tiles`` programs of :func:`slide_carus_entries` and their random
+    VRF images, stacked ``[n_tiles, 32, 256]``."""
+    rng = np.random.default_rng(seed)
+    progs = [Program.from_entries("carus", sew,
+                                  slide_carus_entries(rng, n_instr, sew))
+             for _ in range(n_tiles)]
+    states = rng.integers(-2**31, 2**31, (n_tiles, 32, 256),
                           dtype=np.int64).astype(np.int32)
     return progs, states

@@ -31,6 +31,17 @@ it.  A tile's time is its windows times a window's latency, which grows by
 one round per level of the read-after-write chain inside the window
 (:func:`caesar_window_rounds`); bytes play no part.
 
+The Carus kernel runs :data:`CARUS_THREADS` threads per tile, thread ``t``
+owning word ``t`` of every vector register.  It decodes each instruction
+once per tile, in chunks of :data:`CARUS_CHUNK` (one per thread), into
+16-byte records in shared memory: register indices reduced, the scalar
+operand, and the VL in force, which depends only on the trace's VSETVLs.
+VNOP, EMVX and VSETVL write nothing and are compacted out.  Every op but
+the slides touches only the executing thread's own words, so the block
+synchronises once per chunk and around each slide (before its gathers and
+before its write).  A tile's time is its executed records times one warp's
+latency per record, plus the slides' barriers (:func:`carus_schedule`).
+
 The wrappers :func:`caesar_wave` and :func:`carus_wave` check device, dtype,
 shape and contiguity, launch on ``torch.cuda.current_stream()`` and count
 their launches in a plain integer (``caesar_wave.launches``).  On CPU
@@ -43,6 +54,7 @@ CUDA tensor they launch the kernel or raise — there is no fallback.  The
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -51,6 +63,7 @@ from repro_torch import cuda_build
 from repro_torch.core import isa
 from repro_torch.core.caesar import CaesarEngine
 from repro_torch.core.carus import CarusVPU
+from repro_torch.core.isa import VOp
 from repro_torch.nmc.engine import CaesarTile, CarusTile
 
 CAESAR_FIELDS = isa.CAESAR_TRACE_DTYPE.names
@@ -58,6 +71,19 @@ CAESAR_FIELDS = isa.CAESAR_TRACE_DTYPE.names
 #: ``csrc/caesar_wave.cu``): one per lane of a warp
 CAESAR_WINDOW = 32
 CARUS_FIELDS = isa.CARUS_TRACE_DTYPE.names
+#: threads per tile of the Carus kernel (``kThreads`` in
+#: ``csrc/carus_wave.cu``): thread t owns word t of every vector register
+CARUS_THREADS = 256
+#: instructions the Carus kernel decodes per chunk (``kChunk``), one a thread
+CARUS_CHUNK = 256
+#: one record of the Carus kernel's decode, as :func:`carus_schedule` gives
+#: it (``bar_gather`` / ``bar_write``: the barriers before a slide's gathers
+#: and before its write)
+CARUS_RECORD_DTYPE = np.dtype([
+    ("op", "<i4"), ("vd", "<i4"), ("vs1", "<i4"), ("vs2", "<i4"),
+    ("vv", "?"), ("slide1", "?"), ("scalar", "<i4"), ("aux", "<i4"),
+    ("vl", "<i4"), ("chunk", "<i4"), ("bar_gather", "?"),
+    ("bar_write", "?")])
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -96,7 +122,8 @@ def caesar_wave(fields: dict, mem: torch.Tensor, sew: int) -> torch.Tensor:
         rc = fn(*(fields[k].data_ptr() for k in CAESAR_FIELDS),
                 mem.data_ptr(), n_tiles, n_instr, mem_words, sew, stream)
     cuda_build.check_launch("caesar_wave", rc)
-    caesar_wave.launches += 1
+    if n_tiles:                             # the entry launches nothing else
+        caesar_wave.launches += 1
     return mem
 
 
@@ -155,8 +182,77 @@ def carus_wave(fields: dict, vrf: torch.Tensor, sew: int) -> torch.Tensor:
                 vrf.data_ptr(), n_tiles, n_instr, n_regs, reg_words, sew,
                 stream)
     cuda_build.check_launch("carus_wave", rc)
-    carus_wave.launches += 1
+    if n_tiles and n_instr:                 # the entry launches nothing else
+        carus_wave.launches += 1
     return vrf
+
+
+_CID = isa.COMPACT_ID
+
+
+@dataclasses.dataclass(frozen=True)
+class CarusSchedule:
+    """What the Carus kernel's decode makes of one program: the records it
+    executes, in trace order (VNOP, EMVX and VSETVL compacted out), and
+    the number of chunks.  Each chunk takes one barrier before its records
+    run and the image one more before it goes out; each slide takes two."""
+
+    records: np.ndarray
+    chunks: int
+
+    @property
+    def slide_barriers(self) -> int:
+        return int(self.records["bar_gather"].sum()
+                   + self.records["bar_write"].sum())
+
+    @property
+    def chunk_barriers(self) -> int:
+        return self.chunks + 1 if self.chunks else 0
+
+    @property
+    def barriers(self) -> int:
+        return self.slide_barriers + self.chunk_barriers
+
+
+def carus_schedule(entries, sew: int) -> CarusSchedule:
+    """The Carus kernel's decode of one program (PROG_DTYPE ``entries``),
+    value-free: register indices after the indirect selection, mod 32; the
+    scalar operand (``imm`` in vi mode, else ``sval1``; EMVV's value); the
+    auxiliary word (EMVV's element, ``sval2`` mod the register's elements;
+    else ``sval1``, a slide1's edge value); and the VL in force, from the
+    trace's VSETVLs alone: VLMAX, then ``min(sval1, VLMAX)`` of the latest
+    earlier VSETVL, carried across chunks, and clamped at 0 (a VL at or
+    below zero writes nothing)."""
+    f = {k: np.asarray(entries[k], np.int64)
+         for k in ("op", "dest", "src1", "src2", "sval1", "sval2", "imm",
+                   "mode")}
+    op, sval1, sval2, mode = f["op"], f["sval1"], f["sval2"], f["mode"]
+    n, elems = len(op), 256 * 32 // sew
+    indirect = (mode & isa.MODE_INDIRECT) != 0
+    opmode = mode & 0x3
+    emvv = op == _CID[VOp.EMVV]
+    slide = (op == _CID[VOp.VSLIDEUP]) | (op == _CID[VOp.VSLIDEDOWN])
+    last_set = np.maximum.accumulate(
+        np.where(op == _CID[VOp.VSETVL], np.arange(n), -1))
+    before = np.concatenate([[-1], last_set])[:n]
+    cols = {
+        "op": op,
+        "vd": np.where(indirect, sval2 >> 16, f["dest"]) & 31,
+        "vs1": np.where(indirect, sval2, f["src1"]) & 31,
+        "vs2": np.where(indirect, sval2 >> 8, f["src2"]) & 31,
+        "vv": opmode == isa.MODE_VV,
+        "slide1": (mode & isa.MODE_SLIDE1) != 0,
+        "scalar": np.where(~emvv & (opmode == isa.MODE_VI), f["imm"], sval1),
+        "aux": np.where(emvv, sval2 & (elems - 1), sval1),
+        "vl": np.where(before >= 0,
+                       np.clip(sval1[before], 0, elems), elems),
+        "chunk": np.arange(n) // CARUS_CHUNK,
+        "bar_gather": slide, "bar_write": slide}
+    keep = op <= _CID[VOp.EMVV]
+    records = np.zeros(int(keep.sum()), CARUS_RECORD_DTYPE)
+    for k, v in cols.items():
+        records[k] = v[keep]
+    return CarusSchedule(records, -(-n // CARUS_CHUNK))
 
 
 caesar_wave.launches = 0
@@ -216,8 +312,8 @@ class CudaCaesarEngine(_CudaMixin, CaesarTile):
 
 
 class CudaCarusEngine(_CudaMixin, CarusTile):
-    """NM-Carus tile on the card: the VRF resident in shared memory as
-    native-dtype elements, VL carried in a register."""
+    """NM-Carus tile on the card: the VRF resident in shared memory, one
+    thread per word, each instruction decoded once per tile."""
 
     _wave = staticmethod(carus_wave)
 

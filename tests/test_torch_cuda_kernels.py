@@ -78,10 +78,10 @@ def test_kernel_equals_plain_on_golden_programs(card, engine):
             assert torch.equal(got, want), (label, sew)
 
 
-def _caesar_equals_plain(progs, states, sew, card):
+def _equals_plain(engine, progs, states, sew, card):
     fields, state = _tensors(progs, states, card)
-    want = _plain("caesar", fields, state, sew)
-    got = cuda_engine.caesar_wave(fields, state.clone(), sew)
+    want = _plain(engine, fields, state, sew)
+    got = _kernel(engine)(fields, state.clone(), sew)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -93,13 +93,13 @@ def test_caesar_equals_plain_on_conflict_dense_waves(card, sew, n_words):
     writers of one word and write-after-read pairs in every window."""
     progs, states = conformance.random_wave("caesar", sew, 16, 1024,
                                             seed=sew, n_words=n_words)
-    _caesar_equals_plain(progs, states, sew, card)
+    _equals_plain("caesar", progs, states, sew, card)
 
 
 @pytest.mark.parametrize("sew", SEWS)
 def test_caesar_equals_plain_on_the_serial_chain(card, sew):
     progs, states = conformance.chain_wave(sew, 16, 1024, seed=sew)
-    _caesar_equals_plain(progs, states, sew, card)
+    _equals_plain("caesar", progs, states, sew, card)
 
 
 @pytest.mark.parametrize("sew", SEWS)
@@ -118,7 +118,7 @@ def test_caesar_equals_plain_when_all_lanes_write_one_word(card, sew):
         progs.append(Program.from_entries("caesar", sew, entries))
     states = rng.integers(-2**31, 2**31, (4, conformance.CAESAR_MEM_WORDS),
                           dtype=np.int64).astype(np.int32)
-    _caesar_equals_plain(progs, states, sew, card)
+    _equals_plain("caesar", progs, states, sew, card)
 
 
 @pytest.mark.parametrize("n_instr", [1, 31, 33, 1001])
@@ -126,7 +126,46 @@ def test_caesar_equals_plain_when_all_lanes_write_one_word(card, sew):
 def test_caesar_equals_plain_off_the_window(card, sew, n_instr):
     progs, states = conformance.random_wave("caesar", sew, 8, n_instr,
                                             seed=n_instr, n_words=16)
-    _caesar_equals_plain(progs, states, sew, card)
+    _equals_plain("caesar", progs, states, sew, card)
+
+
+@pytest.mark.parametrize("sew", SEWS)
+def test_carus_equals_plain_on_slide_dense_waves(card, sew):
+    """Every other op a slide, half of them in place (vd == vs2), with
+    VSETVLs to negative (down to -2**31), partial and oversized lengths
+    between them."""
+    progs, states = conformance.slide_wave(sew, 16, 256, seed=sew)
+    _equals_plain("carus", progs, states, sew, card)
+
+
+@pytest.mark.parametrize("n_instr", [257, 700, 1024])
+@pytest.mark.parametrize("sew", SEWS)
+def test_carus_equals_plain_beyond_one_chunk(card, sew, n_instr):
+    """Traces of several decode chunks: VL carried across them, random and
+    slide-dense."""
+    progs, states = conformance.random_wave("carus", sew, 8, n_instr,
+                                            seed=n_instr + sew)
+    _equals_plain("carus", progs, states, sew, card)
+    progs, states = conformance.slide_wave(sew, 8, n_instr, seed=sew)
+    _equals_plain("carus", progs, states, sew, card)
+
+
+@pytest.mark.parametrize("engine", ["caesar", "carus"])
+def test_empty_waves_launch_nothing(card, engine):
+    """No tiles (and, for Carus, no instructions): the image stays as it
+    was and the launch counter does not move."""
+    progs, states = conformance.random_wave(engine, 8, 2, 16, seed=0)
+    fields, state = _tensors(progs, states, card)
+    cases = [({k: v[:0] for k, v in fields.items()}, state[:0])]
+    if engine == "carus":
+        cases.append(({k: v[:, :0].contiguous() for k, v in fields.items()},
+                      state))
+    for f, st in cases:
+        before, want = _kernel(engine).launches, st.clone()
+        got = _kernel(engine)(f, st, 8)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert _kernel(engine).launches == before
 
 
 def test_cuda_pools_equal_torch_pools(card):
