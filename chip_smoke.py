@@ -31,9 +31,13 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   ``vrf_alu`` against its plain version bit for bit (both demo programs,
   every op in both modes and the wrap extremes at int8 / int16 / int32 on
   a block-multiple and a ragged VL, 50 random programs), then the demo
-  itself end to end; ``vrf_alu`` at full size (32 registers x 1,048,576
-  elements, the VRF of a 1024-tile NM-Carus array) timed beside its plain
-  version and its bound.
+  itself end to end; ``vrf_alu`` on its edge cases (rows not 16-byte
+  aligned, views at odd offsets, programs longer or wider than one launch,
+  vv shifts by lane, empty programs); ``vrf_alu`` at full size (32
+  registers x 1,048,576 elements, the VRF of a 1024-tile NM-Carus array:
+  the demo's ``fused_chain`` at int8 / int16 / int32, a 64-instruction
+  random program at int8 / int32) and at the demo's shape, timed beside
+  the empty kernel's launch floor, its plain version and its bound.
 * Multi-tile NMC: the five tile-count-sweep kernel families at tiles 1, 2,
   4, 8 and 16, sync and async, on both wave kernels, and one autotuned
   mixed 7 Caesar + 1 Carus ``qrelu`` wave.
@@ -47,12 +51,12 @@ Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 a card, or outside a checkout of the repository, it fails before printing a
 result.  Imports nothing of JAX or of the JAX package ``repro``.
 
-    python3 chip_smoke.py --time-checkout DIR [--waves-only]
+    python3 chip_smoke.py --time-checkout DIR [--waves-only | --vrf-only]
 
 times the checkout at DIR alone: its ``caesar_wave`` and ``carus_wave`` on
 this script's waves, then (unless ``--waves-only``) its serving phase and
-its ``nmc_matmul`` (:func:`time_checkout`), to compare two checkouts in
-one call.
+its ``nmc_matmul``; with ``--vrf-only`` only its ``vrf_alu``
+(:func:`time_checkout`), to compare two checkouts in one call.
 """
 
 from __future__ import annotations
@@ -200,6 +204,11 @@ def phase_build(report: dict) -> None:
     report["build_s"] = time.perf_counter() - t0
     log(f"build: {report['build_s']:.1f} s for "
         f"{[s.name for s in cuda_build.sources()]}")
+    nvcc = subprocess.run([cuda_build._nvcc(), "--version"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[-1]
+    report["nvcc"] = nvcc
+    log(f"  nvcc: {nvcc}")
     for stem, info in cuda_build.BUILD_LOG.items():
         for line in ptxas_summary(info["ptxas"]):
             log(f"  ptxas {stem}: {line}")
@@ -215,7 +224,8 @@ def phase_build(report: dict) -> None:
 #: ring's cp.async of the Caesar window kernel; the Carus kernel's
 #: broadcast record loads (LDS.128), its cp.async staging (LDGSTS) and its
 #: block barriers (BAR.SYNC: per chunk, around slides, before the image
-#: goes out)
+#: goes out); the aligned vrf_alu instances' 128-bit global loads and
+#: stores and 128-bit slab accesses, and no byte load (SASS_ABSENT)
 SASS_OPS = {
     "caesar_wave": ("caesar_wave_kernel",
                     {"shfl": ("SHFL",), "vote": ("VOTE",),
@@ -230,16 +240,24 @@ SASS_OPS = {
     "nmc_matmul": ("nmc_matmul_tc_kernel",
                    {"imma_s8": ("IMMA.", "S8"), "ldgsts": ("LDGSTS",),
                     "ldsm": ("LDSM",)}),
+    "vrf_alu": ("vrf_alu_kernel",
+                {"ldg128": ("LDG.", ".128"), "stg128": ("STG.", ".128"),
+                 "lds128": ("LDS.128",), "sts128": ("STS.128",)}),
 }
+#: SASS opcodes a kernel of SASS_OPS must not have
+SASS_ABSENT = {"vrf_alu": {"ldg_u8": ("LDG.", ".U8"),
+                           "ldg_s8": ("LDG.", ".S8")}}
 
 
 def sass_evidence(stem: str, lib) -> dict:
     """Count, in each kernel of :data:`SASS_OPS` in the library built from
     ``csrc/<stem>.cu``, the SASS instructions that show its design
     (``cuobjdump -sass``, from the toolkit beside nvcc); fails if a kernel
-    lacks one of them."""
+    lacks one of them or has one of :data:`SASS_ABSENT`."""
     from repro_torch import cuda_build
     kernel_name, ops = SASS_OPS[stem]
+    absent = SASS_ABSENT.get(stem, {})
+    ops = {**ops, **absent}
     tool = pathlib.Path(cuda_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -253,9 +271,12 @@ def sass_evidence(stem: str, lib) -> dict:
         elif fn:
             for op, keys in ops.items():
                 counts[fn][op] += all(k in line for k in keys)
-    if not counts or any(not all(c.values()) for c in counts.values()):
+    if not counts or any(not all(v for k, v in c.items() if k not in absent)
+                         or any(c[k] for k in absent)
+                         for c in counts.values()):
         raise AssertionError(f"{stem}: a {kernel_name} without "
-                             f"{' / '.join(ops)} in its SASS: {counts}")
+                             f"{' / '.join(ops)} (or with "
+                             f"{' / '.join(absent)}) in its SASS: {counts}")
     for fn_name, c in counts.items():
         log(f"  sass {stem} {fn_name}: {c}")
     return counts
@@ -1240,9 +1261,9 @@ BLOCK = dict(d_model=320, n_heads=5, d_ff=880, rows=4, tiles=80)
 def vrf_bound_ms(compiled, vl: int, elem: int) -> tuple:
     """Bytes: every register the program reads before writing it (vs2
     unless the op is mv, vs1 in vv mode) loaded once, every register it
-    writes stored once: the load and store lists of
-    ``kernels.vrf_alu.compile_prog``.  Operations:
-    one per element per instruction, at the int8 peak."""
+    writes stored once: the whole program's load and store lists of
+    ``kernels.vrf_alu.compile_prog``.  Operations: one per element per
+    instruction, at the int8 peak."""
     t_bytes = (compiled.n_load + compiled.n_store) * vl * elem \
         / HBM_BYTES_PER_S
     t_ops = compiled.n_instr * vl / INT_OPS_PER_S
@@ -1252,60 +1273,184 @@ def vrf_bound_ms(compiled, vl: int, elem: int) -> tuple:
 
 def phase_vrf_vs_plain(report: dict, device) -> int:
     """vrf_alu against its plain version on the card, bit for bit, on
-    every case of kernels/checks.py (50 random programs among them)."""
+    every case of kernels/checks.py (50 random programs among them) and on
+    its edge cases: rows not 16-byte aligned, views at odd offsets, long
+    and wide programs (their launch counts asserted), vv shifts by lane,
+    an empty program and VL 0 (no launch)."""
     import torch
     from repro_torch.kernels import checks
     worst, cases = 0, checks.vrf_cases(n_random=50)
     for label, f, entries in cases:
         worst = max(worst, checks.check_vrf_alu(f, entries, device))
+    edges = checks.vrf_edge_cases()
+    for case in edges:
+        worst = max(worst, checks.check_vrf_case(case, device))
     torch.cuda.synchronize()
     log(f"vrf_alu vs plain: {len(cases)} cases (demo programs, every op x "
         f"mode, wrap extremes at int8/int16/int32, VL "
-        f"{list(checks.VRF_VLS)}, 50 random programs) bit-exact")
-    report["vrf_cases"] = len(cases)
+        f"{list(checks.VRF_VLS)}, 50 random programs) and {len(edges)} "
+        f"edge cases ({', '.join(c[0] for c in edges)}) bit-exact, launch "
+        f"counts as stated")
+    report["vrf_cases"] = len(cases) + len(edges)
     return worst
 
 
-def phase_vrf_full(report: dict, device) -> dict:
-    """vrf_alu at full size with the demo's fused_chain program, at int8,
-    int16 and int32: kernel vs plain bit for bit, then ms per launch (L2
-    flushed before each), the plain version's ms and the bound."""
+#: the timed vrf_alu rows: (label, shape, dtype name); fused_chain is the
+#: demo's program, random64 checks.vrf_timed_random_program
+VRF_ROWS = (("fused_chain", VRF_FULL, "int8"),
+            ("fused_chain", VRF_FULL, "int16"),
+            ("fused_chain", VRF_FULL, "int32"),
+            ("random64", VRF_FULL, "int8"),
+            ("random64", VRF_FULL, "int32"),
+            ("fused_chain", (32, 4096), "int16"))
+#: public calls per host-time reading, at the demo's shape
+VRF_CALLS = 200
+
+
+def vrf_rows() -> list:
+    """:data:`VRF_ROWS` with their programs' entries (plain data, so that
+    another checkout's package can run the same rows)."""
+    from repro_torch.kernels import checks
+    programs = {"fused_chain": checks.VRF_DEMO_PROGRAMS["fused_chain"],
+                "random64": checks.vrf_timed_random_program()}
+    return [dict(label=label, shape=list(shape), dtype=dtype,
+                 entries=programs[label]) for label, shape, dtype in VRF_ROWS]
+
+
+def vrf_file(shape, dtype, device, seed: int = 0):
     import torch
-    from repro_torch.kernels import checks, ref
+    dt = getattr(torch, dtype)
+    info = torch.iinfo(dt)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(info.min, info.max + 1, tuple(shape), generator=gen,
+                         device=device, dtype=dt)
+
+
+def vrf_call_us(entries: list, dtype: str, device) -> float:
+    """Host us per public ``vrf_alu`` call of the imported package at the
+    demo's shape: :data:`VRF_CALLS` calls back to back, then one
+    synchronize, after a warm-up call."""
+    import torch
     from repro_torch.kernels import vrf_alu as V
-    entries = checks.VRF_DEMO_PROGRAMS["fused_chain"]
+    from repro_torch.kernels import checks
+    buf = vrf_file(checks.VRF_DEMO_SHAPE, dtype, device)
     prog = V.make_prog(entries)
-    compiled = V.compile_prog(ref.check_vrf_program(prog, VRF_FULL[0])) \
-        .to(device)
+    V.vrf_alu(buf, prog)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(VRF_CALLS):
+        V.vrf_alu(buf, prog)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / VRF_CALLS * 1e6
+
+
+def vrf_launcher(V, buf, prog):
+    """A callable that launches the imported package's kernel alone on
+    ``prog``, compiled ahead: ``compile_prog(rows, elem_bytes)``, or an
+    earlier package's ``compile_prog(rows)`` whose code is copied to the
+    card first."""
+    import inspect
+    from repro_torch.kernels import ref
+    rows = ref.check_vrf_program(prog, buf.shape[0])
+    if len(inspect.signature(V.compile_prog).parameters) == 2:
+        compiled = V.compile_prog(rows, buf.element_size())
+    else:
+        compiled = V.compile_prog(rows).to(buf.device)
+    return lambda: V.launch(buf, compiled)
+
+
+def time_vrf_public(rows: list, device) -> list:
+    """The imported package's ``vrf_alu`` on each row: the public call's ms
+    by CUDA events with the L2 flushed first (a call that waits on the
+    card, as a blocking copy does, pays the wait inside the span), host us
+    per public call at the demo's shape, and the kernel alone on the
+    program compiled ahead (:func:`vrf_launcher`), L2 flushed (``ms``) and
+    with the host ahead (``device_ms``)."""
+    from repro_torch.kernels import vrf_alu as V
     flush = l2_flush(device)
-    gen = torch.Generator(device=device).manual_seed(0)
+    warm = vrf_file(rows[0]["shape"], rows[0]["dtype"], device)
+    events_ms(lambda: V.vrf_alu(warm, V.make_prog(rows[0]["entries"])),
+              reps=20, flush=flush)
+    del warm
+    out = []
+    for r in rows:
+        buf = vrf_file(r["shape"], r["dtype"], device)
+        prog = V.make_prog(r["entries"])
+        ms = events_ms(lambda: V.vrf_alu(buf, prog), reps=20, flush=flush)
+        us = vrf_call_us(r["entries"], r["dtype"], device)
+        go = vrf_launcher(V, buf, prog)
+        kms = events_ms(go, reps=20, flush=flush)
+        kdev = events_ms(go, reps=50, flush=host_ahead)
+        out.append(dict(label=r["label"], shape=r["shape"], dtype=r["dtype"],
+                        public_ms=ms, vrf_call_us=us, ms=kms,
+                        device_ms=kdev))
+        log(f"timing: vrf_alu public {r['label']} {r['shape']} {r['dtype']}: "
+            f"{ms:.4f} ms (events, L2 flushed), {us:.1f} us per call at the "
+            f"demo shape; kernel alone {kms:.4f} ms (device {kdev:.4f})")
+        del buf
+    return out
+
+
+def phase_vrf_full(report: dict, device) -> dict:
+    """vrf_alu on :data:`VRF_ROWS`: the demo's fused_chain at full size (32
+    registers x 1,048,576 elements) at int8 / int16 / int32, a
+    64-instruction random program at int8 and int32, fused_chain at the
+    demo's shape; and the empty kernel with the same parameters (the launch
+    floor).  Each row: kernel vs plain bit for bit, the kernel alone by
+    CUDA events with the L2 flushed before each launch (``ms``) and with
+    the host ahead (``device_ms``), the public call's ms and host us per
+    call (:func:`time_vrf_public`), the plain version's ms and the
+    bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import vrf_alu as V
+    flush = l2_flush(device)
+    # the first timed spans of a process read high (clocks, first use of
+    # the flush): a pass that is thrown away
+    events_ms(lambda: V.launch_floor(device), reps=20, flush=flush)
+    floor = dict(
+        label="floor", ms=events_ms(lambda: V.launch_floor(device), reps=20,
+                                    flush=flush),
+        device_ms=events_ms(lambda: V.launch_floor(device), reps=50,
+                            flush=host_ahead))
+    log(f"timing: vrf_alu launch floor (empty kernel, same parameters): "
+        f"{floor['ms']:.4f} ms (device {floor['device_ms']:.4f})")
     rows = []
-    for dtype in checks.VRF_DTYPES:
-        info = torch.iinfo(dtype)
-        base = torch.randint(info.min, info.max + 1, VRF_FULL,
-                             generator=gen, device=device, dtype=dtype)
+    spec = vrf_rows()
+    for r, tm in zip(spec, time_vrf_public(spec, device)):
+        base = vrf_file(r["shape"], r["dtype"], device)
+        prog = V.make_prog(r["entries"])
         got = V.vrf_alu(base.clone(), prog)
         want = ref.vrf_alu(base.clone(), prog)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"vrf_alu full size {dtype}: kernel != "
-                                 f"plain")
+            raise AssertionError(f"vrf_alu {r['label']} {r['shape']} "
+                                 f"{r['dtype']}: kernel != plain")
         del got, want
-        buf = base.clone()
-        ms = events_ms(lambda: V.launch(buf, compiled), reps=20,
-                       flush=flush)
-        plain = events_ms(lambda: ref.vrf_alu(buf, prog), reps=3,
+        compiled = V.compile_prog(
+            ref.check_vrf_program(prog, r["shape"][0]), base.element_size())
+        plain = events_ms(lambda: ref.vrf_alu(base, prog), reps=3,
                           flush=flush)
-        bms, by = vrf_bound_ms(compiled, VRF_FULL[1], base.element_size())
-        rows.append(dict(dtype=str(dtype), shape=list(VRF_FULL),
-                         n_instr=len(entries), ms=ms, plain_ms=plain,
-                         bound_ms=bms, bound_by=by, max_abs_err=0))
-        log(f"timing: vrf_alu {VRF_FULL[0]}x{VRF_FULL[1]} {dtype} "
-            f"fused_chain ({len(entries)} instrs): kernel {ms:.4f} ms, plain "
-            f"{plain:.3f} ms, bound {bms:.5f} ms ({by}), library null (no "
-            f"PyTorch call runs a program-as-data VRF)")
-        del base, buf
+        bms, by = vrf_bound_ms(compiled, r["shape"][1], base.element_size())
+        rows.append(dict(
+            label=r["label"], dtype=r["dtype"], shape=r["shape"],
+            n_instr=compiled.n_instr, n_load=compiled.n_load,
+            n_store=compiled.n_store, launches=len(compiled.launches),
+            slots=[ln.n_slots for ln in compiled.launches],
+            ms=tm["ms"], device_ms=tm["device_ms"], floor_ms=floor["ms"],
+            floor_device_ms=floor["device_ms"], public_ms=tm["public_ms"],
+            vrf_call_us=tm["vrf_call_us"], plain_ms=plain, bound_ms=bms,
+            bound_by=by, max_abs_err=0))
+        log(f"timing: vrf_alu {r['label']} {r['shape']} {r['dtype']} "
+            f"({compiled.n_instr} instrs, {compiled.n_load} loads, "
+            f"{compiled.n_store} stores, slots {rows[-1]['slots']}): kernel "
+            f"{tm['ms']:.4f} ms (device {tm['device_ms']:.4f}), floor "
+            f"{floor['ms']:.4f}, plain {plain:.3f} ms, bound {bms:.5f} ms "
+            f"({by}), library null (no PyTorch call runs a program-as-data "
+            f"VRF)")
+        del base
     report["vrf_timing"] = rows
+    report["vrf_floor"] = floor
     return rows[0]
 
 
@@ -1477,9 +1622,14 @@ def phase_resident_block(report: dict, device, seed: int = 0) -> dict:
 
 
 
-def time_checkout(root: pathlib.Path, waves_only: bool = False) -> int:
-    """``python3 chip_smoke.py --time-checkout DIR [--waves-only]``: times
-    the checkout at DIR.  First its ``caesar_wave`` and ``carus_wave`` on
+def time_checkout(root: pathlib.Path, waves_only: bool = False,
+                  vrf_only: bool = False) -> int:
+    """``python3 chip_smoke.py --time-checkout DIR [--waves-only |
+    --vrf-only]``: times the checkout at DIR.  With ``--vrf-only``, only
+    its ``vrf_alu``: its public ``vrf_alu.vrf_alu`` on this script's rows
+    and programs (:func:`vrf_rows`, :func:`time_vrf_public`), then its own
+    ``chip_smoke.phase_vrf_full`` for its kernel-only reading.  Otherwise
+    first its ``caesar_wave`` and ``carus_wave`` on
     the waves of :func:`caesar_timed_waves` and :func:`carus_timed_waves`
     (made by this tree's package, so that both checkouts run the same
     waves); then, unless ``--waves-only``, its
@@ -1496,8 +1646,11 @@ def time_checkout(root: pathlib.Path, waves_only: bool = False) -> int:
         return 1
     root = root.resolve()
     sys.path.insert(0, str(REPO / "src"))
-    waves = {"caesar": caesar_timed_waves(random=True),
-             "carus": carus_timed_waves(random=True)}
+    if vrf_only:
+        rows = vrf_rows()
+    else:
+        waves = {"caesar": caesar_timed_waves(random=True),
+                 "carus": carus_timed_waves(random=True)}
     # from here on, the package under test is the checkout's
     sys.path.remove(str(REPO / "src"))
     for name in [m for m in sys.modules
@@ -1508,15 +1661,22 @@ def time_checkout(root: pathlib.Path, waves_only: bool = False) -> int:
     from repro_torch import cuda_build
     device = torch.device("cuda", 0)
     cuda_build.build_all()
-    out = {"smi": nvidia_smi_line(), "package": repro_torch.__file__,
-           **{f"{e}_waves": time_waves(e, w, device)
-              for e, w in waves.items()}}
+    out = {"smi": nvidia_smi_line(), "package": repro_torch.__file__}
+    spec = importlib.util.spec_from_file_location(
+        "checkout_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    report = {}
+    if vrf_only:
+        out["vrf_public"] = time_vrf_public(rows, device)
+        smoke.phase_vrf_full(report, device)
+        out["vrf_kernel"] = report["vrf_timing"]
+        out["vrf_floor"] = report.get("vrf_floor")
+        print(json.dumps(out))
+        return 0
+    out.update({f"{e}_waves": time_waves(e, w, device)
+                for e, w in waves.items()})
     if not waves_only:
-        spec = importlib.util.spec_from_file_location(
-            "checkout_smoke", root / "chip_smoke.py")
-        smoke = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(smoke)
-        report = {}
         smoke.phase_serving(report, device)
         cfg, params = serving_model(device)
         out.update(
@@ -1603,6 +1763,8 @@ def main() -> int:
     kernels.append({**VRF_META, "route": "cuda",
                     "launches": demo_launches["vrf_alu"],
                     "max_abs_err": vrf_err, "ms": vrf_row["ms"],
+                    "device_ms": vrf_row["device_ms"],
+                    "floor_ms": vrf_row["floor_ms"],
                     "plain_ms": vrf_row["plain_ms"],
                     "bound_ms": vrf_row["bound_ms"],
                     "bound_by": vrf_row["bound_by"], "library_ms": None})
@@ -1624,5 +1786,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-checkout"]:
         sys.exit(time_checkout(pathlib.Path(sys.argv[2]),
-                               waves_only="--waves-only" in sys.argv[3:]))
+                               waves_only="--waves-only" in sys.argv[3:],
+                               vrf_only="--vrf-only" in sys.argv[3:]))
     sys.exit(main())

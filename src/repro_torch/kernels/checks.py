@@ -235,18 +235,36 @@ def vrf_random_file(rng, shape: tuple, dtype) -> np.ndarray:
     return rng.integers(info.min, info.max + 1, shape, dtype=_NP[dtype])
 
 
-def check_vrf_alu(vrf: np.ndarray, entries: list, device) -> int:
+#: elements of sentinel kept after a checked file (and before it, at an
+#: offset): a kernel that writes outside the file changes them
+VRF_GUARD = 64
+_SENTINEL = 0x5A
+
+
+def check_vrf_alu(vrf: np.ndarray, entries: list, device,
+                  offset: int = 0) -> int:
     """Kernel vs plain on one file and program, both on ``device``: the
     kernel's in-place result must equal the plain version's bit for bit.
-    Returns the max abs difference (0)."""
+    The kernel's file is a contiguous view ``offset`` elements into a
+    buffer of sentinels, which must come out unchanged.  Returns the max
+    abs difference (0)."""
     prog = _vrf.make_prog(entries)
-    base = torch.as_tensor(vrf, device=device)
-    got = _vrf.vrf_alu(base.clone(), prog)
-    want = ref.vrf_alu(base.clone(), prog)
-    err = int((got.long() - want.long()).abs().max())
+    n = vrf.size
+    buf = torch.full((offset + n + VRF_GUARD,), _SENTINEL,
+                     dtype=torch.from_numpy(vrf).dtype, device=device)
+    got = buf[offset:offset + n].view(vrf.shape)
+    got.copy_(torch.as_tensor(vrf))
+    _vrf.vrf_alu(got, prog)
+    want = ref.vrf_alu(torch.as_tensor(vrf, device=device).clone(), prog)
+    err = int((got.long() - want.long()).abs().max()) if n else 0
     if err or not torch.equal(got, want):
-        raise AssertionError(f"vrf_alu {tuple(vrf.shape)} {vrf.dtype}: "
-                             f"kernel != plain (max abs err {err})")
+        raise AssertionError(f"vrf_alu {tuple(vrf.shape)} {vrf.dtype} at "
+                             f"offset {offset}: kernel != plain (max abs "
+                             f"err {err})")
+    if (buf[:offset] != _SENTINEL).any() \
+            or (buf[offset + n:] != _SENTINEL).any():
+        raise AssertionError(f"vrf_alu {tuple(vrf.shape)} {vrf.dtype} at "
+                             f"offset {offset}: wrote outside the file")
     return err
 
 
@@ -275,3 +293,89 @@ def vrf_cases(seed: int = 0, n_random: int = 50) -> list:
                       vrf_random_program(rng, int(rng.integers(1, 65)),
                                          n_regs)))
     return cases
+
+
+#: the timed random program: 64 instructions over 32 registers
+VRF_TIMED_RANDOM = dict(seed=19, n_instr=64, n_regs=32)
+#: a VL whose rows are not 16-byte aligned at any element width
+VRF_RAGGED_VL = 4096 + 77
+
+
+def vrf_timed_random_program() -> list:
+    t = VRF_TIMED_RANDOM
+    return vrf_random_program(np.random.default_rng(t["seed"]),
+                              t["n_instr"], t["n_regs"])
+
+
+def vrf_shift_case(rng, dtype, vl: int) -> tuple:
+    """vv shifts with an amount per lane: v1 holds values (the type's
+    extremes among them), v2 amounts that are negative, zero, at or past
+    the element width, or in range; every shift of v1 by v2, by v1 and by
+    itself, in place too."""
+    info = np.iinfo(_NP[dtype])
+    vrf = vrf_random_file(rng, (8, vl), dtype)
+    vrf[1, :4] = (info.min, info.max, -1, 1)
+    amounts = np.array([-1, -info.bits, 0, info.bits, info.bits + 3,
+                        info.bits - 1, 2 * info.bits + 1, info.min, info.max])
+    vrf[2] = np.resize(amounts, vl).astype(vrf.dtype)
+    vrf[2, ::7] = rng.integers(-3 * info.bits, 3 * info.bits, vrf[2, ::7].size)
+    entries = [(op, 3 + i, 2, 1, 0, VV)
+               for i, op in enumerate(("sll", "srl", "sra"))]
+    entries += [("sra", 6, 1, 2, 0, VV), ("srl", 7, 1, 1, 0, VV),
+                ("sll", 1, 2, 1, 0, VV)]
+    return vrf, entries
+
+
+def vrf_edge_cases(seed: int = 0) -> list:
+    """``(label, file, entries, offset, launches)`` cases of the kernel's
+    edges, each with the launches it takes: rows not 16-byte aligned
+    (:data:`VRF_RAGGED_VL`) at every element width; a contiguous view at
+    an odd element offset; a program longer than one launch holds, and one
+    that touches more registers than a launch holds; vv shifts with
+    per-lane amounts at every width; an empty program and VL 0, which
+    launch nothing."""
+    rng = np.random.default_rng(seed)
+    fused = VRF_DEMO_PROGRAMS["fused_chain"]
+    cases = []
+    for dtype in VRF_DTYPES:
+        f = vrf_random_file(rng, (VRF_DEMO_SHAPE[0], VRF_RAGGED_VL), dtype)
+        cases.append((f"ragged-rows/every-op/{dtype}", f,
+                      vrf_every_op_program(), 0, 1))
+        f, entries = vrf_shift_case(rng, dtype, VRF_RAGGED_VL)
+        cases.append((f"ragged-rows/vv-shifts/{dtype}", f, entries, 0, 1))
+        for offset in (1, 3):
+            f = vrf_random_file(rng, VRF_DEMO_SHAPE, dtype)
+            cases.append((f"offset-{offset}/fused_chain/{dtype}", f, fused,
+                          offset, 1))
+        f = vrf_random_file(rng, (VRF_DEMO_SHAPE[0], 4096 + 8), dtype)
+        cases.append((f"offset-1/every-op/{dtype}", f,
+                      vrf_every_op_program(), 1, 1))
+        f, entries = vrf_shift_case(rng, dtype, 4096)
+        cases.append((f"vv-shifts/{dtype}", f, entries, 0, 1))
+    n_long = 2 * _vrf.MAX_INSTR + 88
+    f = vrf_random_file(rng, (32, 4096), torch.int8)
+    cases.append((f"long-{n_long}/int8", f,
+                  vrf_random_program(rng, n_long, 32), 0, 3))
+    wide = [("add", (3 * i) % 300, (3 * i + 1) % 300, (3 * i + 2) % 300, i,
+             i % 2) for i in range(200)]
+    f = vrf_random_file(rng, (300, 256), torch.int16)
+    cases.append(("wide-300-registers/int16", f, wide, 0,
+                  len(_vrf.split(_vrf.make_prog(wide).tolist()))))
+    cases.append(("empty-program/int32", vrf_random_file(
+        rng, (8, 256), torch.int32), [], 0, 0))
+    cases.append(("vl-0/int8", np.zeros((8, 0), np.int8), fused, 0, 0))
+    return cases
+
+
+def check_vrf_case(case: tuple, device) -> int:
+    """One case of :func:`vrf_edge_cases` on ``device``: kernel vs plain bit
+    for bit (:func:`check_vrf_alu`), and on the card the launches it
+    states."""
+    label, f, entries, offset, launches = case
+    before = _vrf.vrf_alu.launches
+    err = check_vrf_alu(f, entries, device, offset)
+    got = _vrf.vrf_alu.launches - before
+    if torch.device(device).type == "cuda" and got != launches:
+        raise AssertionError(f"vrf_alu {label}: {got} launches, not "
+                             f"{launches}")
+    return err

@@ -338,3 +338,24 @@ def test_vrf_alu_wrapper_checks_its_inputs(card):
         vrf.vrf_alu(file, vrf.make_prog([("add", 8, 0, 1, 0, 0)]))
     got = vrf.vrf_alu(file, prog.to(card))
     assert got is file
+
+
+#: the labels of kernels/checks.py's vrf_alu edge cases (made from a seed)
+VRF_EDGE = [c[0] for c in checks.vrf_edge_cases()]
+
+
+@pytest.mark.parametrize("label", VRF_EDGE)
+def test_vrf_alu_edge_cases_equal_plain(card, label):
+    """Rows not 16-byte aligned, a view at an odd element offset, programs
+    longer or wider than one launch holds (launch counts asserted), vv
+    shifts with per-lane amounts at every width, an empty program and VL 0
+    (no launch), bit for bit and nothing written outside the file; the
+    misaligned files take the ragged instance, the others the aligned."""
+    case = next(c for c in checks.vrf_edge_cases() if c[0] == label)
+    routes = dict(vrf.vrf_alu.launches_by_route)
+    assert checks.check_vrf_case(case, card) == 0
+    torch.cuda.synchronize()
+    got = {r: vrf.vrf_alu.launches_by_route[r] - routes[r] for r in routes}
+    misaligned = label.startswith(("ragged-rows", "offset"))
+    assert got == {"ragged": case[4] if misaligned else 0,
+                   "aligned": 0 if misaligned else case[4]}

@@ -45,8 +45,20 @@ def test_op_table_matches_reference_and_kernel():
     enum = re.search(r"enum Op : int \{(.*?)\};", src, re.S).group(1)
     ids = dict(re.findall(r"(\w+) = (\d+)", enum))
     assert {k.lower(): int(v) for k, v in ids.items()} == ref.VRF_OP_ID
+    enum = re.search(r"enum VxShift : int \{(.*?)\};", src, re.S).group(1)
+    assert {k.lower().removesuffix("_vx"): int(v) for k, v in
+            re.findall(r"(\w+) = (\d+)", enum)} == V.VX_SHIFT_KEY
     assert f"kModeVV = {ref.VRF_MODE_VV}" in src
-    assert f"kCols = {V.COLS};" in src
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kVecBytes"] == V.VEC_BYTES
+    assert (consts["kMaxInstr"], consts["kMaxSlots"]) == \
+        (V.MAX_INSTR, V.MAX_SLOTS)
+    assert f"kMaxSlabBytes = {V.SLAB_BYTES // 1024} * 1024;" in src
+    assert (consts["kModeShift"], consts["kStoreShift"], consts["kVdShift"],
+            consts["kVs1Shift"], consts["kVs2Shift"], consts["kSlotBits"]) \
+        == (V.MODE_SHIFT, V.STORE_SHIFT, V.VD_SHIFT, V.VS1_SHIFT,
+            V.VS2_SHIFT, V.SLOT_BITS)
 
 
 def test_make_prog_matches_reference():
@@ -145,55 +157,75 @@ def test_updates_in_place_and_returns_the_file():
 
 
 def _split(c):
-    """A compiled program's (register, slot) loads, stores and body rows."""
-    code = c.code.numpy()
-    loads = code[:2 * c.n_load].reshape(-1, 2)
-    stores = code[2 * c.n_load:2 * (c.n_load + c.n_store)].reshape(-1, 2)
-    body = code[2 * (c.n_load + c.n_store):].reshape(-1, 6)
-    return loads, stores, body
+    """A compiled one-launch program's (register, slot) loads, (register,
+    instruction) stores and body rows (registers as slots), decoded from its
+    parameter struct."""
+    assert len(c.launches) == 1
+    loads, stores, body = V.unpack(c.launches[0])
+    return np.asarray(loads).reshape(-1, 2), np.asarray(stores).reshape(
+        -1, 2), np.asarray(body, dtype=np.int64).reshape(-1, 6)
 
 
 def _run_compiled(vrf: np.ndarray, c, seed: int) -> np.ndarray:
-    """What the kernel does with a compiled program: a slab of ``n_slots``
-    rows that starts as junk, the load list copied in, the body run over
-    slots, the store list copied out.  A slot read before it is loaded or
-    written reads junk."""
-    loads, stores, body = _split(c)
+    """What the kernel does with a compiled program, launch by launch: a
+    slab of ``n_slots`` rows that starts as junk, the load list copied in,
+    the body run over slots one instruction at a time, and each store
+    copied out right after its instruction.  A slot read before it is
+    loaded or written reads junk."""
     rng = np.random.default_rng(seed)
     info = np.iinfo(vrf.dtype)
-    slab = rng.integers(info.min, info.max + 1, (c.n_slots, vrf.shape[1]),
-                        dtype=vrf.dtype)
-    for r, s in loads:
-        slab[s] = vrf[r]
-    slab = ref.vrf_alu(torch.from_numpy(slab),
-                       torch.as_tensor(body.astype(np.int32))).numpy()
     out = vrf.copy()
-    for r, s in stores:
-        out[r] = slab[s]
+    for ln in c.launches:
+        loads, stores, body = V.unpack(ln)
+        slab = torch.from_numpy(rng.integers(
+            info.min, info.max + 1, (ln.n_slots, vrf.shape[1]),
+            dtype=vrf.dtype))
+        for r, s in loads:
+            slab[s] = torch.from_numpy(out[r])
+        after = {t: r for r, t in stores}
+        for t, row in enumerate(body):
+            ref.vrf_alu(slab, torch.tensor([row], dtype=torch.int32))
+            if t in after:
+                out[after[t]] = slab[row[1]].numpy()
     return out
 
 
 def test_compiled_program_loads_reads_and_stores_writes():
-    """The kernel's form of a program: dense slots for the registers it
-    touches, loads of those it reads (vs2 unless mv, vs1 in vv mode) before
-    any instruction writes them, stores of those it writes."""
+    """The kernel's form of a program: loads of the registers it reads (vs2
+    unless mv, vs1 in vv mode) before any instruction writes them, into
+    slots 0..n_load-1; slots reused once their value is dead; one store of
+    each register it writes, after its last write."""
     rows = ref.check_vrf_program(
         V.make_prog(checks.VRF_DEMO_PROGRAMS["fused_chain"]), 32)
-    c = V.compile_prog(rows)
-    assert (c.n_instr, c.n_slots, c.n_load, c.n_store) == (5, 5, 3, 2)
+    c = V.compile_prog(rows, 2)
+    assert (c.n_instr, c.launches[0].n_slots, c.n_load, c.n_store) == \
+        (5, 3, 3, 2)
     loads, stores, body = _split(c)
     # v6 and v7 are written (mul, xor) before they are read (add, min/max)
-    assert loads[:, 0].tolist() == [1, 4, 5]
-    assert stores[:, 0].tolist() == [6, 7]
-    slot = dict(loads.tolist()) | dict(stores.tolist())
+    assert loads[:, 0].tolist() == [1, 4, 5] == c.reads
+    assert loads[:, 1].tolist() == [0, 1, 2]        # load i fills slot i
+    # v6 last written by the add (1), v7 by the max (4)
+    assert stores.tolist() == [[6, 1], [7, 4]] and c.writes == [6, 7]
+    # (vd, vs1, vs2) as slots: v4 dies at the mul and v6 takes its slot; v5
+    # and the first v6 die at the add, the new v6 takes the lower; v1 and v6
+    # die at the xor and v7 takes the lowest
+    assert [row[1:4] for row in body.tolist()] == \
+        [[1, 1, 0], [1, 2, 1], [0, 0, 1], [0, 0, 0], [0, 0, 0]]
     for (op, vd, vs1, vs2, sc, mode), row in zip(rows, body.tolist()):
-        assert row[0] == op and row[4:] == [sc, mode]
-        assert row[1] == slot[vd] and row[3] == slot[vs2]
-        assert row[2] == (slot[vs1] if mode == VV else 0)
+        assert row[0] == op and row[5] == mode
+        packed = V.pack_scalar(sc, 2) if mode == VX else 0
+        assert row[4] % 2 ** 32 == packed
     mv = V.compile_prog(ref.check_vrf_program(
-        V.make_prog([("mv", 3, 0, 9, 5, VX)]), 16))
-    assert (mv.n_slots, mv.n_load, mv.n_store) == (1, 0, 1)
-    assert mv.code.tolist() == [3, 0, 11, 0, 0, 0, 5, 1]
+        V.make_prog([("mv", 3, 0, 9, 5, VX)]), 16), 4)
+    assert (mv.launches[0].n_slots, mv.n_load, mv.n_store) == (1, 0, 1)
+    p = mv.launches[0].prog[0]
+    assert (p["n_instr"], p["n_load"], p["n_store"], p["n_slots"]) == \
+        (1, 0, 1, 1)
+    assert p["store_reg"][0] == 3
+    # op 11, the vx and store flags, vd / vs1 / vs2 in slot 0; the scalar
+    # as it is
+    assert p["ins"][0].tolist() == \
+        [11 | 1 << V.MODE_SHIFT | 1 << V.STORE_SHIFT, 5]
 
 
 def test_compiled_program_reads_only_what_it_loads_or_wrote():
@@ -202,9 +234,10 @@ def test_compiled_program_reads_only_what_it_loads_or_wrote():
     on every case of kernels/checks.py and on random programs."""
     c = V.compile_prog(ref.check_vrf_program(V.make_prog([
         ("mv", 2, 0, 0, 7, VX), ("add", 3, 0, 3, 1, VX),
-        ("sub", 2, 2, 3, 0, VV)]), 8))
+        ("sub", 2, 2, 3, 0, VV)]), 8), 1)
     loads, stores, _ = _split(c)
-    assert loads[:, 0].tolist() == [3] and stores[:, 0].tolist() == [2, 3]
+    # stored in the order of their last writes: v3 by the add, v2 by the sub
+    assert loads[:, 0].tolist() == [3] and stores.tolist() == [[3, 1], [2, 2]]
     rng = np.random.default_rng(5)
     cases = checks.vrf_cases(n_random=8)
     for n in range(40):
@@ -213,7 +246,8 @@ def test_compiled_program_reads_only_what_it_loads_or_wrote():
             rng, int(rng.integers(1, 25)), 16)))
     for k, (label, vrf, entries) in enumerate(cases):
         prog = V.make_prog(entries)
-        c = V.compile_prog(ref.check_vrf_program(prog, vrf.shape[0]))
+        c = V.compile_prog(ref.check_vrf_program(prog, vrf.shape[0]),
+                           vrf.itemsize)
         assert np.array_equal(_run_compiled(vrf, c, k),
                               _plain(vrf, entries)), label
 
