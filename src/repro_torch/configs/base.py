@@ -1,10 +1,11 @@
 """Config registry: ``--arch <id>`` resolution + assigned input shapes.
 
 The counterpart of the JAX package's ``configs/base.py``.  The port has the
-dense family so far: ``qwen1.5-0.5b`` and ``h2o-danube-1.8b`` register a
-full config (exact dims) and a ``smoke`` reduction for CPU tests; the other
-architecture ids raise ``NotImplementedError`` until their family lands
-(ROADMAP.md, queue 1).
+dense family (``qwen1.5-0.5b``, ``h2o-danube-1.8b``, ``mistral-nemo-12b``,
+``phi3-medium-14b``) and the MoE family (``moonshot-v1-16b-a3b``) so far:
+each registers a full config (exact dims) and a ``smoke`` reduction for CPU
+tests; the other architecture ids raise ``NotImplementedError`` until their
+family lands (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ ARCH_IDS = (
     "phi3-medium-14b", "xlstm-125m", "whisper-tiny", "moonshot-v1-16b-a3b",
     "deepseek-v2-lite-16b", "pixtral-12b",
 )
-PORTED = ("h2o-danube-1.8b", "qwen1.5-0.5b")
+PORTED = ("h2o-danube-1.8b", "qwen1.5-0.5b", "mistral-nemo-12b",
+          "phi3-medium-14b", "moonshot-v1-16b-a3b")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in PORTED}
@@ -40,8 +42,8 @@ def get(name: str, smoke: bool = False) -> ModelConfig:
         raise KeyError(f"unknown architecture {name!r}: one of {ARCH_IDS}")
     if name not in PORTED:
         raise NotImplementedError(
-            f"{name} is not ported to PyTorch yet: the port has the dense "
-            f"family ({', '.join(PORTED)}); see ROADMAP.md, queue 1")
+            f"{name} is not ported to PyTorch yet: the port has "
+            f"{', '.join(PORTED)}; see ROADMAP.md, queue 1")
     if name not in _REGISTRY:
         importlib.import_module(_MODULES[name])
     return (_SMOKE if smoke else _REGISTRY)[name]()

@@ -36,6 +36,9 @@ from repro_torch.kernels import vrf_alu as _vrf
 MATMUL_M = (1, 4, 384)
 #: qwen1.5-0.5B's projections: q/k/v/o, up/gate, down, the LM head
 MATMUL_KN = ((1024, 1024), (1024, 2816), (2816, 1024), (1024, 151936))
+#: moonshot-v1-16b-a3b's: q/k/v/o, the shared experts' up/gate and down
+#: (2 x 1408 wide), the LM head (its routed experts are not nmc_matmul)
+MOE_MATMUL_KN = ((2048, 2048), (2048, 2816), (2816, 2048), (2048, 163840))
 #: ragged shapes: no dimension a multiple of the kernel's tiles (the
 #: ``dp4a`` route)
 MATMUL_RAGGED = ((7, 33, 70), (17, 2817, 129), (65, 5, 3))
@@ -53,6 +56,9 @@ ATTENTION_CASES = {
     "qwen-128": dict(b=1, hq=16, hkv=16, sq=128, skv=128, d=64, dv=64),
     "qwen-384": dict(b=1, hq=16, hkv=16, sq=384, skv=384, d=64, dv=64),
     "qwen-1000": dict(b=1, hq=16, hkv=16, sq=1000, skv=1000, d=64, dv=64),
+    # moonshot-v1-16b-a3b prefill: 16 heads of 128 (kv 16), causal
+    "moonshot-256": dict(b=1, hq=16, hkv=16, sq=256, skv=256, d=128,
+                         dv=128),
     # h2o-danube-1.8B-like: GQA 32/8, head dim 80, sliding window
     "danube-gqa-window": dict(b=1, hq=32, hkv=8, sq=384, skv=384, d=80,
                               dv=80, window=128),

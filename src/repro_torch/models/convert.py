@@ -1,11 +1,11 @@
 """Carry a parameter tree of the JAX reference across to the port.
 
-:func:`params_from_jax` takes the reference's dense-LM params as a nested
-dict of numpy arrays — float, or quantized by its ``quantize_params`` —
-with the layer axis stacked first, and builds the port's
-:class:`~repro_torch.models.lm.DecoderLM` holding the same numbers, so both
-packages compute the same function.  It reads numpy only: the caller turns
-the reference's arrays into numpy (``np.asarray``).
+:func:`params_from_jax` takes the reference's LM params (dense or MoE) as a
+nested dict of numpy arrays — float, or quantized by its
+``quantize_params`` — with the layer axis stacked first, and builds the
+port's :class:`~repro_torch.models.lm.DecoderLM` holding the same numbers,
+so both packages compute the same function.  It reads numpy only: the
+caller turns the reference's arrays into numpy (``np.asarray``).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import lm
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig, resolve_device
 
 
@@ -37,24 +38,45 @@ def _linear(p: dict, device, layer: int | None = None) -> L.NmcLinear:
     return L.NmcLinear(get("w"), get("b"))
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> lm.DecoderLM:
-    """The reference's dense-LM params (numpy leaves) as a DecoderLM on
-    ``device`` (the card when None)."""
-    device = resolve_device(device)
-    lay = tree["layers"]
+def _mlp(p: dict, device, layer: int) -> L.MLP:
+    return L.MLP(_linear(p["wi"], device, layer),
+                 _linear(p["wo"], device, layer),
+                 _linear(p["wg"], device, layer) if "wg" in p else None)
 
+
+def _moe(p: dict, device, layer: int) -> MOE.MoE:
+    """``router`` (float, or ``w_q`` / ``scale``), the banks ``wi`` / ``wg``
+    / ``wo`` or their ``_q`` / ``_s`` forms, and the optional ``shared``."""
+    banks = {k: _tensor(v[layer], device) for k, v in p.items()
+             if k not in ("router", "shared")}
+    return MOE.MoE(_linear(p["router"], device, layer), banks,
+                   _mlp(p["shared"], device, layer) if "shared" in p
+                   else None)
+
+
+def _blocks(lay: dict, cfg: ModelConfig, device) -> list:
     def block(i: int) -> lm.DecoderBlock:
-        at, ml = lay["attn"], lay["mlp"]
+        at = lay["attn"]
+        ffn = {"moe": _moe(lay["moe"], device, i)} if "moe" in lay \
+            else {"mlp": _mlp(lay["mlp"], device, i)}
         return lm.DecoderBlock(
             L.RMSNorm(_tensor(lay["ln1"]["g"][i], device), cfg.norm_eps),
             A.GQAttention(*(_linear(at[n], device, i)
                             for n in ("wq", "wk", "wv", "wo"))),
             L.RMSNorm(_tensor(lay["ln2"]["g"][i], device), cfg.norm_eps),
-            L.MLP(_linear(ml["wi"], device, i), _linear(ml["wo"], device, i),
-                  _linear(ml["wg"], device, i) if "wg" in ml else None))
+            **ffn)
+    return [block(i) for i in range(len(lay["ln1"]["g"]))]
 
+
+def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> lm.DecoderLM:
+    """The reference's LM params (numpy leaves) as a DecoderLM on
+    ``device`` (the card when None): ``layers`` and, for a MoE model's
+    first dense layers, ``dense_layers``."""
+    device = resolve_device(device)
     return lm.DecoderLM(
         L.Embedding(_tensor(tree["embed"]["table"], device)),
-        [block(i) for i in range(cfg.n_layers)],
+        _blocks(tree["layers"], cfg, device),
         L.RMSNorm(_tensor(tree["final_norm"]["g"], device), cfg.norm_eps),
-        _linear(tree["head"], device))
+        _linear(tree["head"], device),
+        _blocks(tree["dense_layers"], cfg, device)
+        if "dense_layers" in tree else [])

@@ -92,12 +92,23 @@ class NmcLinear(nn.Module):
         return ref.apply_act(y, act).to(dtype).reshape(*lead, -1)
 
 
+def quantize_expert_bank(w: torch.Tensor) -> tuple:
+    """(..., E, d_in, d_out) expert weights -> int8 + a per-(expert, out)
+    scale ``max(amax, 1e-8) / 127``."""
+    amax = w.abs().amax(dim=-2)                             # (..., E, d_out)
+    s = torch.clamp_min(amax, 1e-8) / 127.0
+    wq = torch.clamp(torch.round(w / s[..., None, :]), -127, 127)
+    return wq.to(torch.int8), s
+
+
 def quantize_tree(module: nn.Module) -> nn.Module:
-    """A copy of ``module`` with every :class:`NmcLinear` in its int8 NMC
-    form.  Norm gains, embeddings and biases are shared with the original,
-    untouched (the paper never quantizes accumulators or normalization
-    state); the original keeps its float weights."""
-    if isinstance(module, NmcLinear):
+    """A copy of ``module`` with every :class:`NmcLinear` and every MoE
+    expert bank in its int8 NMC form: each module with a ``quantized()``
+    method supplies its own (the MoE keeps its router in float, as the
+    reference does).  Norm gains, embeddings and biases are shared with
+    the original, untouched (the paper never quantizes accumulators or
+    normalization state); the original keeps its float weights."""
+    if hasattr(module, "quantized"):
         return module.quantized()
     new = copy.copy(module)
     new._buffers = dict(module._buffers)

@@ -1,13 +1,16 @@
-"""The dense decoder LM: ``[attn + MLP] x L`` behind three entry points.
+"""The decoder LMs: ``[attn + MLP] x L`` (dense) and ``first_dense x k +
+[attn + MoE] x (L - k)`` (MoE) behind three entry points.
 
-The counterpart of the dense family of the JAX package's ``models/lm.py``:
-``forward`` (teacher-forced logits), ``prefill`` (the prompt's last-position
-logits and the KV caches) and ``decode_step`` (one token against the
-caches, updated in place).  The layers run in a Python loop over a
-``ModuleList``; the caches keep the reference's layout, one tensor per
-field stacked over layers, ``(L, B, KV, S, hd)``.  The other families (MoE,
-hybrid SSM, xLSTM, encoder-decoder, VLM) and MLA attention raise
-``NotImplementedError`` until their slices land (ROADMAP.md, queue 1).
+The counterpart of the dense and MoE families of the JAX package's
+``models/lm.py``: ``forward`` (teacher-forced logits and the summed MoE
+aux loss), ``prefill`` (the prompt's last-position logits and the KV
+caches) and ``decode_step`` (one token against the caches, updated in
+place).  The layers run in a Python loop over ``ModuleList``s; the caches
+keep the reference's layout, one tensor per field stacked over layers,
+``(L, B, KV, S, hd)``, under ``"layers"`` and, for a MoE model's first
+dense layers, ``"dense_layers"``.  The other families (hybrid SSM, xLSTM,
+encoder-decoder, VLM) and MLA attention raise ``NotImplementedError``
+until their slices land (ROADMAP.md, queue 1).
 
 Every entry point runs under ``torch.inference_mode()``.
 """
@@ -19,53 +22,69 @@ from torch import nn
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig, resolve_device
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.mla:
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe") or cfg.mla:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense GQA family only so far "
-            f"(family {cfg.family!r}, mla={cfg.mla}); see ROADMAP.md, "
-            f"queue 1")
+            f"{cfg.name}: the port runs the dense and MoE families with GQA "
+            f"attention only so far (family {cfg.family!r}, mla={cfg.mla}); "
+            f"see ROADMAP.md, queue 1")
 
 
 class DecoderBlock(nn.Module):
+    """ln1 -> attention -> ln2 -> FFN, a residual around each; the FFN is
+    the dense ``mlp`` or the ``moe``, exactly one of them."""
+
     def __init__(self, ln1: L.RMSNorm, attn: A.GQAttention, ln2: L.RMSNorm,
-                 mlp: L.MLP):
+                 mlp: L.MLP | None = None, moe: MOE.MoE | None = None):
         super().__init__()
-        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+        if (mlp is None) == (moe is None):
+            raise ValueError("a DecoderBlock holds an mlp or a moe")
+        self.ln1, self.attn, self.ln2 = ln1, attn, ln2
+        self.mlp, self.moe = mlp, moe
 
     @classmethod
-    def init(cls, gen: torch.Generator, cfg: ModelConfig,
-             device=None) -> "DecoderBlock":
-        return cls(L.RMSNorm.init(cfg.d_model, cfg.norm_eps, device),
-                   A.GQAttention.init(gen, cfg, device),
-                   L.RMSNorm.init(cfg.d_model, cfg.norm_eps, device),
-                   L.MLP.init(gen, cfg.d_model, cfg.d_ff, cfg.act, device))
+    def init(cls, gen: torch.Generator, cfg: ModelConfig, device=None,
+             use_moe: bool = False, d_ff: int | None = None) -> "DecoderBlock":
+        ln1 = L.RMSNorm.init(cfg.d_model, cfg.norm_eps, device)
+        attn = A.GQAttention.init(gen, cfg, device)
+        ln2 = L.RMSNorm.init(cfg.d_model, cfg.norm_eps, device)
+        if use_moe:
+            return cls(ln1, attn, ln2, moe=MOE.MoE.init(gen, cfg, device))
+        return cls(ln1, attn, ln2, mlp=L.MLP.init(
+            gen, cfg.d_model, d_ff or cfg.d_ff, cfg.act, device))
 
-    def _mlp(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-        return x + self.mlp(self.ln2(x), cfg.act, nmc_mode=cfg.nmc_mode)
+    def _ffn(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
+        """(x + FFN(ln2(x)), the MoE aux loss or None)."""
+        h = self.ln2(x)
+        if self.moe is not None:
+            y, aux = self.moe(h, cfg)
+            return x + y, aux
+        return x + self.mlp(h, cfg.act, nmc_mode=cfg.nmc_mode), None
 
-    def forward(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-        return self._mlp(x + self.attn(self.ln1(x), cfg), cfg)
+    def forward(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
+        return self._ffn(x + self.attn(self.ln1(x), cfg), cfg)
 
     def prefill(self, x: torch.Tensor, cfg: ModelConfig,
                 max_len: int) -> tuple:
         y, cache = self.attn.prefill(self.ln1(x), cfg, max_len)
-        return self._mlp(x + y, cfg), cache
+        return self._ffn(x + y, cfg)[0], cache
 
     def decode_step(self, x: torch.Tensor, cfg: ModelConfig, cache: dict,
                     cache_len: torch.Tensor) -> torch.Tensor:
         y, _ = self.attn.decode_step(self.ln1(x), cfg, cache, cache_len)
-        return self._mlp(x + y, cfg)
+        return self._ffn(x + y, cfg)[0]
 
 
 class DecoderLM(nn.Module):
     def __init__(self, embed: L.Embedding, layers: list, final_norm: L.RMSNorm,
-                 head: L.NmcLinear):
+                 head: L.NmcLinear, dense_layers: list = ()):
         super().__init__()
         self.embed = embed
+        self.dense_layers = nn.ModuleList(dense_layers)
         self.layers = nn.ModuleList(layers)
         self.final_norm = final_norm
         self.head = head
@@ -74,35 +93,57 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.table.device
 
+    def stacks(self) -> list:
+        """``(cache key, blocks)`` in the order the blocks run: a MoE
+        model's first dense layers (``"dense_layers"``), then ``"layers"``."""
+        first = [("dense_layers", self.dense_layers)] \
+            if len(self.dense_layers) else []
+        return first + [("layers", self.layers)]
+
     def logits(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         """The LM head over every position (at prefill the dynamic
         activation scale of ``w8a8`` covers all of them, as in the
         reference, so the head is not cut to the last position first)."""
         return self.head(self.final_norm(x), nmc_mode=cfg.nmc_mode)
 
-    def forward(self, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-        x = self.embed(tokens, cfg.dtype)
-        for blk in self.layers:
-            x = blk(x, cfg)
-        return self.logits(x, cfg)
+    def hidden(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
+        """Every block over the embedded ``x``: (x, the MoE layers' summed
+        aux loss, 0 without any)."""
+        auxs = []
+        for _, blocks in self.stacks():
+            for blk in blocks:
+                x, aux = blk(x, cfg)
+                if aux is not None:
+                    auxs.append(aux)
+        aux = torch.stack(auxs).sum() if auxs \
+            else torch.zeros((), device=x.device)
+        return x, aux
+
+    def forward(self, tokens: torch.Tensor, cfg: ModelConfig) -> tuple:
+        x, aux = self.hidden(self.embed(tokens, cfg.dtype), cfg)
+        return self.logits(x, cfg), aux
 
     def prefill(self, tokens: torch.Tensor, cfg: ModelConfig,
                 max_len: int) -> tuple:
         x = self.embed(tokens, cfg.dtype)
-        caches = []
-        for blk in self.layers:
-            x, c = blk.prefill(x, cfg, max_len)
-            caches.append(c)
-        stacked = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
-        return self.logits(x, cfg)[:, -1], {"layers": stacked}
+        caches = {}
+        for key, blocks in self.stacks():
+            cs = []
+            for blk in blocks:
+                x, c = blk.prefill(x, cfg, max_len)
+                cs.append(c)
+            caches[key] = {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
+        return self.logits(x, cfg)[:, -1], caches
 
     def decode_step(self, tokens: torch.Tensor, caches: dict,
                     cache_len: torch.Tensor, cfg: ModelConfig) -> tuple:
         x = self.embed(tokens, cfg.dtype)
-        stack = caches["layers"]
-        for i, blk in enumerate(self.layers):
-            x = blk.decode_step(x, cfg, {k: t[i] for k, t in stack.items()},
-                                cache_len)
+        for key, blocks in self.stacks():
+            stack = caches[key]
+            for i, blk in enumerate(blocks):
+                x = blk.decode_step(x, cfg,
+                                    {k: t[i] for k, t in stack.items()},
+                                    cache_len)
         return self.logits(x, cfg)[:, 0], caches
 
 
@@ -111,36 +152,55 @@ class DecoderLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
-                device=None) -> DecoderLM:
-    """Random float32 weights with the reference's initialisation (normal
-    / sqrt(d_in) linears, 0.02 embedding, unit norm gains, zero biases),
-    drawn from ``generator`` (a fresh seed-0 generator on ``device`` when
-    None).  ``device=None`` is the card and raises without one."""
-    _dense_only(cfg)
+def draw_blocks(cfg: ModelConfig, generator: torch.Generator | None,
+                device, each) -> DecoderLM:
+    """:func:`init_params`, with ``each`` applied to the head and to every
+    block as soon as it is drawn (the float block is then dropped), in the
+    generator's order: embedding, head, the first dense layers, the
+    layers."""
+    _check_family(cfg)
     device = resolve_device(device)
     gen = generator if generator is not None \
         else torch.Generator(device=device).manual_seed(0)
     embed = L.Embedding.init(gen, cfg.vocab_size, cfg.d_model, device)
-    head = L.NmcLinear.init(gen, cfg.d_model, cfg.vocab_size, device=device)
-    layers = [DecoderBlock.init(gen, cfg, device)
-              for _ in range(cfg.n_layers)]
+    head = each(L.NmcLinear.init(gen, cfg.d_model, cfg.vocab_size,
+                                 device=device))
+    moe = cfg.family == "moe"
+    n_dense = cfg.first_dense_layers if moe else 0
+    dense = [each(DecoderBlock.init(gen, cfg, device,
+                                    d_ff=cfg.dense_d_ff or cfg.d_ff))
+             for _ in range(n_dense)]
+    layers = [each(DecoderBlock.init(gen, cfg, device, use_moe=moe))
+              for _ in range(cfg.n_layers - n_dense)]
     return DecoderLM(embed, layers,
-                     L.RMSNorm.init(cfg.d_model, cfg.norm_eps, device), head)
+                     L.RMSNorm.init(cfg.d_model, cfg.norm_eps, device), head,
+                     dense)
+
+
+@torch.no_grad()
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device=None) -> DecoderLM:
+    """Random float32 weights with the reference's initialisation (normal
+    / sqrt(d_in) linears and expert banks, 0.02 embedding, unit norm
+    gains, zero biases), drawn from ``generator`` (a fresh seed-0
+    generator on ``device`` when None).  ``device=None`` is the card and
+    raises without one."""
+    return draw_blocks(cfg, generator, device, lambda m: m)
 
 
 @torch.inference_mode()
 def forward(params: DecoderLM, batch: dict, cfg: ModelConfig) -> tuple:
-    """Teacher-forced forward.  Returns (logits, aux_loss = 0)."""
-    _dense_only(cfg)
-    return params(batch["tokens"], cfg), torch.zeros((), device=params.device)
+    """Teacher-forced forward.  Returns (logits, aux_loss): the MoE
+    layers' summed load-balancing loss, 0 for the dense family."""
+    _check_family(cfg)
+    return params(batch["tokens"], cfg)
 
 
 @torch.inference_mode()
 def prefill(params: DecoderLM, batch: dict, cfg: ModelConfig,
             max_len: int) -> tuple:
     """Process the prompt, return (last-position logits, caches)."""
-    _dense_only(cfg)
+    _check_family(cfg)
     return params.prefill(batch["tokens"], cfg, max_len)
 
 
@@ -150,24 +210,25 @@ def decode_step(params: DecoderLM, tokens: torch.Tensor, caches: dict,
     """One decode step.  tokens: (B, 1) the new token ids; cache_len: (B,)
     lengths INCLUDING the new token.  Returns (logits (B, vocab), caches),
     the caches updated in place."""
-    _dense_only(cfg)
+    _check_family(cfg)
     return params.decode_step(tokens, caches, cache_len, cfg)
 
 
 @torch.inference_mode()
 def init_caches(params: DecoderLM, cfg: ModelConfig, batch: int,
                 max_len: int, dtype=torch.bfloat16) -> dict:
-    _dense_only(cfg)
+    _check_family(cfg)
     one = A.cache_init(cfg, batch, max_len, dtype, params.device)
-    return {"layers": {k: torch.zeros((cfg.n_layers,) + t.shape,
-                                      dtype=t.dtype, device=t.device)
-                       for k, t in one.items()}}
+    return {key: {k: torch.zeros((len(blocks),) + t.shape, dtype=t.dtype,
+                                 device=t.device)
+                  for k, t in one.items()}
+            for key, blocks in params.stacks()}
 
 
 def cache_batch_axes(cfg: ModelConfig, caches: dict) -> dict:
     """The batch axis of every cache leaf: the same tree with an int per
-    leaf.  Dense caches are stacked with one leading layer axis, so batch
-    sits at 1 (shape sniffing cannot tell a size-1 layer axis from a
-    size-1 batch axis)."""
-    _dense_only(cfg)
-    return {"layers": {k: 1 for k in caches["layers"]}}
+    leaf.  Every entry (``"layers"``, ``"dense_layers"``) is stacked with
+    one leading layer axis, so batch sits at 1 (shape sniffing cannot tell
+    a size-1 layer axis from a size-1 batch axis)."""
+    _check_family(cfg)
+    return {key: {k: 1 for k in entry} for key, entry in caches.items()}

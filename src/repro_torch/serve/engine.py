@@ -1,11 +1,15 @@
 """Serving engine: prefill + decode with in-place KV caches and continuous
 batching.
 
-The counterpart of the JAX package's ``serve/engine.py``.  With
-``nmc_mode='w8a8'`` every projection runs the quantized int8 path (params
-converted once by :func:`quantize_params`), which on the card is the
-hand-written ``nmc_matmul`` kernel, and every prefill layer's attention is
-the ``flash_attention`` kernel.
+The counterpart of the JAX package's ``serve/engine.py``, for the dense
+and MoE families.  With ``nmc_mode='w8a8'`` every projection runs the
+quantized int8 path (params converted once by :func:`quantize_params`;
+MoE expert banks become int8, the router stays float), which on the card
+is the hand-written ``nmc_matmul`` kernel, and every prefill layer's
+attention is the ``flash_attention`` kernel.  Idle decode slots are fed
+to ``decode_step`` like live ones, as in the reference: in a MoE model
+they are routed too and take expert capacity, so a request's tokens
+depend on what shares its batch.
 
 :class:`ServeEngine` implements slot-based continuous batching: a fixed
 decode batch of ``n_slots`` slots; a finished sequence frees its slot, and
@@ -211,9 +215,10 @@ class ServeEngine:
                 launches.append((s, req, fut))
         for s, req, fut in launches:
             logits, caches1 = fut.value
-            for name, full in self.caches["layers"].items():
-                _insert_slot(full, caches1["layers"][name], s,
-                             self._cache_axes["layers"][name])
+            for key, entry in self.caches.items():
+                for name, full in entry.items():
+                    _insert_slot(full, caches1[key][name], s,
+                                 self._cache_axes[key][name])
             tok = int(torch.argmax(logits[0]))
             req.out.append(tok)
             self.slot_req[s] = req

@@ -224,7 +224,7 @@ def _check_matmul_route(m, k, n, card, want):
 
 
 @pytest.mark.parametrize("m", checks.MATMUL_M)
-@pytest.mark.parametrize("k,n", checks.MATMUL_KN)
+@pytest.mark.parametrize("k,n", checks.MATMUL_KN + checks.MOE_MATMUL_KN)
 def test_nmc_matmul_equals_plain_at_serving_shapes(card, m, k, n):
     before = mm.nmc_matmul.launches
     errs = _check_matmul_route(m, k, n, card, "tensor_core")

@@ -31,12 +31,14 @@ def test_import_without_jax_or_reference():
             "repro_torch.cuda_build, repro_torch.kernels, "
             "repro_torch.kernels.checks, repro_torch.configs, "
             "repro_torch.models.lm, repro_torch.models.convert, "
+            "repro_torch.models.moe, "
             "repro_torch.serve.engine, repro_torch.serve.block, "
             "repro_torch.kernels.vrf_alu, repro_torch.core.ecpu, "
             "repro_torch.nmc.partition, repro_torch.nmc.schedule, "
             "repro_torch.examples.nmc_kernels_demo, "
             "repro_torch.examples.tile_families; "
             "repro_torch.configs.get('qwen1.5-0.5b'); "
+            "repro_torch.configs.get('moonshot-v1-16b-a3b'); "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules if sys.modules[m] is not None); "
             "print('ok')")

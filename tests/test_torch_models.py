@@ -1,5 +1,5 @@
 """The port's dense LM (configs, layers, GQA attention, the decoder LM) on
-the CPU against the JAX reference, in float32, with the reference's random
+the CPU against the JAX reference (the MoE family: test_torch_moe*.py), in float32, with the reference's random
 params carried across by ``params_from_jax``.  Tolerance rtol 1e-4 / atol
 1e-5 for the float paths; in ``w8a8`` the logits lie within 2e-2 of the
 logit scale and agree on the greedy token (int8 rounding amplifies the
@@ -24,7 +24,9 @@ from repro_torch.models import lm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import ServeEngine, quantize_params
 
-ARCHS = ("qwen1.5-0.5b", "h2o-danube-1.8b")
+ARCHS = ("qwen1.5-0.5b", "h2o-danube-1.8b", "mistral-nemo-12b",
+         "phi3-medium-14b")
+MOE_ARCHS = ("moonshot-v1-16b-a3b",)
 TOL = dict(rtol=1e-4, atol=1e-5)
 # the reference's entry points, compiled once per shape as its serving
 # engine compiles them (op-by-op dispatch would dominate the test time)
@@ -60,21 +62,24 @@ def _tokens(cfg, shape, seed):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_reference(arch, smoke):
     j, t = jcb.get(arch, smoke=smoke), cb.get(arch, smoke=smoke)
     for field in ("name", "family", "n_layers", "d_model", "n_heads",
                   "n_kv_heads", "d_ff", "vocab_size", "head_dim", "qkv_bias",
                   "rope_theta", "window", "act", "norm_eps", "nmc_mode",
-                  "kv_cache_dtype"):
+                  "kv_cache_dtype", "mla", "moe", "n_experts",
+                  "n_shared_experts", "top_k", "moe_d_ff",
+                  "capacity_factor", "first_dense_layers", "dense_d_ff"):
         assert getattr(t, field) == getattr(j, field), field
     assert t.param_count() == j.param_count()
     assert t.dtype == torch.bfloat16
     assert cb.applicable_shapes(t) == jcb.applicable_shapes(j)
 
 
-@pytest.mark.parametrize("arch", sorted(set(jcb.ARCH_IDS) - set(ARCHS)))
+@pytest.mark.parametrize("arch",
+                         sorted(set(jcb.ARCH_IDS) - set(ARCHS + MOE_ARCHS)))
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cb.get(arch)
@@ -300,6 +305,7 @@ def test_init_params_shapes_match_reference():
     want = [(n, tuple(b.shape), b.dtype) for n, b in conv.named_buffers()]
     assert got == want
     assert abs(float(tp.head.w.std()) - 1 / np.sqrt(64)) < 0.01
-    for family in ("moe", "hybrid"):
+    for cfg in (tcfg.scaled(family="hybrid"), tcfg.scaled(family="vlm"),
+                tcfg.scaled(family="moe", mla=True)):
         with pytest.raises(NotImplementedError):
-            lm.init_params(tcfg.scaled(family=family), device="cpu")
+            lm.init_params(cfg, device="cpu")
