@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, in parallel) and drives six paths of the port:
+``nvcc`` per source, in parallel) and drives eight paths of the port:
 
 * NMC execution: the two wave kernels against their plain PyTorch versions
   on the card (bit for bit, on random verifier-clean waves at the largest
@@ -38,6 +38,17 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   against the plain versions; prefill and decode ms and the decode step's
   device time split between the kernels and the experts' dequantize and
   ``bmm`` (profiler).
+* W8A8 serving of MLA: deepseek-v2-lite-16b at full width (27 layers, one
+  dense, 26 MoE; MLA with kv_lora_rank 512) on the same traffic and with
+  the same checks, its prefill attention (D 192, Dv 128) on
+  ``flash_attention``'s CUDA-core route, its decode attention absorbed
+  into float32 einsums over the compressed cache (a profiler range of
+  its own in the decode step's split).
+* The VLM: pixtral-12b at full width (40 layers, d_model 5120) prefilling
+  4 rows of 1024 image embeddings and 128 text tokens and decoding 16
+  steps through ``lm.prefill`` / ``lm.decode_step`` (the serving engine,
+  like the reference's, passes no images); launches, replays, logits
+  against the plain versions, prefill and decode ms.
 * The kernels demo (``python -m repro_torch.examples.nmc_kernels_demo``):
   ``vrf_alu`` against its plain version bit for bit (both demo programs,
   every op in both modes and the wrap extremes at int8 / int16 / int32 on
@@ -730,8 +741,7 @@ def phase_lm_kernels_vs_plain(report: dict, device) -> dict:
     attn_by_route = {"tensor_core": 0.0, "cuda_core": 0.0}
     cases = []
     from repro_torch.kernels import nmc_matmul as mm
-    serving = [(m, k, n) for m in checks.MATMUL_M
-               for k, n in checks.MATMUL_KN + checks.MOE_MATMUL_KN]
+    serving = checks.serving_matmul_shapes()
     for m, k, n in serving + list(checks.MATMUL_RAGGED) \
             + list(checks.MATMUL_EDGES):
         kind = mm.route(k, n)
@@ -805,10 +815,12 @@ def recorded_lm_kernel_calls(names=("nmc_matmul", "flash_attention"),
 
 def replay_against_plain(calls) -> dict:
     """Every recorded launch against the plain version on its own inputs,
-    with the tolerances of kernels/checks.py (raises beyond them)."""
+    with the tolerances of kernels/checks.py (raises beyond them); the
+    attention launches' worst error also by route."""
     from repro_torch.kernels import checks, flash_attention as fa, ref
     worst = {"nmc_matmul": 0.0, "flash_attention": 0.0}
     count = {"nmc_matmul": 0, "flash_attention": 0}
+    attn_by_route = {}
     for i, (name, args, kw, out) in enumerate(calls):
         if name == "nmc_matmul":
             want = ref.nmc_matmul(*args, **kw)
@@ -816,21 +828,26 @@ def replay_against_plain(calls) -> dict:
         else:
             want = fa.chunked_attention(*args, **kw)
             tol = checks.attention_tolerance(args[0].dtype)
-        worst[name] = max(worst[name],
-                          checks.close(f"{name} launch {i}", out, want, *tol))
+        err = checks.close(f"{name} launch {i}", out, want, *tol)
+        worst[name] = max(worst[name], err)
         count[name] += 1
-    return {"launches": count, "max_abs_err": worst}
+        if name == "flash_attention":
+            kind = fa.route(args[0].dtype, args[0].shape[-1],
+                            args[2].shape[-1])
+            attn_by_route[kind] = max(attn_by_route.get(kind, 0.0), err)
+    return {"launches": count, "max_abs_err": worst,
+            "attention_by_route": attn_by_route}
 
 
-def perturbed_plain_logits(params, tokens, cfg, seed: int = 1):
-    """The plain path's logits with half the embedded inputs moved by one
-    ulp of the working type (``cfg.dtype``; the step is taken on the host,
-    where ``nextafter`` takes every float type): the model's own
-    sensitivity to last-bit noise."""
+def perturbed_plain_logits(params, batch, cfg, seed: int = 1):
+    """The plain path's logits with half the embedded inputs (a VLM's
+    projected images too) moved by one ulp of the working type
+    (``cfg.dtype``; the step is taken on the host, where ``nextafter`` takes
+    every float type): the model's own sensitivity to last-bit noise."""
     import torch
     from repro_torch.kernels import ops
     with torch.inference_mode(), ops.force_plain():
-        x = params.embed(tokens, cfg.dtype)
+        x = params.inputs(batch, cfg)
         gen = torch.Generator(device=x.device).manual_seed(seed)
         flip = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
         host = x.cpu()
@@ -839,10 +856,13 @@ def perturbed_plain_logits(params, tokens, cfg, seed: int = 1):
         return params.logits(params.hidden(x, cfg)[0], cfg)
 
 
-def compare_logits(params, cfg, prompt, device,
-                   spread_factor: float | None = None) -> dict:
-    """One prompt through the kernels and under ``ops.force_plain()``, with
-    the served bf16 activations and with float32 ones.
+def compare_logits(params, cfg, batch, device,
+                   spread_factor: float | None = None,
+                   spread_if_reached: bool = False) -> dict:
+    """One prompt (``batch``: its ``"tokens"``, a VLM's ``"images"`` too,
+    batch 1, on the card) through the kernels and under
+    ``ops.force_plain()``, with the served bf16 activations and with
+    float32 ones.
 
     1. Every kernel launch of the kernels' forward is replayed through its
        plain version on the same inputs, within the tolerances of
@@ -861,22 +881,23 @@ def compare_logits(params, cfg, prompt, device,
        tokens agree at half the positions or more; with ``spread_factor``
        (a model whose own spread reaches those limits) the RMS must stay
        under ``spread_factor`` times the 1-ulp spread's and the agreement
-       at or above the 1-ulp spread's divided by ``spread_factor``.  A
-       wrong kernel (unrelated logits: RMS about 140%, agreement near 0)
-       fails either."""
+       at or above the 1-ulp spread's divided by ``spread_factor`` — for
+       every dtype, or with ``spread_if_reached`` only for a dtype whose
+       spread reaches the fixed limits.  A wrong kernel (unrelated logits:
+       RMS about 140%, agreement near 0) fails either."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import lm
-    tokens = torch.as_tensor(prompt[None], device=device)
     out = {}
+    n = batch["tokens"].shape[1]
     for dtype in (torch.float32, torch.bfloat16):
         c = cfg.scaled(dtype=dtype)
         with recorded_lm_kernel_calls() as calls:
-            got, _ = lm.forward(params, {"tokens": tokens}, c)
+            got, _ = lm.forward(params, batch, c)
         replay = replay_against_plain(calls)
         del calls
         with ops.force_plain():
-            want, _ = lm.forward(params, {"tokens": tokens}, c)
+            want, _ = lm.forward(params, batch, c)
         got, want = got[0].float(), want[0].float()
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"non-finite {dtype} logits")
@@ -890,15 +911,17 @@ def compare_logits(params, cfg, prompt, device,
                   last_top1_kernels=int(got[-1].argmax()),
                   last_top1_plain=int(want[-1].argmax()),
                   plain_top2_gap=float(top2[0] - top2[1]))
-        pert = perturbed_plain_logits(params, tokens, c)[0].float()
+        pert = perturbed_plain_logits(params, batch, c)[0].float()
         st["ulp_perturbed_plain"] = dict(
             max_abs_diff=float((pert - want).abs().max()),
             rms_diff=float((pert - want).pow(2).mean().sqrt()),
             top1_agreement=float((pert.argmax(-1) == want.argmax(-1))
                                  .float().mean()),
             last_top1=int(pert[-1].argmax()))
+        del got, want, pert
         out[str(dtype)] = st
-        log(f"serving: {dtype} forward of a {len(prompt)}-token prompt: "
+        log(f"logits: {cfg.name} {dtype} forward of a {n}-token prompt "
+            f"({batch_positions(batch)} positions): "
             f"{replay['launches']} launches replayed through the plain "
             f"versions, max abs err {replay['max_abs_err']}; logits kernels "
             f"vs plain: max_abs_diff={st['max_abs_diff']:.4g} "
@@ -909,12 +932,20 @@ def compare_logits(params, cfg, prompt, device,
             f"{st['plain_top2_gap']:.4g}); plain vs plain with 1-ulp "
             f"inputs: {st['ulp_perturbed_plain']}")
         spread = st["ulp_perturbed_plain"]
-        if spread_factor is None:
-            rms_limit, agree_limit = 0.25 * st["logit_std"], 0.5
-        else:
+        rms_limit, agree_limit = 0.25 * st["logit_std"], 0.5
+        reached = spread["rms_diff"] >= rms_limit or \
+            spread["top1_agreement"] <= agree_limit
+        rule = "fixed"
+        if spread_factor is not None and (reached or not spread_if_reached):
+            rule = "spread"
             rms_limit = spread_factor * spread["rms_diff"]
             agree_limit = spread["top1_agreement"] / spread_factor
-        st.update(rms_limit=rms_limit, top1_agreement_limit=agree_limit)
+        st.update(rms_limit=rms_limit, top1_agreement_limit=agree_limit,
+                  rule=rule, spread_reaches_fixed_limits=reached)
+        log(f"logits: {cfg.name} {dtype}: {rule} limits, rms <= "
+            f"{rms_limit:.4g}, top-1 agreement >= {agree_limit:.4f} (the "
+            f"1-ulp spread {'reaches' if reached else 'stays inside'} the "
+            f"fixed limits)")
         if st["rms_diff"] > rms_limit or st["top1_agreement"] < agree_limit:
             raise AssertionError(f"{dtype} logits through the kernels stray "
                                  f"from the plain versions' (rms "
@@ -927,6 +958,11 @@ def compare_logits(params, cfg, prompt, device,
                                  "the kernels is neither the plain path's "
                                  "nor the one it picks under 1-ulp noise")
     return out
+
+
+def batch_positions(batch) -> int:
+    """The positions a batch's forward covers: its images' and tokens'."""
+    return sum(batch[k].shape[1] for k in ("images", "tokens") if k in batch)
 
 
 def serving_model(device, seed: int = 0) -> tuple:
@@ -1035,7 +1071,9 @@ def phase_serving(report: dict, device, seed: int = 0) -> dict:
 
     # one prompt through the kernels and through the plain versions (not
     # counted: the main path's counts were read above)
-    logits = compare_logits(params, cfg, prompts[0], device)
+    logits = compare_logits(
+        params, cfg, {"tokens": torch.as_tensor(prompts[0][None],
+                                                device=device)}, device)
 
     # prefill ms per prompt length, decode steps/s at n_slots
     prefill_ms = {}
@@ -1181,22 +1219,23 @@ def matmul_host_us(device) -> dict:
     return out
 
 
-def time_attention(s: int, dtype, device) -> dict:
-    """The kernel's and SDPA's ms on one causal prefill of ``s`` tokens at
-    qwen1.5-0.5B's heads: ``ms`` / ``library_ms`` by events around each
-    call (host work included, as PR 12 and 13 measured it), ``device_ms``
-    / ``library_device_ms`` behind :func:`host_ahead` (device time
-    alone)."""
-    import torch
+def time_attention(case: dict, dtype, device) -> dict:
+    """The kernel's and SDPA's ms on one causal prefill at ``case``'s
+    shape (:func:`attention_case`, ``checks.ATTENTION_CASES``): ``ms`` /
+    ``library_ms`` by events around each call (host work included, as PR
+    12 and 13 measured it), ``device_ms`` / ``library_device_ms`` behind
+    :func:`host_ahead` (device time alone)."""
     import torch.nn.functional as F
     from repro_torch.kernels import checks, flash_attention as fa
-    q, k, v = checks.attention_inputs(attention_case(s), dtype, device)
+    q, k, v = checks.attention_inputs(case, dtype, device)
+    gqa = case["hq"] != case["hkv"]
 
     def kern():
         return fa.flash_attention(q, k, v, causal=True)
 
     def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=gqa)
     return dict(ms=events_ms(kern, ATTENTION_REPS),
                 device_ms=events_ms(kern, ATTENTION_REPS, flush=host_ahead),
                 library_ms=events_ms(sdpa, ATTENTION_REPS),
@@ -1208,8 +1247,16 @@ def attention_case(s: int) -> dict:
     return dict(b=1, hq=16, hkv=16, sq=s, skv=s, d=64, dv=64)
 
 
+def matmul_models(k: int, n: int) -> list:
+    """The served models whose projections include (K, N)."""
+    from repro_torch.kernels import checks
+    lists = {SERVE_ARCH: checks.MATMUL_KN, MOE_ARCH: checks.MOE_MATMUL_KN,
+             MLA_ARCH: checks.MLA_MATMUL_KN, VLM_ARCH: checks.VLM_MATMUL_KN}
+    return [arch for arch, kn in lists.items() if (k, n) in kn]
+
+
 def phase_lm_timing(report: dict, device) -> dict:
-    """ms per launch of both LM kernels at the serving path's shapes,
+    """ms per launch of both LM kernels at every served model's shapes,
     beside the plain version, the bound and one PyTorch library call."""
     import torch
     from repro_torch import configs
@@ -1217,74 +1264,85 @@ def phase_lm_timing(report: dict, device) -> dict:
         nmc_matmul as mm, ref
     flush = l2_flush(device)
     per_forward = matmul_per_forward(configs.get(SERVE_ARCH))
-    kernel_ms = matmul_kernel_ms(device)
     rows = []
-    for m in checks.MATMUL_M:
-        for k, n in checks.MATMUL_KN:
-            x, w, scale, bias = checks.matmul_inputs(m, k, n, device)
-            kw = dict(act="none", out_dtype=torch.bfloat16)
-            ms = kernel_ms[f"{m}x{k}x{n}"]["ms"]
-            median = kernel_ms[f"{m}x{k}x{n}"]["median_ms"]
-            plain = events_ms(lambda: ref.nmc_matmul(x, w, scale, bias, **kw),
-                              reps=2, flush=flush)
-            lib_fn, pad, why = int_mm_library(x, w, scale, bias,
-                                              torch.bfloat16)
-            lib, lib_median = (None, None) if lib_fn is None else \
-                events_mean_median(lib_fn, reps=MATMUL_REPS, flush=flush)
-            bms, by = matmul_bound_ms(m, k, n, 2)
-            plan = mm.plan(m, n, k, mm.sm_count(device.index))
-            rows.append(dict(kernel="nmc_matmul", shape=[m, k, n],
-                             kernel_route=mm.route(k, n), plan=plan, ms=ms,
-                             median_ms=median, plain_ms=plain,
-                             library_ms=lib, library_median_ms=lib_median,
-                             library_padded_rows=pad,
-                             library_null_reason=why, bound_ms=bms,
-                             bound_by=by,
-                             launches_per_forward=per_forward[(k, n)]))
-            lib_txt = f"{lib:.4f} ms" if lib is not None else f"null ({why})"
-            if pad is not None:
-                lib_txt += f" (x padded to {pad} rows)"
-            log(f"timing: nmc_matmul M={m} K={k} N={n} bf16 (plan {plan}, "
-                f"{per_forward[(k, n)]} per forward): kernel {ms:.4f} ms "
-                f"(median {median:.4f}), "
-                f"plain {plain:.3f} ms, library {lib_txt}, bound "
-                f"{bms:.4f} ms ({by})")
-            del x, w, scale, bias, lib_fn
-    for s, dtype_name in ATTENTION_SHAPES:
+    for m, k, n in checks.serving_matmul_shapes():
+        x, w, scale, bias = checks.matmul_inputs(m, k, n, device)
+        kw = dict(act="none", out_dtype=torch.bfloat16)
+        ms, median = events_mean_median(
+            lambda: mm.nmc_matmul(x, w, scale, bias, **kw),
+            reps=MATMUL_REPS, flush=flush)
+        plain = events_ms(lambda: ref.nmc_matmul(x, w, scale, bias, **kw),
+                          reps=2, flush=flush)
+        lib_fn, pad, why = int_mm_library(x, w, scale, bias, torch.bfloat16)
+        lib, lib_median = (None, None) if lib_fn is None else \
+            events_mean_median(lib_fn, reps=MATMUL_REPS, flush=flush)
+        bms, by = matmul_bound_ms(m, k, n, 2)
+        plan = mm.plan(m, n, k, mm.sm_count(device.index))
+        models = matmul_models(k, n)
+        rows.append(dict(kernel="nmc_matmul", shape=[m, k, n],
+                         models=models, kernel_route=mm.route(k, n),
+                         plan=plan, ms=ms, median_ms=median, plain_ms=plain,
+                         library_ms=lib, library_median_ms=lib_median,
+                         library_padded_rows=pad, library_null_reason=why,
+                         bound_ms=bms, bound_by=by,
+                         launches_per_forward=per_forward.get((k, n))))
+        lib_txt = f"{lib:.4f} ms" if lib is not None else f"null ({why})"
+        if pad is not None:
+            lib_txt += f" (x padded to {pad} rows)"
+        log(f"timing: nmc_matmul M={m} K={k} N={n} bf16 ({', '.join(models)}"
+            f"; plan {plan}): kernel {ms:.4f} ms (median {median:.4f}), "
+            f"plain {plain:.3f} ms, library {lib_txt}, bound {bms:.4f} ms "
+            f"({by})")
+        del x, w, scale, bias, lib_fn
+    # beside qwen's: deepseek's MLA prefill (D 192, Dv 128: the CUDA-core
+    # route in bf16) at two prompt lengths, and pixtral's (GQA 32/8)
+    mla = checks.ATTENTION_CASES["deepseek-mla-256"]
+    cases = [(attention_case(s), dtype_name)
+             for s, dtype_name in ATTENTION_SHAPES] + \
+        [(c, "bfloat16") for c in (mla, dict(mla, sq=512, skv=512),
+                                   checks.ATTENTION_CASES["pixtral-1152"])]
+    for case, dtype_name in cases:
         dtype = getattr(torch, dtype_name)
-        case = attention_case(s)
-        row = time_attention(s, dtype, device)
+        s = case["sq"]
+        row = time_attention(case, dtype, device)
         kind = fa.route(dtype, case["d"], case["dv"])
         q, k, v = checks.attention_inputs(case, dtype, device)
         plain = events_ms(lambda: fa.chunked_attention(q, k, v, causal=True),
                           reps=3)
         bound = attention_bound_ms(1, case["hq"], case["hkv"], s, case["d"],
                                    case["dv"], dtype.itemsize)
-        rows.append(dict(kernel="flash_attention", shape=[1, case["hq"], s,
-                                                          case["d"]],
+        rows.append(dict(kernel="flash_attention",
+                         shape=[1, case["hq"], s, case["d"]],
+                         heads=[case["hq"], case["hkv"]], dv=case["dv"],
                          dtype=str(dtype), kernel_route=kind, **row,
                          plain_ms=plain, **bound))
-        log(f"timing: flash_attention B=1 H={case['hq']} S={s} "
-            f"D={case['d']} {dtype} causal ({kind} route): kernel "
-            f"{row['device_ms']:.5f} ms device / {row['ms']:.4f} ms events, "
-            f"plain {plain:.3f} ms, SDPA {row['library_device_ms']:.5f} ms "
-            f"device / {row['library_ms']:.4f} ms events, bound "
+        log(f"timing: flash_attention B=1 H={case['hq']}/{case['hkv']} S={s} "
+            f"D={case['d']} Dv={case['dv']} {dtype} causal ({kind} route): "
+            f"kernel {row['device_ms']:.5f} ms device / {row['ms']:.4f} ms "
+            f"events, plain {plain:.3f} ms, SDPA "
+            f"{row['library_device_ms']:.5f} ms device / "
+            f"{row['library_ms']:.4f} ms events, bound "
             f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}; "
             f"{bound['bound_f32_ms']:.5f} ms at the f32 peak)")
+        del q, k, v
     report["lm_timing"] = rows
     return {"nmc_matmul": next(r for r in rows if r["kernel"] == "nmc_matmul"
                                and r["shape"] == list(ROW_MATMUL)),
             "flash_attention": next(r for r in rows
                                     if r["kernel"] == "flash_attention"
-                                    and r["shape"][2] == ROW_ATTENTION
+                                    and r["shape"] == [1, 16, ROW_ATTENTION,
+                                                       64]
                                     and r["dtype"] == str(torch.bfloat16))}
 
 
 # ---------------------------------------------------------------------------
-# the MoE family: W8A8 serving of moonshot-v1-16b-a3b at full width
+# the MoE family (moonshot-v1-16b-a3b; deepseek-v2-lite-16b with MLA) and the
+# VLM (pixtral-12b) at full width
 # ---------------------------------------------------------------------------
 
 MOE_ARCH = "moonshot-v1-16b-a3b"
+MLA_ARCH = "deepseek-v2-lite-16b"
+VLM_ARCH = "pixtral-12b"
 #: the recorded run replays through the plain version the first
 #: ``nmc_matmul`` launch of each (M, K, N) and every this-many-th launch
 MOE_REPLAY_STRIDE = 211
@@ -1294,26 +1352,56 @@ MOE_DECODE_REPS = 10
 #: this factor times that spread: bf16 RMS ~0.5 and agreement ~0.25, still
 #: far from a wrong kernel's ~1.4 and ~0
 MOE_LOGITS_SPREAD = 2.0
+#: the VLM phase: rows of ``n_img_tokens`` image embeddings (normal(0, 1)
+#: from the seed) and this many text tokens, prefilled into caches of
+#: ``max_len`` and decoded greedily for ``steps`` steps
+VLM = dict(rows=4, text=128, max_len=1280, steps=16)
+VLM_REPLAY_STRIDE = 97
+VLM_DECODE_REPS = 10
 
 
-def moe_serving_model(device, seed: int = 0) -> tuple:
-    """``(cfg, params, build s)``: moonshot-v1-16b-a3b in W8A8 at full width,
-    random weights from ``seed``.  The float32 model (~110 GB) does not fit
-    the card, so each block is quantized as soon as it is drawn
-    (``lm.draw_blocks`` with ``quantize_tree``, in ``init_params``'s
-    generator order: equal to ``quantize_params(init_params(...))`` bit for
-    bit, ``tests/test_torch_moe.py``)."""
+def block_by_block_model(arch: str, device, seed: int = 0) -> tuple:
+    """``(cfg, params, build s)``: ``arch`` in W8A8 at full width, random
+    weights from ``seed``.  A float32 model of this size does not fit the
+    card (moonshot's is ~110 GB), so each block is quantized as soon as it
+    is drawn (``lm.draw_blocks`` with ``quantize_tree``, in
+    ``init_params``'s generator order: equal to
+    ``quantize_params(init_params(...))`` bit for bit,
+    ``tests/test_torch_moe.py``, ``test_torch_mla.py``,
+    ``test_torch_vlm.py``)."""
     import torch
     from repro_torch import configs
     from repro_torch.models import layers as L
     from repro_torch.models import lm
-    cfg = configs.get(MOE_ARCH).scaled(nmc_mode="w8a8")
+    cfg = configs.get(arch).scaled(nmc_mode="w8a8")
     gen = torch.Generator(device=device).manual_seed(seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = lm.draw_blocks(cfg, gen, device, L.quantize_tree)
     torch.cuda.synchronize()
     return cfg, params, time.perf_counter() - t0
+
+
+def matmuls_per_call(cfg, prefill: bool) -> int:
+    """``nmc_matmul`` launches of one prefill or decode step of ``cfg`` in
+    W8A8: per layer the attention's projections (GQA q/k/v/o; MLA's wq,
+    w_dkv, w_krope and wo, and at prefill w_uk and w_uv, which its absorbed
+    decode reads as float weights) and the FFN's (a dense layer's three,
+    a MoE layer's shared experts' three; the router and the routed experts
+    are plain); the LM head; at a VLM's prefill ``img_proj``."""
+    attn = (6 if prefill else 4) if cfg.mla else 4
+    moe_ffn = 3 if cfg.n_shared_experts else 0
+    n_dense = cfg.first_dense_layers if cfg.family == "moe" else 0
+    n = n_dense * (attn + 3) + (cfg.n_layers - n_dense) * (
+        attn + (moe_ffn if cfg.family == "moe" else 3)) + 1
+    return n + (1 if prefill and cfg.family == "vlm" else 0)
+
+
+def attention_head_dims(cfg) -> tuple:
+    """(D, Dv) of ``cfg``'s prefill attention."""
+    if cfg.mla:
+        return cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    return cfg.head_dim, cfg.head_dim
 
 
 def sampled_matmuls(stride: int):
@@ -1352,34 +1440,40 @@ def counted_moe_drops():
         MOE.route = orig
 
 
-def moe_decode_split(device, params, cfg) -> dict:
-    """Device ms per decode step at ``SERVE["n_slots"]`` slots (cache
-    length 300).  By ``torch.profiler`` over :data:`PROFILED_STEPS` steps:
-    every kernel's, ``nmc_matmul``'s, and the MoE layers' dequantize of the
-    int8 banks and expert ``bmm`` s (the kernels inside ``record_function``
-    ranges around ``MoE.expert_weights`` and ``moe.expert_ffn``); ``None``
-    where the profiler saw no device time."""
+def decode_split(device, params, cfg, rows: int, cache_len: int,
+                 max_len: int) -> dict:
+    """Device ms per decode step at ``rows`` rows (cache length
+    ``cache_len``).  By ``torch.profiler`` over :data:`PROFILED_STEPS`
+    steps: every kernel's, ``nmc_matmul``'s and ``flash_attention``'s (by
+    kernel name), and the kernels inside ``record_function`` ranges around
+    the MoE layers' dequantize of the int8 banks
+    (``MoE.expert_weights``) and expert ``bmm`` s (``moe.expert_ffn``) and
+    MLA's absorbed-decode einsums (``MLAttention.absorbed_attention``);
+    ``None`` where the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import attention as A
     from repro_torch.models import lm
     from repro_torch.models import moe as MOE
-    n = SERVE["n_slots"]
-    caches = lm.init_caches(params, cfg, n, SERVE["max_len"],
-                            dtype=cfg.dtype)
-    toks = torch.zeros((n, 1), dtype=torch.long, device=device)
-    clen = torch.full((n,), 300, dtype=torch.int32, device=device)
+    caches = lm.init_caches(params, cfg, rows, max_len, dtype=cfg.dtype)
+    toks = torch.zeros((rows, 1), dtype=torch.long, device=device)
+    clen = torch.full((rows,), cache_len, dtype=torch.int32, device=device)
     lm.decode_step(params, toks, caches, clen, cfg)
     torch.cuda.synchronize()
+    ranges = {"moe.dequantize": (MOE.MoE, "expert_weights"),
+              "moe.expert_bmm": (MOE, "expert_ffn"),
+              "mla.absorbed": (A.MLAttention, "absorbed_attention")}
+    origs = {label: getattr(owner, attr)
+             for label, (owner, attr) in ranges.items()}
 
     def labelled(fn, label):
         def wrapper(*args, **kw):
             with record_function(label):
                 return fn(*args, **kw)
         return wrapper
-    orig_w, orig_ffn = MOE.MoE.expert_weights, MOE.expert_ffn
-    MOE.MoE.expert_weights = labelled(orig_w, "moe.dequantize")
-    MOE.expert_ffn = labelled(orig_ffn, "moe.expert_bmm")
+    for label, (owner, attr) in ranges.items():
+        setattr(owner, attr, labelled(origs[label], label))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1387,17 +1481,19 @@ def moe_decode_split(device, params, cfg) -> dict:
                 lm.decode_step(params, toks, caches, clen, cfg)
             torch.cuda.synchronize()
     finally:
-        MOE.MoE.expert_weights, MOE.expert_ffn = orig_w, orig_ffn
-    us = dict.fromkeys(("all_kernels", "nmc_matmul", "moe.dequantize",
-                        "moe.expert_bmm"), 0.0)
+        for label, (owner, attr) in ranges.items():
+            setattr(owner, attr, origs[label])
+    us = dict.fromkeys(("all_kernels", "nmc_matmul", "flash_attention",
+                        *ranges), 0.0)
     for ev in prof.events():
-        if ev.device_type == DeviceType.CPU and ev.name in us:
+        if ev.device_type == DeviceType.CPU and ev.name in ranges:
             us[ev.name] += ev.device_time_total
         elif ev.device_type == DeviceType.CUDA and \
                 not getattr(ev, "is_user_annotation", False):
             us["all_kernels"] += ev.self_device_time_total
-            if "nmc_matmul" in ev.name:
-                us["nmc_matmul"] += ev.self_device_time_total
+            for kname in ("nmc_matmul", "flash_attention"):
+                if kname in ev.name:
+                    us[kname] += ev.self_device_time_total
     per = 1e-3 / PROFILED_STEPS
     out = {f"{k.replace('.', '_')}_ms": (v * per if us["all_kernels"]
                                          else None) for k, v in us.items()}
@@ -1405,14 +1501,56 @@ def moe_decode_split(device, params, cfg) -> dict:
     return out
 
 
+def check_lm_launches(name: str, cfg, launches: dict, attn_routes: dict,
+                      mm_routes: dict, prefills: int, decode_steps: int,
+                      attention_launches: int) -> None:
+    """The main path's launches: ``nmc_matmul`` exactly
+    :func:`matmuls_per_call` per prefill and decode step, all on the tensor
+    cores; ``attention_launches`` of ``flash_attention``, all on the route
+    ``flash_attention.route`` gives ``cfg``'s head dims in bf16."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    want_mm = prefills * matmuls_per_call(cfg, True) + \
+        decode_steps * matmuls_per_call(cfg, False)
+    if launches["nmc_matmul"] != want_mm:
+        raise AssertionError(f"{name}: nmc_matmul launched "
+                             f"{launches['nmc_matmul']} != {want_mm}")
+    if launches["flash_attention"] != attention_launches:
+        raise AssertionError(f"{name}: flash_attention launched "
+                             f"{launches['flash_attention']} != "
+                             f"{attention_launches}")
+    kind = fa.route(torch.bfloat16, *attention_head_dims(cfg))
+    if attn_routes[kind] != launches["flash_attention"] or \
+            mm_routes["tensor_core"] != launches["nmc_matmul"]:
+        raise AssertionError(f"{name}: a launch off its route (attention "
+                             f"{kind}, nmc_matmul tensor_core): "
+                             f"{attn_routes} {mm_routes}")
+
+
 def phase_moe_serving(report: dict, device, seed: int = 0) -> dict:
-    """The port's W8A8 serving path for the MoE family at
-    moonshot-v1-16b-a3b's full width (48 layers, d_model 2048, 64 experts
-    top-6, vocab 163840): built block by block from a seeded generator,
-    served by ServeEngine on the :data:`SERVE` traffic.  The LM kernels'
-    launch counts are set to 0 just before the run and read just after;
-    every ``nmc_matmul`` (attention q/k/v/o, the shared experts, the head)
-    and every prefill attention must take the tensor-core route."""
+    """moonshot-v1-16b-a3b served at full width (:func:`serve_moe_model`)."""
+    return serve_moe_model(report, "moe_serving", MOE_ARCH, device, seed)
+
+
+def phase_mla_serving(report: dict, device, seed: int = 0) -> dict:
+    """deepseek-v2-lite-16b (MLA attention, one dense layer, 26 MoE
+    layers) served at full width (:func:`serve_moe_model`): its prefill
+    attention on ``flash_attention``'s CUDA-core route (D 192, Dv 128),
+    its decode attention absorbed into float32 einsums."""
+    return serve_moe_model(report, "mla_serving", MLA_ARCH, device, seed)
+
+
+def serve_moe_model(report: dict, key: str, arch: str, device,
+                    seed: int = 0) -> dict:
+    """The port's W8A8 serving path for a MoE model at full width and
+    depth: built block by block from a seeded generator, served by
+    ServeEngine on the :data:`SERVE` traffic.  The LM kernels' launch
+    counts are set to 0 just before the run and read just after
+    (:func:`check_lm_launches`).  Then the same run once more, recording
+    every attention launch and a sample of the ``nmc_matmul`` ones, each
+    replayed through its plain version, and the assignments each MoE call
+    drops; one prompt's logits against the plain versions (the spread
+    rule); prefill and decode ms; the decode step's device split."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1421,15 +1559,19 @@ def phase_moe_serving(report: dict, device, seed: int = 0) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve.engine import Request, ServeEngine
     smi = report["nvidia_smi"]
+    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    cfg, params, build_s = moe_serving_model(device, seed)
+    cfg, params, build_s = block_by_block_model(arch, device, seed)
     resident_gib = torch.cuda.memory_allocated() / 2 ** 30
-    log(f"moe serving: {MOE_ARCH} w8a8 at full width ({cfg.n_layers} "
-        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
-        f"{cfg.head_dim}, {cfg.n_experts} experts top-{cfg.top_k} + "
-        f"{cfg.n_shared_experts} shared, moe_d_ff {cfg.moe_d_ff}, vocab "
-        f"{cfg.vocab_size}) built block by block in {build_s:.3f} s, "
-        f"{resident_gib:.2f} GiB on the card [{smi}]")
+    d, dv = attention_head_dims(cfg)
+    log(f"{key}: {arch} w8a8 at full width ({cfg.n_layers} layers, "
+        f"{cfg.first_dense_layers} dense, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, attention D {d} Dv {dv}"
+        f"{f' (MLA, kv_lora_rank {cfg.kv_lora_rank})' if cfg.mla else ''}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} "
+        f"shared, moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}) built "
+        f"block by block in {build_s:.3f} s, {resident_gib:.2f} GiB on the "
+        f"card [{smi}]")
     rng = np.random.default_rng(seed)
     lengths, prompts = serving_prompts(cfg, rng)
 
@@ -1453,8 +1595,7 @@ def phase_moe_serving(report: dict, device, seed: int = 0) -> dict:
     prefills = len(prompts)
     decode_steps = eng.nmc_queue.calls - calls0 - prefills
     del eng
-    per_forward = cfg.n_layers * 7 + 1
-    log(f"moe serving: {len(done)} requests, prompts "
+    log(f"{key}: {len(done)} requests, prompts "
         f"{sorted(int(n) for n in lengths)}, {prefills} prefills + "
         f"{decode_steps} decode steps in {serve_s:.3f} s [{smi}]; launches "
         f"{launches}; nmc_matmul by route {mm_routes}, flash_attention by "
@@ -1464,17 +1605,8 @@ def phase_moe_serving(report: dict, device, seed: int = 0) -> dict:
         raise AssertionError("a request did not return max_new tokens")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.out):
         raise AssertionError("a token outside the vocabulary")
-    if launches["nmc_matmul"] < per_forward * (prefills + decode_steps):
-        raise AssertionError(f"nmc_matmul launched {launches['nmc_matmul']}"
-                             f" < {per_forward} x {prefills + decode_steps}")
-    if launches["flash_attention"] != cfg.n_layers * prefills:
-        raise AssertionError(f"flash_attention launched "
-                             f"{launches['flash_attention']} != "
-                             f"{cfg.n_layers} x {prefills}")
-    if attn_routes["tensor_core"] != launches["flash_attention"] or \
-            mm_routes["tensor_core"] != launches["nmc_matmul"]:
-        raise AssertionError(f"a MoE serving launch off the tensor-core "
-                             f"route: {attn_routes} {mm_routes}")
+    check_lm_launches(key, cfg, launches, attn_routes, mm_routes, prefills,
+                      decode_steps, cfg.n_layers * prefills)
 
     # the same run once more, recording every attention launch and a
     # sample of the nmc_matmul ones (each replayed through the plain
@@ -1504,14 +1636,17 @@ def phase_moe_serving(report: dict, device, seed: int = 0) -> dict:
     per_prefill = [sum(prefill_drops[i:i + n_moe])
                    for i in range(0, len(prefill_drops), n_moe)]
     assignments = SERVE["n_slots"] * cfg.top_k * n_moe
-    log(f"moe serving: replayed {replay['launches']} launches through the "
-        f"plain versions, max abs err {replay['max_abs_err']}; assignments "
-        f"dropped per decode step (of {assignments}, capacity 1 per expert "
-        f"per layer): mean {np.mean(per_step):.2f}, min {min(per_step)}, "
-        f"max {max(per_step)}; per prefill (all layers): {per_prefill}")
+    log(f"{key}: replayed {replay['launches']} launches through the "
+        f"plain versions, max abs err {replay['max_abs_err']} (attention "
+        f"by route {replay['attention_by_route']}); assignments dropped per "
+        f"decode step (of {assignments}, capacity 1 per expert per layer): "
+        f"mean {np.mean(per_step):.2f}, min {min(per_step)}, max "
+        f"{max(per_step)}; per prefill (all layers): {per_prefill}")
 
-    logits = compare_logits(params, cfg, prompts[0], device,
-                            spread_factor=MOE_LOGITS_SPREAD)
+    logits = compare_logits(
+        params, cfg, {"tokens": torch.as_tensor(prompts[0][None],
+                                                device=device)}, device,
+        spread_factor=MOE_LOGITS_SPREAD)
 
     prefill_ms = {}
     for n in PREFILL_LENGTHS:
@@ -1529,14 +1664,17 @@ def phase_moe_serving(report: dict, device, seed: int = 0) -> dict:
         lambda: lm.decode_step(params, step_toks, caches, clen, cfg),
         reps=MOE_DECODE_REPS)
     del caches
-    split = moe_decode_split(device, params, cfg)
+    split = decode_split(device, params, cfg, SERVE["n_slots"], 300,
+                         SERVE["max_len"])
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"moe serving: prefill ms by prompt length "
+    phase_s = time.perf_counter() - t_phase
+    log(f"{key}: prefill ms by prompt length "
         f"{ {n: round(v, 3) for n, v in prefill_ms.items()} }; decode step "
         f"{step_ms:.3f} ms at {SERVE['n_slots']} slots; device time per "
-        f"decode step: {split}; peak {peak_gib:.2f} GiB [{smi}]")
-    report["moe_serving"] = dict(
-        arch=MOE_ARCH, n_layers=cfg.n_layers, **SERVE,
+        f"decode step: {split}; peak {peak_gib:.2f} GiB; phase "
+        f"{phase_s:.1f} s [{smi}]")
+    report[key] = dict(
+        arch=arch, n_layers=cfg.n_layers, **SERVE,
         prompt_lengths=[int(n) for n in lengths], build_s=build_s,
         resident_gib=resident_gib, peak_gib=peak_gib, seconds=serve_s,
         prefills=prefills, decode_steps=decode_steps, launches=launches,
@@ -1546,8 +1684,142 @@ def phase_moe_serving(report: dict, device, seed: int = 0) -> dict:
         assignments_per_decode_step=assignments, logits=logits,
         prefill_ms=prefill_ms, decode_step_ms=step_ms,
         decode_step_split=split, param_count=cfg.param_count(),
-        nvidia_smi=smi)
+        phase_s=phase_s, nvidia_smi=smi)
     del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vlm_batch(cfg, rng, rows: int, device) -> dict:
+    """``rows`` prompts of ``cfg.n_img_tokens`` image embeddings (normal(0,
+    1), as the reference's model tests make them) and :data:`VLM` text
+    tokens, drawn from ``rng``, on the card."""
+    import numpy as np
+    import torch
+    images = rng.normal(size=(rows, cfg.n_img_tokens, cfg.d_model))
+    tokens = rng.integers(0, cfg.vocab_size, (rows, VLM["text"]))
+    return {"images": torch.as_tensor(images.astype(np.float32),
+                                      device=device),
+            "tokens": torch.as_tensor(tokens, device=device)}
+
+
+def vlm_generate(params, cfg, batch, steps: int):
+    """Prefill ``batch`` into caches of ``VLM["max_len"]``, then ``steps``
+    greedy decode steps: the (rows, steps + 1) tokens."""
+    import torch
+    from repro_torch.models import lm
+    logits, caches = lm.prefill(params, batch, cfg, VLM["max_len"])
+    n = batch_positions(batch)
+    tok = logits.argmax(-1)[:, None]
+    out = [tok]
+    clen = torch.full((tok.shape[0],), n + 1, dtype=torch.int32,
+                      device=tok.device)
+    for _ in range(steps):
+        logits, caches = lm.decode_step(params, tok, caches, clen, cfg)
+        tok = logits.argmax(-1)[:, None]
+        out.append(tok)
+        clen = clen + 1
+    return torch.cat(out, dim=1)
+
+
+def phase_vlm(report: dict, device, seed: int = 0) -> dict:
+    """The port's W8A8 VLM path at pixtral-12b's full width and depth (40
+    layers, d_model 5120, 32 heads of 128 with kv 8, d_ff 14336, vocab
+    131072), built block by block from a seeded generator: ``lm.prefill``
+    of :data:`VLM` rows of 1024 image embeddings and 128 text tokens, then
+    greedy ``lm.decode_step`` s (the serving engine, like the reference's,
+    passes no images).  The LM kernels' launch counts are set to 0 just
+    before and read just after (:func:`check_lm_launches`); the same run
+    once more records every attention launch and a sample of the
+    ``nmc_matmul`` ones, each replayed through its plain version; one
+    row's logits against the plain versions (the fixed limits, or the
+    spread rule if pixtral's own 1-ulp spread reaches them); prefill and
+    decode ms and the decode step's device time."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import nmc_matmul as mm
+    from repro_torch.models import lm
+    smi = report["nvidia_smi"]
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, build_s = block_by_block_model(VLM_ARCH, device, seed)
+    resident_gib = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"vlm: {VLM_ARCH} w8a8 at full width ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} (kv "
+        f"{cfg.n_kv_heads}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.n_img_tokens} image tokens) built block by block in "
+        f"{build_s:.3f} s, {resident_gib:.2f} GiB on the card [{smi}]")
+    rng = np.random.default_rng(seed)
+    batch = vlm_batch(cfg, rng, VLM["rows"], device)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = vlm_generate(params, cfg, batch, VLM["steps"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    attn_routes = dict(fa.flash_attention.launches_by_route)
+    mm_routes = dict(mm.nmc_matmul.launches_by_route)
+    log(f"vlm: {VLM['rows']} rows of {cfg.n_img_tokens} image + "
+        f"{VLM['text']} text tokens prefilled and decoded {VLM['steps']} "
+        f"steps in {run_s:.3f} s [{smi}]; launches {launches}; nmc_matmul "
+        f"by route {mm_routes}, flash_attention by route {attn_routes}")
+    if tokens.shape != (VLM["rows"], VLM["steps"] + 1) or \
+            not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"vlm: tokens {tuple(tokens.shape)} or out of "
+                             f"the vocabulary")
+    check_lm_launches("vlm", cfg, launches, attn_routes, mm_routes, 1,
+                      VLM["steps"], cfg.n_layers)
+
+    with recorded_lm_kernel_calls(keep=sampled_matmuls(VLM_REPLAY_STRIDE)) \
+            as calls:
+        again = vlm_generate(params, cfg, batch, VLM["steps"])
+        torch.cuda.synchronize()
+    if not torch.equal(again, tokens):
+        raise AssertionError("vlm: the recorded run decoded other tokens")
+    replay = replay_against_plain(calls)
+    del calls
+    if replay["launches"]["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"vlm: the recorded run launched attention "
+                             f"{replay['launches']} times")
+    log(f"vlm: replayed {replay['launches']} launches through the plain "
+        f"versions, max abs err {replay['max_abs_err']} (attention by route "
+        f"{replay['attention_by_route']})")
+
+    one = {k: v[:1] for k, v in batch.items()}
+    logits = compare_logits(params, cfg, one, device,
+                            spread_factor=MOE_LOGITS_SPREAD,
+                            spread_if_reached=True)
+
+    prefill_ms = events_ms(
+        lambda: lm.prefill(params, batch, cfg, VLM["max_len"]), reps=3)
+    rows, n = VLM["rows"], cfg.n_img_tokens + VLM["text"]
+    caches = lm.prefill(params, batch, cfg, VLM["max_len"])[1]
+    step_toks = torch.zeros((rows, 1), dtype=torch.long, device=device)
+    clen = torch.full((rows,), n + 1, dtype=torch.int32, device=device)
+    step_ms = events_ms(
+        lambda: lm.decode_step(params, step_toks, caches, clen, cfg),
+        reps=VLM_DECODE_REPS)
+    del caches
+    split = decode_split(device, params, cfg, rows, n + 1, VLM["max_len"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase_s = time.perf_counter() - t_phase
+    log(f"vlm: prefill {prefill_ms:.3f} ms ({rows} x {n} tokens); decode "
+        f"step {step_ms:.3f} ms at {rows} rows; device time per decode "
+        f"step: {split}; peak {peak_gib:.2f} GiB; phase {phase_s:.1f} s "
+        f"[{smi}]")
+    report["vlm"] = dict(
+        arch=VLM_ARCH, n_layers=cfg.n_layers, **VLM,
+        n_img_tokens=cfg.n_img_tokens, build_s=build_s,
+        resident_gib=resident_gib, peak_gib=peak_gib, seconds=run_s,
+        launches=launches, attention_routes=attn_routes,
+        matmul_routes=mm_routes, replay=replay, logits=logits,
+        tokens=tokens.tolist(), prefill_ms=prefill_ms, decode_step_ms=step_ms,
+        decode_step_split=split, param_count=cfg.param_count(),
+        phase_s=phase_s, nvidia_smi=smi)
+    del params, batch, one
     torch.cuda.empty_cache()
     return launches
 
@@ -2018,19 +2290,36 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
     report = {"device": name, "count": count, "nvidia_smi": smi}
 
-    phase_build(report)
-    waves = phase_kernels_vs_plain(report, device)
-    launches = phase_main_path(report)
-    timed = phase_timing(report, waves, device)
-    lm_errs = phase_lm_kernels_vs_plain(report, device)
-    lm_launches = phase_serving(report, device)
-    moe_launches = phase_moe_serving(report, device)
-    lm_timed = phase_lm_timing(report, device)
-    vrf_err = phase_vrf_vs_plain(report, device)
-    demo_launches = phase_demo(report)
-    vrf_row = phase_vrf_full(report, device)
-    tile_launches = phase_multitile(report)
-    block_launches = phase_resident_block(report, device)
+    seconds = {}
+
+    def timed_phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t0
+        log(f"phase {label}: {seconds[label]:.1f} s")
+        return out
+
+    timed_phase("build", phase_build, report)
+    waves = timed_phase("kernels_vs_plain", phase_kernels_vs_plain, report,
+                        device)
+    launches = timed_phase("main_path", phase_main_path, report)
+    timed = timed_phase("timing", phase_timing, report, waves, device)
+    lm_errs = timed_phase("lm_kernels_vs_plain", phase_lm_kernels_vs_plain,
+                          report, device)
+    lm_paths = {"serving": timed_phase("serving", phase_serving, report,
+                                       device)}
+    for path, phase in (("moe_serving", phase_moe_serving),
+                        ("mla_serving", phase_mla_serving),
+                        ("vlm", phase_vlm)):
+        lm_paths[path] = timed_phase(path, phase, report, device)
+    lm_timed = timed_phase("lm_timing", phase_lm_timing, report, device)
+    vrf_err = timed_phase("vrf_vs_plain", phase_vrf_vs_plain, report, device)
+    demo_launches = timed_phase("demo", phase_demo, report)
+    vrf_row = timed_phase("vrf_full", phase_vrf_full, report, device)
+    tile_launches = timed_phase("multitile", phase_multitile, report)
+    block_launches = timed_phase("resident_block", phase_resident_block,
+                                 report, device)
+    report["phase_seconds"] = seconds
 
     kernels = []
     for engine, meta in KERNEL_META.items():
@@ -2042,14 +2331,15 @@ def main() -> int:
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": None})
-    # attention's error by route, the serving replays (all on the tensor
-    # cores) folded in; its row reports the route that its times are of
-    moe_replay = report["moe_serving"]["replay"]["max_abs_err"]
+    # attention's error by route, every serving path's replays folded in
+    # (deepseek's on the CUDA-core route); its row reports the route that
+    # its times are of
+    replays = [report["serving"]["attention_replay"]] + \
+        [report[p]["replay"] for p in lm_paths if p != "serving"]
     attn_errs = dict(lm_errs["flash_attention"])
-    attn_errs["tensor_core"] = max(
-        attn_errs["tensor_core"], moe_replay["flash_attention"],
-        report["serving"]["attention_replay"]["max_abs_err"][
-            "flash_attention"])
+    for rep in replays:
+        for kind, err in rep["attention_by_route"].items():
+            attn_errs[kind] = max(attn_errs[kind], err)
     for kname, meta in LM_KERNEL_META.items():
         row = lm_timed[kname]
         extra, err = {}, lm_errs[kname]
@@ -2063,14 +2353,14 @@ def main() -> int:
                                          "library_median_ms",
                                          "library_padded_rows")}
             extra["launches_by_route"] = {
-                r: report["serving"]["matmul_routes"][r]
-                + report["moe_serving"]["matmul_routes"][r]
+                r: sum(report[p]["matmul_routes"][r] for p in lm_paths)
                 for r in report["serving"]["matmul_routes"]}
-            err = max(err, moe_replay[kname])
-        extra["launches_by_path"] = {"serving": lm_launches[kname],
-                                     "moe_serving": moe_launches[kname]}
+            err = max([err] + [rep["max_abs_err"][kname]
+                               for rep in replays[1:]])
+        extra["launches_by_path"] = {p: n[kname]
+                                     for p, n in lm_paths.items()}
         kernels.append({"name": kname, **meta, "route": "cuda",
-                        "launches": lm_launches[kname] + moe_launches[kname],
+                        "launches": sum(n[kname] for n in lm_paths.values()),
                         "max_abs_err": err, "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
@@ -2084,8 +2374,7 @@ def main() -> int:
                     "plain_ms": vrf_row["plain_ms"],
                     "bound_ms": vrf_row["bound_ms"],
                     "bound_by": vrf_row["bound_by"], "library_ms": None})
-    report["path_launches"] = {"nmc": launches, "serving": lm_launches,
-                               "moe_serving": moe_launches,
+    report["path_launches"] = {"nmc": launches, **lm_paths,
                                "demo": demo_launches,
                                "multitile": tile_launches,
                                "resident_block": block_launches}

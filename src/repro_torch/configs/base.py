@@ -2,10 +2,11 @@
 
 The counterpart of the JAX package's ``configs/base.py``.  The port has the
 dense family (``qwen1.5-0.5b``, ``h2o-danube-1.8b``, ``mistral-nemo-12b``,
-``phi3-medium-14b``) and the MoE family (``moonshot-v1-16b-a3b``) so far:
-each registers a full config (exact dims) and a ``smoke`` reduction for CPU
-tests; the other architecture ids raise ``NotImplementedError`` until their
-family lands (ROADMAP.md, queue 1).
+``phi3-medium-14b``), the MoE family (``moonshot-v1-16b-a3b``, and
+``deepseek-v2-lite-16b`` with MLA attention) and the VLM family
+(``pixtral-12b``) so far: each registers a full config (exact dims) and a
+``smoke`` reduction for CPU tests; the other architecture ids raise
+``NotImplementedError`` until their family lands (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ ARCH_IDS = (
     "deepseek-v2-lite-16b", "pixtral-12b",
 )
 PORTED = ("h2o-danube-1.8b", "qwen1.5-0.5b", "mistral-nemo-12b",
-          "phi3-medium-14b", "moonshot-v1-16b-a3b")
+          "phi3-medium-14b", "moonshot-v1-16b-a3b", "deepseek-v2-lite-16b",
+          "pixtral-12b")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in PORTED}

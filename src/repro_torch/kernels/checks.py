@@ -39,6 +39,23 @@ MATMUL_KN = ((1024, 1024), (1024, 2816), (2816, 1024), (1024, 151936))
 #: moonshot-v1-16b-a3b's: q/k/v/o, the shared experts' up/gate and down
 #: (2 x 1408 wide), the LM head (its routed experts are not nmc_matmul)
 MOE_MATMUL_KN = ((2048, 2048), (2048, 2816), (2816, 2048), (2048, 163840))
+#: deepseek-v2-lite-16b's: MLA's wq (16 x 192), w_dkv (kv_lora_rank 512),
+#: w_krope (64), w_uk / w_uv (512 -> 16 x 128) and wo; the first dense
+#: layer's up/gate and down (10944); the shared experts' up/gate and down
+#: (2 x 1408); the LM head
+MLA_MATMUL_KN = ((2048, 3072), (2048, 512), (2048, 64), (512, 2048),
+                 (2048, 2048), (2048, 10944), (10944, 2048), (2048, 2816),
+                 (2816, 2048), (2048, 102400))
+#: pixtral-12b's: q (32 x 128), k/v (8 x 128), up/gate, img_proj, o, down,
+#: the LM head
+VLM_MATMUL_KN = ((5120, 4096), (5120, 1024), (5120, 14336), (5120, 5120),
+                 (4096, 5120), (14336, 5120), (5120, 131072))
+#: the (K, N) of every served model's projections, each once
+SERVING_MATMUL_KN = tuple(dict.fromkeys(
+    MATMUL_KN + MOE_MATMUL_KN + MLA_MATMUL_KN + VLM_MATMUL_KN))
+#: pixtral-12b's prefill rows in the smoke run: 4 prompts of 1024 image and
+#: 128 text tokens
+VLM_PREFILL_M = 4 * (1024 + 128)
 #: ragged shapes: no dimension a multiple of the kernel's tiles (the
 #: ``dp4a`` route)
 MATMUL_RAGGED = ((7, 33, 70), (17, 2817, 129), (65, 5, 3))
@@ -64,6 +81,13 @@ ATTENTION_CASES = {
                               dv=80, window=128),
     # MLA-like value width
     "dv-ne-d": dict(b=1, hq=4, hkv=4, sq=128, skv=128, d=192, dv=128),
+    # deepseek-v2-lite-16b's MLA prefill: 16 heads, D = nope + rope = 192,
+    # Dv = 128, causal (the CUDA-core route in bf16 too)
+    "deepseek-mla-256": dict(b=1, hq=16, hkv=16, sq=256, skv=256, d=192,
+                             dv=128),
+    # pixtral-12b's prefill: 1024 image + 128 text tokens, GQA 32/8 of 128
+    "pixtral-1152": dict(b=1, hq=32, hkv=8, sq=1152, skv=1152, d=128,
+                         dv=128),
     # every row fully masked (q past the keys), a ragged Skv
     "masked-rows": dict(b=1, hq=2, hkv=1, sq=40, skv=70, d=64, dv=64,
                         window=4, q_offset=80),
@@ -83,6 +107,10 @@ ATTENTION_CASES = {
     "window-mid-tile": dict(b=1, hq=8, hkv=2, sq=256, skv=256, d=64, dv=64,
                             window=100),
 }
+
+#: the cases with a head dim over 128, which take the CUDA-core route in
+#: bf16 too (``flash_attention.route``)
+HEAD_DIM_OVER_128 = ("dv-ne-d", "deepseek-mla-256")
 
 BF16_ULP = 2.0 ** -7
 
@@ -110,6 +138,13 @@ def close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
             f"{name}: {int(bad.sum())} elements outside rtol {rtol} / atol "
             f"{atol}; max abs err {float(err.max())}")
     return float(err.max()) if err.numel() else 0.0
+
+
+def serving_matmul_shapes() -> list:
+    """``(M, K, N)`` of every served model's projections: each (K, N) at
+    the rows of :data:`MATMUL_M`, and pixtral's at its prefill rows."""
+    return [(m, k, n) for m in MATMUL_M for k, n in SERVING_MATMUL_KN] + \
+        [(VLM_PREFILL_M, k, n) for k, n in VLM_MATMUL_KN]
 
 
 def matmul_inputs(m: int, k: int, n: int, device, seed: int = 0) -> tuple:

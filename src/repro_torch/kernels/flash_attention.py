@@ -30,8 +30,8 @@ entry took another route):
   accumulation, P rounded to bf16 before the P V product.
 * ``"cuda_core"``: everything else, in f32 on the CUDA cores: f32 inputs
   (whose 2e-5 tolerance rules out bf16 or TF32 products), and bf16 with a
-  head dim over 128 (only an MLA-like D = 192 has one; no ported model
-  does).
+  head dim over 128: MLA's D = nope + rope = 192 (Dv = 128), on which
+  deepseek-v2-lite-16b's prefill runs.
 
 ``flash_attention.launches`` counts the launches and
 ``flash_attention.launches_by_route`` splits them by route.

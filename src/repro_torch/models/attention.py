@@ -1,15 +1,20 @@
-"""Attention layers: GQA (RoPE, optional bias / sliding window).
+"""Attention layers: GQA (RoPE, optional bias / sliding window) and MLA.
 
-The counterpart of the GQA half of the JAX package's ``models/attention.py``:
+The counterpart of the JAX package's ``models/attention.py``:
   * train/prefill: blocked flash attention (the CUDA kernel on the card, the
     chunked online softmax on the CPU) — never materializes S x S;
   * decode: one-token attention against a KV cache updated in place (the
     reference's one-hot blend, written as a slot write: equal for finite
-    values), optionally int8 with per-token-per-head scales.
-MLA waits for its slice of the port (ROADMAP.md, queue 1).
+    values), optionally int8 with per-token-per-head scales;
+  * MLA (DeepSeek's multi-head latent attention) keeps the *compressed*
+    cache, ``kv_lora_rank + qk_rope_dim`` values per token, runs prefill in
+    the expanded form (flash attention at D = nope + rope, Dv = v) and
+    decode in the absorbed form (float32 einsums in the latent space).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -129,8 +134,140 @@ class GQAttention(nn.Module):
         return self._out(o, cfg), cache
 
 
+class MLAttention(nn.Module):
+    """DeepSeek-V2's multi-head latent attention (the reference's
+    ``mla_*``): q from ``wq``; K and V decompressed by ``w_uk`` / ``w_uv``
+    from the normalised latent ``ckv = norm_ckv(w_dkv(x))``; one RoPE key
+    ``w_krope(x)`` shared by every head."""
+
+    def __init__(self, wq: L.NmcLinear, w_dkv: L.NmcLinear,
+                 w_krope: L.NmcLinear, w_uk: L.NmcLinear, w_uv: L.NmcLinear,
+                 wo: L.NmcLinear, norm_ckv: L.RMSNorm):
+        super().__init__()
+        self.wq, self.w_dkv, self.w_krope = wq, w_dkv, w_krope
+        self.w_uk, self.w_uv, self.wo = w_uk, w_uv, wo
+        self.norm_ckv = norm_ckv
+
+    @classmethod
+    def init(cls, gen: torch.Generator, cfg: ModelConfig,
+             device=None) -> "MLAttention":
+        d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        return cls(L.NmcLinear.init(gen, d, h * (dn + dr), device=device),
+                   L.NmcLinear.init(gen, d, r, device=device),
+                   L.NmcLinear.init(gen, d, dr, device=device),
+                   L.NmcLinear.init(gen, r, h * dn, device=device),
+                   L.NmcLinear.init(gen, r, h * dv, device=device),
+                   L.NmcLinear.init(gen, h * dv, d, device=device),
+                   L.RMSNorm.init(r, device=device))
+
+    def _q_and_latent(self, x: torch.Tensor, cfg: ModelConfig, cos,
+                      sin) -> tuple:
+        """x: (B, S, D) -> q_nope (B,S,H,dn), q_rope (B,S,H,dr), ckv
+        (B,S,r) and the shared key krope (B,S,1,dr), rope applied."""
+        b, s, _ = x.shape
+        dn, dr, mode = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.nmc_mode
+        q = self.wq(x, nmc_mode=mode).reshape(b, s, cfg.n_heads, dn + dr)
+        ckv = self.norm_ckv(self.w_dkv(x, nmc_mode=mode))
+        krope = L.apply_rope(self.w_krope(x, nmc_mode=mode)[:, :, None, :],
+                             cos, sin)
+        return q[..., :dn], L.apply_rope(q[..., dn:], cos, sin), ckv, krope
+
+    def _expanded(self, x: torch.Tensor, cfg: ModelConfig,
+                  q_offset: int) -> tuple:
+        """The expanded (flash-compatible) form: (out (B,S,D), ckv, krope
+        (B,S,dr))."""
+        b, s, _ = x.shape
+        h, dr, mode = cfg.n_heads, cfg.qk_rope_dim, cfg.nmc_mode
+        positions = torch.arange(s, device=x.device) + q_offset
+        cos, sin = L.rope_table(positions, dr, cfg.rope_theta)
+        q_nope, q_rope, ckv, krope = self._q_and_latent(x, cfg, cos, sin)
+        k_nope = self.w_uk(ckv, nmc_mode=mode).reshape(b, s, h,
+                                                        cfg.qk_nope_dim)
+        v = self.w_uv(ckv, nmc_mode=mode).reshape(b, s, h, cfg.v_head_dim)
+        q = torch.cat([q_nope, q_rope], -1).transpose(1, 2)
+        k = torch.cat([k_nope, krope.expand(b, s, h, dr)], -1).transpose(1, 2)
+        o = ops.attention(q, k, v.transpose(1, 2), causal=True,
+                          q_offset=q_offset)
+        out = self.wo(o.transpose(1, 2).reshape(b, s, -1), nmc_mode=mode)
+        return out, ckv, krope[:, :, 0]
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig, *,
+                q_offset: int = 0) -> torch.Tensor:
+        """Train/prefill path (the reference's ``mla_apply``; causal)."""
+        return self._expanded(x, cfg, q_offset)[0]
+
+    def prefill(self, x: torch.Tensor, cfg: ModelConfig,
+                max_len: int) -> tuple:
+        """The expanded attention over the prompt and the compressed cache
+        ``{"ckv": (B, max_len, r), "krope": (B, max_len, dr)}`` (the
+        reference's ``mla_prefill``, which projects ``ckv`` and ``krope``
+        a second time: the same function of the same inputs, so the
+        forward's are reused)."""
+        out, ckv, krope = self._expanded(x, cfg, 0)
+        pad = (0, 0, 0, max_len - x.shape[1])
+        return out, {"ckv": F.pad(ckv, pad).to(x.dtype),
+                     "krope": F.pad(krope, pad).to(x.dtype)}
+
+    def decode_step(self, x: torch.Tensor, cfg: ModelConfig, cache: dict,
+                    cache_len: torch.Tensor) -> tuple:
+        """Absorbed decode (the reference's ``mla_decode``): ``W_uk`` is
+        folded into the query and ``W_uv`` applied after the attention, so
+        the scores and the weighted sum run over the compressed cache, in
+        float32 einsums with the float32 weights (``w``, or ``w_q`` times
+        its scale).  cache: {"ckv", "krope"} updated in place at
+        ``cache_len - 1``.  Returns (out (B,1,D), cache)."""
+        b = x.shape[0]
+        cos, sin = L.rope_table(cache_len[:, None] - 1, cfg.qk_rope_dim,
+                                cfg.rope_theta)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+        q_nope, q_rope, ckv_new, krope_new = self._q_and_latent(x, cfg, cos,
+                                                                sin)
+        rows = torch.arange(b, device=x.device)
+        idx = (cache_len - 1).long()
+        cache["ckv"][rows, idx] = ckv_new[:, 0].to(cache["ckv"].dtype)
+        cache["krope"][rows, idx] = krope_new[:, 0, 0].to(
+            cache["krope"].dtype)
+        o = self.absorbed_attention(q_nope[:, 0], q_rope[:, 0], cache,
+                                    cache_len, cfg)
+        return self.wo(o.reshape(b, 1, -1).to(x.dtype),
+                       nmc_mode=cfg.nmc_mode), cache
+
+    def absorbed_attention(self, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                           cache: dict, cache_len: torch.Tensor,
+                           cfg: ModelConfig) -> torch.Tensor:
+        """q_nope (B,H,dn), q_rope (B,H,dr) against the compressed cache ->
+        (B, H, dv) in float32: the scores ``(q_nope W_uk) ckv^T + q_rope
+        krope^T`` over the first ``cache_len`` slots, their softmax times
+        ``ckv``, then ``W_uv``."""
+        h, r = cfg.n_heads, cfg.kv_lora_rank
+        dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+        ckv = cache["ckv"].float()
+        w_uk = self.w_uk.float_weight().reshape(r, h, dn)
+        q_lat = torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk)
+        logits = (torch.einsum("bhr,bsr->bhs", q_lat, ckv)
+                  + torch.einsum("bhd,bsd->bhs", q_rope.float(),
+                                 cache["krope"].float())) \
+            * (1.0 / math.sqrt(dn + dr))
+        seen = torch.arange(ckv.shape[1], device=ckv.device)[None, :] \
+            < cache_len[:, None]
+        logits = logits.masked_fill(~seen[:, None, :], ops.NEG_INF)
+        o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(logits, dim=-1),
+                             ckv)
+        w_uv = self.w_uv.float_weight().reshape(r, h, cfg.v_head_dim)
+        return torch.einsum("bhr,rhv->bhv", o_lat, w_uv)
+
+
 def cache_init(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
+    """One layer's cache: MLA's compressed ``{"ckv", "krope"}`` in
+    ``dtype``, or the GQA ``{"k", "v"}`` (int8 with scales under
+    ``kv_cache_dtype="int8"``)."""
+    if cfg.mla:
+        return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "krope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                     dtype=dtype, device=device)}
     shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
         sshape = shape[:-1] + (1,)

@@ -1,11 +1,12 @@
 """Carry a parameter tree of the JAX reference across to the port.
 
-:func:`params_from_jax` takes the reference's LM params (dense or MoE) as a
-nested dict of numpy arrays — float, or quantized by its
-``quantize_params`` — with the layer axis stacked first, and builds the
-port's :class:`~repro_torch.models.lm.DecoderLM` holding the same numbers,
-so both packages compute the same function.  It reads numpy only: the
-caller turns the reference's arrays into numpy (``np.asarray``).
+:func:`params_from_jax` takes the reference's LM params (dense, MoE or VLM;
+GQA or MLA attention) as a nested dict of numpy arrays — float, or
+quantized by its ``quantize_params`` — with the layer axis stacked first,
+and builds the port's :class:`~repro_torch.models.lm.DecoderLM` holding
+the same numbers, so both packages compute the same function.  It reads
+numpy only: the caller turns the reference's arrays into numpy
+(``np.asarray``).
 """
 
 from __future__ import annotations
@@ -54,15 +55,28 @@ def _moe(p: dict, device, layer: int) -> MOE.MoE:
                    else None)
 
 
+#: the attention linears, in each module's argument order
+GQA_KEYS = ("wq", "wk", "wv", "wo")
+MLA_KEYS = ("wq", "w_dkv", "w_krope", "w_uk", "w_uv", "wo")
+
+
+def _attention(at: dict, cfg: ModelConfig, device, layer: int):
+    if not cfg.mla:
+        return A.GQAttention(*(_linear(at[n], device, layer)
+                               for n in GQA_KEYS))
+    # the reference normalises ckv with rmsnorm's default eps
+    return A.MLAttention(*(_linear(at[n], device, layer) for n in MLA_KEYS),
+                         L.RMSNorm(_tensor(at["norm_ckv"]["g"][layer],
+                                           device)))
+
+
 def _blocks(lay: dict, cfg: ModelConfig, device) -> list:
     def block(i: int) -> lm.DecoderBlock:
-        at = lay["attn"]
         ffn = {"moe": _moe(lay["moe"], device, i)} if "moe" in lay \
             else {"mlp": _mlp(lay["mlp"], device, i)}
         return lm.DecoderBlock(
             L.RMSNorm(_tensor(lay["ln1"]["g"][i], device), cfg.norm_eps),
-            A.GQAttention(*(_linear(at[n], device, i)
-                            for n in ("wq", "wk", "wv", "wo"))),
+            _attention(lay["attn"], cfg, device, i),
             L.RMSNorm(_tensor(lay["ln2"]["g"][i], device), cfg.norm_eps),
             **ffn)
     return [block(i) for i in range(len(lay["ln1"]["g"]))]
@@ -70,8 +84,8 @@ def _blocks(lay: dict, cfg: ModelConfig, device) -> list:
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> lm.DecoderLM:
     """The reference's LM params (numpy leaves) as a DecoderLM on
-    ``device`` (the card when None): ``layers`` and, for a MoE model's
-    first dense layers, ``dense_layers``."""
+    ``device`` (the card when None): ``layers``, for a MoE model's first
+    dense layers ``dense_layers``, and a VLM's ``img_proj``."""
     device = resolve_device(device)
     return lm.DecoderLM(
         L.Embedding(_tensor(tree["embed"]["table"], device)),
@@ -79,4 +93,5 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> lm.DecoderLM:
         L.RMSNorm(_tensor(tree["final_norm"]["g"], device), cfg.norm_eps),
         _linear(tree["head"], device),
         _blocks(tree["dense_layers"], cfg, device)
-        if "dense_layers" in tree else [])
+        if "dense_layers" in tree else [],
+        _linear(tree["img_proj"], device) if "img_proj" in tree else None)

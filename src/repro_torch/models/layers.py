@@ -70,6 +70,14 @@ class NmcLinear(nn.Module):
         wq, s = ref.quantize_rowwise(self.w, axis=0)
         return NmcLinear(b=self.b, w_q=wq, scale=s)
 
+    def float_weight(self) -> torch.Tensor:
+        """The (d_in, d_out) weight in float32: ``w``, or ``w_q`` times its
+        per-output-channel scale (not rounded to an activation dtype; MLA's
+        absorbed decode reads ``W_uk`` / ``W_uv`` so)."""
+        if self.w_q is None:
+            return self.w.float()
+        return self.w_q.float() * self.scale.float()[None, :]
+
     def forward(self, x: torch.Tensor, *, nmc_mode: str = "none",
                 act: str = "none", dtype=None) -> torch.Tensor:
         """Any leading batch dims; contraction over the last."""

@@ -1,16 +1,19 @@
-"""The decoder LMs: ``[attn + MLP] x L`` (dense) and ``first_dense x k +
-[attn + MoE] x (L - k)`` (MoE) behind three entry points.
+"""The decoder LMs: ``[attn + MLP] x L`` (dense, VLM) and ``first_dense x k
++ [attn + MoE] x (L - k)`` (MoE) behind three entry points.
 
-The counterpart of the dense and MoE families of the JAX package's
+The counterpart of the dense, MoE and VLM families of the JAX package's
 ``models/lm.py``: ``forward`` (teacher-forced logits and the summed MoE
 aux loss), ``prefill`` (the prompt's last-position logits and the KV
 caches) and ``decode_step`` (one token against the caches, updated in
-place).  The layers run in a Python loop over ``ModuleList``s; the caches
-keep the reference's layout, one tensor per field stacked over layers,
-``(L, B, KV, S, hd)``, under ``"layers"`` and, for a MoE model's first
-dense layers, ``"dense_layers"``.  The other families (hybrid SSM, xLSTM,
-encoder-decoder, VLM) and MLA attention raise ``NotImplementedError``
-until their slices land (ROADMAP.md, queue 1).
+place).  The attention is GQA, or MLA where ``cfg.mla``.  A VLM's batch
+carries ``"images"``, precomputed patch embeddings that ``img_proj``
+projects and places before the text embeddings.  The layers run in a
+Python loop over ``ModuleList``s; the caches keep the reference's layout,
+one tensor per field stacked over layers (GQA ``(L, B, KV, S, hd)``, MLA
+``(L, B, S, r)``), under ``"layers"`` and, for a MoE model's first dense
+layers, ``"dense_layers"``.  The other families (hybrid SSM, xLSTM,
+encoder-decoder) raise ``NotImplementedError`` until their slices land
+(ROADMAP.md, queue 1).
 
 Every entry point runs under ``torch.inference_mode()``.
 """
@@ -27,19 +30,19 @@ from repro_torch.models.config import ModelConfig, resolve_device
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.mla:
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense and MoE families with GQA "
-            f"attention only so far (family {cfg.family!r}, mla={cfg.mla}); "
-            f"see ROADMAP.md, queue 1")
+            f"{cfg.name}: the port runs the dense, MoE and VLM families only "
+            f"so far (family {cfg.family!r}); see ROADMAP.md, queue 1")
 
 
 class DecoderBlock(nn.Module):
     """ln1 -> attention -> ln2 -> FFN, a residual around each; the FFN is
     the dense ``mlp`` or the ``moe``, exactly one of them."""
 
-    def __init__(self, ln1: L.RMSNorm, attn: A.GQAttention, ln2: L.RMSNorm,
-                 mlp: L.MLP | None = None, moe: MOE.MoE | None = None):
+    def __init__(self, ln1: L.RMSNorm, attn: A.GQAttention | A.MLAttention,
+                 ln2: L.RMSNorm, mlp: L.MLP | None = None,
+                 moe: MOE.MoE | None = None):
         super().__init__()
         if (mlp is None) == (moe is None):
             raise ValueError("a DecoderBlock holds an mlp or a moe")
@@ -50,7 +53,8 @@ class DecoderBlock(nn.Module):
     def init(cls, gen: torch.Generator, cfg: ModelConfig, device=None,
              use_moe: bool = False, d_ff: int | None = None) -> "DecoderBlock":
         ln1 = L.RMSNorm.init(cfg.d_model, cfg.norm_eps, device)
-        attn = A.GQAttention.init(gen, cfg, device)
+        attn = (A.MLAttention if cfg.mla else A.GQAttention).init(
+            gen, cfg, device)
         ln2 = L.RMSNorm.init(cfg.d_model, cfg.norm_eps, device)
         if use_moe:
             return cls(ln1, attn, ln2, moe=MOE.MoE.init(gen, cfg, device))
@@ -81,13 +85,15 @@ class DecoderBlock(nn.Module):
 
 class DecoderLM(nn.Module):
     def __init__(self, embed: L.Embedding, layers: list, final_norm: L.RMSNorm,
-                 head: L.NmcLinear, dense_layers: list = ()):
+                 head: L.NmcLinear, dense_layers: list = (),
+                 img_proj: L.NmcLinear | None = None):
         super().__init__()
         self.embed = embed
         self.dense_layers = nn.ModuleList(dense_layers)
         self.layers = nn.ModuleList(layers)
         self.final_norm = final_norm
         self.head = head
+        self.img_proj = img_proj
 
     @property
     def device(self) -> torch.device:
@@ -99,6 +105,21 @@ class DecoderLM(nn.Module):
         first = [("dense_layers", self.dense_layers)] \
             if len(self.dense_layers) else []
         return first + [("layers", self.layers)]
+
+    def vlm_embed(self, images: torch.Tensor, tokens: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+        """The projected image embeddings (B, S_img, D) before the text
+        embeddings: (B, S_img + S_txt, D)."""
+        img = self.img_proj(images.to(cfg.dtype), nmc_mode=cfg.nmc_mode)
+        return torch.cat([img, self.embed(tokens, cfg.dtype)], dim=1)
+
+    def inputs(self, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+        """The embedded batch: its ``"tokens"``, after its ``"images"`` for
+        a VLM (a VLM batch without them raises ``KeyError``, as the
+        reference)."""
+        if cfg.family == "vlm":
+            return self.vlm_embed(batch["images"], batch["tokens"], cfg)
+        return self.embed(batch["tokens"], cfg.dtype)
 
     def logits(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         """The LM head over every position (at prefill the dynamic
@@ -119,13 +140,12 @@ class DecoderLM(nn.Module):
             else torch.zeros((), device=x.device)
         return x, aux
 
-    def forward(self, tokens: torch.Tensor, cfg: ModelConfig) -> tuple:
-        x, aux = self.hidden(self.embed(tokens, cfg.dtype), cfg)
+    def forward(self, batch: dict, cfg: ModelConfig) -> tuple:
+        x, aux = self.hidden(self.inputs(batch, cfg), cfg)
         return self.logits(x, cfg), aux
 
-    def prefill(self, tokens: torch.Tensor, cfg: ModelConfig,
-                max_len: int) -> tuple:
-        x = self.embed(tokens, cfg.dtype)
+    def prefill(self, batch: dict, cfg: ModelConfig, max_len: int) -> tuple:
+        x = self.inputs(batch, cfg)
         caches = {}
         for key, blocks in self.stacks():
             cs = []
@@ -154,10 +174,11 @@ class DecoderLM(nn.Module):
 @torch.no_grad()
 def draw_blocks(cfg: ModelConfig, generator: torch.Generator | None,
                 device, each) -> DecoderLM:
-    """:func:`init_params`, with ``each`` applied to the head and to every
-    block as soon as it is drawn (the float block is then dropped), in the
-    generator's order: embedding, head, the first dense layers, the
-    layers."""
+    """:func:`init_params`, with ``each`` applied to the head, to every
+    block and to a VLM's ``img_proj`` as soon as it is drawn (the float
+    block is then dropped), in the generator's order: embedding, head, the
+    first dense layers, the layers, ``img_proj`` (the reference's order of
+    keys)."""
     _check_family(cfg)
     device = resolve_device(device)
     gen = generator if generator is not None \
@@ -172,9 +193,12 @@ def draw_blocks(cfg: ModelConfig, generator: torch.Generator | None,
              for _ in range(n_dense)]
     layers = [each(DecoderBlock.init(gen, cfg, device, use_moe=moe))
               for _ in range(cfg.n_layers - n_dense)]
+    img_proj = each(L.NmcLinear.init(gen, cfg.d_model, cfg.d_model,
+                                     device=device)) \
+        if cfg.family == "vlm" else None
     return DecoderLM(embed, layers,
                      L.RMSNorm.init(cfg.d_model, cfg.norm_eps, device), head,
-                     dense)
+                     dense, img_proj)
 
 
 @torch.no_grad()
@@ -190,18 +214,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 @torch.inference_mode()
 def forward(params: DecoderLM, batch: dict, cfg: ModelConfig) -> tuple:
-    """Teacher-forced forward.  Returns (logits, aux_loss): the MoE
-    layers' summed load-balancing loss, 0 for the dense family."""
+    """Teacher-forced forward over ``batch["tokens"]`` (after
+    ``batch["images"]`` for a VLM: the logits cover the image positions
+    too).  Returns (logits, aux_loss): the MoE layers' summed
+    load-balancing loss, 0 for the dense and VLM families."""
     _check_family(cfg)
-    return params(batch["tokens"], cfg)
+    return params(batch, cfg)
 
 
 @torch.inference_mode()
 def prefill(params: DecoderLM, batch: dict, cfg: ModelConfig,
             max_len: int) -> tuple:
-    """Process the prompt, return (last-position logits, caches)."""
+    """Process the prompt (a VLM's images first), return (last-position
+    logits, caches)."""
     _check_family(cfg)
-    return params.prefill(batch["tokens"], cfg, max_len)
+    return params.prefill(batch, cfg, max_len)
 
 
 @torch.inference_mode()
@@ -228,7 +255,8 @@ def init_caches(params: DecoderLM, cfg: ModelConfig, batch: int,
 def cache_batch_axes(cfg: ModelConfig, caches: dict) -> dict:
     """The batch axis of every cache leaf: the same tree with an int per
     leaf.  Every entry (``"layers"``, ``"dense_layers"``) is stacked with
-    one leading layer axis, so batch sits at 1 (shape sniffing cannot tell
-    a size-1 layer axis from a size-1 batch axis)."""
+    one leading layer axis, so batch sits at 1 for GQA's and MLA's leaves
+    alike (shape sniffing cannot tell a size-1 layer axis from a size-1
+    batch axis)."""
     _check_family(cfg)
     return {key: {k: 1 for k in entry} for key, entry in caches.items()}

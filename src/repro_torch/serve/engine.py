@@ -2,7 +2,9 @@
 batching.
 
 The counterpart of the JAX package's ``serve/engine.py``, for the dense
-and MoE families.  With ``nmc_mode='w8a8'`` every projection runs the
+and MoE families (MLA attention included).  A VLM cannot be served, as in
+the reference: admission prefills the prompt's tokens only, and the
+model's prefill raises ``KeyError: 'images'``.  With ``nmc_mode='w8a8'`` every projection runs the
 quantized int8 path (params converted once by :func:`quantize_params`;
 MoE expert banks become int8, the router stays float), which on the card
 is the hand-written ``nmc_matmul`` kernel, and every prefill layer's

@@ -224,12 +224,20 @@ def _check_matmul_route(m, k, n, card, want):
 
 
 @pytest.mark.parametrize("m", checks.MATMUL_M)
-@pytest.mark.parametrize("k,n", checks.MATMUL_KN + checks.MOE_MATMUL_KN)
+@pytest.mark.parametrize("k,n", checks.SERVING_MATMUL_KN)
 def test_nmc_matmul_equals_plain_at_serving_shapes(card, m, k, n):
     before = mm.nmc_matmul.launches
     errs = _check_matmul_route(m, k, n, card, "tensor_core")
     assert errs["acc"] == 0 and errs["none/f32"] == 0
     assert mm.nmc_matmul.launches == before + 9
+
+
+@pytest.mark.parametrize("k,n", checks.VLM_MATMUL_KN)
+def test_nmc_matmul_equals_plain_at_vlm_prefill_rows(card, k, n):
+    """pixtral-12b's projections at its prefill rows (4 x 1152)."""
+    errs = _check_matmul_route(checks.VLM_PREFILL_M, k, n, card,
+                               "tensor_core")
+    assert errs["acc"] == 0 and errs["none/f32"] == 0
 
 
 @pytest.mark.parametrize("m,k,n", checks.MATMUL_RAGGED)
@@ -273,7 +281,7 @@ def test_flash_attention_equals_plain(card, name, dtype):
     """Every case within its tolerance, through the route it should take:
     each bf16 case with head dims up to 128 on the tensor cores."""
     kind = checks.attention_route(name, dtype)
-    if dtype == torch.bfloat16 and name != "dv-ne-d":
+    if dtype == torch.bfloat16 and name not in checks.HEAD_DIM_OVER_128:
         assert kind == "tensor_core"
     before = fa.flash_attention.launches
     by_route = dict(fa.flash_attention.launches_by_route)

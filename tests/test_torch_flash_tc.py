@@ -127,7 +127,8 @@ def test_route_by_dtype_and_head_dims(dtype, d, dv, want):
 @pytest.mark.parametrize("name", sorted(checks.ATTENTION_CASES))
 def test_route_of_each_attention_case(name):
     assert checks.attention_route(name, torch.float32) == "cuda_core"
-    want = "cuda_core" if name == "dv-ne-d" else "tensor_core"
+    want = "cuda_core" if name in checks.HEAD_DIM_OVER_128 \
+        else "tensor_core"
     assert checks.attention_route(name, torch.bfloat16) == want
 
 

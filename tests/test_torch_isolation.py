@@ -39,6 +39,8 @@ def test_import_without_jax_or_reference():
             "repro_torch.examples.tile_families; "
             "repro_torch.configs.get('qwen1.5-0.5b'); "
             "repro_torch.configs.get('moonshot-v1-16b-a3b'); "
+            "repro_torch.configs.get('deepseek-v2-lite-16b'); "
+            "repro_torch.configs.get('pixtral-12b'); "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules if sys.modules[m] is not None); "
             "print('ok')")

@@ -287,8 +287,7 @@ def test_transpose4_of_the_source_transposes():
 # plan and route
 # ---------------------------------------------------------------------------
 
-SERVING = [(m, k, n) for m in checks.MATMUL_M
-           for k, n in checks.MATMUL_KN + checks.MOE_MATMUL_KN]
+SERVING = checks.serving_matmul_shapes()
 EDGES = sorted(set(itertools.product((1, 16, 17), (32, 2816, 2817),
                                      (8, 151936))))
 PLANNED = SERVING + list(checks.MATMUL_RAGGED) + list(checks.MATMUL_EDGES) \

@@ -27,6 +27,8 @@ from repro_torch.serve.engine import ServeEngine, quantize_params
 ARCHS = ("qwen1.5-0.5b", "h2o-danube-1.8b", "mistral-nemo-12b",
          "phi3-medium-14b")
 MOE_ARCHS = ("moonshot-v1-16b-a3b",)
+#: MLA (a MoE model) and the VLM: tests/test_torch_mla.py, test_torch_vlm.py
+MLA_VLM_ARCHS = ("deepseek-v2-lite-16b", "pixtral-12b")
 TOL = dict(rtol=1e-4, atol=1e-5)
 # the reference's entry points, compiled once per shape as its serving
 # engine compiles them (op-by-op dispatch would dominate the test time)
@@ -62,7 +64,7 @@ def _tokens(cfg, shape, seed):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + MLA_VLM_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_reference(arch, smoke):
     j, t = jcb.get(arch, smoke=smoke), cb.get(arch, smoke=smoke)
@@ -71,15 +73,17 @@ def test_configs_match_reference(arch, smoke):
                   "rope_theta", "window", "act", "norm_eps", "nmc_mode",
                   "kv_cache_dtype", "mla", "moe", "n_experts",
                   "n_shared_experts", "top_k", "moe_d_ff",
-                  "capacity_factor", "first_dense_layers", "dense_d_ff"):
+                  "capacity_factor", "first_dense_layers", "dense_d_ff",
+                  "kv_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim",
+                  "vlm", "n_img_tokens"):
         assert getattr(t, field) == getattr(j, field), field
     assert t.param_count() == j.param_count()
     assert t.dtype == torch.bfloat16
     assert cb.applicable_shapes(t) == jcb.applicable_shapes(j)
 
 
-@pytest.mark.parametrize("arch",
-                         sorted(set(jcb.ARCH_IDS) - set(ARCHS + MOE_ARCHS)))
+@pytest.mark.parametrize("arch", sorted(set(jcb.ARCH_IDS) - set(
+    ARCHS + MOE_ARCHS + MLA_VLM_ARCHS)))
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cb.get(arch)
@@ -305,7 +309,7 @@ def test_init_params_shapes_match_reference():
     want = [(n, tuple(b.shape), b.dtype) for n, b in conv.named_buffers()]
     assert got == want
     assert abs(float(tp.head.w.std()) - 1 / np.sqrt(64)) < 0.01
-    for cfg in (tcfg.scaled(family="hybrid"), tcfg.scaled(family="vlm"),
-                tcfg.scaled(family="moe", mla=True)):
+    for cfg in (tcfg.scaled(family="hybrid"), tcfg.scaled(family="encdec"),
+                tcfg.scaled(family="xlstm")):
         with pytest.raises(NotImplementedError):
             lm.init_params(cfg, device="cpu")
