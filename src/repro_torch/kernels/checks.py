@@ -50,12 +50,28 @@ MLA_MATMUL_KN = ((2048, 3072), (2048, 512), (2048, 64), (512, 2048),
 #: the LM head
 VLM_MATMUL_KN = ((5120, 4096), (5120, 1024), (5120, 14336), (5120, 5120),
                  (4096, 5120), (14336, 5120), (5120, 131072))
+#: whisper-tiny's: q/k/v/o (6 x 64), the gelu MLP's up and down, the LM
+#: head (N = 51865, not a multiple of 16: the ``dp4a`` route)
+WHISPER_MATMUL_KN = ((384, 384), (384, 1536), (1536, 384), (384, 51865))
+#: zamba2-2.7b's shared block: q/k/v/o (32 x 80), up/gate, down; the LM
+#: head (its Mamba2 projections stay float and are not nmc_matmul)
+HYBRID_MATMUL_KN = ((2560, 2560), (2560, 10240), (10240, 2560),
+                    (2560, 32000))
 #: the (K, N) of every served model's projections, each once
 SERVING_MATMUL_KN = tuple(dict.fromkeys(
-    MATMUL_KN + MOE_MATMUL_KN + MLA_MATMUL_KN + VLM_MATMUL_KN))
+    MATMUL_KN + MOE_MATMUL_KN + MLA_MATMUL_KN + VLM_MATMUL_KN
+    + WHISPER_MATMUL_KN + HYBRID_MATMUL_KN))
+#: the served (K, N) off the tensor-core route: whisper-tiny's LM head
+DP4A_SERVING_KN = ((384, 51865),)
 #: pixtral-12b's prefill rows in the smoke run: 4 prompts of 1024 image and
 #: 128 text tokens
 VLM_PREFILL_M = 4 * (1024 + 128)
+#: whisper-tiny's prefill rows in the smoke run: the decoder's 4 prompts
+#: of 64 tokens, and the encoder's 4 x 1500 frames
+WHISPER_PREFILL_M = 4 * 64
+WHISPER_ENCODER_M = 4 * 1500
+#: whisper-tiny's encoder projections (every (K, N) but the head's)
+WHISPER_ENCODER_KN = WHISPER_MATMUL_KN[:3]
 #: ragged shapes: no dimension a multiple of the kernel's tiles (the
 #: ``dp4a`` route)
 MATMUL_RAGGED = ((7, 33, 70), (17, 2817, 129), (65, 5, 3))
@@ -94,6 +110,20 @@ ATTENTION_CASES = {
     # non-causal, ragged Sq and Skv, two batches
     "ragged-noncausal": dict(b=2, hq=4, hkv=2, sq=33, skv=100, d=32, dv=48,
                              causal=False),
+    # whisper-tiny's encoder self-attention over 4 x 1500 frames, 6 heads
+    # of 64, non-causal
+    "whisper-enc-1500": dict(b=4, hq=6, hkv=6, sq=1500, skv=1500, d=64,
+                             dv=64, causal=False),
+    # its cross-attention to the encoder output: a 64-token prompt, and one
+    # decode step (Sq = 1)
+    "whisper-cross-64": dict(b=4, hq=6, hkv=6, sq=64, skv=1500, d=64,
+                             dv=64, causal=False),
+    "whisper-cross-decode": dict(b=4, hq=6, hkv=6, sq=1, skv=1500, d=64,
+                                 dv=64, causal=False),
+    # zamba2-2.7b's shared block at a 512-token prompt: 32 heads of 80,
+    # causal, its 4096 sliding window
+    "zamba2-512": dict(b=1, hq=32, hkv=32, sq=512, skv=512, d=80, dv=80,
+                       window=4096),
     # the edges of the tensor-core kernel's 64-key tiles and 16-row warps:
     # a prompt of exactly one tile and one of a partial tile
     "qwen-64": dict(b=1, hq=16, hkv=16, sq=64, skv=64, d=64, dv=64),
@@ -142,9 +172,18 @@ def close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
 
 def serving_matmul_shapes() -> list:
     """``(M, K, N)`` of every served model's projections: each (K, N) at
-    the rows of :data:`MATMUL_M`, and pixtral's at its prefill rows."""
+    the rows of :data:`MATMUL_M`, pixtral's at its prefill rows, and
+    whisper's at its decoder's and its encoder's prefill rows."""
     return [(m, k, n) for m in MATMUL_M for k, n in SERVING_MATMUL_KN] + \
-        [(VLM_PREFILL_M, k, n) for k, n in VLM_MATMUL_KN]
+        [(VLM_PREFILL_M, k, n) for k, n in VLM_MATMUL_KN] + \
+        [(WHISPER_PREFILL_M, k, n) for k, n in WHISPER_MATMUL_KN] + \
+        [(WHISPER_ENCODER_M, k, n) for k, n in WHISPER_ENCODER_KN]
+
+
+def serving_route(k: int, n: int) -> str:
+    """The route a served (K, N) is expected on: ``"dp4a"`` for
+    :data:`DP4A_SERVING_KN`, else ``"tensor_core"``."""
+    return "dp4a" if (k, n) in DP4A_SERVING_KN else "tensor_core"
 
 
 def matmul_inputs(m: int, k: int, n: int, device, seed: int = 0) -> tuple:
@@ -196,13 +235,18 @@ def attention_route(name: str, dtype) -> str:
     return _fa.route(dtype, case["d"], case["dv"])
 
 
+def attention_kw(case: dict) -> dict:
+    """A case's masking: causal (the default), window, q_offset."""
+    return dict(causal=case.get("causal", True), window=case.get("window"),
+                q_offset=case.get("q_offset", 0))
+
+
 def check_attention(name: str, dtype, device, seed: int = 0) -> float:
     """Kernel vs ``chunked_attention`` for one case of
     :data:`ATTENTION_CASES`.  Returns the max abs err."""
     case = ATTENTION_CASES[name]
     q, k, v = attention_inputs(case, dtype, device, seed)
-    kw = dict(causal=case.get("causal", True), window=case.get("window"),
-              q_offset=case.get("q_offset", 0))
+    kw = attention_kw(case)
     got = _fa.flash_attention(q, k, v, **kw)
     want = _fa.chunked_attention(q, k, v, **kw)
     return close(f"flash_attention {name} {dtype}", got, want,

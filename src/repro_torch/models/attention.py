@@ -67,9 +67,24 @@ class GQAttention(nn.Module):
                        nmc_mode=cfg.nmc_mode)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, *,
-                causal: bool = True, q_offset: int = 0) -> torch.Tensor:
-        """Train/prefill path (the reference's ``gqa_apply``)."""
+                causal: bool = True, q_offset: int = 0,
+                kv: tuple | None = None) -> torch.Tensor:
+        """Train/prefill path (the reference's ``gqa_apply``).  ``kv``,
+        ``(k, v)`` of shape (B, KV, Skv, hd), overrides K/V
+        (cross-attention): then only q is projected.  The reference
+        projects k and v from ``x`` there too and never reads them."""
         positions = torch.arange(x.shape[1], device=x.device) + q_offset
+        if kv is not None:
+            b, s, _ = x.shape
+            q = self.wq(x, nmc_mode=cfg.nmc_mode).reshape(
+                b, s, cfg.n_heads, cfg.head_dim)
+            if not cfg.learned_pos:
+                cos, sin = L.rope_table(positions, cfg.head_dim,
+                                        cfg.rope_theta)
+                q = L.apply_rope(q, cos, sin)
+            o = ops.attention(q.transpose(1, 2), *kv, causal=causal,
+                              window=cfg.window, q_offset=q_offset)
+            return self._out(o, cfg)
         q, k, v = self.qkv(x, cfg, positions)
         o = ops.attention(q, k, v, causal=causal, window=cfg.window,
                           q_offset=q_offset)

@@ -103,6 +103,10 @@ class ModelConfig:
         return self.ssm_expand * self.d_model
 
     @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def sub_quadratic(self) -> bool:
         return (self.family in ("hybrid", "xlstm")
                 or self.window is not None)

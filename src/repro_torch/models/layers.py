@@ -146,6 +146,28 @@ class RMSNorm(nn.Module):
         return (y * self.g).to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """Gain ``g`` and bias ``b``, computed in float32 and cast back."""
+
+    def __init__(self, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5):
+        super().__init__()
+        self.register_buffer("g", g)
+        self.register_buffer("b", b)
+        self.eps = eps
+
+    @classmethod
+    def init(cls, d: int, eps: float = 1e-5, device=None) -> "LayerNorm":
+        return cls(torch.ones(d, device=device),
+                   torch.zeros(d, device=device), eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+        return ((xf - mu) * torch.rsqrt(var + self.eps) * self.g
+                + self.b).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------

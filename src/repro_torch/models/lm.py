@@ -1,21 +1,33 @@
-"""The decoder LMs: ``[attn + MLP] x L`` (dense, VLM) and ``first_dense x k
-+ [attn + MoE] x (L - k)`` (MoE) behind three entry points.
+"""The LMs behind three entry points: ``[attn + MLP] x L`` (dense, VLM),
+``first_dense x k + [attn + MoE] x (L - k)`` (MoE), ``[[Mamba2 x
+attn_every] + shared attn/MLP block] x G`` (hybrid) and an encoder
+``[attn + MLP] x Le`` with a decoder ``[self + cross + MLP] x L``
+(encoder-decoder).
 
-The counterpart of the dense, MoE and VLM families of the JAX package's
-``models/lm.py``: ``forward`` (teacher-forced logits and the summed MoE
-aux loss), ``prefill`` (the prompt's last-position logits and the KV
-caches) and ``decode_step`` (one token against the caches, updated in
-place).  The attention is GQA, or MLA where ``cfg.mla``.  A VLM's batch
-carries ``"images"``, precomputed patch embeddings that ``img_proj``
-projects and places before the text embeddings.  The layers run in a
-Python loop over ``ModuleList``s; the caches keep the reference's layout,
-one tensor per field stacked over layers (GQA ``(L, B, KV, S, hd)``, MLA
-``(L, B, S, r)``), under ``"layers"`` and, for a MoE model's first dense
-layers, ``"dense_layers"``.  The other families (hybrid SSM, xLSTM,
-encoder-decoder) raise ``NotImplementedError`` until their slices land
-(ROADMAP.md, queue 1).
+The counterpart of the JAX package's ``models/lm.py``: ``forward``
+(teacher-forced logits and the summed MoE aux loss), ``prefill`` (the
+prompt's last-position logits and the caches) and ``decode_step`` (one
+token against the caches, updated in place).  The attention is GQA, or
+MLA where ``cfg.mla``.  A VLM's batch carries ``"images"``, precomputed
+patch embeddings that ``img_proj`` projects and places before the text
+embeddings; an encoder-decoder's carries ``"frames"``, precomputed frame
+embeddings that the encoder reads.  The layers run in a Python loop over
+``ModuleList`` s; the caches keep the reference's layout, one tensor per
+field stacked over layers:
 
-Every entry point runs under ``torch.inference_mode()``.
+* dense, MoE, VLM: GQA ``(L, B, KV, S, hd)`` or MLA ``(L, B, S, r)`` under
+  ``"layers"`` and, for a MoE model's first dense layers,
+  ``"dense_layers"``;
+* hybrid: ``"mamba"`` (the Mamba2 states stacked ``(G, attn_every, B,
+  ...)``) and ``"attn"`` (one GQA cache per group, ``(G, B, ...)``: the
+  shared block's weights serve every group, each with its own cache);
+* encoder-decoder: ``"layers"`` (the decoder's self-attention) and
+  ``"cross_k"`` / ``"cross_v"`` ``(L, B, KV, S_enc, hd)``, the encoder
+  output's keys and values, computed once at prefill.
+
+The xLSTM family raises ``NotImplementedError`` until its slice lands
+(ROADMAP.md, queue 1).  Every entry point runs under
+``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -26,14 +38,29 @@ from torch import nn
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig, resolve_device
+
+#: the rows of the encoder-decoder's learned decoder positions
+DEC_POSITIONS = 32768
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "encdec"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense, MoE and VLM families only "
-            f"so far (family {cfg.family!r}); see ROADMAP.md, queue 1")
+            f"{cfg.name}: the port runs the dense, MoE, VLM, hybrid and "
+            f"encoder-decoder families only so far (family "
+            f"{cfg.family!r}); see ROADMAP.md, queue 1")
+
+
+def _stack(caches: list) -> dict:
+    """Per-layer caches (dicts of tensors) stacked over a new first axis."""
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def _zeros_stacked(one: dict, lead: tuple) -> dict:
+    return {k: torch.zeros(lead + t.shape, dtype=t.dtype, device=t.device)
+            for k, t in one.items()}
 
 
 class DecoderBlock(nn.Module):
@@ -83,7 +110,105 @@ class DecoderBlock(nn.Module):
         return self._ffn(x + y, cfg)[0]
 
 
-class DecoderLM(nn.Module):
+class EncoderBlock(nn.Module):
+    """The encoder-decoder's encoder layer: LayerNorm -> non-causal GQA ->
+    LayerNorm -> gelu MLP, a residual around each."""
+
+    def __init__(self, ln1: L.LayerNorm, attn: A.GQAttention,
+                 ln2: L.LayerNorm, mlp: L.MLP):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+
+    @classmethod
+    def init(cls, gen: torch.Generator, cfg: ModelConfig,
+             device=None) -> "EncoderBlock":
+        d = cfg.d_model
+        return cls(L.LayerNorm.init(d, cfg.norm_eps, device),
+                   A.GQAttention.init(gen, cfg, device),
+                   L.LayerNorm.init(d, cfg.norm_eps, device),
+                   L.MLP.init(gen, d, cfg.d_ff, "gelu", device))
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), cfg, causal=False)
+        return x + self.mlp(self.ln2(x), "gelu", nmc_mode=cfg.nmc_mode)
+
+
+class CrossDecoderBlock(nn.Module):
+    """The encoder-decoder's decoder layer: causal self-attention (``ln1``,
+    ``attn``), cross-attention to the encoder output (``lnx``, ``xattn``)
+    and the gelu MLP (``ln2``, ``mlp``), LayerNorms, a residual around
+    each."""
+
+    def __init__(self, ln1: L.LayerNorm, attn: A.GQAttention,
+                 lnx: L.LayerNorm, xattn: A.GQAttention, ln2: L.LayerNorm,
+                 mlp: L.MLP):
+        super().__init__()
+        self.ln1, self.attn, self.lnx, self.xattn = ln1, attn, lnx, xattn
+        self.ln2, self.mlp = ln2, mlp
+
+    @classmethod
+    def init(cls, gen: torch.Generator, cfg: ModelConfig,
+             device=None) -> "CrossDecoderBlock":
+        d = cfg.d_model
+        return cls(L.LayerNorm.init(d, cfg.norm_eps, device),
+                   A.GQAttention.init(gen, cfg, device),
+                   L.LayerNorm.init(d, cfg.norm_eps, device),
+                   A.GQAttention.init(gen, cfg, device),
+                   L.LayerNorm.init(d, cfg.norm_eps, device),
+                   L.MLP.init(gen, d, cfg.d_ff, "gelu", device))
+
+    def cross_kv(self, enc: torch.Tensor, cfg: ModelConfig) -> tuple:
+        """The encoder output's keys and values (B, KV, S_enc, hd), by
+        ``xattn``'s ``wk`` / ``wv`` without ``nmc_mode``, as the
+        reference's ``_cross_kv``: the float weights, or once quantized
+        the w8 form (weights dequantized, then a matmul in the activation
+        dtype); never an ``nmc_matmul`` launch."""
+        b, se, _ = enc.shape
+        shape = (b, se, cfg.n_kv_heads, cfg.head_dim)
+        return (self.xattn.wk(enc).reshape(shape).transpose(1, 2),
+                self.xattn.wv(enc).reshape(shape).transpose(1, 2))
+
+    def _cross_and_mlp(self, x: torch.Tensor, kv: tuple,
+                       cfg: ModelConfig) -> torch.Tensor:
+        x = x + self.xattn(self.lnx(x), cfg, causal=False, kv=kv)
+        return x + self.mlp(self.ln2(x), "gelu", nmc_mode=cfg.nmc_mode)
+
+    def forward(self, x: torch.Tensor, kv: tuple,
+                cfg: ModelConfig) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), cfg, causal=True)
+        return self._cross_and_mlp(x, kv, cfg)
+
+    def prefill(self, x: torch.Tensor, kv: tuple, cfg: ModelConfig,
+                max_len: int) -> tuple:
+        y, cache = self.attn.prefill(self.ln1(x), cfg, max_len)
+        return self._cross_and_mlp(x + y, kv, cfg), cache
+
+    def decode_step(self, x: torch.Tensor, kv: tuple, cfg: ModelConfig,
+                    cache: dict, cache_len: torch.Tensor) -> torch.Tensor:
+        y, _ = self.attn.decode_step(self.ln1(x), cfg, cache, cache_len)
+        return self._cross_and_mlp(x + y, kv, cfg)
+
+
+class LMBase(nn.Module):
+    """What every family's model shares: the token embedding, the final
+    RMSNorm and the LM head."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def inputs(self, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+        """The embedded ``batch["tokens"]``."""
+        return self.embed(batch["tokens"], cfg.dtype)
+
+    def logits(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        """The LM head over every position (at prefill the dynamic
+        activation scale of ``w8a8`` covers all of them, as in the
+        reference, so the head is not cut to the last position first)."""
+        return self.head(self.final_norm(x), nmc_mode=cfg.nmc_mode)
+
+
+class DecoderLM(LMBase):
     def __init__(self, embed: L.Embedding, layers: list, final_norm: L.RMSNorm,
                  head: L.NmcLinear, dense_layers: list = (),
                  img_proj: L.NmcLinear | None = None):
@@ -94,10 +219,6 @@ class DecoderLM(nn.Module):
         self.final_norm = final_norm
         self.head = head
         self.img_proj = img_proj
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.table.device
 
     def stacks(self) -> list:
         """``(cache key, blocks)`` in the order the blocks run: a MoE
@@ -119,13 +240,7 @@ class DecoderLM(nn.Module):
         reference)."""
         if cfg.family == "vlm":
             return self.vlm_embed(batch["images"], batch["tokens"], cfg)
-        return self.embed(batch["tokens"], cfg.dtype)
-
-    def logits(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-        """The LM head over every position (at prefill the dynamic
-        activation scale of ``w8a8`` covers all of them, as in the
-        reference, so the head is not cut to the last position first)."""
-        return self.head(self.final_norm(x), nmc_mode=cfg.nmc_mode)
+        return super().inputs(batch, cfg)
 
     def hidden(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
         """Every block over the embedded ``x``: (x, the MoE layers' summed
@@ -152,7 +267,7 @@ class DecoderLM(nn.Module):
             for blk in blocks:
                 x, c = blk.prefill(x, cfg, max_len)
                 cs.append(c)
-            caches[key] = {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
+            caches[key] = _stack(cs)
         return self.logits(x, cfg)[:, -1], caches
 
     def decode_step(self, tokens: torch.Tensor, caches: dict,
@@ -166,6 +281,162 @@ class DecoderLM(nn.Module):
                                     cache_len)
         return self.logits(x, cfg)[:, 0], caches
 
+    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
+                    dtype) -> dict:
+        one = A.cache_init(cfg, batch, max_len, dtype, self.device)
+        return {key: _zeros_stacked(one, (len(blocks),))
+                for key, blocks in self.stacks()}
+
+
+class HybridLM(LMBase):
+    """zamba2-style: ``G = n_layers // attn_every`` groups of
+    ``attn_every`` Mamba2 layers, each group followed by the ONE
+    ``shared_attn`` block (RMSNorm, GQA, MLP), whose weights every group
+    reuses."""
+
+    def __init__(self, embed: L.Embedding, mamba: list,
+                 shared_attn: DecoderBlock, final_norm: L.RMSNorm,
+                 head: L.NmcLinear):
+        super().__init__()
+        self.embed = embed
+        self.mamba = nn.ModuleList(nn.ModuleList(g) for g in mamba)
+        self.shared_attn = shared_attn
+        self.final_norm = final_norm
+        self.head = head
+
+    def hidden(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
+        """Every group over the embedded ``x``: (x, 0)."""
+        for group in self.mamba:
+            for layer in group:
+                x = x + layer(x, cfg)
+            x, _ = self.shared_attn(x, cfg)
+        return x, torch.zeros((), device=x.device)
+
+    def forward(self, batch: dict, cfg: ModelConfig) -> tuple:
+        x, aux = self.hidden(self.inputs(batch, cfg), cfg)
+        return self.logits(x, cfg), aux
+
+    def prefill(self, batch: dict, cfg: ModelConfig, max_len: int) -> tuple:
+        x = self.inputs(batch, cfg)
+        states, attn = [], []
+        for group in self.mamba:
+            sts = []
+            for layer in group:
+                y, st = layer(x, cfg, return_state=True)
+                x = x + y
+                sts.append(st)
+            states.append(_stack(sts))
+            x, c = self.shared_attn.prefill(x, cfg, max_len)
+            attn.append(c)
+        return self.logits(x, cfg)[:, -1], {"mamba": _stack(states),
+                                            "attn": _stack(attn)}
+
+    def decode_step(self, tokens: torch.Tensor, caches: dict,
+                    cache_len: torch.Tensor, cfg: ModelConfig) -> tuple:
+        x = self.embed(tokens, cfg.dtype)
+        ms, ac = caches["mamba"], caches["attn"]
+        for g, group in enumerate(self.mamba):
+            for e, layer in enumerate(group):
+                x = x + layer.decode_step(
+                    x, cfg, {k: t[g, e] for k, t in ms.items()})
+            x = self.shared_attn.decode_step(
+                x, cfg, {k: t[g] for k, t in ac.items()}, cache_len)
+        return self.logits(x, cfg)[:, 0], caches
+
+    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
+                    dtype) -> dict:
+        groups = (len(self.mamba), len(self.mamba[0]))
+        return {"mamba": _zeros_stacked(
+                    SSM.state_init(cfg, batch, dtype, self.device), groups),
+                "attn": _zeros_stacked(
+                    A.cache_init(cfg, batch, max_len, dtype, self.device),
+                    groups[:1])}
+
+
+class EncDecLM(LMBase):
+    """whisper-style: an encoder (``enc_layers``, then the RMSNorm
+    ``enc_norm``) over the batch's ``"frames"``, and a decoder
+    (``layers``) over the tokens plus the learned positions ``pos_dec``
+    (:data:`DEC_POSITIONS` rows), each layer attending to the encoder
+    output."""
+
+    def __init__(self, embed: L.Embedding, enc_layers: list, layers: list,
+                 pos_dec: L.Embedding, enc_norm: L.RMSNorm,
+                 final_norm: L.RMSNorm, head: L.NmcLinear):
+        super().__init__()
+        self.embed = embed
+        self.enc_layers = nn.ModuleList(enc_layers)
+        self.layers = nn.ModuleList(layers)
+        self.pos_dec = pos_dec
+        self.enc_norm = enc_norm
+        self.final_norm = final_norm
+        self.head = head
+
+    def encode(self, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        """frames (B, S_enc, D), cast to ``cfg.dtype`` -> the encoder
+        output."""
+        x = frames.to(cfg.dtype)
+        for blk in self.enc_layers:
+            x = blk(x, cfg)
+        return self.enc_norm(x)
+
+    def inputs(self, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+        """The decoder's input: the embedded tokens plus their positions."""
+        s = batch["tokens"].shape[1]
+        return super().inputs(batch, cfg) + \
+            self.pos_dec.table[:s].to(cfg.dtype)
+
+    def hidden(self, x: torch.Tensor, enc: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+        """Every decoder layer over ``x``, against the encoder output."""
+        for blk in self.layers:
+            x = blk(x, blk.cross_kv(enc, cfg), cfg)
+        return x
+
+    def forward(self, batch: dict, cfg: ModelConfig) -> tuple:
+        enc = self.encode(batch["frames"], cfg)
+        x = self.hidden(self.inputs(batch, cfg), enc, cfg)
+        return self.logits(x, cfg), torch.zeros((), device=x.device)
+
+    def prefill(self, batch: dict, cfg: ModelConfig, max_len: int) -> tuple:
+        enc = self.encode(batch["frames"], cfg)
+        x = self.inputs(batch, cfg)
+        cs, ks, vs = [], [], []
+        for blk in self.layers:
+            kv = blk.cross_kv(enc, cfg)
+            x, c = blk.prefill(x, kv, cfg, max_len)
+            cs.append(c)
+            ks.append(kv[0])
+            vs.append(kv[1])
+        return self.logits(x, cfg)[:, -1], {
+            "layers": _stack(cs), "cross_k": torch.stack(ks),
+            "cross_v": torch.stack(vs)}
+
+    def decode_step(self, tokens: torch.Tensor, caches: dict,
+                    cache_len: torch.Tensor, cfg: ModelConfig) -> tuple:
+        table = self.pos_dec.table
+        pos = torch.clamp(cache_len - 1, 0, table.shape[0] - 1).long()
+        x = self.embed(tokens, cfg.dtype) + table[pos][:, None, :].to(
+            cfg.dtype)
+        stack = caches["layers"]
+        for i, blk in enumerate(self.layers):
+            x = blk.decode_step(
+                x, (caches["cross_k"][i], caches["cross_v"][i]), cfg,
+                {k: t[i] for k, t in stack.items()}, cache_len)
+        return self.logits(x, cfg)[:, 0], caches
+
+    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
+                    dtype) -> dict:
+        n = len(self.layers)
+        cross = (n, batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim)
+        return {"layers": _zeros_stacked(
+                    A.cache_init(cfg, batch, max_len, dtype, self.device),
+                    (n,)),
+                "cross_k": torch.zeros(cross, dtype=dtype,
+                                       device=self.device),
+                "cross_v": torch.zeros(cross, dtype=dtype,
+                                       device=self.device)}
+
 
 # ---------------------------------------------------------------------------
 # entry points (the reference's function names)
@@ -173,12 +444,15 @@ class DecoderLM(nn.Module):
 
 @torch.no_grad()
 def draw_blocks(cfg: ModelConfig, generator: torch.Generator | None,
-                device, each) -> DecoderLM:
+                device, each) -> LMBase:
     """:func:`init_params`, with ``each`` applied to the head, to every
-    block and to a VLM's ``img_proj`` as soon as it is drawn (the float
-    block is then dropped), in the generator's order: embedding, head, the
-    first dense layers, the layers, ``img_proj`` (the reference's order of
-    keys)."""
+    block (a hybrid's Mamba2 layers and its shared block, an
+    encoder-decoder's encoder and decoder layers) and to a VLM's
+    ``img_proj`` as soon as it is drawn (the float block is then
+    dropped), in the generator's order: embedding, head, then the
+    reference's order of keys (the first dense layers, the layers,
+    ``img_proj``; the Mamba2 groups, ``shared_attn``; ``enc_layers``,
+    ``layers``, ``pos_dec``)."""
     _check_family(cfg)
     device = resolve_device(device)
     gen = generator if generator is not None \
@@ -186,6 +460,22 @@ def draw_blocks(cfg: ModelConfig, generator: torch.Generator | None,
     embed = L.Embedding.init(gen, cfg.vocab_size, cfg.d_model, device)
     head = each(L.NmcLinear.init(gen, cfg.d_model, cfg.vocab_size,
                                  device=device))
+
+    def norm():
+        return L.RMSNorm.init(cfg.d_model, cfg.norm_eps, device)
+    if cfg.family == "hybrid":
+        mamba = [[each(SSM.Mamba2.init(gen, cfg, device))
+                  for _ in range(cfg.attn_every)]
+                 for _ in range(cfg.n_layers // cfg.attn_every)]
+        shared = each(DecoderBlock.init(gen, cfg, device))
+        return HybridLM(embed, mamba, shared, norm(), head)
+    if cfg.family == "encdec":
+        enc = [each(EncoderBlock.init(gen, cfg, device))
+               for _ in range(cfg.n_enc_layers)]
+        dec = [each(CrossDecoderBlock.init(gen, cfg, device))
+               for _ in range(cfg.n_layers)]
+        pos = L.Embedding.init(gen, DEC_POSITIONS, cfg.d_model, device)
+        return EncDecLM(embed, enc, dec, pos, norm(), norm(), head)
     moe = cfg.family == "moe"
     n_dense = cfg.first_dense_layers if moe else 0
     dense = [each(DecoderBlock.init(gen, cfg, device,
@@ -196,43 +486,42 @@ def draw_blocks(cfg: ModelConfig, generator: torch.Generator | None,
     img_proj = each(L.NmcLinear.init(gen, cfg.d_model, cfg.d_model,
                                      device=device)) \
         if cfg.family == "vlm" else None
-    return DecoderLM(embed, layers,
-                     L.RMSNorm.init(cfg.d_model, cfg.norm_eps, device), head,
-                     dense, img_proj)
+    return DecoderLM(embed, layers, norm(), head, dense, img_proj)
 
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
-                device=None) -> DecoderLM:
+                device=None) -> LMBase:
     """Random float32 weights with the reference's initialisation (normal
-    / sqrt(d_in) linears and expert banks, 0.02 embedding, unit norm
-    gains, zero biases), drawn from ``generator`` (a fresh seed-0
-    generator on ``device`` when None).  ``device=None`` is the card and
-    raises without one."""
+    / sqrt(d_in) linears and expert banks, 0.02 embedding and decoder
+    positions, unit norm gains, zero biases, the Mamba2 layers' own),
+    drawn from ``generator`` (a fresh seed-0 generator on ``device`` when
+    None).  ``device=None`` is the card and raises without one."""
     return draw_blocks(cfg, generator, device, lambda m: m)
 
 
 @torch.inference_mode()
-def forward(params: DecoderLM, batch: dict, cfg: ModelConfig) -> tuple:
+def forward(params: LMBase, batch: dict, cfg: ModelConfig) -> tuple:
     """Teacher-forced forward over ``batch["tokens"]`` (after
     ``batch["images"]`` for a VLM: the logits cover the image positions
-    too).  Returns (logits, aux_loss): the MoE layers' summed
-    load-balancing loss, 0 for the dense and VLM families."""
+    too; against ``batch["frames"]`` for an encoder-decoder).  Returns
+    (logits, aux_loss): the MoE layers' summed load-balancing loss, 0 for
+    the other families."""
     _check_family(cfg)
     return params(batch, cfg)
 
 
 @torch.inference_mode()
-def prefill(params: DecoderLM, batch: dict, cfg: ModelConfig,
+def prefill(params: LMBase, batch: dict, cfg: ModelConfig,
             max_len: int) -> tuple:
-    """Process the prompt (a VLM's images first), return (last-position
-    logits, caches)."""
+    """Process the prompt (a VLM's images first; an encoder-decoder's
+    frames through the encoder), return (last-position logits, caches)."""
     _check_family(cfg)
     return params.prefill(batch, cfg, max_len)
 
 
 @torch.inference_mode()
-def decode_step(params: DecoderLM, tokens: torch.Tensor, caches: dict,
+def decode_step(params: LMBase, tokens: torch.Tensor, caches: dict,
                 cache_len: torch.Tensor, cfg: ModelConfig) -> tuple:
     """One decode step.  tokens: (B, 1) the new token ids; cache_len: (B,)
     lengths INCLUDING the new token.  Returns (logits (B, vocab), caches),
@@ -242,21 +531,26 @@ def decode_step(params: DecoderLM, tokens: torch.Tensor, caches: dict,
 
 
 @torch.inference_mode()
-def init_caches(params: DecoderLM, cfg: ModelConfig, batch: int,
+def init_caches(params: LMBase, cfg: ModelConfig, batch: int,
                 max_len: int, dtype=torch.bfloat16) -> dict:
     _check_family(cfg)
-    one = A.cache_init(cfg, batch, max_len, dtype, params.device)
-    return {key: {k: torch.zeros((len(blocks),) + t.shape, dtype=t.dtype,
-                                 device=t.device)
-                  for k, t in one.items()}
-            for key, blocks in params.stacks()}
+    return params.init_caches(cfg, batch, max_len, dtype)
 
 
 def cache_batch_axes(cfg: ModelConfig, caches: dict) -> dict:
     """The batch axis of every cache leaf: the same tree with an int per
-    leaf.  Every entry (``"layers"``, ``"dense_layers"``) is stacked with
-    one leading layer axis, so batch sits at 1 for GQA's and MLA's leaves
-    alike (shape sniffing cannot tell a size-1 layer axis from a size-1
-    batch axis)."""
+    leaf.  Leaves stacked with one leading layer or group axis carry batch
+    at 1 (every entry of the dense, MoE, VLM and encoder-decoder caches,
+    and the hybrid's ``"attn"``); the hybrid's Mamba2 states, stacked
+    ``(groups, attn_every, B, ...)``, at 2.  Shape sniffing cannot tell a
+    size-1 layer axis from a size-1 batch axis."""
     _check_family(cfg)
-    return {key: {k: 1 for k in entry} for key, entry in caches.items()}
+
+    def const(tree, ax: int):
+        if isinstance(tree, dict):
+            return {k: const(v, ax) for k, v in tree.items()}
+        return ax
+    if cfg.family == "hybrid":
+        return {"mamba": const(caches["mamba"], 2),
+                "attn": const(caches["attn"], 1)}
+    return const(caches, 1)

@@ -1,14 +1,19 @@
 """Serving engine: prefill + decode with in-place KV caches and continuous
 batching.
 
-The counterpart of the JAX package's ``serve/engine.py``, for the dense
-and MoE families (MLA attention included).  A VLM cannot be served, as in
-the reference: admission prefills the prompt's tokens only, and the
-model's prefill raises ``KeyError: 'images'``.  With ``nmc_mode='w8a8'`` every projection runs the
-quantized int8 path (params converted once by :func:`quantize_params`;
-MoE expert banks become int8, the router stays float), which on the card
-is the hand-written ``nmc_matmul`` kernel, and every prefill layer's
-attention is the ``flash_attention`` kernel.  Idle decode slots are fed
+The counterpart of the JAX package's ``serve/engine.py``, for the dense,
+MoE (MLA attention included) and hybrid SSM families; the hybrid's
+per-slot Mamba2 states are written into the caches like its KV caches,
+on the batch axis :func:`lm.cache_batch_axes` gives.  A VLM or an
+encoder-decoder model cannot be served, as in the reference: admission
+prefills the prompt's tokens only, and the model's prefill raises
+``KeyError: 'images'`` or ``KeyError: 'frames'``.  With
+``nmc_mode='w8a8'`` every projection runs the quantized int8 path (params
+converted once by :func:`quantize_params`; MoE expert banks become int8,
+the router stays float; the hybrid's Mamba2 projections stay float, as
+the reference's ``quantize_tree`` leaves them), which on the card is the
+hand-written ``nmc_matmul`` kernel, and every prefill attention is the
+``flash_attention`` kernel.  Idle decode slots are fed
 to ``decode_step`` like live ones, as in the reference: in a MoE model
 they are routed too and take expert capacity, so a request's tokens
 depend on what shares its batch.
@@ -45,7 +50,7 @@ from repro_torch.models.config import ModelConfig, resolve_device
 from repro_torch.nmc import DispatchQueue
 
 
-def quantize_params(params: lm.DecoderLM, cfg: ModelConfig) -> lm.DecoderLM:
+def quantize_params(params: lm.LMBase, cfg: ModelConfig) -> lm.LMBase:
     """The NMC int8 serving form of trained params (a copy; norm gains and
     embeddings are shared with ``params``)."""
     return L.quantize_tree(params)
@@ -74,7 +79,7 @@ class Request:
 class ServeEngine:
     """Slot-based continuous batching on one device."""
 
-    def __init__(self, cfg: ModelConfig, params: lm.DecoderLM,
+    def __init__(self, cfg: ModelConfig, params: lm.LMBase,
                  n_slots: int = 4, max_len: int = 256,
                  nmc_queue: Optional[DispatchQueue] = None,
                  nmc_tiles: int = 1, max_prefills: Optional[int] = None,

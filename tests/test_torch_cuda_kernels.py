@@ -226,10 +226,23 @@ def _check_matmul_route(m, k, n, card, want):
 @pytest.mark.parametrize("m", checks.MATMUL_M)
 @pytest.mark.parametrize("k,n", checks.SERVING_MATMUL_KN)
 def test_nmc_matmul_equals_plain_at_serving_shapes(card, m, k, n):
+    """On the tensor cores, but whisper-tiny's LM head on dp4a."""
     before = mm.nmc_matmul.launches
-    errs = _check_matmul_route(m, k, n, card, "tensor_core")
+    errs = _check_matmul_route(m, k, n, card, checks.serving_route(k, n))
     assert errs["acc"] == 0 and errs["none/f32"] == 0
     assert mm.nmc_matmul.launches == before + 9
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (checks.WHISPER_PREFILL_M, k, n) for k, n in checks.WHISPER_MATMUL_KN]
+    + [(checks.WHISPER_ENCODER_M, k, n) for k, n in
+       checks.WHISPER_ENCODER_KN])
+def test_nmc_matmul_equals_plain_at_whisper_prefill_rows(card, m, k, n):
+    """whisper-tiny's projections at its decoder's prefill rows (4 x 64)
+    and its encoder's (4 x 1500), the gelu epilogue among the checked
+    activations."""
+    errs = _check_matmul_route(m, k, n, card, checks.serving_route(k, n))
+    assert errs["acc"] == 0 and errs["none/f32"] == 0
 
 
 @pytest.mark.parametrize("k,n", checks.VLM_MATMUL_KN)

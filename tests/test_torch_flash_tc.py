@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro.kernels import ops as jops
 from repro_torch.kernels import checks
 from repro_torch.kernels import flash_attention as fa
@@ -142,3 +143,21 @@ def test_route_refuses_what_no_kernel_takes(dtype, d, dv, err):
     with pytest.raises(err):
         fa.route(dtype, d, dv)
 
+
+
+@pytest.mark.parametrize("name", sorted(checks.ATTENTION_CASES))
+def test_visible_pairs_count_the_kernels_mask(name):
+    """``chip_smoke.visible_pairs`` (the operations of an attention bound)
+    counts the keys each query row sees under the kernels' mask: causal,
+    window and q_offset as ``chunked_attention`` applies them."""
+    c = checks.ATTENTION_CASES[name]
+    kw = checks.attention_kw(c)
+    qpos = torch.arange(c["sq"])[:, None] + kw["q_offset"]
+    kpos = torch.arange(c["skv"])[None, :]
+    seen = torch.ones((c["sq"], c["skv"]), dtype=torch.bool)
+    if kw["causal"]:
+        seen &= kpos <= qpos
+    if kw["window"] is not None:
+        seen &= kpos > qpos - kw["window"]
+    assert chip_smoke.visible_pairs(c["sq"], c["skv"], **kw) == \
+        int(seen.sum())

@@ -2,8 +2,14 @@
 card, on the CPU: one W8A8 prefill and one decode step of every served
 family at smoke size, with the LM kernels' calls recorded at the dispatch
 layer (``chip_smoke.recorded_lm_kernel_calls``; on the CPU they run the
-plain versions), make exactly ``chip_smoke.matmuls_per_call`` projections
-and one attention launch per layer at prefill, none at decode."""
+plain versions), make exactly ``chip_smoke.matmul_kn_per_call``
+projections of each (K, N) and ``chip_smoke.attention_launches_per_call``
+attention launches: one per attention layer at prefill (a hybrid's shared
+block once per group; an encoder-decoder's encoder, decoder and
+cross-attention), none at decode but an encoder-decoder's
+cross-attention."""
+
+import collections
 
 import jax  # noqa: F401  (imported by every port test file; unused here)
 import numpy as np
@@ -17,7 +23,9 @@ from repro_torch.models import lm
 
 
 @pytest.mark.parametrize("arch", [chip_smoke.SERVE_ARCH, chip_smoke.MOE_ARCH,
-                                  chip_smoke.MLA_ARCH, chip_smoke.VLM_ARCH])
+                                  chip_smoke.MLA_ARCH, chip_smoke.VLM_ARCH,
+                                  chip_smoke.ENCDEC_ARCH,
+                                  chip_smoke.HYBRID_ARCH])
 def test_prefill_and_decode_launches_match_the_smoke_counts(arch):
     cfg = cb.get(arch, smoke=True).scaled(nmc_mode="w8a8")
     params = lm.draw_blocks(cfg, torch.Generator().manual_seed(0), "cpu",
@@ -28,19 +36,50 @@ def test_prefill_and_decode_launches_match_the_smoke_counts(arch):
     if cfg.family == "vlm":
         batch["images"] = torch.from_numpy(rng.normal(
             size=(2, cfg.n_img_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
     n = chip_smoke.batch_positions(batch)
 
     def counts(calls):
         return {k: sum(c[0] == k for c in calls)
                 for k in ("nmc_matmul", "flash_attention")}
+
+    def kn(calls):
+        return dict(collections.Counter(
+            (c[1][0].shape[1], c[1][1].shape[1]) for c in calls
+            if c[0] == "nmc_matmul"))
     with chip_smoke.recorded_lm_kernel_calls() as calls:
         logits, caches = lm.prefill(params, batch, cfg, n + 4)
     assert counts(calls) == {
         "nmc_matmul": chip_smoke.matmuls_per_call(cfg, True),
-        "flash_attention": cfg.n_layers}
+        "flash_attention": chip_smoke.attention_launches_per_call(cfg, True)}
+    assert kn(calls) == chip_smoke.matmul_kn_per_call(cfg, True)
     with chip_smoke.recorded_lm_kernel_calls() as calls:
         lm.decode_step(params, logits.argmax(-1)[:, None], caches,
                        torch.full((2,), n + 1, dtype=torch.int32), cfg)
     assert counts(calls) == {
         "nmc_matmul": chip_smoke.matmuls_per_call(cfg, False),
-        "flash_attention": 0}
+        "flash_attention": chip_smoke.attention_launches_per_call(cfg, False)}
+    assert kn(calls) == chip_smoke.matmul_kn_per_call(cfg, False)
+
+
+@pytest.mark.parametrize("arch,prefill,decode,attention", [
+    (chip_smoke.ENCDEC_ARCH, 57, 33, (12, 4)),
+    (chip_smoke.HYBRID_ARCH, 64, 64, (9, 0)),
+])
+def test_full_width_counts_of_the_new_families(arch, prefill, decode,
+                                               attention):
+    """whisper-tiny: encoder 4 x 6, decoder 4 x 8 (cross k and v are not
+    nmc_matmul), the head; its head alone on dp4a.  zamba2-2.7b: the shared
+    block's 7 projections in each of 9 groups, the head; all on the tensor
+    cores."""
+    cfg = cb.get(arch)
+    assert chip_smoke.matmuls_per_call(cfg, True) == prefill
+    assert chip_smoke.matmuls_per_call(cfg, False) == decode
+    assert (chip_smoke.attention_launches_per_call(cfg, True),
+            chip_smoke.attention_launches_per_call(cfg, False)) == attention
+    head = 1 if cfg.family == "encdec" else 0
+    for pre, total in ((True, prefill), (False, decode)):
+        assert chip_smoke.matmul_routes_per_call(cfg, pre) == \
+            {"dp4a": head, "tensor_core": total - head}

@@ -321,7 +321,18 @@ def test_plan_covers_k_and_n_once_and_fills_the_card(m, k, n):
 
 @pytest.mark.parametrize("m,k,n", SERVING)
 def test_serving_shapes_take_the_tensor_core_route(m, k, n):
-    assert mm.route(k, n) == "tensor_core"
+    """Every served shape but whisper-tiny's LM head (N = 51865, not a
+    multiple of 16), which takes dp4a."""
+    assert mm.route(k, n) == checks.serving_route(k, n)
+    assert (mm.route(k, n) == "tensor_core") == \
+        ((k, n) not in checks.DP4A_SERVING_KN)
+
+
+def test_only_the_whisper_head_is_served_on_dp4a():
+    assert checks.DP4A_SERVING_KN == ((384, 51865),)
+    off = {(k, n) for k, n in checks.SERVING_MATMUL_KN
+           if mm.route(k, n) != "tensor_core"}
+    assert off == set(checks.DP4A_SERVING_KN)
 
 
 @pytest.mark.parametrize("m,k,n", checks.MATMUL_RAGGED)

@@ -29,6 +29,9 @@ ARCHS = ("qwen1.5-0.5b", "h2o-danube-1.8b", "mistral-nemo-12b",
 MOE_ARCHS = ("moonshot-v1-16b-a3b",)
 #: MLA (a MoE model) and the VLM: tests/test_torch_mla.py, test_torch_vlm.py
 MLA_VLM_ARCHS = ("deepseek-v2-lite-16b", "pixtral-12b")
+#: the encoder-decoder and the hybrid SSM: tests/test_torch_encdec.py,
+#: test_torch_hybrid.py
+ENCDEC_HYBRID_ARCHS = ("whisper-tiny", "zamba2-2.7b")
 TOL = dict(rtol=1e-4, atol=1e-5)
 # the reference's entry points, compiled once per shape as its serving
 # engine compiles them (op-by-op dispatch would dominate the test time)
@@ -64,7 +67,8 @@ def _tokens(cfg, shape, seed):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + MLA_VLM_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + MLA_VLM_ARCHS
+                         + ENCDEC_HYBRID_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_reference(arch, smoke):
     j, t = jcb.get(arch, smoke=smoke), cb.get(arch, smoke=smoke)
@@ -75,15 +79,18 @@ def test_configs_match_reference(arch, smoke):
                   "n_shared_experts", "top_k", "moe_d_ff",
                   "capacity_factor", "first_dense_layers", "dense_d_ff",
                   "kv_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim",
-                  "vlm", "n_img_tokens"):
+                  "vlm", "n_img_tokens", "learned_pos", "ssm_state",
+                  "ssm_head_dim", "ssm_expand", "ssm_conv", "ssm_chunk",
+                  "attn_every", "encdec", "n_enc_layers", "enc_seq"):
         assert getattr(t, field) == getattr(j, field), field
     assert t.param_count() == j.param_count()
+    assert (t.d_inner, t.ssm_heads) == (j.d_inner, j.ssm_heads)
     assert t.dtype == torch.bfloat16
     assert cb.applicable_shapes(t) == jcb.applicable_shapes(j)
 
 
 @pytest.mark.parametrize("arch", sorted(set(jcb.ARCH_IDS) - set(
-    ARCHS + MOE_ARCHS + MLA_VLM_ARCHS)))
+    ARCHS + MOE_ARCHS + MLA_VLM_ARCHS + ENCDEC_HYBRID_ARCHS)))
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cb.get(arch)
@@ -309,7 +316,5 @@ def test_init_params_shapes_match_reference():
     want = [(n, tuple(b.shape), b.dtype) for n, b in conv.named_buffers()]
     assert got == want
     assert abs(float(tp.head.w.std()) - 1 / np.sqrt(64)) < 0.01
-    for cfg in (tcfg.scaled(family="hybrid"), tcfg.scaled(family="encdec"),
-                tcfg.scaled(family="xlstm")):
-        with pytest.raises(NotImplementedError):
-            lm.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        lm.init_params(tcfg.scaled(family="xlstm"), device="cpu")
