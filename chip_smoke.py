@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, in parallel) and drives ten paths of the port:
+``nvcc`` per source, in parallel) and drives twelve paths of the port:
 
 * NMC execution: the two wave kernels against their plain PyTorch versions
   on the card (bit for bit, on random verifier-clean waves at the largest
   Table V buckets, on Caesar waves dense with conflicts and the serial
   chain, on slide-dense and long Carus waves, and on every golden opcode
   program); the Table V ``verify_sweep`` through ``BucketedPool``, the
-  same builds through ``ResidentPool`` + ``DispatchQueue``, and an
+  same builds through ``ResidentPool`` + ``DispatchQueue`` (each image
+  staged through pinned memory on the queue's copy stream), and an
   ``nmc.jit`` kernel sync and async on both engines; both kernels timed
   beside their plain versions and their bounds, the Caesar kernel on the
   Table V gemm and leaky_relu waves and the serial chain (with their
@@ -66,6 +67,19 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   block's prefill attention (D 80, window 4096) ``flash_attention``;
   launches, replays, logits, prefill and decode ms, the decode step's
   device split.
+* W8A8 serving of the xLSTM: xlstm-125m at full width and depth (12
+  blocks, sLSTM at 3 and 9, d_model 768, vocab 50304) served by
+  ``ServeEngine`` on the hybrid's prompt lengths; its blocks stay float
+  (as the reference's ``quantize_tree`` leaves them), so the LM head is
+  the one ``nmc_matmul`` launch per prefill and per decode step, every
+  one replayed; logits, prefill and decode ms, each prefill's and the
+  decode step's device split (float projections, mLSTM, sLSTM time loop,
+  head) and the sLSTM loop's share of the prefill's host time.
+* The dispatch queue's staging: 128 tiles, 4 image-carrying programs
+  chained on each, on both engines and in both schedulers; outputs
+  against the plain engines and the oracles, the queue's counters, every
+  copy from pinned memory on the copy stream; wall ms, H2D ms per wave
+  and the share of copy time inside a running wave kernel (device trace).
 * The kernels demo (``python -m repro_torch.examples.nmc_kernels_demo``):
   ``vrf_alu`` against its plain version bit for bit (both demo programs,
   every op in both modes and the wrap extremes at int8 / int16 / int32 on
@@ -454,11 +468,16 @@ def phase_main_path(report: dict) -> dict:
         if not (np.array_equal(a, s)
                 and (a.reshape(-1)[:exp.size] == exp).all()):
             raise AssertionError("resident async != sync / oracle")
+    if queue.stager is None or queue.stager.copies != len(builds):
+        raise AssertionError("an image of the async run was not staged "
+                             "through the pinned stager")
     log(f"main path: ResidentPool + DispatchQueue async == sync == oracle "
         f"({len(builds)} builds, {resident_s:.3f} s); "
         f"queue submitted={queue.submitted} launched={queue.launched} "
         f"resolved={queue.resolved} waves={queue.waves} "
-        f"staged_while_busy={queue.staged_while_busy}; pool "
+        f"staged_while_busy={queue.staged_while_busy}, "
+        f"{queue.stager.copies} images staged through pinned memory on the "
+        f"copy stream; pool "
         f"loads={rp.loads} stores={rp.stores} dispatches={rp.dispatches} "
         f"bytes_moved={rp.bytes_moved}")
 
@@ -492,6 +511,207 @@ def phase_main_path(report: dict) -> dict:
                   compiles=pool.compiles, buckets=n_buckets,
                   sweep_launches=sweep_launches, launches=launches)
     return launches
+
+
+#: the staging phase: T tiles fed round-robin, K image-carrying programs
+#: chained on each (every submit carries a full 32 KiB image: Caesar's
+#: 8192-word memory, Carus's 32 x 256-word VRF), so a wave stages 4 MiB
+STAGING = dict(tiles=128, chained=4)
+#: its builds: the Table V kernels, on Caesar at SEW 8 (1024-13312
+#: instructions; the plain engine, which the outputs are also held to,
+#: takes ~0.5 ms an instruction on the host, ~18 s for these), on Carus at
+#: SEW 8, 16 and 32
+STAGING_SEWS = {"caesar": (8,), "carus": SEWS}
+
+
+def staging_builds(engine: str) -> list:
+    """The distinct builds of the staging phase for ``engine``."""
+    from repro_torch.core import programs as P
+    return [getattr(P.build(name, sew), engine)
+            for sew in STAGING_SEWS[engine] for name in P.TABLE_V_KERNELS]
+
+
+def staging_trace(run, name: str) -> tuple:
+    """``run()`` under ``torch.profiler`` (device activity only): ``(its
+    result, the staging copies, the wave kernels)``, each a list of
+    ``(start us, end us)`` from the device trace.  The kernels are the
+    ``caesar_wave`` / ``carus_wave`` launches; the copies every
+    host-to-device copy from pinned memory on another stream than theirs
+    (the trace's ``stream``), each checked to be one 32 KiB image.  The
+    trace goes through ``chiprun_out/NAME`` and is removed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    path = REPO / "chiprun_out" / name
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "_wave" in e.get("name", "")]
+    streams = {e["args"]["stream"] for e in kernels}
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")
+              and e["args"]["stream"] not in streams]
+    if not kernels or any("Pinned" not in e["name"]
+                          or e["args"].get("bytes") != 32768
+                          for e in copies):
+        raise AssertionError(f"staging trace: {len(kernels)} wave kernels, "
+                             f"copies off their stream "
+                             f"{sorted({(e['name'], e['args'].get('bytes')) for e in copies})}")
+
+    def spans(evs):
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in evs)
+    return out, spans(copies), spans(kernels)
+
+
+def copy_share_in_waves(copies: list, waves: list) -> dict:
+    """From the device trace: the staging copies' total ms, the wave
+    kernels' (their union) and the share of copy time inside a running
+    wave kernel."""
+    merged = []
+    for a, b in waves:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    inside = 0.0
+    for a, b in copies:
+        for wa, wb in merged:
+            inside += max(0.0, min(b, wb) - max(a, wa))
+    copy_us = sum(b - a for a, b in copies)
+    return {"copy_ms": copy_us * 1e-3,
+            "wave_ms": sum(b - a for a, b in merged) * 1e-3,
+            "hidden_share": inside / copy_us if copy_us else None}
+
+
+def staged_run(engine: str, builds: list, mode: str, traced: bool):
+    """The items through a ``DispatchQueue`` over ``ResidentPool(backend=
+    "cuda")`` on :data:`STAGING`'s tiles: ``(outputs, queue, wall ms,
+    (copies, kernels))``, wall ms by the host clock; with ``traced`` under
+    the profiler (:func:`staging_trace`), else no spans."""
+    import torch
+    from repro_torch import nmc
+    queue = nmc.DispatchQueue(pool=nmc.ResidentPool(backend="cuda"),
+                              mode=mode)
+
+    def run():
+        return queue.run_builds(builds, n_tiles=STAGING["tiles"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if traced:
+        outs, copies, kernels = staging_trace(
+            run, f"staging_trace_{engine}_{mode}.json")
+    else:
+        outs, copies, kernels = run(), None, None
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return outs, queue, wall_ms, (copies, kernels)
+
+
+def phase_staging(report: dict) -> dict:
+    """The dispatch queue's staging on the card: T = 128 tiles, K = 4
+    image-carrying programs chained on each, in Caesar and in Carus, once
+    ``overlapped`` and once ``inorder``.  Every image goes through the
+    queue's :class:`PinnedStager`: a page-locked host buffer, an
+    asynchronous copy on the stager's own stream, the wave's wait on its
+    event.  Checks, in both schedulers and on both engines: outputs bit
+    for bit equal to each other, to the plain engines' (``backend=
+    "torch"``, on the host) and to the oracles; the queue's counters as
+    ``tests/test_runtime.py`` expects them; every image staged by the
+    stager, on a stream other than the compute stream, from pinned
+    buffers.  Reports each mode's wall ms (host clock, a run without
+    profiler, best of 3), and from a run under the profiler (device
+    trace) the H2D ms per wave, the share of copy time inside a running
+    wave kernel, and that every staging copy ran on another stream than
+    the kernels.  The wave kernels' counts are set to 0 just before the
+    runs and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch import nmc
+    from repro_torch.nmc import cuda_engine
+    smi = report["nvidia_smi"]
+    tiles, chained = STAGING["tiles"], STAGING["chained"]
+    out, launches = {}, {}
+    for engine in ("caesar", "carus"):
+        distinct = staging_builds(engine)
+        plain = nmc.ResidentPool(backend="torch").run_builds(distinct)
+        for eb, got in zip(distinct, plain):
+            exp = np.asarray(eb.oracle).reshape(-1)
+            if not (got.reshape(-1)[:exp.size] == exp).all():
+                raise AssertionError(f"staging: plain {engine} != oracle")
+        n = tiles * chained
+        builds = [distinct[k % len(distinct)] for k in range(n)]
+        want = [plain[k % len(distinct)] for k in range(n)]
+        rows = {}
+        cuda_engine.reset_launch_counts()
+        for mode in ("overlapped", "inorder"):
+            walls = []
+            for rep in range(4):
+                traced = rep == 3
+                outs, queue, wall_ms, (copies, kernels) = staged_run(
+                    engine, builds, mode, traced)
+                if not all(np.array_equal(a, b) for a, b in zip(outs, want)):
+                    raise AssertionError(f"staging: {engine} {mode} output "
+                                         f"!= plain / oracle")
+                expect = {"staged_while_busy": 0, "waves": n} \
+                    if mode == "inorder" else \
+                    {"staged_while_busy": n - tiles, "waves": n // tiles}
+                got = {k: getattr(queue, k) for k in expect}
+                st = queue.stager
+                if got != expect or queue.resolved != n or \
+                        st.copies != n or st.bytes != n * 32768 or \
+                        st.stream == torch.cuda.current_stream() or \
+                        not st.pinned or \
+                        not all(b.is_pinned() for b in st.pinned):
+                    raise AssertionError(
+                        f"staging: {engine} {mode}: counters {got} (want "
+                        f"{expect}), resolved {queue.resolved}, copies "
+                        f"{st.copies}, bytes {st.bytes}, pinned buffers "
+                        f"{[b.is_pinned() for b in st.pinned]}")
+                if traced:
+                    if len(copies) != n:
+                        raise AssertionError(
+                            f"staging: {engine} {mode}: {len(copies)} "
+                            f"copies of {n} off the kernels' stream")
+                    share = copy_share_in_waves(copies, kernels)
+                else:
+                    walls.append(wall_ms)
+            rows[mode] = dict(
+                wall_ms=min(walls), wall_ms_runs=walls,
+                waves=queue.waves, staged_while_busy=queue.staged_while_busy,
+                copies=st.copies, copy_bytes=st.bytes,
+                pinned_buffers=len(st.pinned),
+                h2d_ms_per_wave=share["copy_ms"] / queue.waves,
+                traced_wall_ms=wall_ms,
+                wave_ms=share["wave_ms"], copy_ms=share["copy_ms"],
+                hidden_share=share["hidden_share"],
+                pool_loads=queue.pool.loads,
+                pool_bytes_moved=queue.pool.bytes_moved)
+            log(f"staging: {engine} {mode}, {n} items on {tiles} tiles "
+                f"({len(distinct)} distinct builds, outputs == plain == "
+                f"oracle): wall {min(walls):.3f} ms (best of "
+                f"{len(walls)}), {queue.waves} waves, staged_while_busy "
+                f"{queue.staged_while_busy}; {st.copies} copies of 32 KiB "
+                f"on the copy stream from {len(st.pinned)} pinned buffers; "
+                f"H2D {rows[mode]['h2d_ms_per_wave']:.4f} ms per wave "
+                f"({share['copy_ms']:.3f} ms in all), wave kernels "
+                f"{share['wave_ms']:.3f} ms in all, copy time inside a "
+                f"running kernel {share['hidden_share']:.4f} [{smi}]")
+        if rows["overlapped"]["pool_bytes_moved"] < n * 32768:
+            raise AssertionError("staging: the pool accounted fewer bytes "
+                                 "than the images")
+        launches[engine] = {k.__name__: k.launches
+                            for k in cuda_engine.KERNELS}
+        if launches[engine][KERNEL_META[engine]["name"]] <= 0:
+            raise AssertionError(f"staging: no {engine} wave launched")
+        out[engine] = rows
+    report["staging"] = dict(**STAGING, engines=out, launches=launches,
+                             nvidia_smi=smi)
+    return {k.__name__: sum(launches[e][k.__name__] for e in launches)
+            for k in cuda_engine.KERNELS}
 
 
 def phase_timing(report: dict, waves: dict, device) -> dict:
@@ -1322,7 +1542,8 @@ def matmul_models(k: int, n: int) -> list:
     lists = {SERVE_ARCH: checks.MATMUL_KN, MOE_ARCH: checks.MOE_MATMUL_KN,
              MLA_ARCH: checks.MLA_MATMUL_KN, VLM_ARCH: checks.VLM_MATMUL_KN,
              ENCDEC_ARCH: checks.WHISPER_MATMUL_KN,
-             HYBRID_ARCH: checks.HYBRID_MATMUL_KN}
+             HYBRID_ARCH: checks.HYBRID_MATMUL_KN,
+             XLSTM_ARCH: checks.XLSTM_MATMUL_KN}
     return [arch for arch, kn in lists.items() if (k, n) in kn]
 
 
@@ -1450,6 +1671,10 @@ ENCDEC_REPLAY_STRIDE = 31
 #: 128-token chunk, or a whole number of them)
 HYBRID_ARCH = "zamba2-2.7b"
 HYBRID_PROMPT_LENGTHS = (64, 128, 256, 384, 512)
+#: the xLSTM, served on :data:`HYBRID_PROMPT_LENGTHS` too: its mLSTM blocks
+#: prefill in chunks of 128 and, as the reference, fail on any other
+#: length past one chunk
+XLSTM_ARCH = "xlstm-125m"
 
 
 def block_by_block_model(arch: str, device, seed: int = 0) -> tuple:
@@ -1483,8 +1708,9 @@ def matmul_kn_per_call(cfg, prefill: bool) -> dict:
     weights) and the FFN's (a gated MLP's three, a gelu MLP's two, a MoE
     layer's shared experts' three; the router and the routed experts are
     plain); a hybrid's shared block once per group (its Mamba2 projections
-    stay float); an encoder-decoder's encoder at prefill only; the LM head;
-    at a VLM's prefill ``img_proj``."""
+    stay float); an encoder-decoder's encoder at prefill only; nothing of
+    an xLSTM's blocks (they stay float); the LM head; at a VLM's prefill
+    ``img_proj``."""
     import collections
     d, hd, h = cfg.d_model, cfg.head_dim, cfg.n_heads
     kn = collections.Counter()
@@ -1508,7 +1734,9 @@ def matmul_kn_per_call(cfg, prefill: bool) -> dict:
         kn[(d, f)] += 2 * n if gated else n
         kn[(f, d)] += n
     fam, n_layers = cfg.family, cfg.n_layers
-    if fam == "hybrid":
+    if fam == "xlstm":
+        pass
+    elif fam == "hybrid":
         groups = n_layers // cfg.attn_every
         gqa(groups)
         mlp(groups, cfg.d_ff)
@@ -1555,7 +1783,9 @@ def attention_launches_per_call(cfg, prefill: bool) -> int:
     attention layer at prefill (a hybrid's shared block once per group; an
     encoder-decoder's encoder, decoder self- and cross-attention), none at
     decode (the one-token attention is plain) but an encoder-decoder's
-    cross-attention, one per decoder layer."""
+    cross-attention, one per decoder layer; none ever in an xLSTM."""
+    if cfg.family == "xlstm":
+        return 0
     if cfg.family == "encdec":
         return cfg.n_enc_layers + 2 * cfg.n_layers if prefill \
             else cfg.n_layers
@@ -1608,20 +1838,24 @@ def counted_moe_drops():
         MOE.route = orig
 
 
-def decode_split(device, params, cfg, rows: int, cache_len: int,
-                 max_len: int) -> dict:
-    """Device ms per decode step at ``rows`` rows (cache length
-    ``cache_len``).  By ``torch.profiler`` over :data:`PROFILED_STEPS`
-    steps: every kernel's, ``nmc_matmul``'s and ``flash_attention``'s (by
-    kernel name), and the kernels inside ``record_function`` ranges around
-    the MoE layers' dequantize of the int8 banks
-    (``MoE.expert_weights``) and expert ``bmm`` s (``moe.expert_ffn``),
-    MLA's absorbed-decode einsums (``MLAttention.absorbed_attention``), and
-    the Mamba2 layers' float projections (``Mamba2._proj``: the weights
-    cast to the activation dtype and the matmuls), conv and SSD update
+def profiled_split(fn, calls: int) -> tuple:
+    """``calls`` runs of ``fn`` under ``torch.profiler``: ``({label: device
+    ms per call}, {label: host ms per call})``.  Device ms: every kernel's,
+    ``nmc_matmul``'s and ``flash_attention``'s (by kernel name), and the
+    kernels inside ``record_function`` ranges around the MoE layers'
+    dequantize of the int8 banks (``MoE.expert_weights``) and expert
+    ``bmm`` s (``moe.expert_ffn``), MLA's absorbed-decode einsums
+    (``MLAttention.absorbed_attention``), the Mamba2 layers' float
+    projections (``Mamba2._proj``: the weights cast to the activation
+    dtype and the matmuls), conv and SSD update
     (``Mamba2.recurrent_step``) and gated norm with the float ``out_proj``
-    (``Mamba2._gated_out``); ``None`` where the profiler saw no device
-    time."""
+    (``Mamba2._gated_out``), the xLSTM blocks' float projections with
+    their norms and gates (``MLSTM._proj`` / ``_out``, ``SLSTM._proj`` /
+    ``_ffn``: each weight cast to the activation dtype, then the matmul),
+    the mLSTM step (``xlstm.mlstm_step``; at prefill ``mlstm_chunked``),
+    the sLSTM time loop (``SLSTM.recurrence``) and the final norm with the
+    LM head (``LMBase.logits``); ``None`` where the profiler saw no device
+    time.  Host ms: each range's, and the whole call's (``call``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1629,52 +1863,88 @@ def decode_split(device, params, cfg, rows: int, cache_len: int,
     from repro_torch.models import lm
     from repro_torch.models import moe as MOE
     from repro_torch.models import ssm as SSM
-    caches = lm.init_caches(params, cfg, rows, max_len, dtype=cfg.dtype)
-    toks = torch.zeros((rows, 1), dtype=torch.long, device=device)
-    clen = torch.full((rows,), cache_len, dtype=torch.int32, device=device)
-    lm.decode_step(params, toks, caches, clen, cfg)
-    torch.cuda.synchronize()
-    ranges = {"moe.dequantize": (MOE.MoE, "expert_weights"),
-              "moe.expert_bmm": (MOE, "expert_ffn"),
-              "mla.absorbed": (A.MLAttention, "absorbed_attention"),
-              "mamba.proj": (SSM.Mamba2, "_proj"),
-              "mamba.recurrent": (SSM.Mamba2, "recurrent_step"),
-              "mamba.gated_out": (SSM.Mamba2, "_gated_out")}
-    origs = {label: getattr(owner, attr)
-             for label, (owner, attr) in ranges.items()}
+    from repro_torch.models import xlstm as XL
+    ranges = {"moe.dequantize": ((MOE.MoE, "expert_weights"),),
+              "moe.expert_bmm": ((MOE, "expert_ffn"),),
+              "mla.absorbed": ((A.MLAttention, "absorbed_attention"),),
+              "mamba.proj": ((SSM.Mamba2, "_proj"),),
+              "mamba.recurrent": ((SSM.Mamba2, "recurrent_step"),),
+              "mamba.gated_out": ((SSM.Mamba2, "_gated_out"),),
+              "xlstm.float_proj": ((XL.MLSTM, "_proj"), (XL.MLSTM, "_out"),
+                                   (XL.SLSTM, "_proj"), (XL.SLSTM, "_ffn")),
+              "xlstm.mlstm": ((XL, "mlstm_step"), (XL, "mlstm_chunked")),
+              "xlstm.slstm": ((XL.SLSTM, "recurrence"),),
+              "lm.head": ((lm.LMBase, "logits"),)}
+    origs = {(owner, attr): getattr(owner, attr)
+             for pairs in ranges.values() for owner, attr in pairs}
 
     def labelled(fn, label):
         def wrapper(*args, **kw):
             with record_function(label):
                 return fn(*args, **kw)
         return wrapper
-    for label, (owner, attr) in ranges.items():
-        setattr(owner, attr, labelled(origs[label], label))
+    for label, pairs in ranges.items():
+        for owner, attr in pairs:
+            setattr(owner, attr, labelled(origs[(owner, attr)], label))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILED_STEPS):
-                lm.decode_step(params, toks, caches, clen, cfg)
-            torch.cuda.synchronize()
+            for _ in range(calls):
+                with record_function("call"):
+                    fn()
+                torch.cuda.synchronize()
     finally:
-        for label, (owner, attr) in ranges.items():
-            setattr(owner, attr, origs[label])
+        for (owner, attr), orig in origs.items():
+            setattr(owner, attr, orig)
     us = dict.fromkeys(("all_kernels", "nmc_matmul", "flash_attention",
                         *ranges), 0.0)
+    host = dict.fromkeys(("call", *ranges), 0.0)
     for ev in prof.events():
-        if ev.device_type == DeviceType.CPU and ev.name in ranges:
-            us[ev.name] += ev.device_time_total
+        if ev.device_type == DeviceType.CPU and ev.name in host:
+            host[ev.name] += ev.cpu_time_total
+            if ev.name in ranges:
+                us[ev.name] += ev.device_time_total
         elif ev.device_type == DeviceType.CUDA and \
                 not getattr(ev, "is_user_annotation", False):
             us["all_kernels"] += ev.self_device_time_total
             for kname in ("nmc_matmul", "flash_attention"):
                 if kname in ev.name:
                     us[kname] += ev.self_device_time_total
-    per = 1e-3 / PROFILED_STEPS
-    out = {f"{k.replace('.', '_')}_ms": (v * per if us["all_kernels"]
-                                         else None) for k, v in us.items()}
+    per = 1e-3 / calls
+    device = {f"{k.replace('.', '_')}_ms": (v * per if us["all_kernels"]
+                                            else None) for k, v in us.items()}
+    return device, {f"{k.replace('.', '_')}_ms": v * per
+                    for k, v in host.items()}
+
+
+def decode_split(device, params, cfg, rows: int, cache_len: int,
+                 max_len: int) -> dict:
+    """Device ms per decode step at ``rows`` rows (cache length
+    ``cache_len``), by ``torch.profiler`` over :data:`PROFILED_STEPS`
+    steps, split as :func:`profiled_split` splits it."""
+    import torch
+    from repro_torch.models import lm
+    caches = lm.init_caches(params, cfg, rows, max_len, dtype=cfg.dtype)
+    toks = torch.zeros((rows, 1), dtype=torch.long, device=device)
+    clen = torch.full((rows,), cache_len, dtype=torch.int32, device=device)
+    lm.decode_step(params, toks, caches, clen, cfg)
+    torch.cuda.synchronize()
+    out, _ = profiled_split(
+        lambda: lm.decode_step(params, toks, caches, clen, cfg),
+        PROFILED_STEPS)
     out["steps"] = PROFILED_STEPS
     return out
+
+
+def prefill_split(params, cfg, toks: dict, max_len: int) -> dict:
+    """One prefill of ``toks`` split as :func:`profiled_split` splits it:
+    device ms by range, and host ms by range beside the prefill's own
+    (``host_call_ms``), so that ``host_xlstm_slstm_ms / host_call_ms`` is
+    the sLSTM time loop's share of the prefill."""
+    from repro_torch.models import lm
+    device, host = profiled_split(
+        lambda: lm.prefill(params, toks, cfg, max_len), 1)
+    return {**device, **{f"host_{k}": v for k, v in host.items()}}
 
 
 def check_lm_launches(name: str, cfg, launches: dict, attn_routes: dict,
@@ -1741,19 +2011,37 @@ def phase_hybrid_serving(report: dict, device, seed: int = 0) -> dict:
                             seed, HYBRID_PROMPT_LENGTHS)
 
 
+def phase_xlstm_serving(report: dict, device, seed: int = 0) -> dict:
+    """xlstm-125m served at full width and depth (:func:`serve_full_width`):
+    12 blocks, sLSTM at 3 and 9 and mLSTM elsewhere (inner width 1536, 4
+    heads of 384, chunk 128), d_model 768, vocab 50304.  The prompt
+    lengths are drawn from :data:`HYBRID_PROMPT_LENGTHS`, the lengths of
+    ``SERVE``'s 64-512 range that the reference can prefill (a prompt
+    longer than one 128-token chunk must be a whole number of them).  The
+    blocks stay float (the reference's ``quantize_tree`` leaves its list
+    of blocks so), so the LM head (768, 50304) is the only ``nmc_matmul``:
+    one launch per prefill and per decode step, on the tensor cores, each
+    replayed through the plain version; no ``flash_attention``."""
+    return serve_full_width(report, "xlstm_serving", XLSTM_ARCH, device,
+                            seed, HYBRID_PROMPT_LENGTHS, replay_stride=1)
+
+
 def serve_full_width(report: dict, key: str, arch: str, device,
-                     seed: int = 0, prompt_lengths=None) -> dict:
+                     seed: int = 0, prompt_lengths=None,
+                     replay_stride: int = MOE_REPLAY_STRIDE) -> dict:
     """The port's W8A8 serving path for a model at full width and depth:
     built block by block from a seeded generator, served by ServeEngine on
     the :data:`SERVE` traffic (prompt lengths out of ``prompt_lengths``
     when given).  The LM kernels' launch counts are set to 0 just before
     the run and read just after (:func:`check_lm_launches`).  Then the
     same run once more, recording every attention launch and a sample of
-    the ``nmc_matmul`` ones, each replayed through its plain version, and,
+    the ``nmc_matmul`` ones (the first of each shape and every
+    ``replay_stride``-th), each replayed through its plain version, and,
     for a MoE model, the assignments each MoE call drops; one prompt's
     logits against the plain versions (the spread rule: always for a MoE
     model, else if the model's own 1-ulp spread reaches the fixed limits);
-    prefill and decode ms; the decode step's device split."""
+    prefill and decode ms; the decode step's device split (and for an
+    xLSTM each prefill's, :func:`prefill_split`)."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1775,6 +2063,11 @@ def serve_full_width(report: dict, key: str, arch: str, device,
                  f"{f' (MLA, kv_lora_rank {cfg.kv_lora_rank})' if cfg.mla else ''}"
                  f", {cfg.n_experts} experts top-{cfg.top_k} + "
                  f"{cfg.n_shared_experts} shared, moe_d_ff {cfg.moe_d_ff}")
+    elif cfg.family == "xlstm":
+        shape = (f"{cfg.n_layers} blocks, sLSTM at {cfg.slstm_layers}, "
+                 f"d_model {cfg.d_model}, {cfg.n_heads} heads, mLSTM inner "
+                 f"{int(cfg.d_model * cfg.proj_factor_mlstm)}, chunk "
+                 f"{cfg.ssm_chunk}")
     else:
         shape = (f"{cfg.n_layers} Mamba2 layers in "
                  f"{cfg.n_layers // cfg.attn_every} groups, d_model "
@@ -1826,7 +2119,7 @@ def serve_full_width(report: dict, key: str, arch: str, device,
     # version on its own inputs) and the assignments each MoE call drops;
     # not counted, not timed
     eng = engine()
-    with recorded_lm_kernel_calls(keep=sampled_matmuls(MOE_REPLAY_STRIDE)) \
+    with recorded_lm_kernel_calls(keep=sampled_matmuls(replay_stride)) \
             as calls, counted_moe_drops() as drops:
         again = eng.run()
         torch.cuda.synchronize()
@@ -1870,12 +2163,20 @@ def serve_full_width(report: dict, key: str, arch: str, device,
                                                 device=device)}, device,
         spread_factor=MOE_LOGITS_SPREAD, spread_if_reached=not moe)
 
-    prefill_ms = {}
+    prefill_ms, prefill_splits = {}, {}
     for n in PREFILL_LENGTHS:
         toks = {"tokens": torch.as_tensor(
             rng.integers(0, cfg.vocab_size, (1, n)), device=device)}
         prefill_ms[n] = events_ms(
             lambda: lm.prefill(params, toks, cfg, SERVE["max_len"]), reps=3)
+        if cfg.family == "xlstm":
+            prefill_splits[n] = prefill_split(params, cfg, toks,
+                                              SERVE["max_len"])
+    if prefill_splits:
+        log(f"{key}: prefill split by length (device ms by range, host ms "
+            f"by range and of the whole prefill, under the profiler; "
+            f"ranges it did not enter left out): "
+            f"{ {n: {k: round(v, 4) for k, v in d.items() if v} for n, d in prefill_splits.items()} }")
     caches = lm.init_caches(params, cfg, SERVE["n_slots"], SERVE["max_len"],
                             dtype=cfg.dtype)
     step_toks = torch.zeros((SERVE["n_slots"], 1), dtype=torch.long,
@@ -1902,7 +2203,8 @@ def serve_full_width(report: dict, key: str, arch: str, device,
         prefills=prefills, decode_steps=decode_steps, launches=launches,
         attention_routes=attn_routes, matmul_routes=mm_routes,
         replay=replay, **drops_report, logits=logits,
-        prefill_ms=prefill_ms, decode_step_ms=step_ms,
+        prefill_ms=prefill_ms, prefill_split=prefill_splits,
+        decode_step_ms=step_ms,
         decode_step_split=split, param_count=cfg.param_count(),
         phase_s=phase_s, nvidia_smi=smi)
     del params
@@ -2518,6 +2820,9 @@ def phase_resident_block(report: dict, device, seed: int = 0) -> dict:
     if launches["caesar_wave"] <= 0:
         raise AssertionError(f"the block launched no caesar_wave: "
                              f"{launches}")
+    if queue.stager is None or queue.stager.copies != loads:
+        raise AssertionError("a resident weight image was not staged "
+                             "through the pinned stager")
 
     t0 = time.perf_counter()
     y_prj, _ = blk.step(x, blk.init_state(8), mm=blk.project_mm(eng))
@@ -2532,7 +2837,8 @@ def phase_resident_block(report: dict, device, seed: int = 0) -> dict:
         f"projection), built in {build_s:.1f} s; cold step {cold_ms:.1f} ms, "
         f"steady step {steady_ms:.1f} ms; weights loaded once "
         f"(loads={loads}), steady step patched "
-        f"{blk.patch_bytes_per_call} B; resident == nmc_project == torch_mm "
+        f"{blk.patch_bytes_per_call} B; {queue.stager.copies} images "
+        f"staged through pinned memory; resident == nmc_project == torch_mm "
         f"bit for bit (nmc_project step {project_s:.1f} s); launches "
         f"{launches}")
     report["resident_block"] = dict(
@@ -2645,6 +2951,7 @@ def main() -> int:
     waves = timed_phase("kernels_vs_plain", phase_kernels_vs_plain, report,
                         device)
     launches = timed_phase("main_path", phase_main_path, report)
+    staging_launches = timed_phase("staging", phase_staging, report)
     timed = timed_phase("timing", phase_timing, report, waves, device)
     lm_errs = timed_phase("lm_kernels_vs_plain", phase_lm_kernels_vs_plain,
                           report, device)
@@ -2653,7 +2960,8 @@ def main() -> int:
     for path, phase in (("moe_serving", phase_moe_serving),
                         ("mla_serving", phase_mla_serving),
                         ("vlm", phase_vlm), ("encdec", phase_encdec),
-                        ("hybrid_serving", phase_hybrid_serving)):
+                        ("hybrid_serving", phase_hybrid_serving),
+                        ("xlstm_serving", phase_xlstm_serving)):
         lm_paths[path] = timed_phase(path, phase, report, device)
     lm_timed = timed_phase("lm_timing", phase_lm_timing, report, device)
     vrf_err = timed_phase("vrf_vs_plain", phase_vrf_vs_plain, report, device)
@@ -2717,7 +3025,8 @@ def main() -> int:
                     "plain_ms": vrf_row["plain_ms"],
                     "bound_ms": vrf_row["bound_ms"],
                     "bound_by": vrf_row["bound_by"], "library_ms": None})
-    report["path_launches"] = {"nmc": launches, **lm_paths,
+    report["path_launches"] = {"nmc": launches,
+                               "staging": staging_launches, **lm_paths,
                                "demo": demo_launches,
                                "multitile": tile_launches,
                                "resident_block": block_launches}

@@ -4,11 +4,11 @@ The counterpart of the JAX package's ``configs/base.py``.  The port has the
 dense family (``qwen1.5-0.5b``, ``h2o-danube-1.8b``, ``mistral-nemo-12b``,
 ``phi3-medium-14b``), the MoE family (``moonshot-v1-16b-a3b``, and
 ``deepseek-v2-lite-16b`` with MLA attention), the VLM family
-(``pixtral-12b``), the encoder-decoder family (``whisper-tiny``) and the
-hybrid SSM family (``zamba2-2.7b``) so far: each registers a full config
-(exact dims) and a ``smoke`` reduction for CPU tests; ``xlstm-125m``
-raises ``NotImplementedError`` until its family lands (ROADMAP.md,
-queue 1).
+(``pixtral-12b``), the encoder-decoder family (``whisper-tiny``), the
+hybrid SSM family (``zamba2-2.7b``) and the xLSTM family
+(``xlstm-125m``): each registers a full config (exact dims) and a
+``smoke`` reduction for CPU tests.  An id left out of :data:`PORTED`
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ ARCH_IDS = (
 )
 PORTED = ("h2o-danube-1.8b", "qwen1.5-0.5b", "mistral-nemo-12b",
           "phi3-medium-14b", "moonshot-v1-16b-a3b", "deepseek-v2-lite-16b",
-          "pixtral-12b", "whisper-tiny", "zamba2-2.7b")
+          "pixtral-12b", "whisper-tiny", "zamba2-2.7b", "xlstm-125m")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in PORTED}

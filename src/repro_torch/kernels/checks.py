@@ -57,10 +57,12 @@ WHISPER_MATMUL_KN = ((384, 384), (384, 1536), (1536, 384), (384, 51865))
 #: head (its Mamba2 projections stay float and are not nmc_matmul)
 HYBRID_MATMUL_KN = ((2560, 2560), (2560, 10240), (10240, 2560),
                     (2560, 32000))
+#: xlstm-125m's LM head, its only ``nmc_matmul`` (its blocks stay float)
+XLSTM_MATMUL_KN = ((768, 50304),)
 #: the (K, N) of every served model's projections, each once
 SERVING_MATMUL_KN = tuple(dict.fromkeys(
     MATMUL_KN + MOE_MATMUL_KN + MLA_MATMUL_KN + VLM_MATMUL_KN
-    + WHISPER_MATMUL_KN + HYBRID_MATMUL_KN))
+    + WHISPER_MATMUL_KN + HYBRID_MATMUL_KN + XLSTM_MATMUL_KN))
 #: the served (K, N) off the tensor-core route: whisper-tiny's LM head
 DP4A_SERVING_KN = ((384, 51865),)
 #: pixtral-12b's prefill rows in the smoke run: 4 prompts of 1024 image and

@@ -1,25 +1,27 @@
 """Carry a parameter tree of the JAX reference across to the port.
 
 :func:`params_from_jax` takes the reference's LM params (dense, MoE, VLM,
-hybrid or encoder-decoder; GQA or MLA attention) as a nested dict of numpy
-arrays — float, or quantized by its ``quantize_params`` — with the layer
-axis stacked first (a hybrid's Mamba2 layers ``(groups, attn_every,
-...)``), and builds the port's model (:mod:`repro_torch.models.lm`)
-holding the same numbers, so both packages compute the same function.  It
-reads numpy only: the caller turns the reference's arrays into numpy
-(``np.asarray``).
+hybrid, encoder-decoder or xLSTM; GQA or MLA attention) as a nested dict
+of numpy arrays — float, or quantized by its ``quantize_params`` — with
+the layer axis stacked first (a hybrid's Mamba2 layers ``(groups,
+attn_every, ...)``; an xLSTM's blocks a list, unstacked), and builds the
+port's model (:mod:`repro_torch.models.lm`) holding the same numbers, so
+both packages compute the same function.  It reads numpy only: the caller
+turns the reference's arrays into numpy (``np.asarray``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig, resolve_device
 
 
@@ -129,13 +131,29 @@ def _mamba(p: dict, device, idx: tuple) -> SSM.Mamba2:
                       _linear(p["out_proj"], device, idx))
 
 
+def _xlstm_block(p: dict, cfg: ModelConfig, device) -> nn.Module:
+    """One xLSTM block's dict: an sLSTM one (``r_z`` ...) or an mLSTM
+    one."""
+    eps = cfg.norm_eps
+    if "r_z" in p:
+        return XL.SLSTM(_rms(p["norm"], device, None, eps),
+                        {g: _linear(p[f"w_{g}"], device) for g in XL.GATES},
+                        {g: _tensor(p[f"r_{g}"], device) for g in XL.GATES},
+                        _rms(p["ffn_norm"], device, None, eps),
+                        _linear(p["up"], device), _linear(p["down"], device))
+    return XL.MLSTM(_rms(p["norm"], device, None, eps),
+                    {k: _linear(p[k], device) for k in XL.MLSTM.KEYS},
+                    _rms(p["out_norm"], device, None, eps))
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> lm.LMBase:
     """The reference's LM params (numpy leaves) as the port's model on
     ``device`` (the card when None): a DecoderLM (``layers``, for a MoE
     model's first dense layers ``dense_layers``, a VLM's ``img_proj``), a
     HybridLM (``mamba`` unstacked from ``(G, attn_every, ...)``,
-    ``shared_attn``) or an EncDecLM (``enc_layers``, ``layers`` with
-    ``lnx`` / ``xattn``, ``pos_dec``, ``enc_norm``)."""
+    ``shared_attn``), an EncDecLM (``enc_layers``, ``layers`` with
+    ``lnx`` / ``xattn``, ``pos_dec``, ``enc_norm``) or an XLSTMLM
+    (``blocks``, each block's float weights as they are)."""
     device = resolve_device(device)
     embed = L.Embedding(_tensor(tree["embed"]["table"], device))
     final_norm = _rms(tree["final_norm"], device, None, cfg.norm_eps)
@@ -147,6 +165,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> lm.LMBase:
         return lm.HybridLM(embed, mamba,
                            _block(tree["shared_attn"], cfg, device, None),
                            final_norm, head)
+    if cfg.family == "xlstm":
+        return lm.XLSTMLM(embed, [_xlstm_block(p, cfg, device)
+                                  for p in tree["blocks"]], final_norm, head)
     if cfg.family == "encdec":
         return lm.EncDecLM(
             embed, _enc_blocks(tree["enc_layers"], cfg, device),

@@ -2,7 +2,7 @@
 ``first_dense x k + [attn + MoE] x (L - k)`` (MoE), ``[[Mamba2 x
 attn_every] + shared attn/MLP block] x G`` (hybrid) and an encoder
 ``[attn + MLP] x Le`` with a decoder ``[self + cross + MLP] x L``
-(encoder-decoder).
+(encoder-decoder) and mLSTM / sLSTM blocks (xLSTM).
 
 The counterpart of the JAX package's ``models/lm.py``: ``forward``
 (teacher-forced logits and the summed MoE aux loss), ``prefill`` (the
@@ -23,11 +23,12 @@ field stacked over layers:
   shared block's weights serve every group, each with its own cache);
 * encoder-decoder: ``"layers"`` (the decoder's self-attention) and
   ``"cross_k"`` / ``"cross_v"`` ``(L, B, KV, S_enc, hd)``, the encoder
-  output's keys and values, computed once at prefill.
+  output's keys and values, computed once at prefill;
+* xLSTM: ``"blocks"``, a list with one tuple of float32 states per
+  block, whatever the activation dtype: ``(C, n, m)`` for an mLSTM block,
+  ``(c, n, m, h)`` for an sLSTM one, batch first.
 
-The xLSTM family raises ``NotImplementedError`` until its slice lands
-(ROADMAP.md, queue 1).  Every entry point runs under
-``torch.inference_mode()``.
+Every entry point runs under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -39,18 +40,21 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig, resolve_device
 
 #: the rows of the encoder-decoder's learned decoder positions
 DEC_POSITIONS = 32768
 
+#: the model families the port runs (every family of the reference)
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "encdec", "xlstm")
+
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "encdec"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense, MoE, VLM, hybrid and "
-            f"encoder-decoder families only so far (family "
-            f"{cfg.family!r}); see ROADMAP.md, queue 1")
+            f"{cfg.name}: the port runs the families {FAMILIES}, not "
+            f"{cfg.family!r}")
 
 
 def _stack(caches: list) -> dict:
@@ -438,6 +442,53 @@ class EncDecLM(LMBase):
                                        device=self.device)}
 
 
+class XLSTMLM(LMBase):
+    """xLSTM: a stack of mLSTM blocks with sLSTM blocks at
+    ``cfg.slstm_layers``, each block holding its own residual."""
+
+    def __init__(self, embed: L.Embedding, blocks: list,
+                 final_norm: L.RMSNorm, head: L.NmcLinear):
+        super().__init__()
+        self.embed = embed
+        self.blocks = nn.ModuleList(blocks)
+        self.final_norm = final_norm
+        self.head = head
+
+    def hidden(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
+        """Every block over the embedded ``x``: (x, 0)."""
+        for blk in self.blocks:
+            x = blk(x, cfg)
+        return x, torch.zeros((), device=x.device)
+
+    def forward(self, batch: dict, cfg: ModelConfig) -> tuple:
+        x, aux = self.hidden(self.inputs(batch, cfg), cfg)
+        return self.logits(x, cfg), aux
+
+    def prefill(self, batch: dict, cfg: ModelConfig, max_len: int) -> tuple:
+        x = self.inputs(batch, cfg)
+        states = []
+        for blk in self.blocks:
+            x, st = blk(x, cfg, return_state=True)
+            states.append(st)
+        return self.logits(x, cfg)[:, -1], {"blocks": states}
+
+    def decode_step(self, tokens: torch.Tensor, caches: dict,
+                    cache_len: torch.Tensor, cfg: ModelConfig) -> tuple:
+        x = self.embed(tokens, cfg.dtype)
+        for blk, st in zip(self.blocks, caches["blocks"]):
+            x = blk.decode_step(x, cfg, st)
+        return self.logits(x, cfg)[:, 0], caches
+
+    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
+                    dtype) -> dict:
+        """Zero states, float32 whatever ``dtype`` is (as the
+        reference)."""
+        return {"blocks": [
+            (XL.slstm_state_init if isinstance(blk, XL.SLSTM)
+             else XL.mlstm_state_init)(cfg, batch, self.device)
+            for blk in self.blocks]}
+
+
 # ---------------------------------------------------------------------------
 # entry points (the reference's function names)
 # ---------------------------------------------------------------------------
@@ -452,7 +503,7 @@ def draw_blocks(cfg: ModelConfig, generator: torch.Generator | None,
     dropped), in the generator's order: embedding, head, then the
     reference's order of keys (the first dense layers, the layers,
     ``img_proj``; the Mamba2 groups, ``shared_attn``; ``enc_layers``,
-    ``layers``, ``pos_dec``)."""
+    ``layers``, ``pos_dec``; the xLSTM blocks)."""
     _check_family(cfg)
     device = resolve_device(device)
     gen = generator if generator is not None \
@@ -469,6 +520,11 @@ def draw_blocks(cfg: ModelConfig, generator: torch.Generator | None,
                  for _ in range(cfg.n_layers // cfg.attn_every)]
         shared = each(DecoderBlock.init(gen, cfg, device))
         return HybridLM(embed, mamba, shared, norm(), head)
+    if cfg.family == "xlstm":
+        blocks = [each((XL.SLSTM if i in cfg.slstm_layers else XL.MLSTM)
+                       .init(gen, cfg, device))
+                  for i in range(cfg.n_layers)]
+        return XLSTMLM(embed, blocks, norm(), head)
     if cfg.family == "encdec":
         enc = [each(EncoderBlock.init(gen, cfg, device))
                for _ in range(cfg.n_enc_layers)]
@@ -494,7 +550,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None) -> LMBase:
     """Random float32 weights with the reference's initialisation (normal
     / sqrt(d_in) linears and expert banks, 0.02 embedding and decoder
-    positions, unit norm gains, zero biases, the Mamba2 layers' own),
+    positions, unit norm gains, zero biases, the Mamba2 layers' own, the
+    sLSTM blocks' 0.1-normal recurrent weights),
     drawn from ``generator`` (a fresh seed-0 generator on ``device`` when
     None).  ``device=None`` is the card and raises without one."""
     return draw_blocks(cfg, generator, device, lambda m: m)
@@ -538,19 +595,22 @@ def init_caches(params: LMBase, cfg: ModelConfig, batch: int,
 
 
 def cache_batch_axes(cfg: ModelConfig, caches: dict) -> dict:
-    """The batch axis of every cache leaf: the same tree with an int per
-    leaf.  Leaves stacked with one leading layer or group axis carry batch
-    at 1 (every entry of the dense, MoE, VLM and encoder-decoder caches,
-    and the hybrid's ``"attn"``); the hybrid's Mamba2 states, stacked
-    ``(groups, attn_every, B, ...)``, at 2.  Shape sniffing cannot tell a
-    size-1 layer axis from a size-1 batch axis."""
+    """The batch axis of every cache leaf: the same tree (dicts, lists,
+    tuples) with an int per leaf.  Leaves stacked with one leading layer
+    or group axis carry batch at 1 (every entry of the dense, MoE, VLM and
+    encoder-decoder caches, and the hybrid's ``"attn"``); the hybrid's
+    Mamba2 states, stacked ``(groups, attn_every, B, ...)``, at 2; the
+    xLSTM's per-block states, unstacked, at 0.  Shape sniffing cannot tell
+    a size-1 layer axis from a size-1 batch axis."""
     _check_family(cfg)
 
     def const(tree, ax: int):
         if isinstance(tree, dict):
             return {k: const(v, ax) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(const(v, ax) for v in tree)
         return ax
     if cfg.family == "hybrid":
         return {"mamba": const(caches["mamba"], 2),
                 "attn": const(caches["attn"], 1)}
-    return const(caches, 1)
+    return const(caches, 0 if cfg.family == "xlstm" else 1)

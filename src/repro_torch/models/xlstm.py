@@ -1,0 +1,322 @@
+"""xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel) and sLSTM (scalar
+memory, a loop over time), following Beck et al. 2024 (arXiv:2405.04517).
+
+The counterpart of the JAX package's ``models/xlstm.py``.  mLSTM prefills
+in chunks: within a chunk a causal, log-gate-decayed attention (einsums
+quadratic in the chunk length), across chunks the carried matrix memory
+``(C, n, m)`` in a short loop; decode is one O(1) update.  sLSTM's gates
+read the previous hidden state through block-diagonal recurrent weights,
+so it runs step by step at prefill too.  Both use exponential gating with
+the max-stabilizer state ``m``, and every state is float32 whatever the
+activation dtype.
+
+The projections are :class:`~repro_torch.models.layers.NmcLinear` s
+holding float weights, and both blocks' ``quantized()`` return the block
+unchanged: the reference's ``quantize_tree`` recurses into dicts only and
+the xLSTM LM keeps its blocks in a list, so under ``w8a8`` only the LM
+head becomes int8 and every block projection is a matmul of the float
+weights in the activation dtype, as in the reference.  The gate
+projections (mLSTM's ``wi`` / ``wf``, sLSTM's ``w_*``) ignore ``nmc_mode``
+there too.
+
+A prompt longer than ``ssm_chunk`` must be a multiple of it: the reference
+reshapes the sequence into whole chunks and fails otherwise, and the port
+raises instead of padding.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+#: the running max's initial value (the reference's ``m0``)
+M0 = -1e30
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  log_i: torch.Tensor, log_f: torch.Tensor,
+                  chunk: int) -> tuple:
+    """q, k, v: (B,S,H,P); log_i, log_f: (B,S,H) float32.  The stabilized
+    chunkwise mLSTM from a zero state: y (B,S,H,P) in ``q``'s dtype and the
+    final ``(C, n, m)``, (B,H,P,P), (B,H,P), (B,H), float32."""
+    bsz, s, h, p = q.shape
+    if s % chunk:
+        raise ValueError(
+            f"mlstm_chunked: a sequence of {s} is not a whole number of "
+            f"chunks of {chunk} (the reference reshapes it into chunks and "
+            f"fails the same way; a prompt longer than ssm_chunk must be a "
+            f"multiple of it)")
+    nc, f32 = s // chunk, torch.float32
+    qc = q.reshape(bsz, nc, chunk, h, p).to(f32)
+    kc = k.reshape(bsz, nc, chunk, h, p).to(f32) / math.sqrt(p)
+    vc = v.reshape(bsz, nc, chunk, h, p).to(f32)
+    li = log_i.reshape(bsz, nc, chunk, h).to(f32)
+    cum_f = torch.cumsum(log_f.reshape(bsz, nc, chunk, h).to(f32), dim=2)
+    total_f = cum_f[:, :, -1, :]                            # (B,nc,H)
+    # within-chunk log weights D[i, j] = cum_f_i - cum_f_j + li_j, j <= i
+    dmat = cum_f[:, :, :, None, :] - cum_f[:, :, None, :, :] \
+        + li[:, :, None, :, :]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=q.device))
+    dmat = dmat.masked_fill(~causal[None, None, :, :, None], -math.inf)
+
+    C = torch.zeros((bsz, h, p, p), dtype=f32, device=q.device)
+    n = torch.zeros((bsz, h, p), dtype=f32, device=q.device)
+    m = torch.full((bsz, h), M0, dtype=f32, device=q.device)
+    ys = []
+    for c in range(nc):
+        qb, kb, vb = qc[:, c], kc[:, c], vc[:, c]
+        cfb, tfb = cum_f[:, c], total_f[:, c]
+        a_j = tfb[:, None, :] - cfb + li[:, c]              # (B,q,H)
+        m_new = torch.maximum(tfb + m, a_j.amax(dim=1))     # (B,H)
+        inter_w = torch.exp(cfb + m[:, None, :] - m_new[:, None, :])
+        y_inter = torch.einsum("bqhp,bhpo->bqho", qb, C) * inter_w[..., None]
+        n_inter = torch.einsum("bqhp,bhp->bqh", qb, n) * inter_w
+        w_intra = torch.exp(dmat[:, c] - m_new[:, None, None, :])
+        sw = torch.einsum("bqhp,bjhp->bqjh", qb, kb) * w_intra
+        y_intra = torch.einsum("bqjh,bjhp->bqhp", sw, vb)
+        n_intra = sw.sum(dim=2)
+        denom = torch.maximum((n_inter + n_intra).abs(),
+                              torch.exp(-m_new)[:, None, :]) + 1e-6
+        ys.append((y_inter + y_intra) / denom[..., None])
+        # the state carried to the chunk's end
+        upd_w = torch.exp(a_j - m_new[:, None, :])          # (B,q,H)
+        decay = torch.exp(tfb + m - m_new)                   # (B,H)
+        C = C * decay[:, :, None, None] + \
+            torch.einsum("bqhp,bqho->bhpo", kb * upd_w[..., None], vb)
+        n = n * decay[:, :, None] + torch.einsum("bqh,bqhp->bhp", upd_w, kb)
+        m = m_new
+    y = torch.stack(ys, dim=1).reshape(bsz, s, h, p)
+    return y.to(q.dtype), (C, n, m)
+
+
+def mlstm_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               log_i: torch.Tensor, log_f: torch.Tensor,
+               state: tuple) -> torch.Tensor:
+    """One token.  q, k, v: (B,H,P); gates (B,H) float32; ``state`` ``(C,
+    n, m)`` is updated in place.  Returns y (B,H,P) in ``q``'s dtype."""
+    C, n, m = state
+    f32 = torch.float32
+    kf = k.to(f32) / math.sqrt(q.shape[-1])
+    qf = q.to(f32)
+    m_new = torch.maximum(log_f + m, log_i)
+    decay = torch.exp(log_f + m - m_new)
+    gain = torch.exp(log_i - m_new)
+    C_new = C * decay[..., None, None] + gain[..., None, None] * \
+        torch.einsum("bhp,bho->bhpo", kf, v.to(f32))
+    n_new = n * decay[..., None] + gain[..., None] * kf
+    num = torch.einsum("bhp,bhpo->bho", qf, C_new)
+    den = torch.einsum("bhp,bhp->bh", qf, n_new).abs()
+    den = torch.maximum(den, torch.exp(-m_new)) + 1e-6
+    C.copy_(C_new)
+    n.copy_(n_new)
+    m.copy_(m_new)
+    return (num / den[..., None]).to(q.dtype)
+
+
+class MLSTM(nn.Module):
+    """One mLSTM block: RMSNorm, the up projection ``up`` and its silu gate
+    ``up_gate`` (d -> d_i = d * proj_factor_mlstm), q / k / v (d_i -> d_i),
+    the per-head input and forget gates ``wi`` / ``wf`` (d_i -> H), the
+    matrix memory, ``out_norm`` and ``down`` (d_i -> d), a residual
+    around it all."""
+
+    KEYS = ("up", "up_gate", "wq", "wk", "wv", "wi", "wf", "down")
+
+    def __init__(self, norm: L.RMSNorm, lin: dict, out_norm: L.RMSNorm):
+        super().__init__()
+        self.norm = norm
+        for key in self.KEYS:
+            setattr(self, key, lin[key])
+        self.out_norm = out_norm
+
+    @classmethod
+    def init(cls, gen: torch.Generator, cfg: ModelConfig,
+             device=None) -> "MLSTM":
+        d, h = cfg.d_model, cfg.n_heads
+        di = int(d * cfg.proj_factor_mlstm)
+        widths = {"up": (d, di), "up_gate": (d, di), "wq": (di, di),
+                  "wk": (di, di), "wv": (di, di), "wi": (di, h),
+                  "wf": (di, h), "down": (di, d)}
+        lin = {key: L.NmcLinear.init(gen, *widths[key], device=device)
+               for key in cls.KEYS}
+        return cls(L.RMSNorm.init(d, cfg.norm_eps, device), lin,
+                   L.RMSNorm.init(di, cfg.norm_eps, device))
+
+    def quantized(self) -> "MLSTM":
+        """Unchanged: the reference leaves the xLSTM blocks float (module
+        docstring)."""
+        return self
+
+    def _proj(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
+        """(g, q, k, v, log_i, log_f): the silu gate (B,S,d_i), q / k / v
+        (B,S,H,P) in the activation dtype, the gates (B,S,H) float32."""
+        b, s, _ = x.shape
+        mode = cfg.nmc_mode
+        xn = self.norm(x)
+        u = self.up(xn, nmc_mode=mode)
+        g = self.up_gate(xn, nmc_mode=mode, act="silu")
+        heads = (b, s, cfg.n_heads, -1)
+        q, k, v = (lin(u, nmc_mode=mode).reshape(heads)
+                   for lin in (self.wq, self.wk, self.wv))
+        log_i = self.wi(u).float()
+        log_f = F.logsigmoid(self.wf(u).float())
+        return g, q, k, v, log_i, log_f
+
+    def _out(self, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+        """x + down(out_norm(y) * g), y (B,S,H,P)."""
+        y = self.out_norm(y.reshape(g.shape)) * g
+        return x + self.down(y, nmc_mode=cfg.nmc_mode)
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig,
+                return_state: bool = False):
+        """Full sequence.  x: (B, S, D).  With ``return_state`` also the
+        memory ``(C, n, m)`` after the last position."""
+        g, q, k, v, log_i, log_f = self._proj(x, cfg)
+        chunk = min(cfg.ssm_chunk or 64, x.shape[1])
+        y, state = mlstm_chunked(q, k, v, log_i, log_f, chunk)
+        out = self._out(x, y, g, cfg)
+        return (out, state) if return_state else out
+
+    def decode_step(self, x: torch.Tensor, cfg: ModelConfig,
+                    state: tuple) -> torch.Tensor:
+        """One token.  x: (B, 1, D); ``state`` is updated in place."""
+        g, q, k, v, log_i, log_f = self._proj(x, cfg)
+        y = mlstm_step(q[:, 0], k[:, 0], v[:, 0], log_i[:, 0], log_f[:, 0],
+                       state)
+        return self._out(x, y, g, cfg)
+
+
+def mlstm_state_init(cfg: ModelConfig, batch: int, device=None) -> tuple:
+    di = int(cfg.d_model * cfg.proj_factor_mlstm)
+    h = cfg.n_heads
+    p = di // h
+    kw = {"dtype": torch.float32, "device": device}
+    return (torch.zeros((batch, h, p, p), **kw),
+            torch.zeros((batch, h, p), **kw),
+            torch.full((batch, h), M0, **kw))
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+#: the gates, in the reference's order: cell input z, input, forget, output
+GATES = ("z", "i", "f", "o")
+
+
+class SLSTM(nn.Module):
+    """One sLSTM block: RMSNorm, the input projections ``w_z`` / ``w_i`` /
+    ``w_f`` / ``w_o`` (d -> d), the block-diagonal recurrent weights
+    ``r_z`` ... (H, P, P) float32, the scalar memory, a residual; then
+    ``ffn_norm`` and the gated FFN ``up`` (d -> 2 d_f, d_f = d *
+    proj_factor_slstm) and ``down`` (d_f -> d), tanh-form gelu on the first
+    half times the second, a residual."""
+
+    def __init__(self, norm: L.RMSNorm, w: dict, r: dict,
+                 ffn_norm: L.RMSNorm, up: L.NmcLinear, down: L.NmcLinear):
+        super().__init__()
+        self.norm = norm
+        for gate in GATES:
+            setattr(self, f"w_{gate}", w[gate])
+            self.register_buffer(f"r_{gate}", r[gate])
+        self.ffn_norm = ffn_norm
+        self.up, self.down = up, down
+
+    @classmethod
+    def init(cls, gen: torch.Generator, cfg: ModelConfig,
+             device=None) -> "SLSTM":
+        """The reference's initialisation: normal / sqrt(d_in) linears,
+        0.1-normal recurrent weights."""
+        d, h = cfg.d_model, cfg.n_heads
+        df = int(d * cfg.proj_factor_slstm)
+        w = {g: L.NmcLinear.init(gen, d, d, device=device) for g in GATES}
+        r = {g: torch.randn((h, d // h, d // h), generator=gen,
+                            device=device, dtype=torch.float32) * 0.1
+             for g in GATES}
+        up = L.NmcLinear.init(gen, d, 2 * df, device=device)
+        down = L.NmcLinear.init(gen, df, d, device=device)
+        return cls(L.RMSNorm.init(d, cfg.norm_eps, device), w, r,
+                   L.RMSNorm.init(d, cfg.norm_eps, device), up, down)
+
+    def quantized(self) -> "SLSTM":
+        """Unchanged, as :meth:`MLSTM.quantized`."""
+        return self
+
+    def _proj(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        """The gates' input pre-activations (B, S, 4, D) float32, in
+        :data:`GATES` order."""
+        xn = self.norm(x)
+        return torch.stack([getattr(self, f"w_{g}")(xn).float()
+                            for g in GATES], dim=2)
+
+    def recurrence(self, pre: torch.Tensor, state: tuple) -> torch.Tensor:
+        """The time loop over pre (B, S, 4, D) from ``state`` ``(c, n, m,
+        h)`` (B, D) float32, updated in place: hidden states (B, S, D)
+        float32."""
+        c, n, m, hprev = state
+        bsz, s, _, d = pre.shape
+        heads, p = self.r_z.shape[:2]
+        # (H, P, 4P): the four gates' recurrent weights side by side
+        r = torch.cat([getattr(self, f"r_{g}") for g in GATES], dim=-1)
+        hs = []
+        for t in range(s):
+            rec = torch.bmm(hprev.reshape(bsz, heads, p).transpose(0, 1), r)
+            rec = rec.reshape(heads, bsz, 4, p).permute(1, 2, 0, 3) \
+                .reshape(bsz, 4, d)
+            g = pre[:, t] + rec
+            z = torch.tanh(g[:, 0])
+            i_raw = g[:, 1]
+            log_f = F.logsigmoid(g[:, 2])
+            o = torch.sigmoid(g[:, 3])
+            m_new = torch.maximum(log_f + m, i_raw)
+            decay = torch.exp(log_f + m - m_new)
+            gain = torch.exp(i_raw - m_new)
+            c = c * decay + gain * z
+            n = n * decay + gain
+            m = m_new
+            hprev = o * c / torch.clamp_min(n, 1e-6)
+            hs.append(hprev)
+        for t, new in zip(state, (c, n, m, hprev)):
+            t.copy_(new)
+        return torch.stack(hs, dim=1)
+
+    def _ffn(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        u = self.up(self.ffn_norm(x), nmc_mode=cfg.nmc_mode)
+        df = u.shape[-1] // 2
+        h = F.gelu(u[..., :df], approximate="tanh") * u[..., df:]
+        return x + self.down(h, nmc_mode=cfg.nmc_mode)
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig,
+                return_state: bool = False, state: tuple | None = None):
+        """x: (B, S, D) from ``state`` (a zero state when None; updated in
+        place).  With ``return_state`` also the state after the last
+        position."""
+        if state is None:
+            state = slstm_state_init(cfg, x.shape[0], x.device)
+        hs = self.recurrence(self._proj(x, cfg), state)
+        out = self._ffn(x + hs.to(x.dtype), cfg)
+        return (out, state) if return_state else out
+
+    def decode_step(self, x: torch.Tensor, cfg: ModelConfig,
+                    state: tuple) -> torch.Tensor:
+        """One token.  x: (B, 1, D); ``state`` is updated in place."""
+        return self(x, cfg, state=state)
+
+
+def slstm_state_init(cfg: ModelConfig, batch: int, device=None) -> tuple:
+    d = cfg.d_model
+    kw = {"dtype": torch.float32, "device": device}
+    return (torch.zeros((batch, d), **kw), torch.zeros((batch, d), **kw),
+            torch.full((batch, d), M0, **kw), torch.zeros((batch, d), **kw))

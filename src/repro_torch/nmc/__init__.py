@@ -37,8 +37,9 @@ Layers (each usable directly for expert control):
   :class:`TilePool`, shape-bucketed :class:`BucketedPool` and the
   persistently-resident :class:`ResidentPool`.
 * :mod:`repro_torch.nmc.runtime` — the async double-buffered
-  :class:`DispatchQueue`: futures, shadow-buffer staging, batched launch
-  waves.
+  :class:`DispatchQueue`: futures, shadow-buffer staging (on the card
+  through a :class:`PinnedStager`: page-locked buffers, a copy stream),
+  batched launch waves.
 * :mod:`repro_torch.nmc.partition` — the tile-parallel partitioning
   planner: shards one traced kernel across the tile array
   (``nmc.jit(fn, tiles=N)``), reassembled by :class:`GatherFuture` —
@@ -62,7 +63,7 @@ from repro_torch.nmc.engine import (BACKENDS, CaesarTile, CarusTile, Engine,
 from repro_torch.nmc.pool import (BucketedPool, ResidentPool, TilePool,
                                   tile_bucket)
 from repro_torch.nmc.runtime import (DeviceFuture, DispatchQueue,
-                                     GatherFuture, NMCFuture)
+                                     GatherFuture, NMCFuture, PinnedStager)
 from repro_torch.nmc.registry import (NmcRuntime, default_runtime,
                                       set_default_runtime)
 from repro_torch.nmc.frontend import (CompiledKernel, LoweredKernel,
@@ -113,4 +114,5 @@ __all__ = [
     "TilePool", "BucketedPool", "ResidentPool", "tile_bucket",
     # async dispatch runtime
     "DispatchQueue", "NMCFuture", "DeviceFuture", "GatherFuture",
+    "PinnedStager",
 ]

@@ -65,7 +65,9 @@ class _EngineBase:
 
     def init_state(self, image) -> torch.Tensor:
         """Host image -> a fresh int32 state tensor.  A tensor stays on its
-        own device; anything else is copied to the engine's device."""
+        own device; anything else is copied to the engine's device (the
+        dispatch queue stages host images for the card through its
+        :class:`~repro_torch.nmc.runtime.PinnedStager` instead)."""
         if isinstance(image, torch.Tensor):
             state = image.to(torch.int32).clone()
         else:

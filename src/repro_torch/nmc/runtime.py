@@ -8,13 +8,18 @@ that duality executable on top of :class:`repro_torch.nmc.pool.ResidentPool`:
 
 * ``submit(tile, program, image, out_slice)`` returns an :class:`NMCFuture`
   immediately.  The image — if any — is *staged* onto the device as early
-  as the tile's single shadow buffer allows (``init_state`` issues the
-  host->device copy, the memory-mode DMA): at submit time when the
-  shadow is free — even while the tile's previous program is still in
-  flight — otherwise when the item's launch wave is assembled, right after
-  the preceding wave dispatched.  Depth-2 double buffering, matching the
-  load-ahead of ``timing.dispatch_cycles``; nothing blocks until the
-  future is resolved.
+  as the tile's single shadow buffer allows (the host->device copy, the
+  memory-mode DMA): at submit time when the shadow is free — even while
+  the tile's previous program is still in flight — otherwise when the
+  item's launch wave is assembled, right after the preceding wave
+  dispatched.  Depth-2 double buffering, matching the load-ahead of
+  ``timing.dispatch_cycles``; nothing blocks until the future is
+  resolved.  On the card a host image goes through a :class:`PinnedStager`
+  the queue owns: copied into a page-locked buffer, then sent by an
+  asynchronous copy on the stager's own stream, so that it can run while
+  the compute stream executes the waves already launched; the wave that
+  installs it makes the compute stream wait for that copy's event first.
+  On the CPU ``init_state`` copies the image where it is asked for.
 * work items launch in *waves*: at each flush the head-of-line item of every
   pending tile installs its staged shadow buffer (buffer swap) and the wave
   dispatches through the shared bucketed jit cache as one batched
@@ -45,8 +50,10 @@ consumers adopt the same block-only-at-resolution discipline.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -203,6 +210,64 @@ class DeviceFuture:
         return self._value
 
 
+class PinnedStager:
+    """Host images to one card through page-locked buffers on a copy
+    stream of its own (the memory-mode DMA beside the compute stream).
+
+    :meth:`stage` copies the image into a pinned host buffer, allocates a
+    fresh device buffer and issues the host->device copy with
+    ``non_blocking=True`` on :attr:`stream`, and returns the buffer with
+    an event recorded after the copy.  The consumer makes its own stream
+    wait on that event and ``record_stream`` s the buffer on it before
+    reading it.  A pinned buffer is reused only after its copy's event has
+    completed (the copies complete in stream order, so the oldest is
+    polled first); pinning that fails raises, there is no pageable
+    fallback.
+
+    ``copies`` and ``bytes`` count what was staged, ``pinned`` holds every
+    pinned buffer allocated."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self._free: dict[int, list] = {}            # words -> idle buffers
+        self._busy: collections.deque = collections.deque()  # (event, buf)
+        self.copies = 0
+        self.bytes = 0
+        self.pinned: list[torch.Tensor] = []
+
+    def _buffer(self, words: int) -> torch.Tensor:
+        while self._busy and self._busy[0][0].query():
+            _, buf = self._busy.popleft()
+            self._free.setdefault(buf.numel(), []).append(buf)
+        idle = self._free.get(words)
+        if idle:
+            return idle.pop()
+        self.pinned.append(torch.empty(words, dtype=torch.int32,
+                                       pin_memory=True))
+        return self.pinned[-1]
+
+    def stage(self, image, shape: tuple) -> tuple:
+        """Host ``image`` -> ``(device int32 tensor of shape, event after
+        its copy)``."""
+        host = np.asarray(image, np.int32).reshape(-1)
+        words = math.prod(shape)
+        if host.size != words:
+            raise ValueError(f"an image of {host.size} words for a state of "
+                             f"shape {shape}")
+        buf = self._buffer(words)
+        buf.numpy()[:] = host
+        with torch.cuda.stream(self.stream):
+            state = torch.empty(shape, dtype=torch.int32, device=self.device)
+            state.view(-1).copy_(buf, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        self._busy.append((done, buf))
+        self.copies += 1
+        self.bytes += words * WORD_BYTES
+        return state, done
+
+
 @dataclasses.dataclass
 class _WorkItem:
     tile: object
@@ -217,6 +282,8 @@ class _WorkItem:
                                     # the resident state at launch — the
                                     # steady-state serving path (weights
                                     # resident, activations patched per call)
+    copied: object = None           # CUDA event after the staging copy, if
+                                    # the image went through the stager
 
 
 class DispatchQueue:
@@ -231,7 +298,9 @@ class DispatchQueue:
       while its previous program was still unresolved: the double-buffering
       overlap events.  Always 0 under the ``inorder`` scheduler.
     * ``calls`` — generic device computations launched via ``submit_call``.
-    """
+
+    On the card, host images stage through :attr:`stager` (a
+    :class:`PinnedStager`, made at the first such image)."""
 
     def __init__(self, pool: ResidentPool | None = None,
                  mode: str = "overlapped"):
@@ -250,6 +319,7 @@ class DispatchQueue:
         self.mixed_engine_waves = 0     # waves mixing Caesar+Carus shards
         self.staged_while_busy = 0
         self.calls = 0
+        self.stager: Optional[PinnedStager] = None
 
     # -- submission ----------------------------------------------------------
     def submit(self, tile, program: Program, image=None,
@@ -302,9 +372,18 @@ class DispatchQueue:
     def _stage(self, item: _WorkItem) -> None:
         """Start the async host->device copy into the tile's shadow buffer
         (memory-mode DMA); counted as overlapped when the tile's previous
-        program is still unresolved at this moment."""
-        item.staged = get_engine(item.engine,
-                                 self.pool.backend).init_state(item.image)
+        program is still unresolved at this moment.  A host image bound
+        for the card goes through the :class:`PinnedStager`; a tensor, or
+        an image bound for the CPU, through the engine's ``init_state``."""
+        engine = get_engine(item.engine, self.pool.backend)
+        if engine.device.type == "cuda" and \
+                not isinstance(item.image, torch.Tensor):
+            if self.stager is None:
+                self.stager = PinnedStager(engine.device)
+            item.staged, item.copied = self.stager.stage(
+                item.image, engine.state_shape)
+        else:
+            item.staged = engine.init_state(item.image)
         item.image = None
         self._staged_pending[item.tile] = \
             self._staged_pending.get(item.tile, 0) + 1
@@ -334,6 +413,13 @@ class DispatchQueue:
             if it.image is not None:
                 self._stage(it)     # deferred staging (shadow was occupied)
             if it.staged is not None:
+                if it.copied is not None:
+                    # the compute stream reads the shadow buffer only after
+                    # its copy, and the allocator keeps the buffer until
+                    # the compute stream is done with it
+                    stream = torch.cuda.current_stream(it.staged.device)
+                    stream.wait_event(it.copied)
+                    it.staged.record_stream(stream)
                 self.pool.install(it.tile, it.engine, it.staged)
                 self._staged_pending[it.tile] -= 1
             if it.patch is not None:

@@ -2,16 +2,19 @@
 batching.
 
 The counterpart of the JAX package's ``serve/engine.py``, for the dense,
-MoE (MLA attention included) and hybrid SSM families; the hybrid's
-per-slot Mamba2 states are written into the caches like its KV caches,
-on the batch axis :func:`lm.cache_batch_axes` gives.  A VLM or an
+MoE (MLA attention included), hybrid SSM and xLSTM families; admission
+walks the cache tree (dicts, lists, tuples) and writes each leaf of the
+prompt's batch-1 caches into its slot on the batch axis
+:func:`lm.cache_batch_axes` gives: KV caches, the hybrid's Mamba2 states,
+the xLSTM's per-block float32 states.  A VLM or an
 encoder-decoder model cannot be served, as in the reference: admission
 prefills the prompt's tokens only, and the model's prefill raises
 ``KeyError: 'images'`` or ``KeyError: 'frames'``.  With
 ``nmc_mode='w8a8'`` every projection runs the quantized int8 path (params
 converted once by :func:`quantize_params`; MoE expert banks become int8,
-the router stays float; the hybrid's Mamba2 projections stay float, as
-the reference's ``quantize_tree`` leaves them), which on the card is the
+the router stays float; the hybrid's Mamba2 projections and the xLSTM's
+blocks stay float, as the reference's ``quantize_tree`` leaves them, so an
+xLSTM model's only int8 projection is its head), which on the card is the
 hand-written ``nmc_matmul`` kernel, and every prefill attention is the
 ``flash_attention`` kernel.  Idle decode slots are fed
 to ``decode_step`` like live ones, as in the reference: in a MoE model
@@ -222,10 +225,7 @@ class ServeEngine:
                 launches.append((s, req, fut))
         for s, req, fut in launches:
             logits, caches1 = fut.value
-            for key, entry in self.caches.items():
-                for name, full in entry.items():
-                    _insert_slot(full, caches1[key][name], s,
-                                 self._cache_axes[key][name])
+            _insert_tree(self.caches, caches1, s, self._cache_axes)
             tok = int(torch.argmax(logits[0]))
             req.out.append(tok)
             self.slot_req[s] = req
@@ -272,8 +272,12 @@ class ServeEngine:
         return self.done
 
 
-def _insert_slot(full: torch.Tensor, one: torch.Tensor, s: int,
-                 axis: int) -> None:
-    """Write a batch-1 cache entry into slot ``s`` of the batched cache, in
-    place, along the explicit ``axis`` from :func:`lm.cache_batch_axes`."""
-    full.narrow(axis, s, 1).copy_(one)
+def _insert_tree(full, one, s: int, axes) -> None:
+    """Write the batch-1 cache tree ``one`` into slot ``s`` of the batched
+    cache tree ``full`` (dicts, lists and tuples of tensors), in place,
+    leaf by leaf along the explicit axes from :func:`lm.cache_batch_axes`."""
+    if isinstance(full, torch.Tensor):
+        full.narrow(axes, s, 1).copy_(one)
+        return
+    for k in (full if isinstance(full, dict) else range(len(full))):
+        _insert_tree(full[k], one[k], s, axes[k])

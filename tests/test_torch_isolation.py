@@ -32,6 +32,7 @@ def test_import_without_jax_or_reference():
             "repro_torch.kernels.checks, repro_torch.configs, "
             "repro_torch.models.lm, repro_torch.models.convert, "
             "repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.models.xlstm, "
             "repro_torch.serve.engine, repro_torch.serve.block, "
             "repro_torch.kernels.vrf_alu, repro_torch.core.ecpu, "
             "repro_torch.nmc.partition, repro_torch.nmc.schedule, "
@@ -43,6 +44,7 @@ def test_import_without_jax_or_reference():
             "repro_torch.configs.get('pixtral-12b'); "
             "repro_torch.configs.get('whisper-tiny'); "
             "repro_torch.configs.get('zamba2-2.7b'); "
+            "repro_torch.configs.get('xlstm-125m'); "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules if sys.modules[m] is not None); "
             "print('ok')")

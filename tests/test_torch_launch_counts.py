@@ -7,7 +7,7 @@ projections of each (K, N) and ``chip_smoke.attention_launches_per_call``
 attention launches: one per attention layer at prefill (a hybrid's shared
 block once per group; an encoder-decoder's encoder, decoder and
 cross-attention), none at decode but an encoder-decoder's
-cross-attention."""
+cross-attention; an xLSTM's only launch is its head's ``nmc_matmul``."""
 
 import collections
 
@@ -25,7 +25,8 @@ from repro_torch.models import lm
 @pytest.mark.parametrize("arch", [chip_smoke.SERVE_ARCH, chip_smoke.MOE_ARCH,
                                   chip_smoke.MLA_ARCH, chip_smoke.VLM_ARCH,
                                   chip_smoke.ENCDEC_ARCH,
-                                  chip_smoke.HYBRID_ARCH])
+                                  chip_smoke.HYBRID_ARCH,
+                                  chip_smoke.XLSTM_ARCH])
 def test_prefill_and_decode_launches_match_the_smoke_counts(arch):
     cfg = cb.get(arch, smoke=True).scaled(nmc_mode="w8a8")
     params = lm.draw_blocks(cfg, torch.Generator().manual_seed(0), "cpu",
@@ -67,13 +68,15 @@ def test_prefill_and_decode_launches_match_the_smoke_counts(arch):
 @pytest.mark.parametrize("arch,prefill,decode,attention", [
     (chip_smoke.ENCDEC_ARCH, 57, 33, (12, 4)),
     (chip_smoke.HYBRID_ARCH, 64, 64, (9, 0)),
+    (chip_smoke.XLSTM_ARCH, 1, 1, (0, 0)),
 ])
 def test_full_width_counts_of_the_new_families(arch, prefill, decode,
                                                attention):
     """whisper-tiny: encoder 4 x 6, decoder 4 x 8 (cross k and v are not
     nmc_matmul), the head; its head alone on dp4a.  zamba2-2.7b: the shared
     block's 7 projections in each of 9 groups, the head; all on the tensor
-    cores."""
+    cores.  xlstm-125m: the head (768, 50304) alone, on the tensor cores;
+    no attention."""
     cfg = cb.get(arch)
     assert chip_smoke.matmuls_per_call(cfg, True) == prefill
     assert chip_smoke.matmuls_per_call(cfg, False) == decode

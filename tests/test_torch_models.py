@@ -32,6 +32,8 @@ MLA_VLM_ARCHS = ("deepseek-v2-lite-16b", "pixtral-12b")
 #: the encoder-decoder and the hybrid SSM: tests/test_torch_encdec.py,
 #: test_torch_hybrid.py
 ENCDEC_HYBRID_ARCHS = ("whisper-tiny", "zamba2-2.7b")
+#: the xLSTM: tests/test_torch_xlstm.py
+XLSTM_ARCHS = ("xlstm-125m",)
 TOL = dict(rtol=1e-4, atol=1e-5)
 # the reference's entry points, compiled once per shape as its serving
 # engine compiles them (op-by-op dispatch would dominate the test time)
@@ -68,7 +70,7 @@ def _tokens(cfg, shape, seed):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + MLA_VLM_ARCHS
-                         + ENCDEC_HYBRID_ARCHS)
+                         + ENCDEC_HYBRID_ARCHS + XLSTM_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_reference(arch, smoke):
     j, t = jcb.get(arch, smoke=smoke), cb.get(arch, smoke=smoke)
@@ -81,7 +83,8 @@ def test_configs_match_reference(arch, smoke):
                   "kv_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim",
                   "vlm", "n_img_tokens", "learned_pos", "ssm_state",
                   "ssm_head_dim", "ssm_expand", "ssm_conv", "ssm_chunk",
-                  "attn_every", "encdec", "n_enc_layers", "enc_seq"):
+                  "attn_every", "encdec", "n_enc_layers", "enc_seq",
+                  "slstm_layers", "proj_factor_mlstm", "proj_factor_slstm"):
         assert getattr(t, field) == getattr(j, field), field
     assert t.param_count() == j.param_count()
     assert (t.d_inner, t.ssm_heads) == (j.d_inner, j.ssm_heads)
@@ -89,9 +92,16 @@ def test_configs_match_reference(arch, smoke):
     assert cb.applicable_shapes(t) == jcb.applicable_shapes(j)
 
 
-@pytest.mark.parametrize("arch", sorted(set(jcb.ARCH_IDS) - set(
-    ARCHS + MOE_ARCHS + MLA_VLM_ARCHS + ENCDEC_HYBRID_ARCHS)))
-def test_unported_archs_raise(arch):
+def test_every_arch_is_ported():
+    assert set(ARCHS + MOE_ARCHS + MLA_VLM_ARCHS + ENCDEC_HYBRID_ARCHS
+               + XLSTM_ARCHS) == set(cb.PORTED) == set(jcb.ARCH_IDS)
+
+
+@pytest.mark.parametrize("arch", sorted(jcb.ARCH_IDS))
+def test_unported_archs_raise(arch, monkeypatch):
+    """Every id is ported; one left out of ``PORTED`` raises."""
+    monkeypatch.setattr(cb, "PORTED",
+                        tuple(a for a in cb.PORTED if a != arch))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cb.get(arch)
 
@@ -317,4 +327,4 @@ def test_init_params_shapes_match_reference():
     assert got == want
     assert abs(float(tp.head.w.std()) - 1 / np.sqrt(64)) < 0.01
     with pytest.raises(NotImplementedError):
-        lm.init_params(tcfg.scaled(family="xlstm"), device="cpu")
+        lm.init_params(tcfg.scaled(family="rwkv"), device="cpu")
