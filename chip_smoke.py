@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, in parallel) and drives twelve paths of the port:
+``nvcc`` per source, in parallel) and drives thirteen paths of the port:
 
 * NMC execution: the two wave kernels against their plain PyTorch versions
   on the card (bit for bit, on random verifier-clean waves at the largest
@@ -75,6 +75,19 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   one replayed; logits, prefill and decode ms, each prefill's and the
   decode step's device split (float projections, mLSTM, sLSTM time loop,
   head) and the sLSTM loop's share of the prefill's host time.
+* Training: qwen1.5-0.5b at full width and depth (float32 master
+  weights, random from a seed; bf16 activations), 8 rows of 512 tokens in
+  2 microbatches, every layer's attention through ``flash_attention``
+  inside its autograd Function (the backward plain PyTorch): one step's
+  gradient through the kernels against the plain versions' (the loss,
+  every parameter's gradient within twice the plain path's own spread
+  under 1-ulp input noise, every attention launch replayed), then
+  ``Trainer.run`` for 4 steps with a crash injected at step 3 and
+  restored from the step-2 checkpoint (the replayed step's loss against
+  its first attempt's, the checkpoints' bytes and seconds); the step's
+  forward, backward and optimizer ms, the attention forward's and the
+  backward recompute's device ms beside their bounds and SDPA's, peak
+  memory.
 * The dispatch queue's staging: 128 tiles, 4 image-carrying programs
   chained on each, on both engines and in both schedulers; outputs
   against the plain engines and the oracles, the queue's counters, every
@@ -2472,6 +2485,430 @@ def phase_encdec(report: dict, device, seed: int = 0) -> dict:
 # vrf_alu, the kernels demo, multi-tile NMC and the resident block
 # ---------------------------------------------------------------------------
 
+TRAIN_ARCH = "qwen1.5-0.5b"
+#: the training phase: 8 rows of 512 tokens in 2 microbatches of 4; the
+#: trainer's 4 steps with a checkpoint every 2 and a crash injected at
+#: step 3 (restored from step 2, which is replayed)
+TRAIN = dict(global_batch=8, seq_len=512, n_microbatches=2, total_steps=4,
+             ckpt_every=2, fail_at=3)
+#: a parameter's gradient through the kernels may differ from the plain
+#: path's (relative L2) by this many times the plain path's own difference
+#: under 1-ulp input noise, or by TRAIN_GRAD_FLOOR, whichever is larger
+TRAIN_GRAD_SPREAD = 2.0
+TRAIN_GRAD_FLOOR = 0.05
+#: the loss through the kernels against the plain path's (relative)
+TRAIN_LOSS_RTOL = 1e-3
+#: the replayed step's loss against its first attempt (relative): its
+#: forward reads the restored state, a bit-for-bit copy, so only a
+#: nondeterministic forward could move it
+TRAIN_REPLAY_RTOL = 1e-3
+TRAIN_TIMED_STEPS = 3
+
+
+def nudged_inputs(model, seed: int):
+    """A context in which ``model``'s embedded inputs are moved by one ulp
+    of their dtype at half the positions (as :func:`perturbed_plain_logits`
+    moves them), the gradient passing through unchanged."""
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = model.inputs
+        gen = torch.Generator(device=model.device).manual_seed(seed)
+
+        def inputs(batch, cfg):
+            x = orig(batch, cfg)
+            flip = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+            host = x.detach().cpu()
+            up = torch.nextafter(host, torch.full_like(host, 1e30))
+            step = (up - host).to(x.device)
+            return x + torch.where(flip, step, torch.zeros_like(step))
+        model.inputs = inputs
+        try:
+            yield
+        finally:
+            del model.inputs
+    return ctx()
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b||, 0 where both are 0."""
+    import torch
+    num = float(torch.linalg.vector_norm((a.float() - b.float())))
+    den = float(torch.linalg.vector_norm(b.float()))
+    return num / den if den else (0.0 if num == 0.0 else float("inf"))
+
+
+def attention_backward_bound_ms(b, hq, hkv, sq, d, dv, elem) -> dict:
+    """The least time of attention's backward at this shape, causal: q, k,
+    v and dO read once, dQ, dK and dV written once; per visible pair the
+    products S = Q K^T (2 D), dV = P^T dO and dP = dO V^T (2 Dv each), dQ
+    and dK (2 D each), against the bf16 tensor peak."""
+    nbytes = elem * (2 * b * hq * sq * (d + dv) + 2 * b * hkv * sq * (d + dv))
+    flops = b * hq * visible_pairs(sq, sq) * (6 * d + 4 * dv)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def train_step_split_ms(model, opt_state, batch, cfg, opt_cfg,
+                        n_mb: int) -> dict:
+    """One train step's forward, backward and optimizer ms by CUDA events
+    (summed over the microbatches), the mean of TRAIN_TIMED_STEPS steps
+    after the caller's warm-up; the step updates ``model`` in place."""
+    import torch
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+    loss_fn = step_lib.make_loss(cfg)
+    params = dict(model.named_parameters())
+    totals = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    for _ in range(TRAIN_TIMED_STEPS):
+        g = None
+        for mb in step_lib.split_batch(batch, n_mb):
+            e0 = event()
+            with torch.enable_grad():
+                loss, _ = loss_fn(model, mb)
+                e1 = event()
+                gm = torch.autograd.grad(loss, list(params.values()))
+            e2 = event()
+            g = list(gm) if g is None else [a + b for a, b in zip(g, gm)]
+            torch.cuda.synchronize()
+            totals["forward_ms"] += e0.elapsed_time(e1)
+            totals["backward_ms"] += e1.elapsed_time(e2)
+        grads = {n: x / n_mb for n, x in zip(params, g)}
+        e0 = event()
+        adamw.apply_updates(params, grads, opt_state, opt_cfg)
+        e1 = event()
+        torch.cuda.synchronize()
+        totals["optimizer_ms"] += e0.elapsed_time(e1)
+        del g, grads
+    out = {k: v / TRAIN_TIMED_STEPS for k, v in totals.items()}
+    out["step_ms"] = sum(out.values())
+    return out
+
+
+def kernel_us(prof) -> dict:
+    """Device us of a profile's kernels: every kernel's, the
+    ``flash_attention`` launches' (by kernel name) and their count, and
+    the kernels inside each ``record_function`` range by its name."""
+    from torch.autograd import DeviceType
+    us = {"all_kernels": 0.0, "flash_attention": 0.0, "fa_launches": 0}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU:
+            if ev.name.startswith("train."):
+                us[ev.name] = us.get(ev.name, 0.0) + ev.device_time_total
+        elif not getattr(ev, "is_user_annotation", False):
+            us["all_kernels"] += ev.self_device_time_total
+            if "flash_attention" in ev.name:
+                us["flash_attention"] += ev.self_device_time_total
+                us["fa_launches"] += 1
+    return us
+
+
+def profiled_device_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``: its kernels' time under
+    ``torch.profiler`` over ``reps`` calls after a warm-up (host time
+    between the launches left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return kernel_us(prof)["all_kernels"] * 1e-3 / reps
+
+
+def profiled_train_step(model, opt_state, batch, cfg, opt_cfg,
+                        n_mb: int) -> dict:
+    """One train step under ``torch.profiler``: device ms of every kernel;
+    of the forward (range ``train.gradient``: the kernels the calling
+    thread launches there, the forwards and the gradients' accumulation),
+    of the backward (the rest of the step: autograd launches it from its
+    own device thread, outside the calling thread's ranges) and of the
+    update (range ``train.optimizer``); of the ``flash_attention``
+    launches (by kernel name) and of the backward's attention recomputes
+    (range ``train.attention_backward`` around ``flash_attention
+    .attention_backward``, entered on autograd's thread); None where the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+    orig = fa.attention_backward
+
+    def labelled(*args, **kw):
+        with record_function("train.attention_backward"):
+            return orig(*args, **kw)
+    fa.attention_backward = labelled
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("train.gradient"):
+                _, _, g = step_lib.accumulated_grads(
+                    step_lib.make_loss(cfg), model, batch, n_mb)
+            with record_function("train.optimizer"):
+                adamw.apply_updates(dict(model.named_parameters()), g,
+                                    opt_state, opt_cfg)
+            torch.cuda.synchronize()
+    finally:
+        fa.attention_backward = orig
+    us = kernel_us(prof)
+    us["backward"] = us["all_kernels"] - us.get("train.gradient", 0.0) \
+        - us.get("train.optimizer", 0.0)
+    names = {"all_kernels": "all_kernels", "train.gradient": "forward",
+             "backward": "backward", "train.optimizer": "optimizer",
+             "flash_attention": "flash_attention",
+             "train.attention_backward": "attention_backward"}
+    out = {f"{label}_ms": (us.get(k, 0.0) * 1e-3 or None)
+           for k, label in names.items()}
+    out["flash_attention_launches"] = us["fa_launches"]
+    return out
+
+
+def phase_training(report: dict, device, seed: int = 0) -> dict:
+    """The port's training path at qwen1.5-0.5B's full width and depth
+    (float32 master weights, bf16 activations, ``nmc_mode="none"``): (a)
+    one step's gradient through the kernels against the plain versions'
+    (loss; every parameter's gradient by relative L2 within limits from
+    the plain path's own spread under 1-ulp input noise; every
+    ``flash_attention`` launch replayed against the plain version); (b)
+    ``Trainer.run`` for 4 steps with a crash injected at step 3 and
+    restored from the step-2 checkpoint (the main path: the LM kernels'
+    launch counts are set to 0 just before and read just after); (c) the
+    step's ms split by CUDA events, its device ms (profiler: the
+    gradient, the update, the attention forward launches and the backward
+    recomputes), one attention forward's and one backward recompute's at
+    the training shape beside their bounds and SDPA's, peak memory."""
+    import math
+    import shutil
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs, kernels
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import checks, flash_attention as fa, ops
+    from repro_torch.kernels import nmc_matmul as mm
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = configs.get(TRAIN_ARCH)
+    if cfg.nmc_mode != "none" or cfg.dtype != torch.bfloat16:
+        raise AssertionError(f"{TRAIN_ARCH} trains in bf16 without NMC, "
+                             f"got {cfg.nmc_mode} {cfg.dtype}")
+    n_mb, smi = TRAIN["n_microbatches"], report["nvidia_smi"]
+    data_cfg = DataConfig(global_batch=TRAIN["global_batch"],
+                          seq_len=TRAIN["seq_len"], seed=0)
+    data = SyntheticLM(data_cfg, cfg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, opt_state = step_lib.init_train_state(
+        torch.Generator(device=device).manual_seed(seed), cfg, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    n_tensors = len(params)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch_at(0).items()}
+    loss_fn = step_lib.make_loss(cfg)
+    log(f"training {TRAIN_ARCH}: {n_params} float32 parameters in "
+        f"{n_tensors} tensors, drawn in {init_s:.2f} s; batch "
+        f"{tuple(batch['tokens'].shape)} in {n_mb} microbatches")
+
+    # (a) one step's gradient through the kernels and through the plain
+    # versions, and the plain path's own spread
+    per_mb = cfg.n_layers
+    by_route0 = dict(fa.flash_attention.launches_by_route)
+    mm0, fa0 = mm.nmc_matmul.launches, fa.flash_attention.launches
+    with recorded_lm_kernel_calls(("flash_attention",)) as calls:
+        loss_k, _, g_k = step_lib.accumulated_grads(loss_fn, model, batch,
+                                                    n_mb)
+        torch.cuda.synchronize()
+    fa_n = fa.flash_attention.launches - fa0
+    routes = {r: fa.flash_attention.launches_by_route[r] - n
+              for r, n in by_route0.items()}
+    if fa_n != per_mb * n_mb or routes["tensor_core"] != fa_n or \
+            mm.nmc_matmul.launches != mm0:
+        raise AssertionError(f"training step: {fa_n} flash_attention "
+                             f"launches by route {routes} (expected "
+                             f"{per_mb} x {n_mb} on the tensor cores), "
+                             f"{mm.nmc_matmul.launches - mm0} nmc_matmul")
+    with torch.no_grad():
+        replay = replay_against_plain(calls)
+    del calls
+    with ops.force_plain():
+        loss_p, _, g_p = step_lib.accumulated_grads(loss_fn, model, batch,
+                                                    n_mb)
+        with nudged_inputs(model, seed + 1):
+            loss_u, _, g_u = step_lib.accumulated_grads(loss_fn, model,
+                                                        batch, n_mb)
+    grads, worst = {}, {"name": None, "ratio": 0.0}
+    for name in params:
+        err, spread = rel_l2(g_k[name], g_p[name]), rel_l2(g_u[name],
+                                                           g_p[name])
+        limit = max(TRAIN_GRAD_SPREAD * spread, TRAIN_GRAD_FLOOR)
+        norm = float(torch.linalg.vector_norm(g_k[name].float()))
+        grads[name] = dict(rel_l2=err, spread=spread, limit=limit, norm=norm)
+        if err / limit > worst["ratio"]:
+            worst = {"name": name, "ratio": err / limit}
+    del g_u
+    loss_k, loss_p, loss_u = float(loss_k), float(loss_p), float(loss_u)
+    loss_spread = abs(loss_u - loss_p) / abs(loss_p)
+    qkv = {n: g for n, g in grads.items()
+           if any(f".attn.{w}.w" in n for w in ("wq", "wk", "wv"))}
+    log(f"training (a): loss kernels {loss_k:.6f} plain {loss_p:.6f} "
+        f"(1-ulp spread {loss_spread:.3g}); gradients by relative L2 "
+        f"kernels vs plain, the worst against its limit: {worst}; wq/wk/wv"
+        f" worst {max(g['rel_l2'] for g in qkv.values()):.4g}, smallest "
+        f"norm {min(g['norm'] for g in qkv.values()):.4g}; {fa_n} attention "
+        f"launches replayed, max abs err {replay['max_abs_err']}; [{smi}]")
+    ratios = sorted(g["rel_l2"] / g["spread"] for g in grads.values()
+                    if g["spread"])
+    log(f"training (a): kernels' difference over the 1-ulp spread, by "
+        f"parameter: min {ratios[0]:.3g}, median "
+        f"{ratios[len(ratios) // 2]:.3g}, max {ratios[-1]:.3g}")
+    for name in sorted(grads, key=lambda n: -grads[n]["rel_l2"])[:8]:
+        log(f"training (a): gradient {name}: {grads[name]}")
+    bad = [n for n, g in grads.items() if not g["rel_l2"] <= g["limit"]]
+    if bad or not all(g["norm"] > 0 for g in qkv.values()) or \
+            len(qkv) != 3 * cfg.n_layers:
+        raise AssertionError(f"gradients through the kernels outside their "
+                             f"limits or zero: {[(n, grads[n]) for n in bad]}")
+    if not abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p):
+        raise AssertionError(f"loss through the kernels {loss_k} vs plain "
+                             f"{loss_p}")
+    del g_k, g_p
+
+    # (b) the trainer with a crash: the main path
+    ckdir = REPO / "chiprun_out" / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tc = TrainerConfig(total_steps=TRAIN["total_steps"],
+                       ckpt_every=TRAIN["ckpt_every"], ckpt_dir=str(ckdir),
+                       log_every=1, n_microbatches=n_mb, seed=seed)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                total_steps=TRAIN["total_steps"])
+    trainer = Trainer(cfg, tc, opt_cfg, data_cfg, device=device)
+    steps, saves = [], []
+    orig_step, orig_batch, orig_write = \
+        trainer._train_step, trainer.batch_at, ckpt.write_host
+
+    def batch_at(step):
+        steps.append({"step": step})
+        return orig_batch(step)
+
+    def train_step(*args):
+        out = orig_step(*args)
+        steps[-1]["loss"] = float(out[2]["loss"])
+        return out
+
+    def write_host(path, step, host):
+        t = time.perf_counter()
+        out = orig_write(path, step, host)
+        saves.append(dict(step=step, seconds=time.perf_counter() - t,
+                          bytes=sum(a.nbytes for a, _ in host.values())))
+        return out
+    trainer.batch_at, trainer._train_step = batch_at, train_step
+    ckpt.write_host = write_host
+    del model, opt_state, params
+    torch.cuda.empty_cache()
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = trainer.run(fail_at=TRAIN["fail_at"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        attn_routes = dict(fa.flash_attention.launches_by_route)
+        mm_routes = dict(mm.nmc_matmul.launches_by_route)
+        trainer.checkpointer.close()
+    finally:
+        ckpt.write_host = orig_write
+        shutil.rmtree(ckdir, ignore_errors=True)
+    losses = [s["loss"] for s in steps]
+    first = [s["loss"] for s in steps if s["step"] == TRAIN["fail_at"] - 1]
+    log(f"training (b): Trainer.run(fail_at={TRAIN['fail_at']}) in "
+        f"{run_s:.2f} s: final step {out['final_step']}, restarts "
+        f"{out['restarts']}, steps run {[s['step'] for s in steps]}, losses "
+        f"{losses}; checkpoints {saves}; launches {launches}, attention "
+        f"routes {attn_routes}; [{smi}]")
+    if out["final_step"] != TRAIN["total_steps"] or out["restarts"] != 1:
+        raise AssertionError(f"trainer: {out}")
+    if not all(math.isfinite(x) for x in losses) or len(first) != 2:
+        raise AssertionError(f"trainer losses {steps}")
+    if not abs(first[1] - first[0]) <= TRAIN_REPLAY_RTOL * abs(first[0]):
+        raise AssertionError(f"the replayed step's loss {first[1]} vs its "
+                             f"first attempt {first[0]}")
+    if launches["flash_attention"] != per_mb * n_mb * len(steps) or \
+            attn_routes["tensor_core"] != launches["flash_attention"] or \
+            launches["nmc_matmul"]:
+        raise AssertionError(f"trainer launches {launches}, attention "
+                             f"routes {attn_routes}")
+    del trainer
+
+    # (c) times: the step split, the attention kernels, peak memory
+    model, opt_state = step_lib.init_train_state(
+        torch.Generator(device=device).manual_seed(seed), cfg, device=device)
+    step_lib.make_train_step(cfg, opt_cfg, n_mb)(model, opt_state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    split = train_step_split_ms(model, opt_state, batch, cfg, opt_cfg, n_mb)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profiled_train_step(model, opt_state, batch, cfg, opt_cfg, n_mb)
+    del model, opt_state
+    case = checks.ATTENTION_CASES["qwen-train-512"]
+    fwd = time_attention(case, torch.bfloat16, device)
+    fwd_bound = attention_bound_ms(case["b"], case["hq"], case["hkv"],
+                                   case["sq"], case["d"], case["dv"], 2)
+    q, k, v = checks.attention_inputs(case, torch.bfloat16, device)
+    do = torch.randn_like(q)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def backward():
+        return fa.attention_backward(q, k, v, do)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        return torch.autograd.grad(o, leaves, do)
+    reps = ATTENTION_REPS // 5
+    bwd_bound = attention_backward_bound_ms(case["b"], case["hq"],
+                                            case["hkv"], case["sq"],
+                                            case["d"], case["dv"], 2)
+    attn = dict(forward_device_ms=fwd["device_ms"], forward_ms=fwd["ms"],
+                forward_bound_ms=fwd_bound["bound_ms"],
+                forward_bound_by=fwd_bound["bound_by"],
+                sdpa_forward_device_ms=fwd["library_device_ms"],
+                backward_device_ms=profiled_device_ms(backward, reps),
+                backward_ms=events_ms(backward, reps),
+                backward_bound_ms=bwd_bound["bound_ms"],
+                backward_bound_by=bwd_bound["bound_by"],
+                sdpa_forward_backward_device_ms=profiled_device_ms(
+                    sdpa_fwd_bwd, reps),
+                sdpa_forward_backward_ms=events_ms(sdpa_fwd_bwd, reps))
+    log(f"training (c): step ms by events {split}; peak memory "
+        f"{peak_gb:.2f} GB; profiled step {prof}; attention at "
+        f"the training shape {attn}; [{smi}]")
+    report["training"] = dict(
+        arch=TRAIN_ARCH, **TRAIN, n_params=n_params, n_tensors=n_tensors,
+        init_seconds=init_s, loss_kernels=loss_k, loss_plain=loss_p,
+        loss_ulp_spread=loss_spread, grads=grads, worst_grad=worst,
+        replay=replay, launches=launches, attention_routes=attn_routes,
+        matmul_routes=mm_routes, trainer_seconds=run_s,
+        trainer_steps=steps, checkpoints=saves, step_split_ms=split,
+        peak_memory_gb=peak_gb, profiled_step=prof, attention=attn,
+        nvidia_smi=smi)
+    return launches
+
+
 VRF_META = {"name": "vrf_alu", "source": "src/repro_torch/csrc/vrf_alu.cu",
             "replaces": "src/repro/kernels/vrf_alu.py:35"}
 #: 32 registers x 1,048,576 elements: the VRF of a 1024-tile NM-Carus
@@ -2961,7 +3398,8 @@ def main() -> int:
                         ("mla_serving", phase_mla_serving),
                         ("vlm", phase_vlm), ("encdec", phase_encdec),
                         ("hybrid_serving", phase_hybrid_serving),
-                        ("xlstm_serving", phase_xlstm_serving)):
+                        ("xlstm_serving", phase_xlstm_serving),
+                        ("training", phase_training)):
         lm_paths[path] = timed_phase(path, phase, report, device)
     lm_timed = timed_phase("lm_timing", phase_lm_timing, report, device)
     vrf_err = timed_phase("vrf_vs_plain", phase_vrf_vs_plain, report, device)
@@ -2997,6 +3435,7 @@ def main() -> int:
         if kname == "flash_attention":
             extra = {k: row[k] for k in ("device_ms", "library_device_ms",
                                          "kernel_route")}
+            extra["training"] = report["training"]["attention"]
             extra["max_abs_err_by_route"] = attn_errs
             err = attn_errs[row["kernel_route"]]
         else:

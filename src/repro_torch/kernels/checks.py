@@ -91,6 +91,9 @@ ATTENTION_CASES = {
     "qwen-128": dict(b=1, hq=16, hkv=16, sq=128, skv=128, d=64, dv=64),
     "qwen-384": dict(b=1, hq=16, hkv=16, sq=384, skv=384, d=64, dv=64),
     "qwen-1000": dict(b=1, hq=16, hkv=16, sq=1000, skv=1000, d=64, dv=64),
+    # qwen1.5-0.5B training: a microbatch of 4 rows of 512 tokens, causal
+    "qwen-train-512": dict(b=4, hq=16, hkv=16, sq=512, skv=512, d=64,
+                           dv=64),
     # moonshot-v1-16b-a3b prefill: 16 heads of 128 (kv 16), causal
     "moonshot-256": dict(b=1, hq=16, hkv=16, sq=256, skv=256, d=128,
                          dv=128),
@@ -253,6 +256,49 @@ def check_attention(name: str, dtype, device, seed: int = 0) -> float:
     want = _fa.chunked_attention(q, k, v, **kw)
     return close(f"flash_attention {name} {dtype}", got, want,
                  *attention_tolerance(dtype))
+
+
+#: the cases whose gradient :func:`check_attention_grad` checks: the
+#: training shape, GQA with a window, rows that see no key, non-causal
+#: with Dv != D and ragged lengths, MLA's value width
+ATTENTION_GRAD_CASES = ("qwen-train-512", "danube-gqa-window", "masked-rows",
+                        "ragged-noncausal", "dv-ne-d")
+
+
+def attention_grad_tolerance(dtype) -> tuple:
+    """(rtol, atol) of attention's gradient through the kernel against
+    autograd of the plain version: the same float32 backward on the same
+    inputs but another formula (float32 rounding), then in bf16 one
+    rounding of each gradient."""
+    return (1e-4, 1e-5) if dtype == torch.float32 else (1.6e-2, 1e-2)
+
+
+def check_attention_grad(name: str, dtype, device, seed: int = 0) -> dict:
+    """``ops.attention``'s gradients (dq, dk, dv of ``sum(o * do)``) for one
+    case of :data:`ATTENTION_GRAD_CASES`: through the kernel (one launch,
+    inside :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`)
+    against autograd of the plain version under ``ops.force_plain()``.
+    Returns {"dq", "dk", "dv": max abs err}."""
+    from repro_torch.kernels import ops
+    case = ATTENTION_CASES[name]
+    q, k, v = attention_inputs(case, dtype, device, seed)
+    do = attention_inputs(dict(case, d=case["dv"]), dtype, device,
+                          seed + 1)[0]
+    kw = attention_kw(case)
+
+    def grads():
+        qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(ops.attention(*qkv, **kw), qkv, do)
+    before = _fa.flash_attention.launches
+    got = grads()
+    if _fa.flash_attention.launches != before + 1:
+        raise AssertionError(f"attention grad {name}: the forward did not "
+                             f"launch the kernel once")
+    with ops.force_plain():
+        want = grads()
+    return {label: close(f"attention grad {name} {dtype} {label}", g, w,
+                         *attention_grad_tolerance(dtype))
+            for label, g, w in zip(("dq", "dk", "dv"), got, want)}
 
 
 # ---------------------------------------------------------------------------

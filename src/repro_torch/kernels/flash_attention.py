@@ -35,6 +35,15 @@ entry took another route):
 
 ``flash_attention.launches`` counts the launches and
 ``flash_attention.launches_by_route`` splits them by route.
+
+The kernel writes a fresh tensor through raw pointers, so its output has
+no autograd history.  :class:`FlashAttentionFn` gives it one: its forward
+calls the forward it is given (the kernel's wrapper on the card) and saves
+q, k and v; its backward is :func:`attention_backward`, plain PyTorch that
+recomputes the chunked online softmax of :func:`chunked_attention` and
+returns dq, dk and dv.  The reference has no gradient rule for its Pallas
+kernel either: its attention gradient is XLA's autodiff of
+``chunked_attention``.
 """
 
 from __future__ import annotations
@@ -114,6 +123,94 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
         m = m_new
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l).reshape(b, hq, sq, dv).to(q.dtype)
+
+
+def attention_backward(q, k, v, do, *, causal=True, window=None,
+                       q_offset=0, kv_chunk: int = 1024) -> tuple:
+    """The gradients (dq, dk, dv) of :func:`chunked_attention`'s output at
+    (q, k, v) for the output gradient ``do`` (B, Hq, Sq, Dv), each in its
+    input's dtype; float32 inside, the GQA groups of a KV head summed into
+    its dk and dv.  Two passes over the KV chunks: the first recomputes
+    each row's running max ``m``, its sum ``l`` and its output ``o``
+    (those of the forward), the second forms ``P = exp(S - m) / l`` per
+    chunk and from it ``dV = P^T dO``, ``dS = P * (dO V^T - rowsum(dO *
+    o))`` (zero where the mask hides the key, as autograd's gradient of
+    the masked fill) and ``dQ = dS K``, ``dK = dS^T Q``, both scaled by
+    ``1 / sqrt(D)``.  A row that sees no key has ``P = 1 / Skv`` over all
+    keys, as in the forward, and passes gradient to V only."""
+    b, hq, sq, d = q.shape
+    dv_dim = v.shape[-1]
+    _, hkv, skv, _ = k.shape
+    group = hq // hkv
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+    rows = group * sq
+    qf = (q.float() * scale).reshape(b, hkv, rows, d)
+    dof = do.float().reshape(b, hkv, rows, dv_dim)
+    qpos = (torch.arange(sq, device=dev) + q_offset).repeat(group)
+
+    def chunk(j):
+        kb = k[:, :, j:j + kv_chunk].float()
+        vb = v[:, :, j:j + kv_chunk].float()
+        kpos = torch.arange(j, j + kb.shape[2], device=dev)
+        mask = torch.ones((rows, kb.shape[2]), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > (qpos[:, None] - window)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb).masked_fill(~mask,
+                                                                NEG_INF)
+        return kb, vb, mask, s
+
+    m = torch.full((b, hkv, rows, 1), NEG_INF, device=dev)
+    l = torch.zeros((b, hkv, rows, 1), device=dev)
+    acc = torch.zeros((b, hkv, rows, dv_dim), device=dev)
+    for j in range(0, skv, kv_chunk):
+        _, vb, _, s = chunk(j)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    delta = (dof * (acc / l)).sum(dim=-1, keepdim=True)
+    del acc
+    dq = torch.zeros_like(qf)
+    dk = torch.empty((b, hkv, skv, d), device=dev)
+    dv = torch.empty((b, hkv, skv, dv_dim), device=dev)
+    for j in range(0, skv, kv_chunk):
+        kb, vb, mask, s = chunk(j)
+        p = torch.exp(s - m) / l
+        dv[:, :, j:j + kv_chunk] = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vb)
+        ds = (p * (dp - delta)).masked_fill(~mask, 0.0)
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, kb)
+        dk[:, :, j:j + kv_chunk] = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dq = (dq * scale).reshape(b, hq, sq, d)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with an autograd history: ``apply(q, k, v, forward,
+    causal, window, q_offset)`` returns ``forward(q, k, v, causal=...,
+    window=..., q_offset=...)`` (on the card :func:`flash_attention`, the
+    kernel; a test may pass :func:`chunked_attention` to drive this
+    backward on the CPU) and saves q, k and v; the backward is
+    :func:`attention_backward` on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, forward, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset)
+        return forward(q, k, v, **ctx.kw)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, do, **ctx.kw), None, None, None,
+                None)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape: tuple, device) -> None:

@@ -10,6 +10,11 @@ versions on any device, so that a test or the smoke run can hold one
 against the other on the same inputs; nothing on the serving path
 enters it.
 
+Where autograd records (a train step on the card), :func:`attention`
+runs the kernel inside :class:`~repro_torch.kernels.flash_attention.
+FlashAttentionFn`, whose backward is plain PyTorch; on the CPU and under
+:func:`force_plain` autograd differentiates the plain version itself.
+
 :func:`chunked_attention` and :func:`decode_attention` are plain PyTorch
 everywhere: in the reference they are XLA, not Pallas.
 """
@@ -25,7 +30,8 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import nmc_matmul as _mm
 from repro_torch.kernels import ref
 from repro_torch.kernels import vrf_alu as _vrf
-from repro_torch.kernels.flash_attention import NEG_INF, chunked_attention
+from repro_torch.kernels.flash_attention import (NEG_INF, FlashAttentionFn,
+                                                 chunked_attention)
 
 __all__ = ["attention", "chunked_attention", "decode_attention",
            "force_plain", "nmc_matmul", "vrf_alu"]
@@ -62,12 +68,18 @@ def vrf_alu(vrf, prog):
 
 def attention(q, k, v, *, causal=True, window=None, q_offset=0):
     """Memory-safe attention: the flash kernel on the card, the chunked
-    online softmax otherwise."""
+    online softmax otherwise.  On the card, where autograd records and an
+    input requires grad, the kernel's output gets its gradient from
+    :class:`FlashAttentionFn`."""
     if _PLAIN.get():
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
-    return _fa.flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal, window=window,
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.device.type != "cpu" and torch.is_grad_enabled() and \
+            any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, _fa.flash_attention, causal,
+                                      window, q_offset)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset)
 
 

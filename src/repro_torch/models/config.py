@@ -2,7 +2,7 @@
 
 The counterpart of the JAX package's ``models/config.py`` with torch dtypes.
 The distribution and training knobs (``remat``, ``remat_policy``,
-``scan_layers``, ``seq_parallel``) wait for the training slice of the port.
+``scan_layers``, ``seq_parallel``) wait for the scale-out slice of the port.
 """
 
 from __future__ import annotations

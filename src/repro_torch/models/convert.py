@@ -6,8 +6,10 @@ of numpy arrays — float, or quantized by its ``quantize_params`` — with
 the layer axis stacked first (a hybrid's Mamba2 layers ``(groups,
 attn_every, ...)``; an xLSTM's blocks a list, unstacked), and builds the
 port's model (:mod:`repro_torch.models.lm`) holding the same numbers, so
-both packages compute the same function.  It reads numpy only: the caller
-turns the reference's arrays into numpy (``np.asarray``).
+both packages compute the same function: float leaves as trainable
+parameters, int8 ``w_q`` and its ``scale`` as buffers.  It reads numpy
+only: the caller turns the reference's arrays into numpy
+(``np.asarray``).
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Core layers: norms, embeddings, RoPE, (NMC-quantizable) linears, MLPs.
 
 The counterpart of the JAX package's ``models/layers.py``.  Each layer is an
-``nn.Module`` holding its weights as buffers (the port serves, it does not
-train yet); the configuration's run-time knobs (``nmc_mode``) are passed
-at call time, as the reference passes them, so one set of weights serves
+``nn.Module`` holding its float weights (linears, norm gains, biases,
+embeddings) as ``nn.Parameter`` s, which the train step differentiates
+and updates; the int8 serving form (``w_q`` and its ``scale``) is held as
+buffers.  The configuration's run-time knobs (``nmc_mode``) are passed at
+call time, as the reference passes them, so one set of weights serves
 every mode.
 
 The paper's technique surfaces here as :class:`NmcLinear`'s modes:
@@ -29,6 +31,15 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 
 
+def param(t: torch.Tensor | None) -> nn.Parameter | None:
+    """``t`` as a trainable parameter sharing its storage (None stays
+    None, a parameter stays itself: a quantized copy shares the float
+    module's biases and gains)."""
+    if t is None or isinstance(t, nn.Parameter):
+        return t
+    return nn.Parameter(t)
+
+
 def _init_dense(gen: torch.Generator, shape: tuple, device,
                 scale: float | None = None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
@@ -52,10 +63,10 @@ class NmcLinear(nn.Module):
         super().__init__()
         if (w is None) == (w_q is None) or (w_q is None) != (scale is None):
             raise ValueError("NmcLinear holds either w, or w_q and scale")
-        self.register_buffer("w", w)
+        self.register_parameter("w", param(w))
         self.register_buffer("w_q", w_q)
         self.register_buffer("scale", scale)
-        self.register_buffer("b", b)
+        self.register_parameter("b", param(b))
 
     @classmethod
     def init(cls, gen: torch.Generator, d_in: int, d_out: int,
@@ -63,6 +74,7 @@ class NmcLinear(nn.Module):
         b = torch.zeros(d_out, device=device) if bias else None
         return cls(_init_dense(gen, (d_in, d_out), device), b)
 
+    @torch.no_grad()
     def quantized(self) -> "NmcLinear":
         """The NMC (int8) serving form of this linear."""
         if self.w_q is not None:
@@ -109,6 +121,7 @@ def quantize_expert_bank(w: torch.Tensor) -> tuple:
     return wq.to(torch.int8), s
 
 
+@torch.no_grad()
 def quantize_tree(module: nn.Module) -> nn.Module:
     """A copy of ``module`` with every :class:`NmcLinear` and every MoE
     expert bank in its int8 NMC form: each module with a ``quantized()``
@@ -133,7 +146,7 @@ def quantize_tree(module: nn.Module) -> nn.Module:
 class RMSNorm(nn.Module):
     def __init__(self, g: torch.Tensor, eps: float = 1e-5):
         super().__init__()
-        self.register_buffer("g", g)
+        self.register_parameter("g", param(g))
         self.eps = eps
 
     @classmethod
@@ -151,8 +164,8 @@ class LayerNorm(nn.Module):
 
     def __init__(self, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5):
         super().__init__()
-        self.register_buffer("g", g)
-        self.register_buffer("b", b)
+        self.register_parameter("g", param(g))
+        self.register_parameter("b", param(b))
         self.eps = eps
 
     @classmethod
@@ -200,7 +213,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 class Embedding(nn.Module):
     def __init__(self, table: torch.Tensor):
         super().__init__()
-        self.register_buffer("table", table)
+        self.register_parameter("table", param(table))
 
     @classmethod
     def init(cls, gen: torch.Generator, vocab: int, d: int,

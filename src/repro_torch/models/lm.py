@@ -28,7 +28,10 @@ field stacked over layers:
   block, whatever the activation dtype: ``(C, n, m)`` for an mLSTM block,
   ``(c, n, m, h)`` for an sLSTM one, batch first.
 
-Every entry point runs under ``torch.inference_mode()``.
+The serving entry points (``forward``, ``prefill``, ``decode_step``,
+``init_caches``) run under ``torch.inference_mode()``; :func:`loss_fn`,
+the training objective, runs with autograd recording, through the
+model's own ``forward``.
 """
 
 from __future__ import annotations
@@ -566,6 +569,31 @@ def forward(params: LMBase, batch: dict, cfg: ModelConfig) -> tuple:
     the other families."""
     _check_family(cfg)
     return params(batch, cfg)
+
+
+def loss_fn(params: LMBase, batch: dict, cfg: ModelConfig,
+            aux_weight: float = 0.01) -> tuple:
+    """Next-token cross entropy in float32 plus ``aux_weight`` times the
+    MoE aux loss: ``(loss, {"nll", "aux"})``, differentiable in the
+    model's parameters.  ``batch["tokens"]`` supervises; a VLM's image
+    positions are dropped first; an optional ``batch["mask"]`` (B, S)
+    weights the targets (the mean over the kept ones, at least 1)."""
+    _check_family(cfg)
+    logits, aux = params(batch, cfg)
+    tokens = batch["tokens"]
+    if cfg.family == "vlm":
+        logits = logits[:, batch["images"].shape[1]:]
+    tgt = tokens[:, 1:].long()
+    lg = logits[:, :-1].float()
+    nll = torch.logsumexp(lg, dim=-1) - \
+        torch.gather(lg, -1, tgt[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is not None:
+        m = mask[:, 1:].float()
+        loss = torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+    else:
+        loss = torch.mean(nll)
+    return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 
 
 @torch.inference_mode()

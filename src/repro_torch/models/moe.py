@@ -121,8 +121,11 @@ class MoE(nn.Module):
             raise ValueError(f"expert banks {sorted(banks)}: expected "
                              f"{BANKS} or {QUANT_BANKS}")
         self.router = router
-        for key in keys:
-            self.register_buffer(key, banks[key])
+        for key in keys:      # float banks train; int8 ones and scales not
+            if keys == BANKS:
+                self.register_parameter(key, L.param(banks[key]))
+            else:
+                self.register_buffer(key, banks[key])
         self.bank_keys = keys
         self.shared = shared
 
@@ -146,6 +149,7 @@ class MoE(nn.Module):
     def quantized_banks(self) -> bool:
         return self.bank_keys == QUANT_BANKS
 
+    @torch.no_grad()
     def quantized(self) -> "MoE":
         """The NMC serving form: int8 expert banks, the shared experts'
         linears quantized, the router left in float (its logit margins

@@ -124,7 +124,7 @@ class Mamba2(nn.Module):
         for name, t in (("conv_x_w", conv_x_w), ("conv_x_b", conv_x_b),
                         ("conv_bc_w", conv_bc_w), ("conv_bc_b", conv_bc_b),
                         ("A_log", a_log), ("D", d), ("dt_bias", dt_bias)):
-            self.register_buffer(name, t)
+            self.register_parameter(name, L.param(t))
         # the gated norm takes rmsnorm's default eps, not cfg.norm_eps
         self.norm = norm
         self.out_proj = out_proj

@@ -230,7 +230,7 @@ class SLSTM(nn.Module):
         self.norm = norm
         for gate in GATES:
             setattr(self, f"w_{gate}", w[gate])
-            self.register_buffer(f"r_{gate}", r[gate])
+            self.register_parameter(f"r_{gate}", L.param(r[gate]))
         self.ffn_norm = ffn_norm
         self.up, self.down = up, down
 
@@ -261,10 +261,11 @@ class SLSTM(nn.Module):
         return torch.stack([getattr(self, f"w_{g}")(xn).float()
                             for g in GATES], dim=2)
 
-    def recurrence(self, pre: torch.Tensor, state: tuple) -> torch.Tensor:
+    def recurrence(self, pre: torch.Tensor, state: tuple) -> tuple:
         """The time loop over pre (B, S, 4, D) from ``state`` ``(c, n, m,
-        h)`` (B, D) float32, updated in place: hidden states (B, S, D)
-        float32."""
+        h)`` (B, D) float32: the hidden states (B, S, D) float32 and the
+        state after the last position (new tensors: ``state`` is read, not
+        written, so autograd can differentiate through it)."""
         c, n, m, hprev = state
         bsz, s, _, d = pre.shape
         heads, p = self.r_z.shape[:2]
@@ -288,9 +289,7 @@ class SLSTM(nn.Module):
             m = m_new
             hprev = o * c / torch.clamp_min(n, 1e-6)
             hs.append(hprev)
-        for t, new in zip(state, (c, n, m, hprev)):
-            t.copy_(new)
-        return torch.stack(hs, dim=1)
+        return torch.stack(hs, dim=1), (c, n, m, hprev)
 
     def _ffn(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         u = self.up(self.ffn_norm(x), nmc_mode=cfg.nmc_mode)
@@ -300,19 +299,21 @@ class SLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
                 return_state: bool = False, state: tuple | None = None):
-        """x: (B, S, D) from ``state`` (a zero state when None; updated in
-        place).  With ``return_state`` also the state after the last
-        position."""
+        """x: (B, S, D) from ``state`` (a zero state when None).  With
+        ``return_state`` also the state after the last position."""
         if state is None:
             state = slstm_state_init(cfg, x.shape[0], x.device)
-        hs = self.recurrence(self._proj(x, cfg), state)
+        hs, last = self.recurrence(self._proj(x, cfg), state)
         out = self._ffn(x + hs.to(x.dtype), cfg)
-        return (out, state) if return_state else out
+        return (out, last) if return_state else out
 
     def decode_step(self, x: torch.Tensor, cfg: ModelConfig,
                     state: tuple) -> torch.Tensor:
         """One token.  x: (B, 1, D); ``state`` is updated in place."""
-        return self(x, cfg, state=state)
+        out, last = self(x, cfg, return_state=True, state=state)
+        for t, new in zip(state, last):
+            t.copy_(new)
+        return out
 
 
 def slstm_state_init(cfg: ModelConfig, batch: int, device=None) -> tuple:

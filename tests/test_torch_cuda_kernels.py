@@ -305,6 +305,25 @@ def test_flash_attention_equals_plain(card, name, dtype):
         r: n + (r == kind) for r, n in by_route.items()}
 
 
+@pytest.mark.parametrize("name", checks.ATTENTION_GRAD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_gradient_through_the_kernel_equals_plain(card, name,
+                                                            dtype):
+    """``ops.attention``'s dq, dk, dv on the card, through the kernel inside
+    its autograd Function, against autograd of the plain version: bf16 at
+    D 64 on the tensor cores (the training shape among them), f32 on the
+    CUDA cores."""
+    by_route = dict(fa.flash_attention.launches_by_route)
+    errs = checks.check_attention_grad(name, dtype, card)
+    torch.cuda.synchronize()
+    kind = checks.attention_route(name, dtype)
+    assert fa.flash_attention.launches_by_route == {
+        r: n + (r == kind) for r, n in by_route.items()}
+    if name == "qwen-train-512":
+        assert (kind == "tensor_core") == (dtype == torch.bfloat16)
+    assert set(errs) == {"dq", "dk", "dv"}
+
+
 def test_flash_attention_tensor_core_route_needs_aligned_inputs(card):
     q, k, v = checks.attention_inputs(checks.ATTENTION_CASES["qwen-64"],
                                       torch.bfloat16, card)

@@ -28,6 +28,14 @@ from repro_torch.models import lm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import Request, ServeEngine, quantize_params
 
+
+@pytest.fixture(autouse=True)
+def _without_autograd():
+    """The float weights are trainable parameters; these tests read the
+    served numbers, so they run without recording autograd history."""
+    with torch.no_grad():
+        yield
+
 ARCH = "whisper-tiny"
 TOL = dict(rtol=1e-4, atol=1e-5)
 jforward = jax.jit(jlm.forward, static_argnums=(2,))
@@ -252,7 +260,7 @@ def _reference_buffers(tree: dict) -> dict:
 def test_params_from_jax_carries_every_key(mode):
     _, _, jp, tp = _pair(mode)
     want = _reference_buffers(jp)
-    got = {n: b.numpy() for n, b in tp.named_buffers()}
+    got = {n: b.numpy() for n, b in tp.state_dict().items()}
     assert sorted(got) == sorted(want)
     assert "layers.0.xattn.wq.w" + ("_q" if mode != "none" else "") in got
     for name, w in want.items():
@@ -273,8 +281,8 @@ def test_block_by_block_build_equals_quantized_init():
         ["CrossDecoderBlock"] * cfg.n_layers
     want = quantize_params(
         lm.init_params(cfg, torch.Generator().manual_seed(3), "cpu"), cfg)
-    got_bufs, want_bufs = dict(drawn.named_buffers()), \
-        dict(want.named_buffers())
+    got_bufs, want_bufs = dict(drawn.state_dict().items()), \
+        dict(want.state_dict().items())
     assert sorted(got_bufs) == sorted(want_bufs)
     for name, t in want_bufs.items():
         assert got_bufs[name].dtype == t.dtype and \
@@ -288,7 +296,8 @@ def test_init_params_shapes_match_reference():
     conv = params_from_jax(jax.tree.map(np.asarray, _jax_params()), tcfg,
                            "cpu")
     own = lm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-    assert [(n, tuple(b.shape), b.dtype) for n, b in own.named_buffers()] \
-        == [(n, tuple(b.shape), b.dtype) for n, b in conv.named_buffers()]
+    assert [(n, tuple(b.shape), b.dtype)
+            for n, b in own.state_dict().items()] \
+        == [(n, tuple(b.shape), b.dtype) for n, b in conv.state_dict().items()]
     assert abs(float(own.pos_dec.table.std()) - 0.02) < 1e-3
     assert float(own.enc_layers[0].ln1.b.abs().max()) == 0.0

@@ -32,6 +32,14 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import Request, ServeEngine, quantize_params
 
+
+@pytest.fixture(autouse=True)
+def _without_autograd():
+    """The float weights are trainable parameters; these tests read the
+    served numbers, so they run without recording autograd history."""
+    with torch.no_grad():
+        yield
+
 ARCH = "zamba2-2.7b"
 TOL = dict(rtol=1e-4, atol=1e-5)
 jforward = jax.jit(jlm.forward, static_argnums=(2,))
@@ -157,7 +165,7 @@ def test_quantize_tree_leaves_mamba2_float_in_both():
     assert qt.mamba[0][0] is tp.mamba[0][0]
     assert qt.shared_attn.attn.wq.w_q is not None and qt.head.w_q is not None
     conv = params_from_jax(jax.tree.map(np.asarray, qj), tcfg, "cpu")
-    for a, b in zip(conv.named_buffers(), qt.named_buffers()):
+    for a, b in zip(conv.state_dict().items(), qt.state_dict().items()):
         assert a[0] == b[0] and a[1].dtype == b[1].dtype and \
             torch.equal(a[1], b[1]), a[0]
 
@@ -256,7 +264,7 @@ def _reference_buffers(tree: dict) -> dict:
 def test_params_from_jax_carries_every_key(mode):
     _, _, jp, tp = _pair(mode)
     want = _reference_buffers(jp)
-    got = {n: b.numpy() for n, b in tp.named_buffers()}
+    got = {n: b.numpy() for n, b in tp.state_dict().items()}
     assert sorted(got) == sorted(want)
     for name, w in want.items():
         assert got[name].dtype == w.dtype and np.array_equal(got[name], w), \
@@ -276,8 +284,8 @@ def test_block_by_block_build_equals_quantized_init():
         ["DecoderBlock"]
     want = quantize_params(
         lm.init_params(cfg, torch.Generator().manual_seed(3), "cpu"), cfg)
-    got_bufs, want_bufs = dict(drawn.named_buffers()), \
-        dict(want.named_buffers())
+    got_bufs, want_bufs = dict(drawn.state_dict().items()), \
+        dict(want.state_dict().items())
     assert sorted(got_bufs) == sorted(want_bufs)
     assert got_bufs["mamba.0.0.in_z.w"].dtype == torch.float32
     assert got_bufs["shared_attn.attn.wq.w_q"].dtype == torch.int8
@@ -295,8 +303,9 @@ def test_init_params_match_reference():
     jp = _jax_params()
     conv = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
     own = lm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-    assert [(n, tuple(b.shape), b.dtype) for n, b in own.named_buffers()] \
-        == [(n, tuple(b.shape), b.dtype) for n, b in conv.named_buffers()]
+    assert [(n, tuple(b.shape), b.dtype)
+            for n, b in own.state_dict().items()] \
+        == [(n, tuple(b.shape), b.dtype) for n, b in conv.state_dict().items()]
     layer = own.mamba[0][0]
     for name in ("A_log", "D", "conv_x_b", "conv_bc_b"):
         assert torch.equal(getattr(layer, name),

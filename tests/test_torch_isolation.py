@@ -37,7 +37,12 @@ def test_import_without_jax_or_reference():
             "repro_torch.kernels.vrf_alu, repro_torch.core.ecpu, "
             "repro_torch.nmc.partition, repro_torch.nmc.schedule, "
             "repro_torch.examples.nmc_kernels_demo, "
-            "repro_torch.examples.tile_families; "
+            "repro_torch.examples.tile_families, "
+            "repro_torch.optim.adamw, repro_torch.train.step, "
+            "repro_torch.train.trainer, repro_torch.data.pipeline, "
+            "repro_torch.checkpoint.ckpt, "
+            "repro_torch.distributed.compress, "
+            "repro_torch.examples.train_tinylm; "
             "repro_torch.configs.get('qwen1.5-0.5b'); "
             "repro_torch.configs.get('moonshot-v1-16b-a3b'); "
             "repro_torch.configs.get('deepseek-v2-lite-16b'); "

@@ -28,6 +28,14 @@ from repro_torch.models import lm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import Request, ServeEngine, quantize_params
 
+
+@pytest.fixture(autouse=True)
+def _without_autograd():
+    """The float weights are trainable parameters; these tests read the
+    served numbers, so they run without recording autograd history."""
+    with torch.no_grad():
+        yield
+
 ARCH = "deepseek-v2-lite-16b"
 TOL = dict(rtol=1e-4, atol=1e-5)
 jforward = jax.jit(jlm.forward, static_argnums=(2,))
@@ -215,8 +223,8 @@ def test_block_by_block_build_equals_quantized_init():
                            L.quantize_tree)
     want = quantize_params(
         lm.init_params(cfg, torch.Generator().manual_seed(3), "cpu"), cfg)
-    got_bufs, want_bufs = dict(drawn.named_buffers()), \
-        dict(want.named_buffers())
+    got_bufs, want_bufs = dict(drawn.state_dict().items()), \
+        dict(want.state_dict().items())
     assert sorted(got_bufs) == sorted(want_bufs)
     assert "layers.0.attn.norm_ckv.g" in got_bufs
     assert got_bufs["layers.0.attn.w_uk.w_q"].dtype == torch.int8
@@ -232,5 +240,6 @@ def test_init_params_shapes_match_reference():
     conv = params_from_jax(jax.tree.map(np.asarray, _jax_params(1)), tcfg,
                            "cpu")
     own = lm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-    assert [(n, tuple(b.shape), b.dtype) for n, b in own.named_buffers()] \
-        == [(n, tuple(b.shape), b.dtype) for n, b in conv.named_buffers()]
+    assert [(n, tuple(b.shape), b.dtype)
+            for n, b in own.state_dict().items()] \
+        == [(n, tuple(b.shape), b.dtype) for n, b in conv.state_dict().items()]

@@ -24,6 +24,14 @@ from repro_torch.models import lm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import ServeEngine, quantize_params
 
+
+@pytest.fixture(autouse=True)
+def _without_autograd():
+    """The float weights are trainable parameters; these tests read the
+    served numbers, so they run without recording autograd history."""
+    with torch.no_grad():
+        yield
+
 ARCHS = ("qwen1.5-0.5b", "h2o-danube-1.8b", "mistral-nemo-12b",
          "phi3-medium-14b")
 MOE_ARCHS = ("moonshot-v1-16b-a3b",)
@@ -167,7 +175,7 @@ def test_quantize_tree_matches_reference_and_leaves_the_original():
     assert tp.head.w is not None and tp.head.w_q is None
     assert qt.head.w is None and qt.embed.table is tp.embed.table
     conv = params_from_jax(qj, tcfg, "cpu")
-    for a, b in zip(conv.buffers(), qt.buffers()):
+    for a, b in zip(conv.state_dict().values(), qt.state_dict().values()):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
@@ -322,8 +330,8 @@ def test_init_params_shapes_match_reference():
     jp = _np_tree(jlm.init_params(jax.random.PRNGKey(0), jcfg))
     tp = lm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
     conv = params_from_jax(jp, tcfg, "cpu")
-    got = [(n, tuple(b.shape), b.dtype) for n, b in tp.named_buffers()]
-    want = [(n, tuple(b.shape), b.dtype) for n, b in conv.named_buffers()]
+    got = [(n, tuple(b.shape), b.dtype) for n, b in tp.state_dict().items()]
+    want = [(n, tuple(b.shape), b.dtype) for n, b in conv.state_dict().items()]
     assert got == want
     assert abs(float(tp.head.w.std()) - 1 / np.sqrt(64)) < 0.01
     with pytest.raises(NotImplementedError):

@@ -25,6 +25,14 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import quantize_params
 
+
+@pytest.fixture(autouse=True)
+def _without_autograd():
+    """The float weights are trainable parameters; these tests read the
+    served numbers, so they run without recording autograd history."""
+    with torch.no_grad():
+        yield
+
 ARCH = "moonshot-v1-16b-a3b"
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -134,8 +142,8 @@ def test_quantize_params_leaves_the_router_float():
         assert blk.moe.wi_q.dtype == torch.int8
         assert blk.moe.shared.wi.w_q.dtype == torch.int8
         assert src.moe.wi.dtype == torch.float32          # original intact
-    got = [(n, b) for n, b in qt.named_buffers()]
-    want = [(n, b) for n, b in conv.named_buffers()]
+    got = [(n, b) for n, b in qt.state_dict().items()]
+    want = [(n, b) for n, b in conv.state_dict().items()]
     assert [n for n, _ in got] == [n for n, _ in want]
     for (name, a), (_, b) in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b), name
@@ -151,7 +159,8 @@ def test_block_by_block_build_equals_quantize_params(first_dense):
         lm.init_params(cfg, torch.Generator().manual_seed(5), "cpu"), cfg)
     each = lm.draw_blocks(cfg, torch.Generator().manual_seed(5), "cpu",
                           L.quantize_tree)
-    got, want = list(each.named_buffers()), list(whole.named_buffers())
+    got = list(each.state_dict().items())
+    want = list(whole.state_dict().items())
     assert [n for n, _ in got] == [n for n, _ in want]
     assert any(n.startswith("layers.0.moe.wi_q") for n, _ in got)
     assert any(n.startswith("dense_layers.") for n, _ in got) == \
@@ -165,8 +174,9 @@ def test_moe_init_matches_reference_shapes():
     jp = JMOE.moe_init(jax.random.PRNGKey(0), jcfg)
     want = _port_moe(jp)
     got = MOE.MoE.init(torch.Generator().manual_seed(0), tcfg, "cpu")
-    assert [(n, tuple(b.shape), b.dtype) for n, b in got.named_buffers()] \
-        == [(n, tuple(b.shape), b.dtype) for n, b in want.named_buffers()]
+    assert [(n, tuple(b.shape), b.dtype)
+            for n, b in got.state_dict().items()] \
+        == [(n, tuple(b.shape), b.dtype) for n, b in want.state_dict().items()]
     assert abs(float(got.wo.std()) - 1 / np.sqrt(tcfg.moe_d_ff)) < 0.01
     with pytest.raises(ValueError, match="expert banks"):
         MOE.MoE(got.router, {"wi": got.wi})

@@ -32,6 +32,14 @@ from repro_torch.models import xlstm as XL
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import Request, ServeEngine, quantize_params
 
+
+@pytest.fixture(autouse=True)
+def _without_autograd():
+    """The float weights are trainable parameters; these tests read the
+    served numbers, so they run without recording autograd history."""
+    with torch.no_grad():
+        yield
+
 ARCH = "xlstm-125m"
 TOL = dict(rtol=1e-4, atol=1e-5)
 SELF_TOL = dict(rtol=1e-4, atol=5e-5)
@@ -176,11 +184,11 @@ def test_quantize_tree_leaves_every_block_float_in_both():
     assert sorted(qj["head"]) == ["scale", "w_q"]
     for blk, orig in zip(qt.blocks, tp.blocks):
         assert blk is orig
-        for name, buf in blk.named_buffers():
+        for name, buf in blk.state_dict().items():
             assert buf.dtype == torch.float32, name
     assert qt.head.w_q is not None and qt.head.w_q.dtype == torch.int8
     conv = params_from_jax(jax.tree.map(np.asarray, qj), tcfg, "cpu")
-    for a, b in zip(conv.named_buffers(), qt.named_buffers()):
+    for a, b in zip(conv.state_dict().items(), qt.state_dict().items()):
         assert a[0] == b[0] and a[1].dtype == b[1].dtype and \
             torch.equal(a[1], b[1]), a[0]
 
@@ -285,7 +293,7 @@ def _reference_buffers(tree: dict) -> dict:
 def test_params_from_jax_carries_every_key(mode):
     _, _, jp, tp = _pair(mode)
     want = _reference_buffers(jp)
-    got = {n: b.numpy() for n, b in tp.named_buffers()}
+    got = {n: b.numpy() for n, b in tp.state_dict().items()}
     assert sorted(got) == sorted(want)
     for name, w in want.items():
         assert got[name].dtype == w.dtype and np.array_equal(got[name], w), \
@@ -304,8 +312,8 @@ def test_block_by_block_build_equals_quantized_init():
     assert order == ["NmcLinear", "MLSTM", "SLSTM", "MLSTM"]
     want = quantize_params(
         lm.init_params(cfg, torch.Generator().manual_seed(3), "cpu"), cfg)
-    got_bufs, want_bufs = dict(drawn.named_buffers()), \
-        dict(want.named_buffers())
+    got_bufs, want_bufs = dict(drawn.state_dict().items()), \
+        dict(want.state_dict().items())
     assert sorted(got_bufs) == sorted(want_bufs)
     assert got_bufs["blocks.0.up.w"].dtype == torch.float32
     assert got_bufs["head.w_q"].dtype == torch.int8
@@ -322,7 +330,8 @@ def test_init_params_match_reference():
     conv = params_from_jax(jax.tree.map(np.asarray, _jax_params()), tcfg,
                            "cpu")
     own = lm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-    assert [(n, tuple(b.shape), b.dtype) for n, b in own.named_buffers()] \
-        == [(n, tuple(b.shape), b.dtype) for n, b in conv.named_buffers()]
+    assert [(n, tuple(b.shape), b.dtype)
+            for n, b in own.state_dict().items()] \
+        == [(n, tuple(b.shape), b.dtype) for n, b in conv.state_dict().items()]
     assert abs(float(own.blocks[1].r_z.std()) - 0.1) < 0.02
     assert abs(float(own.blocks[0].up.w.std()) - 1 / np.sqrt(64)) < 0.01
