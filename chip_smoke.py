@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, in parallel) and drives thirteen paths of the port:
+``nvcc`` per source, in parallel) and drives fourteen paths of the port:
 
 * NMC execution: the two wave kernels against their plain PyTorch versions
   on the card (bit for bit, on random verifier-clean waves at the largest
@@ -28,8 +28,8 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   input noise; the device time of a decode step's kernels (profiler);
   both kernels timed beside their plain versions, their bounds and one
   PyTorch library call.
-* W8A8 serving of the MoE family: moonshot-v1-16b-a3b at full width (48
-  layers, 64 experts top-6, vocab 163840; random weights from a seed,
+* W8A8 serving of the MoE family: moonshot-v1-16b-a3b at full width (16
+  of its 48 layers, 64 experts top-6, vocab 163840; random weights from a seed,
   each block quantized as it is drawn) served by ``ServeEngine`` on the
   same traffic, every projection of attention, the shared experts and
   the head through ``nmc_matmul`` and every prefill attention through
@@ -45,7 +45,8 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   ``flash_attention``'s CUDA-core route, its decode attention absorbed
   into float32 einsums over the compressed cache (a profiler range of
   its own in the decode step's split).
-* The VLM: pixtral-12b at full width (40 layers, d_model 5120) prefilling
+* The VLM: pixtral-12b at full width (20 of its 40 layers, d_model 5120)
+  prefilling
   4 rows of 1024 image embeddings and 128 text tokens and decoding 16
   steps through ``lm.prefill`` / ``lm.decode_step`` (the serving engine,
   like the reference's, passes no images); launches, replays, logits
@@ -58,8 +59,8 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   at Sq 1) on ``flash_attention``, the gelu MLP on ``nmc_matmul``'s gelu
   epilogue and the LM head (N = 51865) on its ``dp4a`` route; launches by
   route, replays, logits, prefill and decode ms.
-* W8A8 serving of the hybrid SSM: zamba2-2.7b at full width and depth (54
-  Mamba2 layers in 9 groups, each followed by the one shared attention /
+* W8A8 serving of the hybrid SSM: zamba2-2.7b at full width (30 of its 54
+  Mamba2 layers, in 5 of its 9 groups, each followed by the one shared attention /
   MLP block, its own KV cache per group) served by ``ServeEngine`` on
   prompts of 64-512 tokens that the reference can prefill; the Mamba2
   projections stay float (as the reference's ``quantize_tree`` leaves
@@ -67,8 +68,8 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   block's prefill attention (D 80, window 4096) ``flash_attention``;
   launches, replays, logits, prefill and decode ms, the decode step's
   device split.
-* W8A8 serving of the xLSTM: xlstm-125m at full width and depth (12
-  blocks, sLSTM at 3 and 9, d_model 768, vocab 50304) served by
+* W8A8 serving of the xLSTM: xlstm-125m at full width (6 of its 12
+  blocks, sLSTM at 3, d_model 768, vocab 50304) served by
   ``ServeEngine`` on the hybrid's prompt lengths; its blocks stay float
   (as the reference's ``quantize_tree`` leaves them), so the LM head is
   the one ``nmc_matmul`` launch per prefill and per decode step, every
@@ -88,6 +89,18 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   forward, backward and optimizer ms, the attention forward's and the
   backward recompute's device ms beside their bounds and SDPA's, peak
   memory.
+* Scale-out: two ranks sharing the card over gloo
+  (``launch.mesh.run_ranks``, rank function
+  ``distributed.checks.chip_scaleout``): tensor parallelism (qwen1.5-0.5b
+  at full width and depth on data 1 x model 2), data parallelism with
+  ZeRO-2 moments (on 2 x 1) and expert parallelism (moonshot-v1-16b-a3b at
+  full width cut to 2 layers, 32 experts a rank), each one train step
+  against the single-rank step (loss, every gathered gradient and updated
+  parameter, every attention launch replayed); the trainer on 1 x 2 with
+  a crash, its checkpoint restored onto 2 x 1 through
+  ``elastic.reshard_state`` bit for bit and one more step; the GPipe
+  pipeline of qwen's 24 blocks in 2 stages against the blocks in
+  sequence.
 * The dispatch queue's staging: 128 tiles, 4 image-carrying programs
   chained on each, on both engines and in both schedulers; outputs
   against the plain engines and the oracles, the queue's counters, every
@@ -729,7 +742,8 @@ def phase_staging(report: dict) -> dict:
 
 def phase_timing(report: dict, waves: dict, device) -> dict:
     """ms per launch at T in {1, 128} at the largest Table V bucket; the
-    plain version is timed at T=128 only (it takes seconds per wave).
+    plain version is timed at T=128 and SEW 8 only, the row the kernels
+    line reports (it takes 17-26 s per Caesar wave).
     Then the Caesar waves of :func:`caesar_timed_waves` (Table V gemm and
     leaky_relu, the serial chain), each with its rounds per window, and
     the Carus waves of :func:`carus_timed_waves` (Table V gemm, matmul and
@@ -742,7 +756,7 @@ def phase_timing(report: dict, waves: dict, device) -> dict:
             times = time_kernel(engine, fields, state, sew,
                                 reps=20 if engine == "caesar" else 100)
             plain = time_plain(engine, fields, state, sew) \
-                if n_tiles == WAVE_TILES else None
+                if n_tiles == WAVE_TILES and sew == 8 else None
             bms, by = bound_ms(engine, ps)
             rows.append(dict(engine=engine, sew=sew, tiles=n_tiles,
                              n_instr=ps[0].n_instr, **times, plain_ms=plain,
@@ -1690,9 +1704,17 @@ HYBRID_PROMPT_LENGTHS = (64, 128, 256, 384, 512)
 XLSTM_ARCH = "xlstm-125m"
 
 
+#: the serving phases' depth cuts (layers; every width kept), so that the
+#: whole run stays inside its time limit with the scale-out phase
+#: (``PERF.md`` §4): moonshot 16 of 48 layers, pixtral 20 of 40, zamba2 30
+#: of 54 (5 of 9 groups), xlstm 6 of 12 blocks (sLSTM at 3)
+SERVE_DEPTH = {"moonshot-v1-16b-a3b": 16, "pixtral-12b": 20,
+               "zamba2-2.7b": 30, "xlstm-125m": 6}
+
+
 def block_by_block_model(arch: str, device, seed: int = 0) -> tuple:
-    """``(cfg, params, build s)``: ``arch`` in W8A8 at full width, random
-    weights from ``seed``.  A float32 model of this size does not fit the
+    """``(cfg, params, build s)``: ``arch`` in W8A8 at full width (cut in
+    depth by :data:`SERVE_DEPTH`), random weights from ``seed``.  A float32 model of this size does not fit the
     card (moonshot's is ~110 GB), so each block is quantized as soon as it
     is drawn (``lm.draw_blocks`` with ``quantize_tree``, in
     ``init_params``'s generator order: equal to
@@ -1704,6 +1726,8 @@ def block_by_block_model(arch: str, device, seed: int = 0) -> tuple:
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     cfg = configs.get(arch).scaled(nmc_mode="w8a8")
+    if arch in SERVE_DEPTH:
+        cfg = cfg.scaled(n_layers=SERVE_DEPTH[arch])
     gen = torch.Generator(device=device).manual_seed(seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2009,24 +2033,24 @@ def phase_mla_serving(report: dict, device, seed: int = 0) -> dict:
 
 
 def phase_hybrid_serving(report: dict, device, seed: int = 0) -> dict:
-    """zamba2-2.7b served at full width and depth (:func:`serve_full_width`):
-    54 Mamba2 layers (d_inner 5120, 80 SSM heads of 64, state 64) in 9
-    groups, each followed by the one shared block (32 heads of 80, window
+    """zamba2-2.7b served at full width (:func:`serve_full_width`): 30 of
+    its 54 Mamba2 layers (d_inner 5120, 80 SSM heads of 64, state 64) in 5
+    of its 9 groups, each followed by the one shared block (32 heads of 80, window
     4096, d_ff 10240) with its own KV cache per group; vocab 32000.  The
     prompt lengths are drawn from :data:`HYBRID_PROMPT_LENGTHS`: the
     reference reshapes a prompt longer than its 128-token chunk into whole
     chunks and fails on any other length, so these are the lengths of
     ``SERVE``'s 64-512 range that it can prefill.  The Mamba2 projections
     stay float (the reference's ``quantize_tree`` leaves its 4-D stack so):
-    64 ``nmc_matmul`` launches per prefill and per decode step (9 x 7 + the
-    head), 9 ``flash_attention`` launches per prefill, none at decode."""
+    36 ``nmc_matmul`` launches per prefill and per decode step (5 x 7 + the
+    head), 5 ``flash_attention`` launches per prefill, none at decode."""
     return serve_full_width(report, "hybrid_serving", HYBRID_ARCH, device,
                             seed, HYBRID_PROMPT_LENGTHS)
 
 
 def phase_xlstm_serving(report: dict, device, seed: int = 0) -> dict:
-    """xlstm-125m served at full width and depth (:func:`serve_full_width`):
-    12 blocks, sLSTM at 3 and 9 and mLSTM elsewhere (inner width 1536, 4
+    """xlstm-125m served at full width (:func:`serve_full_width`): 6 of its
+    12 blocks, sLSTM at 3 and mLSTM elsewhere (inner width 1536, 4
     heads of 384, chunk 128), d_model 768, vocab 50304.  The prompt
     lengths are drawn from :data:`HYBRID_PROMPT_LENGTHS`, the lengths of
     ``SERVE``'s 64-512 range that the reference can prefill (a prompt
@@ -2042,7 +2066,8 @@ def phase_xlstm_serving(report: dict, device, seed: int = 0) -> dict:
 def serve_full_width(report: dict, key: str, arch: str, device,
                      seed: int = 0, prompt_lengths=None,
                      replay_stride: int = MOE_REPLAY_STRIDE) -> dict:
-    """The port's W8A8 serving path for a model at full width and depth:
+    """The port's W8A8 serving path for a model at full width (the depth
+    of :data:`SERVE_DEPTH`):
     built block by block from a seeded generator, served by ServeEngine on
     the :data:`SERVE` traffic (prompt lengths out of ``prompt_lengths``
     when given).  The LM kernels' launch counts are set to 0 just before
@@ -2258,7 +2283,7 @@ def generate(params, cfg, batch, steps: int, max_len: int):
 
 
 def phase_vlm(report: dict, device, seed: int = 0) -> dict:
-    """The port's W8A8 VLM path at pixtral-12b's full width and depth (40
+    """The port's W8A8 VLM path at pixtral-12b's full width (20 of its 40
     layers, d_model 5120, 32 heads of 128 with kv 8, d_ff 14336, vocab
     131072), built block by block from a seeded generator: ``lm.prefill``
     of :data:`VLM` rows of 1024 image embeddings and 128 text tokens, then
@@ -2505,40 +2530,6 @@ TRAIN_REPLAY_RTOL = 1e-3
 TRAIN_TIMED_STEPS = 3
 
 
-def nudged_inputs(model, seed: int):
-    """A context in which ``model``'s embedded inputs are moved by one ulp
-    of their dtype at half the positions (as :func:`perturbed_plain_logits`
-    moves them), the gradient passing through unchanged."""
-    import torch
-
-    @contextlib.contextmanager
-    def ctx():
-        orig = model.inputs
-        gen = torch.Generator(device=model.device).manual_seed(seed)
-
-        def inputs(batch, cfg):
-            x = orig(batch, cfg)
-            flip = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
-            host = x.detach().cpu()
-            up = torch.nextafter(host, torch.full_like(host, 1e30))
-            step = (up - host).to(x.device)
-            return x + torch.where(flip, step, torch.zeros_like(step))
-        model.inputs = inputs
-        try:
-            yield
-        finally:
-            del model.inputs
-    return ctx()
-
-
-def rel_l2(a, b) -> float:
-    """||a - b|| / ||b||, 0 where both are 0."""
-    import torch
-    num = float(torch.linalg.vector_norm((a.float() - b.float())))
-    den = float(torch.linalg.vector_norm(b.float()))
-    return num / den if den else (0.0 if num == 0.0 else float("inf"))
-
-
 def attention_backward_bound_ms(b, hq, hkv, sq, d, dv, elem) -> dict:
     """The least time of attention's backward at this shape, causal: q, k,
     v and dO read once, dQ, dK and dV written once; per visible pair the
@@ -2695,6 +2686,7 @@ def phase_training(report: dict, device, seed: int = 0) -> dict:
     from repro_torch import configs, kernels
     from repro_torch.checkpoint import ckpt
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import checks as dchecks
     from repro_torch.kernels import checks, flash_attention as fa, ops
     from repro_torch.kernels import nmc_matmul as mm
     from repro_torch.optim import adamw
@@ -2748,13 +2740,13 @@ def phase_training(report: dict, device, seed: int = 0) -> dict:
     with ops.force_plain():
         loss_p, _, g_p = step_lib.accumulated_grads(loss_fn, model, batch,
                                                     n_mb)
-        with nudged_inputs(model, seed + 1):
+        with dchecks.nudged_inputs(model, seed + 1):
             loss_u, _, g_u = step_lib.accumulated_grads(loss_fn, model,
                                                         batch, n_mb)
     grads, worst = {}, {"name": None, "ratio": 0.0}
     for name in params:
-        err, spread = rel_l2(g_k[name], g_p[name]), rel_l2(g_u[name],
-                                                           g_p[name])
+        err = dchecks.rel_l2(g_k[name], g_p[name])
+        spread = dchecks.rel_l2(g_u[name], g_p[name])
         limit = max(TRAIN_GRAD_SPREAD * spread, TRAIN_GRAD_FLOOR)
         norm = float(torch.linalg.vector_norm(g_k[name].float()))
         grads[name] = dict(rel_l2=err, spread=spread, limit=limit, norm=norm)
@@ -2906,6 +2898,188 @@ def phase_training(report: dict, device, seed: int = 0) -> dict:
         trainer_steps=steps, checkpoints=saves, step_split_ms=split,
         peak_memory_gb=peak_gb, profiled_step=prof, attention=attn,
         nvidia_smi=smi)
+    return launches
+
+
+SCALEOUT_MOE_LAYERS = 2
+#: the scale-out phase: qwen1.5-0.5b at full width and depth and
+#: moonshot-v1-16b-a3b at full width cut to 2 layers, the training phase's
+#: batch (8 rows of 512 tokens in 2 microbatches); the trainer's 4 steps of
+#: 2 rows of 256 tokens with a checkpoint every 2 and a crash at step 3;
+#: the pipeline's 8 rows of 512 in 4 microbatches over 2 stages
+SCALEOUT = dict(rows=8, seq=512, n_mb=2,
+                trainer=dict(rows=2, seq=256, n_mb=1, total_steps=4,
+                             ckpt_every=2, fail_at=3),
+                pipeline=dict(rows=8, n_micro=4))
+#: the loss of a sharded step against the single-rank step (relative); for
+#: the MoE, or twice the plain path's own 1-ulp spread where that is larger
+#: (routing is discrete: an ulp can move a top-k pick, as MOE_LOGITS_SPREAD)
+SCALEOUT_LOSS_RTOL = 1e-4
+SCALEOUT_TIMEOUT = 600.0
+
+
+def scaleout_expected(cfg, moe_cfg) -> dict:
+    """``flash_attention`` launches a rank makes in each part of the
+    phase: a step's layers x microbatches; the trainer's 5 steps run
+    (0, 1, 2, the crash at 3, 2 replayed, 3) and the resumed one; the
+    pipeline's stage of half the layers x its microbatches."""
+    n_mb, tr = SCALEOUT["n_mb"], SCALEOUT["trainer"]
+    return {"a": cfg.n_layers * n_mb, "b": cfg.n_layers * n_mb,
+            "c": moe_cfg.n_layers * n_mb,
+            "d": cfg.n_layers * tr["n_mb"] * (tr["total_steps"] + 1),
+            "d_resumed": cfg.n_layers * tr["n_mb"],
+            "e": cfg.n_layers // 2 * SCALEOUT["pipeline"]["n_micro"]}
+
+
+def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
+    """Scale-out on two ranks that share the card over gloo
+    (``launch.mesh.run_ranks``; the rank function is
+    ``distributed.checks.chip_scaleout``, the kernels already built): (a)
+    tensor parallelism, qwen1.5-0.5b at full width on (data 1, model 2);
+    (b) data parallelism with ZeRO-2, the same on (2, 1); (c) expert
+    parallelism, moonshot-v1-16b-a3b at full width cut to 2 layers on (1,
+    2), 32 experts a rank.  Each one step from a mid-run optimizer state,
+    held against the single-rank step rank 0 computes first (the loss
+    within SCALEOUT_LOSS_RTOL, every gathered gradient and updated
+    parameter within the training phase's limits from the plain path's
+    1-ulp spread), every attention launch replayed.  (d) ``Trainer(mesh=
+    (1, 2))`` with a crash at step 3 (the replayed step's loss equal bit
+    for bit), its checkpoint restored onto (2, 1) by
+    ``elastic.reshard_state`` (the gathered state equal to the written one
+    bit for bit) and one more step; (e) ``pipeline_apply``, 2 stages of 12
+    blocks, 4 microbatches of 2 rows, against the blocks in sequence.
+    Both ranks compute on the one card, so the times are correctness-run
+    times, not a measure of scaling."""
+    import dataclasses
+    import math
+    import re
+    import shutil
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import checks as dchecks
+    from repro_torch.launch.mesh import run_ranks
+    cfg = configs.get(TRAIN_ARCH)
+    moe_cfg = configs.get(MOE_ARCH).scaled(n_layers=SCALEOUT_MOE_LAYERS)
+    smi = report["nvidia_smi"]
+    spec = dict(SCALEOUT, qwen=cfg, moe=moe_cfg, seed=seed,
+                grad_spread=TRAIN_GRAD_SPREAD, grad_floor=TRAIN_GRAD_FLOOR,
+                opt=dict(lr=1e-3, warmup_steps=1, total_steps=10),
+                trainer=dict(SCALEOUT["trainer"], ckpt_dir=str(
+                    REPO / "chiprun_out" / "scaleout_ckpt")))
+    ckdir = spec["trainer"]["ckpt_dir"]
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(dchecks.chip_scaleout, 2, spec, backend="gloo",
+                          device="cuda", timeout=SCALEOUT_TIMEOUT,
+                          collective_timeout=300.0)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    want = scaleout_expected(cfg, moe_cfg)
+    launches = {"flash_attention": 0, "nmc_matmul": 0, "vrf_alu": 0}
+    routes = {"tensor_core": 0, "cuda_core": 0}
+    counts = []
+    for r in ranks:
+        parts = {p: r[p]["counted"] for p in "abc"}
+        parts.update(d=r["d"]["counted"], d_resumed=r["d"]["counted_resumed"],
+                     e=r["e"]["counted"])
+        for part, c in parts.items():
+            counts.append((r["rank"], part, c["flash_attention"],
+                           c["nmc_matmul"], c["attention_routes"]))
+            if c["flash_attention"] != want[part] or c["nmc_matmul"] or \
+                    c["attention_routes"]["tensor_core"] != \
+                    c["flash_attention"]:
+                raise AssertionError(
+                    f"scaleout ({part}) rank {r['rank']}: launches {c}, "
+                    f"expected {want[part]} flash_attention on the tensor "
+                    f"cores and no nmc_matmul")
+            launches["flash_attention"] += c["flash_attention"]
+            for k, n in c["attention_routes"].items():
+                routes[k] += n
+    replay_err = max(r[p]["replay"]["max_abs_err"] for r in ranks
+                     for p in "abc")
+    for part, key in (("a", "TP"), ("b", "DP ZeRO-2"), ("c", "EP")):
+        res = r0[part]
+        log(f"scaleout ({part}) {key}: loss {res['metrics']['loss']:.6f} vs "
+            f"single rank {res['reference']['loss']:.6f} (rel "
+            f"{res['loss_rel']:.3g}; plain {res['reference']['loss_plain']:.6f},"
+            f" 1-ulp spread {res['reference']['loss_spread']:.3g}); "
+            f"gradients worst {res['grads']['worst']}, params worst "
+            f"{res['params']['worst']}; replay "
+            f"{[r[part]['replay'] for r in ranks]}; step ms by events "
+            f"{[round(r[part]['step_ms'], 1) for r in ranks]}"
+            f"{'' if part != 'a' else ', device ms (rank 0) ' + str(res.get('step_device_ms'))}"
+            f"; peak GB {[r[part]['peak_gb'] for r in ranks]}; "
+            f"moments {[r[part]['local_moments'] for r in ranks]} of "
+            f"{res['full_moments']}; collectives (calls, bytes, staged) "
+            f"{res['counted']['traffic']}; {res['seconds']:.1f} s; [{smi}]")
+        loss_limit = SCALEOUT_LOSS_RTOL if part != "c" else max(
+            SCALEOUT_LOSS_RTOL,
+            MOE_LOGITS_SPREAD * res["reference"]["loss_spread"])
+        res["loss_limit"] = loss_limit
+        if res["grads"]["bad"] or res["params"]["bad"] or \
+                not res["loss_rel"] <= loss_limit:
+            raise AssertionError(f"scaleout ({part}): loss rel "
+                                 f"{res['loss_rel']}, gradients past their "
+                                 f"limits {res['grads']['bad'][:5]}, params "
+                                 f"{res['params']['bad'][:5]}")
+    zero = r0["b"]
+    log(f"scaleout (b) ZeRO-2: {zero['moments_split']} moments halved over "
+        f"data, whole where the reference puts data on a layer stack "
+        f"({len(zero['moments_whole'])}: {zero['moments_whole'][:4]} ...)")
+    if zero["moments_split"] + len(zero["moments_whole"]) != \
+            zero["n_tensors"] or not all(
+                re.search(r"\.attn\.w[qkv]\.b$", n)
+                for n in zero["moments_whole"]):
+        raise AssertionError(f"ZeRO-2: moments halved "
+                             f"{zero['moments_split']}, whole "
+                             f"{zero['moments_whole']}")
+    d, e = r0["d"], r0["e"]
+    first = [s["loss"] for s in d["steps"]
+             if s["step"] == SCALEOUT["trainer"]["fail_at"] - 1]
+    log(f"scaleout (d) trainer (1, 2): {d['run']}, steps "
+        f"{[(s['step'], s.get('loss')) for s in d['steps']]}, checkpoints "
+        f"{d['checkpoints']} in {d['run_seconds']:.1f} s; restored onto "
+        f"(2, 1) (reshard, restore) and back onto (1, 2) (round trip) bit "
+        f"for bit: {d['same']} in {d['restore_seconds']:.1f} s, "
+        f"resumed loss {d['resumed_loss']:.6f}; collectives "
+        f"{d['counted']['traffic']}; {d['seconds']:.1f} s; [{smi}]")
+    if d["run"] != {"final_step": SCALEOUT["trainer"]["total_steps"],
+                    "restarts": 1} or len(first) != 2 or \
+            first[0] != first[1] or not all(d["same"].values()) or \
+            not math.isfinite(d["resumed_loss"]):
+        raise AssertionError(f"scaleout (d): {d['run']}, replayed "
+                             f"{first}, restored equal {d['same']}, "
+                             f"resumed {d['resumed_loss']}")
+    log(f"scaleout (e) pipeline 2 stages x {cfg.n_layers // 2} blocks, "
+        f"{SCALEOUT['pipeline']['n_micro']} microbatches: max abs err "
+        f"{e['max_abs_err']} vs the blocks in sequence, bubble fraction "
+        f"{e['bubble']}, {e['run_seconds']:.2f} s; [{smi}]")
+    if not e["finite"] or e["bubble"] != 0.2:
+        raise AssertionError(f"scaleout (e): {e}")
+    log(f"scaleout: {launches['flash_attention']} flash_attention launches "
+        f"on the main path by route {routes} (rank, part, launches, "
+        f"nmc_matmul, routes: {counts}); replays max abs err {replay_err}; "
+        f"ranks {wall:.1f} s wall, {[round(r['seconds'], 1) for r in ranks]}"
+        f" s in the ranks")
+
+    def plain(res):
+        return {k: v for k, v in res.items() if k not in ("steps",)}
+    report["scaleout"] = dict(
+        moe_layers=SCALEOUT_MOE_LAYERS, **{k: v for k, v in SCALEOUT.items()},
+        ranks=[{p: plain(r[p]) for p in "abcde"} | {"seconds": r["seconds"]}
+               for r in ranks],
+        trainer_steps=d["steps"], launches=launches, attention_routes=routes,
+        matmul_routes={"tensor_core": 0, "dp4a": 0},
+        replay={"attention_by_route": {"tensor_core": replay_err},
+                "max_abs_err": {"nmc_matmul": 0.0,
+                                "flash_attention": replay_err}},
+        wall_seconds=wall, nvidia_smi=smi,
+        moe_config=dataclasses.asdict(moe_cfg) | {"dtype": str(moe_cfg.dtype)})
     return launches
 
 
@@ -3399,7 +3573,8 @@ def main() -> int:
                         ("vlm", phase_vlm), ("encdec", phase_encdec),
                         ("hybrid_serving", phase_hybrid_serving),
                         ("xlstm_serving", phase_xlstm_serving),
-                        ("training", phase_training)):
+                        ("training", phase_training),
+                        ("scaleout", phase_scaleout)):
         lm_paths[path] = timed_phase(path, phase, report, device)
     lm_timed = timed_phase("lm_timing", phase_lm_timing, report, device)
     vrf_err = timed_phase("vrf_vs_plain", phase_vrf_vs_plain, report, device)
@@ -3436,6 +3611,8 @@ def main() -> int:
             extra = {k: row[k] for k in ("device_ms", "library_device_ms",
                                          "kernel_route")}
             extra["training"] = report["training"]["attention"]
+            extra["scaleout_attention_routes"] = \
+                report["scaleout"]["attention_routes"]
             extra["max_abs_err_by_route"] = attn_errs
             err = attn_errs[row["kernel_route"]]
         else:

@@ -16,6 +16,12 @@ A step is written into ``step_XXXXXXXX.tmp`` and renamed, so a torn write
 never corrupts the latest checkpoint.  :class:`AsyncCheckpointer` writes
 in a background thread (the train loop never waits on the disk) and keeps
 the newest ``keep`` steps.
+
+On a mesh, a tree of local slices comes with a matching tree of
+:class:`~repro_torch.distributed.sharding.Sharding` s: saving gathers each
+full tensor (every rank takes part) and rank 0 alone writes, in the same
+format; :func:`restore` with ``shardings`` slices each full leaf onto the
+current mesh, so a checkpoint written under one mesh restores on another.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import sharding as S
 
 
 def _flatten(tree: dict, prefix: str = "") -> list:
@@ -54,13 +63,26 @@ def _unflatten(pairs: list) -> dict:
     return tree
 
 
-def to_host(tree: dict) -> dict:
+def is_writer() -> bool:
+    """Whether this rank writes checkpoints (rank 0, or the only one)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def to_host(tree: dict, shardings: dict | None = None) -> dict:
     """A copy of the tree's tensors on the host as numpy arrays (bfloat16
     as its ``uint16`` bit pattern, the tree recording ``"bfloat16"``):
     ``{path: (array, logical dtype)}``.  A copy even of CPU tensors, so
-    that a step updating them in place afterwards does not reach it."""
+    that a step updating them in place afterwards does not reach it.  With
+    ``shardings`` (a matching tree) each leaf is gathered in full first, a
+    collective; a rank that does not write returns {}."""
     out = {}
+    shard_of = dict(_flatten(shardings)) if shardings is not None else {}
+    keep = is_writer()
     for path, leaf in _flatten(tree):
+        if path in shard_of:
+            leaf = S.gather_full(leaf, shard_of[path])
+        if not keep:
+            continue
         t = leaf.detach().to("cpu", copy=True)
         logical = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:
@@ -71,10 +93,13 @@ def to_host(tree: dict) -> dict:
     return out
 
 
-def save(path: str, step: int, tree: dict) -> str:
-    """Synchronous atomic save of a tree of tensors.  Returns the committed
-    directory."""
-    return write_host(path, step, to_host(tree))
+def save(path: str, step: int, tree: dict,
+         shardings: dict | None = None) -> str | None:
+    """Synchronous atomic save of a tree of tensors (of local slices under
+    ``shardings``: every rank calls it, rank 0 writes).  Returns the
+    committed directory (None on a rank that does not write)."""
+    host = to_host(tree, shardings)
+    return write_host(path, step, host) if is_writer() else None
 
 
 def write_host(path: str, step: int, host: dict) -> str:
@@ -111,9 +136,11 @@ def latest_step(path: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(path: str, step: int, like: dict) -> dict:
+def restore(path: str, step: int, like: dict,
+            shardings: dict | None = None) -> dict:
     """The committed step's tree, shaped as ``like`` (a tree of tensors):
-    each leaf a new tensor with ``like``'s leaf's dtype, on its device."""
+    each leaf a new tensor with ``like``'s leaf's dtype, on its device;
+    with ``shardings`` (a matching tree) this rank's slice of it."""
     d = os.path.join(path, f"step_{step:08d}")
     if not os.path.exists(os.path.join(d, "DONE")):
         raise FileNotFoundError(f"uncommitted checkpoint {d}")
@@ -124,20 +151,25 @@ def restore(path: str, step: int, like: dict) -> dict:
         raise ValueError(f"{d}: the checkpoint's leaves {meta['treedef']} "
                          f"are not the tree's {[p for p, _ in pairs]}")
     out = []
+    shard_of = dict(_flatten(shardings)) if shardings is not None else {}
     for i, (name, leaf) in enumerate(pairs):
         arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"))
-        if tuple(arr.shape) != tuple(leaf.shape):
-            raise ValueError(f"leaf {name}: checkpoint {arr.shape} vs "
-                             f"model {tuple(leaf.shape)}")
         t = torch.from_numpy(arr)
         if meta["leaves"][i]["dtype"] == "bfloat16":
             t = t.view(torch.int16).view(torch.bfloat16)
+        if name in shard_of:
+            t = S.local_slice(t, shard_of[name])
+        if tuple(t.shape) != tuple(leaf.shape):
+            raise ValueError(f"leaf {name}: checkpoint {arr.shape} (here "
+                             f"{tuple(t.shape)}) vs model "
+                             f"{tuple(leaf.shape)}")
         out.append((name, t.to(device=leaf.device, dtype=leaf.dtype)))
     return _unflatten(out)
 
 
 class AsyncCheckpointer:
-    """Background-thread checkpoint writer with a bounded queue."""
+    """Background-thread checkpoint writer with a bounded queue (on a
+    mesh, rank 0's writes; the others take part in the gathers)."""
 
     def __init__(self, path: str, keep: int = 3):
         self.path = path
@@ -170,13 +202,16 @@ class AsyncCheckpointer:
             shutil.rmtree(os.path.join(self.path, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def submit(self, step: int, tree: Any):
+    def submit(self, step: int, tree: Any, shardings: dict | None = None):
         """Queue a save of ``tree`` at ``step``; its tensors are copied to
-        the host before this returns (the train step updates them in
+        the host (gathered in full under ``shardings``, every rank taking
+        part) before this returns (the train step updates them in
         place)."""
         if self._err:
             raise self._err
-        self._q.put((step, to_host(tree)))
+        host = to_host(tree, shardings)
+        if is_writer():
+            self._q.put((step, host))
 
     def wait(self):
         self._q.join()

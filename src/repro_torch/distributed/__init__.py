@@ -1,1 +1,2 @@
-"""Distributed training helpers; on one card, gradient compression."""
+"""Distributed training: the mesh (``context``), the sharding rules, the
+pipeline, gradient compression and the rank checks."""

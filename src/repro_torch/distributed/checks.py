@@ -1,0 +1,689 @@
+"""Rank functions that hold the sharded paths against one rank.
+
+Each runs on every rank of a world started by
+:func:`repro_torch.launch.mesh.run_ranks` (so each is a module-level
+function of the package, importable by a spawned process) and returns
+plain Python and numpy values: the CPU tests run them over gloo on small
+configs, ``chip_smoke.py`` over gloo on the card at full width.
+
+* :func:`sharded_step`: one train step of a model given as the
+  reference's weights, laid out on a (data, model) mesh: the metrics, the
+  gradients as the step reduces them, the updated parameters and moments,
+  every one gathered in full on rank 0.
+* :func:`refusals`: the families that refuse a ``model`` axis, with their
+  messages.
+* :func:`pipeline_check`: ``pipeline_apply`` over a stage axis against
+  the stages applied in sequence.
+* :func:`elastic_check`: a trainer with a crash on one mesh, its
+  checkpoint restored onto another through ``elastic.reshard_state`` and
+  ``ckpt.restore`` with shardings, gathered and held to the written state
+  bit for bit, then one more step.
+* :func:`chip_scaleout`: ``chip_smoke.phase_scaleout``'s ranks at full
+  width on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.checkpoint import ckpt
+from repro_torch.distributed import pipeline, sharding
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import lm
+from repro_torch.models.convert import params_from_jax
+from repro_torch.optim import adamw
+from repro_torch.runtime import elastic
+from repro_torch.train import step as step_lib
+
+AXES = ("data", "model")
+
+
+def _rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def gather_tree(tree: dict, shardings: dict) -> dict:
+    """{name: full tensor} of {name: local slice} (a collective; every
+    rank gets the full tensors)."""
+    return {n: sharding.gather_full(t.detach(), shardings[n])
+            for n, t in tree.items()}
+
+
+def _host(tree: dict, shardings: dict) -> dict | None:
+    full = gather_tree(tree, shardings)
+    return {n: _numpy(t) for n, t in full.items()} if _rank0() else None
+
+
+def load_state(model: lm.LMBase, state: dict, device) -> dict:
+    """A port optimizer state ({"m", "v"[, "grad_err"]}: {name: full
+    numpy}, "step": int) sliced onto ``model``'s layout."""
+    lay = model.layout
+
+    def cut(arrays, shard_of):
+        return {n: sharding.local_slice(torch.from_numpy(np.array(a)),
+                                        shard_of[n]).to(device)
+                for n, a in arrays.items()}
+    out = {"m": cut(state["m"], lay.moments), "v": cut(state["v"],
+                                                       lay.moments),
+           "step": torch.tensor(state["step"], dtype=torch.int32,
+                                device=device)}
+    if "grad_err" in state:
+        out["grad_err"] = cut(state["grad_err"], lay.params)
+    return out
+
+
+def sharded_step(device, cfg, shape: tuple, weights: dict, state: dict,
+                 batch: dict, opt_kw: dict, n_mb: int = 1,
+                 compress: bool = False) -> dict:
+    """One train step on a ``shape`` (data, model) mesh from the
+    reference's ``weights`` (numpy tree) and the optimizer ``state``
+    (:func:`load_state`), on the global ``batch`` (numpy).  Returns, on
+    rank 0 (None elsewhere): ``metrics`` (floats), ``grads`` (as the step
+    reduces them, before compression), ``params``, ``m``, ``v`` and
+    ``grad_err`` after the step, each {name: full numpy}; ``partial``,
+    the names summed over ``model``."""
+    mesh = make_mesh(shape, AXES, device)
+    model = lm.shard(params_from_jax(weights, cfg, device), cfg, mesh)
+    lay = model.layout
+    opt = load_state(model, state, device)
+    tb = {k: torch.from_numpy(np.array(v)).to(device)
+          for k, v in batch.items()}
+    _, _, g = step_lib.accumulated_grads(
+        step_lib.make_loss(cfg), model,
+        step_lib.local_rows(tb, mesh, n_mb), n_mb)
+    grads = _host(step_lib.reduce_grads(g, lay), lay.params)
+    train = step_lib.make_train_step(cfg, adamw.AdamWConfig(**opt_kw), n_mb,
+                                     compress)
+    _, opt, metrics = train(model, opt, tb)
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": grads, "step": int(opt["step"]),
+           "params": _host(dict(model.named_parameters()), lay.params),
+           "m": _host(opt["m"], lay.moments),
+           "v": _host(opt["v"], lay.moments),
+           "partial": sorted(lay.partial),
+           "local_m": {n: tuple(t.shape) for n, t in opt["m"].items()}}
+    if compress:
+        out["grad_err"] = _host(opt["grad_err"], lay.params)
+    return out if _rank0() else None
+
+
+def refusals(device, cfgs: list, model: int = 2) -> list:
+    """For each config, the message of the ``NotImplementedError`` that
+    laying it out on a (world / model, model) mesh raises, or None."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = make_mesh((world // model, model), AXES, device)
+    out = []
+    for cfg in cfgs:
+        model_ = lm.init_params(cfg, torch.Generator(device=device)
+                                .manual_seed(0), device)
+        try:
+            lm.shard(model_, cfg, mesh)
+            out.append(None)
+        except NotImplementedError as e:
+            out.append(str(e))
+    return out
+
+
+def tanh_stage(params: dict, h: torch.Tensor) -> torch.Tensor:
+    """The reference test's stage: ``tanh(h @ w + b)``."""
+    return torch.tanh(h @ params["w"] + params["b"])
+
+
+def pipeline_check(device, stage_fn, stages: list, x: np.ndarray,
+                   n_micro: int, axis: str = "pod") -> dict:
+    """``pipeline_apply(stage_fn, stages[s], x)`` on a one-axis mesh of
+    every rank (rank s holds stage s) against the stages in sequence on
+    every rank.  ``stages``: each stage's {name: numpy array}."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = make_mesh((world,), (axis,), device)
+    stages = [{k: torch.from_numpy(np.array(v)).to(device)
+               for k, v in st.items()} for st in stages]
+    xt = torch.from_numpy(x).to(device)
+    y = pipeline.pipeline_apply(stage_fn, stages[mesh.coords[axis]], xt,
+                                mesh=mesh, axis=axis,
+                                n_microbatches=n_micro)
+    ref = xt
+    for params in stages:
+        ref = stage_fn(params, ref)
+    return {"err": float((y - ref).abs().max()),
+            "bubble": pipeline.bubble_fraction(world, n_micro)}
+
+
+def elastic_check(device, cfg, tc_kw: dict, data_kw: dict, opt_kw: dict,
+                  fail_at: int | None, shape_a: tuple, model_b: int) -> dict:
+    """A trainer on mesh ``shape_a`` with a crash injected at ``fail_at``
+    (each step's loss and each checkpoint's bytes and seconds recorded;
+    its launches counted), its last checkpoint restored in full and
+    resharded onto a mesh of ``model_b`` ranks on ``model``
+    (``elastic.make_mesh_for``) by ``elastic.reshard_state``, and restored
+    there by ``ckpt.restore`` with shardings: both gathered and held to
+    the written state bit for bit; the parameters moved back onto
+    ``shape_a`` by ``reshard_state`` from their shardings on the new mesh,
+    likewise; then one more step on the new mesh.  ``tc_kw["ckpt_dir"]``
+    must start empty.  Returns, on rank 0, what was recorded and whether
+    each equality held (the launch counts on the other ranks)."""
+    import time
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t0 = time.perf_counter()
+    tc = TrainerConfig(**tc_kw)
+    data_cfg, opt_cfg = DataConfig(**data_kw), adamw.AdamWConfig(**opt_kw)
+    tr = Trainer(cfg, tc, opt_cfg, data_cfg,
+                 mesh=make_mesh(shape_a, AXES, device))
+    steps, saves = [], []
+    orig_step, orig_batch = tr._train_step, tr.batch_at
+    orig_write = ckpt.write_host
+
+    def batch_at(step):
+        steps.append({"step": step})
+        return orig_batch(step)
+
+    def train_step(*args):
+        res = orig_step(*args)
+        steps[-1]["loss"] = float(res[2]["loss"])
+        return res
+
+    def write_host(path, step, host):
+        t = time.perf_counter()
+        res = orig_write(path, step, host)
+        saves.append({"step": step, "seconds": time.perf_counter() - t,
+                      "bytes": sum(a.nbytes for a, _ in host.values())})
+        return res
+    tr.batch_at, tr._train_step = batch_at, train_step
+    ckpt.write_host = write_host
+    _reset(device)
+    try:
+        t1 = time.perf_counter()
+        run = tr.run(fail_at=fail_at)
+        run_s = time.perf_counter() - t1
+        counted = _counted(device)
+        tr.checkpointer.close()
+    finally:
+        ckpt.write_host = orig_write
+    del tr
+    _free(device)
+    last = ckpt.latest_step(tc.ckpt_dir)
+
+    t1 = time.perf_counter()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh_b = elastic.make_mesh_for(world, model_b, device)
+    tr_b = Trainer(cfg, tc, opt_cfg, data_cfg, mesh=mesh_b)
+    model, opt, _ = tr_b.init_state()
+    shard_b = model.layout.state_shardings(opt)
+    local = {"params": dict(model.named_parameters()), "opt": opt}
+    written = ckpt.restore(tc.ckpt_dir, last, _full_like(local, shard_b))
+    moved = elastic.reshard_state(written, mesh_b, lambda tree, m: shard_b)
+    same = {"reshard": _equal_gathered(moved, shard_b, written),
+            "restore": _equal_gathered(
+                ckpt.restore(tc.ckpt_dir, last, local, shard_b), shard_b,
+                written)}
+    mesh_a = make_mesh(shape_a, AXES, device)
+    shard_a = sharding.param_shardings(written["params"], mesh_a)
+    back = elastic.reshard_state(moved["params"], mesh_a,
+                                 lambda tree, m: shard_a, shard_b["params"])
+    same["round_trip"] = _equal_gathered(back, shard_a, written["params"])
+    del written, back
+    with torch.no_grad():
+        for n, p in local["params"].items():
+            p.copy_(moved["params"][n])
+    opt = {k: ({n: t.to(device) for n, t in v.items()}
+               if isinstance(v, dict) else v.to(device))
+           for k, v in moved["opt"].items()}
+    del moved
+    restore_s = time.perf_counter() - t1
+    _reset(device)
+    _, _, metrics = tr_b._train_step(model, opt, tr_b.batch_at(last))
+    counted_b = _counted(device)
+    tr_b.checkpointer.close()
+    del model, opt, local, tr_b
+    _free(device)
+    dist.barrier()
+    out = {"run": {k: run[k] for k in ("final_step", "restarts")},
+           "steps": steps, "checkpoints": saves, "run_seconds": run_s,
+           "last": last, "same": same, "restore_seconds": restore_s,
+           "resumed_loss": float(metrics["loss"]), "counted": counted,
+           "counted_resumed": counted_b,
+           "seconds": time.perf_counter() - t0}
+    return out if _rank0() else {k: out[k] for k in ("counted",
+                                                     "counted_resumed")}
+
+
+def _full_like(local: dict, shardings: dict) -> dict:
+    """Tensors of the full shapes (uncommitted host memory) for ``local``
+    under ``shardings``."""
+    if isinstance(local, dict):
+        return {k: _full_like(v, shardings[k]) for k, v in local.items()}
+    shape = list(local.shape)
+    for dim, part in enumerate(shardings.spec):
+        if part is not None:
+            shape[dim] *= shardings.mesh.size(part)
+    return torch.empty(shape, dtype=local.dtype)
+
+
+def _equal_gathered(local: dict, shardings: dict, full: dict) -> bool:
+    """Whether ``local`` gathered under ``shardings`` equals ``full`` bit
+    for bit, on every rank (a collective)."""
+    if isinstance(local, dict):
+        return all([_equal_gathered(local[k], shardings[k], full[k])
+                    for k in sorted(local)])
+    got = sharding.gather_full(local, shardings)
+    return bool(torch.equal(got.cpu(), full.cpu()))
+
+
+def sequence(device, calls: list) -> list:
+    """Run ``calls``, a list of (name of a function of this module,
+    positional arguments), in order on every rank: one world for many
+    checks.  Returns their results."""
+    return [globals()[name](device, *args) for name, args in calls]
+
+
+# ---------------------------------------------------------------------------
+# on the card: chip_smoke.phase_scaleout's ranks (gloo, one card shared)
+# ---------------------------------------------------------------------------
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||, 0 where both are 0."""
+    num = float(torch.linalg.vector_norm(a.float() - b.float()))
+    den = float(torch.linalg.vector_norm(b.float()))
+    return num / den if den else (0.0 if num == 0.0 else float("inf"))
+
+
+class _AttentionRecorder:
+    """Records every ``flash_attention`` launch the models make (inputs,
+    keywords, output) at the dispatch layer, the wrapper still counting."""
+
+    def __enter__(self):
+        import types
+        from repro_torch.kernels import ops
+        self.calls, self._ops, self._orig = [], ops, ops._fa
+        orig = ops._fa.flash_attention
+
+        def rec(*args, **kw):
+            out = orig(*args, **kw)
+            self.calls.append((args, kw, out))
+            return out
+        ops._fa = types.SimpleNamespace(flash_attention=rec)
+        return self
+
+    def __exit__(self, *exc):
+        self._ops._fa = self._orig
+
+    def replay(self) -> dict:
+        """Every launch against the plain version (``kernels/checks.py``'s
+        tolerance; raises beyond it): launches, shapes, max abs err."""
+        from repro_torch.kernels import checks as kchecks
+        from repro_torch.kernels import flash_attention as fa
+        worst, shapes = 0.0, {}
+        with torch.no_grad():
+            for i, (args, kw, out) in enumerate(self.calls):
+                want = fa.chunked_attention(*args, **kw)
+                tol = kchecks.attention_tolerance(args[0].dtype)
+                worst = max(worst, kchecks.close(f"attention launch {i}",
+                                                 out, want, *tol))
+                key = str(tuple(args[0].shape))
+                shapes[key] = shapes.get(key, 0) + 1
+        return {"launches": len(self.calls), "shapes": shapes,
+                "max_abs_err": worst}
+
+
+def _launches() -> dict:
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.flash_attention.launches,
+            "nmc_matmul": kernels.nmc_matmul.nmc_matmul.launches,
+            "attention_routes": dict(fa.flash_attention.launches_by_route)}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _reset(device):
+    from repro_torch import kernels
+    from repro_torch.distributed import context
+    _sync(device)
+    kernels.reset_launch_counts()
+    context.reset_traffic()
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _counted(device) -> dict:
+    from repro_torch.distributed import context
+    _sync(device)
+    return {**_launches(), "traffic": {k: list(v) for k, v in
+                                       context.traffic.items()}}
+
+
+def _peak_gb(device):
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def _free(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+class _Events:
+    """ms between two points by CUDA events (the host clock elsewhere)."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+
+    def __enter__(self):
+        import time
+        if self.cuda:
+            self.e = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            self.e[0].record()
+        self.t = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import time
+        if self.cuda:
+            self.e[1].record()
+            self.e[1].synchronize()
+            self.ms = self.e[0].elapsed_time(self.e[1])
+        else:
+            self.ms = (time.perf_counter() - self.t) * 1e3
+
+
+def _mid_run_state(shapes: dict, layout, seed: int, device) -> dict:
+    """Moments of step 2: ``m`` zero, ``v`` ``1e-4 (1 + r^2)`` with r drawn
+    from ``seed`` (the same on every rank, at full shapes, one tensor at a
+    time), sliced onto ``layout``.  ``v`` above the clipped gradient's
+    square makes the update linear in the gradient (from zero moments
+    AdamW's first step is its sign, and a gradient that is rounding noise
+    would flip it)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    m, v = {}, {}
+    for n, shape in shapes.items():
+        a = torch.zeros(shape, device=device)
+        b = torch.randn(shape, generator=gen, device=device)
+        b = 1e-4 * (1 + b * b)
+        if layout is not None:
+            a = sharding.local_slice(a, layout.moments[n])
+            b = sharding.local_slice(b, layout.moments[n])
+        m[n], v[n] = a, b
+    return {"m": m, "v": v,
+            "step": torch.tensor(2, dtype=torch.int32, device=device)}
+
+
+def _model(cfg, seed: int, device, mesh=None) -> tuple:
+    """(model drawn from ``seed``, laid out on ``mesh`` if given; its full
+    parameter shapes)."""
+    model = lm.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(seed), device)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    if mesh is not None:
+        lm.shard(model, cfg, mesh)
+    return model, shapes
+
+
+def _reference(cfg, batch: dict, spec: dict, device) -> dict:
+    """The single-rank step on rank 0: the loss and gradient through the
+    kernels, the plain path's own spread under 1-ulp input noise (each
+    gradient's limit), and the parameters after one update from the
+    mid-run state."""
+    from repro_torch.kernels import ops
+    n_mb, seed = spec["n_mb"], spec["seed"]
+    model, shapes = _model(cfg, seed, device)
+    loss_fn = step_lib.make_loss(cfg)
+    loss_k, _, g_k = step_lib.accumulated_grads(loss_fn, model, batch, n_mb)
+    with ops.force_plain():
+        loss_p, _, g_p = step_lib.accumulated_grads(loss_fn, model, batch,
+                                                    n_mb)
+        with nudged_inputs(model, seed + 1):
+            loss_u, _, g_u = step_lib.accumulated_grads(loss_fn, model,
+                                                        batch, n_mb)
+    limits = {n: max(spec["grad_spread"] * rel_l2(g_u[n], g_p[n]),
+                     spec["grad_floor"]) for n in g_k}
+    del g_p, g_u
+    params = dict(model.named_parameters())
+    opt = _mid_run_state(shapes, None, seed + 2, device)
+    adamw.apply_updates(params, dict(g_k), opt,
+                        adamw.AdamWConfig(**spec["opt"]))
+    del opt
+    return {"loss": float(loss_k), "loss_plain": float(loss_p),
+            "loss_spread": abs(float(loss_u) - float(loss_p))
+            / abs(float(loss_p)),
+            "grads": g_k, "limits": limits,
+            "params": {n: p.detach() for n, p in params.items()}}
+
+
+def nudged_inputs(model, seed: int):
+    """A context in which ``model``'s embedded inputs are moved by one ulp
+    of their dtype at half the positions, the gradient passing through
+    unchanged: the plain path's own spread under 1-ulp noise."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = model.inputs
+        gen = torch.Generator(device=model.device).manual_seed(seed)
+
+        def inputs(batch, cfg):
+            x = orig(batch, cfg)
+            flip = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+            host = x.detach().cpu()
+            up = torch.nextafter(host, torch.full_like(host, 1e30))
+            return x + torch.where(flip, (up - host).to(x.device),
+                                   torch.zeros_like(x))
+        model.inputs = inputs
+        try:
+            yield
+        finally:
+            del model.inputs
+    return ctx()
+
+
+def _compare(got: dict, ref: dict, limits: dict) -> dict:
+    """Each tensor's relative L2 against the reference's over its limit:
+    the worst and every one past its limit."""
+    worst, bad = {"name": None, "ratio": 0.0}, []
+    for n, want in sorted(ref.items()):
+        err = rel_l2(got[n], want)
+        ratio = err / limits[n]
+        if ratio > worst["ratio"]:
+            worst = {"name": n, "ratio": ratio, "rel_l2": err,
+                     "limit": limits[n]}
+        if not err <= limits[n]:
+            bad.append((n, err, limits[n]))
+    return {"worst": worst, "bad": bad}
+
+
+class _StepGrads:
+    """Keeps the gradients a train step hands to the optimizer (reduced
+    over the mesh, before clipping): ``adamw.apply_updates`` wrapped for
+    the block."""
+
+    def __enter__(self):
+        self.grads, self._orig = None, adamw.apply_updates
+
+        def keep(params, grads, *args, **kw):
+            self.grads = grads
+            return self._orig(params, grads, *args, **kw)
+        adamw.apply_updates = keep
+        return self
+
+    def __exit__(self, *exc):
+        adamw.apply_updates = self._orig
+
+
+def _sharded_run(cfg, mesh, batch: dict, spec: dict, ref: dict | None,
+                 device, profile: bool) -> dict:
+    """One sharded train step from the mid-run state (the main path: its
+    launches counted, every attention launch recorded and replayed), its
+    events ms (and device ms when ``profile``), its gradients and updated
+    parameters gathered against ``ref`` on rank 0."""
+    n_mb, seed = spec["n_mb"], spec["seed"]
+    model, shapes = _model(cfg, seed, device, mesh)
+    lay = model.layout
+    opt = _mid_run_state(shapes, lay, seed + 2, device)
+    local = dict(model.named_parameters())
+    dsize = mesh.size(mesh.data_axes())
+    out = {"local_moments": sum(t.numel() for t in opt["m"].values()),
+           "full_moments": sum(int(np.prod(s)) for s in shapes.values()),
+           "moments_whole": sorted(n for n, t in opt["m"].items()
+                                   if dsize > 1 and
+                                   t.numel() == local[n].numel()),
+           "moments_split": sum(t.numel() * dsize == local[n].numel()
+                                for n, t in opt["m"].items()),
+           "n_tensors": len(local)}
+    train = step_lib.make_train_step(cfg, adamw.AdamWConfig(**spec["opt"]),
+                                     n_mb)
+    _reset(device)
+    profile = profile and _rank0() and torch.device(device).type == "cuda"
+    with _AttentionRecorder() as rec, _StepGrads() as kept:
+        with _profiler() if profile else _null() as p:
+            with _Events(device) as ev:
+                _, opt, metrics = train(model, opt, batch)
+            out["counted"] = _counted(device)
+    out["step_ms"] = ev.ms
+    if profile:
+        out["step_device_ms"] = _device_ms(p)
+    out["peak_gb"] = _peak_gb(device)
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    out["replay"] = rec.replay()
+    del rec
+    full = gather_tree(kept.grads, lay.params)
+    del kept
+    if ref is not None and _rank0():
+        out["grads"] = _compare(full, ref["grads"], ref["limits"])
+    del full
+    params = gather_tree(dict(model.named_parameters()), lay.params)
+    if ref is not None and _rank0():
+        out["loss_rel"] = abs(out["metrics"]["loss"] - ref["loss"]) \
+            / abs(ref["loss"])
+        out["params"] = _compare(params, ref["params"], ref["limits"])
+    return out
+
+
+def _null():
+    import contextlib
+    return contextlib.nullcontext()
+
+
+def _profiler():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def _device_ms(prof) -> float | None:
+    """The kernels' device time in a profile, None where it saw none."""
+    from torch.autograd import DeviceType
+    us = sum(ev.self_device_time_total for ev in prof.events()
+             if ev.device_type != DeviceType.CPU
+             and not getattr(ev, "is_user_annotation", False))
+    return us * 1e-3 or None
+
+
+def chip_scaleout(device, spec: dict) -> dict:
+    """``chip_smoke.phase_scaleout`` on every rank of a world of two over
+    gloo, both on ``device``: (a) tensor parallelism, qwen on (1, 2); (b)
+    data parallelism with ZeRO-2, qwen on (2, 1); (c) expert parallelism,
+    the cut moonshot on (1, 2); (d) the trainer on (1, 2) with a crash,
+    its checkpoint restored onto (2, 1) through ``reshard_state``; (e) the
+    pipeline, qwen's blocks in 2 stages.  ``spec`` holds the configs,
+    sizes and limits.  Returns each part's results and this rank's
+    counted launches and collectives."""
+    import time
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    out, t_all = {"rank": dist.get_rank()}, time.perf_counter()
+
+    def batch_of(cfg, rows, seq):
+        data = SyntheticLM(DataConfig(global_batch=rows, seq_len=seq,
+                                      seed=0), cfg)
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in data.batch_at(0).items()}
+
+    for part, key, shape in (("a", "qwen", (1, 2)), ("b", "qwen", (2, 1)),
+                             ("c", "moe", (1, 2))):
+        t0 = time.perf_counter()
+        cfg = spec[key]
+        batch = batch_of(cfg, spec["rows"], spec["seq"])
+        if part != "b":                       # (b) reuses (a)'s reference
+            if _rank0():
+                refs = _reference(cfg, batch, spec, device)
+                _free(device)
+            dist.barrier()
+        mesh = make_mesh(shape, AXES, device)
+        res = _sharded_run(cfg, mesh, batch, spec, refs if _rank0() else None,
+                           device, profile=part == "a")
+        if _rank0():
+            res["reference"] = {k: refs[k] for k in ("loss", "loss_plain",
+                                                     "loss_spread")}
+            if part != "a":
+                del refs
+        _free(device)
+        dist.barrier()
+        res["seconds"] = time.perf_counter() - t0
+        out[part] = res
+    tr = spec["trainer"]
+    out["d"] = elastic_check(
+        device, spec["qwen"],
+        dict(total_steps=tr["total_steps"], ckpt_every=tr["ckpt_every"],
+             ckpt_dir=tr["ckpt_dir"], log_every=1, n_microbatches=tr["n_mb"],
+             seed=spec["seed"]),
+        dict(global_batch=tr["rows"], seq_len=tr["seq"], seed=0),
+        spec["opt"], tr["fail_at"], (1, 2), 1)
+    out["e"] = _chip_pipeline(device, spec)
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def _chip_pipeline(device, spec: dict) -> dict:
+    """(e): ``pipeline_apply`` over 2 stages of qwen's decoder blocks (bf16
+    forward) against the blocks in sequence on rank 0, microbatch by
+    microbatch (the same shapes, so the same kernels)."""
+    import time
+    from repro_torch.kernels import checks as kchecks
+    t0 = time.perf_counter()
+    pp = spec["pipeline"]
+    cfg = spec["qwen"]
+    mesh = make_mesh((2,), ("pod",), device)
+    model, _ = _model(cfg, spec["seed"], device)
+    blocks = list(model.layers)
+    per = len(blocks) // 2
+    stage = blocks[mesh.coords["pod"] * per:(mesh.coords["pod"] + 1) * per]
+    gen = torch.Generator(device=device).manual_seed(spec["seed"] + 3)
+    x = torch.randn((pp["rows"], spec["seq"], cfg.d_model), generator=gen,
+                    device=device).to(cfg.dtype)
+
+    def stage_fn(blks, h):
+        for blk in blks:
+            h, _ = blk(h, cfg)
+        return h
+    with torch.no_grad():
+        _reset(device)
+        t1 = time.perf_counter()
+        y = pipeline.pipeline_apply(stage_fn, stage, x, mesh=mesh,
+                                    axis="pod",
+                                    n_microbatches=pp["n_micro"])
+        counted = _counted(device)
+        run_s = time.perf_counter() - t1
+        res = {"counted": counted, "run_seconds": run_s,
+               "bubble": pipeline.bubble_fraction(2, pp["n_micro"])}
+        if _rank0():
+            mb = pp["rows"] // pp["n_micro"]
+            ref = torch.cat([stage_fn(blocks, x[i:i + mb])
+                             for i in range(0, pp["rows"], mb)])
+            tol = kchecks.attention_tolerance(cfg.dtype)
+            res["max_abs_err"] = kchecks.close("pipeline vs sequential", y,
+                                               ref, *tol)
+            res["finite"] = bool(torch.isfinite(y).all())
+    del model, blocks, stage
+    _free(device)
+    dist.barrier()
+    res["seconds"] = time.perf_counter() - t0
+    return res

@@ -6,10 +6,12 @@ compression left, is quantized to int8 with one scale per leaf of the
 parameter tree, ``max(|g|) / 127``; what the rounding lost is kept as the
 next error, so the compression is unbiased over steps.  The reference's
 tree stacks every layer's copy of a weight into one leaf, so the port's
-per-layer tensors of one weight share one scale (:func:`leaf_of`).  On
-one card there is no all-reduce to shrink: the train step compresses and
-decompresses in place of it, so that the updates are those a
-data-parallel run would apply.
+per-layer tensors of one weight share one scale (:func:`leaf_of`).  The
+train step compresses the gradient after its mean over the data ranks and
+decompresses it at once, in the reference's order (mean, compress, clip,
+update): the compressed all-reduce itself would sum other numbers and is
+not the reference's.  On a mesh a model-sharded leaf's scale is the
+maximum over the model ranks (``amax_over``).
 """
 
 from __future__ import annotations
@@ -32,8 +34,10 @@ def leaf_of(name: str) -> str:
     return _STACKED.sub(lambda m: m.group(1) + ".*.", name)
 
 
-def _scale(gs: list) -> torch.Tensor:
+def _scale(gs: list, amax_over=None, names=()) -> torch.Tensor:
     amax = torch.max(torch.stack([torch.max(torch.abs(g)) for g in gs]))
+    if amax_over is not None:
+        amax = amax_over(names, amax)
     return torch.clamp_min(amax, 1e-8) / 127.0
 
 
@@ -58,16 +62,18 @@ def init_error_state(params: dict) -> dict:
             for n, p in params.items()}
 
 
-def compress_tree(grads: dict, err_state: dict) -> tuple:
+def compress_tree(grads: dict, err_state: dict, amax_over=None) -> tuple:
     """({name: (q, scale)}, {name: new error}); one scale for the tensors
-    of one leaf of the reference's tree (:func:`leaf_of`)."""
+    of one leaf of the reference's tree (:func:`leaf_of`).  ``amax_over
+    (names, amax)``, when given, returns the leaf's maximum over the ranks
+    that hold its other slices."""
     leaves: dict = {}
     for name in grads:
         leaves.setdefault(leaf_of(name), []).append(name)
     qs, errs = {}, {}
     for names in leaves.values():
         gs = [grads[n].float() + err_state[n] for n in names]
-        scale = _scale(gs)
+        scale = _scale(gs, amax_over, names)
         for name, g in zip(names, gs):
             qs[name], errs[name] = _quantize(g, scale)
     return qs, errs

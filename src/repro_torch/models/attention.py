@@ -10,6 +10,14 @@ The counterpart of the JAX package's ``models/attention.py``:
     cache, ``kv_lora_rank + qk_rope_dim`` values per token, runs prefill in
     the expanded form (flash attention at D = nope + rope, Dv = v) and
     decode in the absorbed form (float32 einsums in the latent space).
+
+On a mesh with a ``model`` axis (:func:`~repro_torch.models.lm.shard`),
+GQA runs the rank's heads: ``wq`` / ``wk`` / ``wv`` column-parallel,
+``wo`` row-parallel, ``n_heads / model`` query and ``n_kv_heads / model``
+KV heads through the same ``flash_attention`` (heads are independent).
+Where ``model`` does not divide ``n_kv_heads``, ``wk`` and ``wv`` stay
+whole: each rank computes every KV head and takes those its query heads
+read (``kv_select``).
 """
 
 from __future__ import annotations
@@ -20,12 +28,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import context as C
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 
 class GQAttention(nn.Module):
+    """Grouped-query attention; on a mesh, ``mesh`` is set and, where
+    ``wk`` / ``wv`` are not sharded, ``kv_select`` holds the KV head each
+    local query head reads."""
+
+    mesh: C.Mesh | None = None
+    kv_select: list | None = None
+
     def __init__(self, wq: L.NmcLinear, wk: L.NmcLinear, wv: L.NmcLinear,
                  wo: L.NmcLinear):
         super().__init__()
@@ -44,12 +60,16 @@ class GQAttention(nn.Module):
             L.NmcLinear.init(gen, cfg.n_heads * hd, d, device=device))
 
     def _project(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
-        """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd), before RoPE."""
+        """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd), before RoPE
+        (this rank's heads on a mesh)."""
         b, s, _ = x.shape
         hd, mode = cfg.head_dim, cfg.nmc_mode
-        return (self.wq(x, nmc_mode=mode).reshape(b, s, cfg.n_heads, hd),
-                self.wk(x, nmc_mode=mode).reshape(b, s, cfg.n_kv_heads, hd),
-                self.wv(x, nmc_mode=mode).reshape(b, s, cfg.n_kv_heads, hd))
+        q = self.wq(x, nmc_mode=mode).reshape(b, s, -1, hd)
+        k = self.wk(x, nmc_mode=mode).reshape(b, s, -1, hd)
+        v = self.wv(x, nmc_mode=mode).reshape(b, s, -1, hd)
+        if self.kv_select is not None:
+            k, v = k[:, :, self.kv_select], v[:, :, self.kv_select]
+        return q, k, v
 
     def qkv(self, x: torch.Tensor, cfg: ModelConfig,
             positions: torch.Tensor) -> tuple:
@@ -74,10 +94,12 @@ class GQAttention(nn.Module):
         (cross-attention): then only q is projected.  The reference
         projects k and v from ``x`` there too and never reads them."""
         positions = torch.arange(x.shape[1], device=x.device) + q_offset
+        if self.mesh is not None:
+            x = C.copy_to_model(x, self.mesh)
         if kv is not None:
             b, s, _ = x.shape
             q = self.wq(x, nmc_mode=cfg.nmc_mode).reshape(
-                b, s, cfg.n_heads, cfg.head_dim)
+                b, s, -1, cfg.head_dim)
             if not cfg.learned_pos:
                 cos, sin = L.rope_table(positions, cfg.head_dim,
                                         cfg.rope_theta)

@@ -1,8 +1,11 @@
 """Unified model configuration covering all assigned architecture families.
 
 The counterpart of the JAX package's ``models/config.py`` with torch dtypes.
-The distribution and training knobs (``remat``, ``remat_policy``,
-``scan_layers``, ``seq_parallel``) wait for the scale-out slice of the port.
+The layout on a mesh comes from the sharding rules
+(:mod:`repro_torch.distributed.sharding`, applied by ``lm.shard``); the
+reference's knobs ``remat``, ``remat_policy``, ``scan_layers`` and
+``seq_parallel`` wait for the second half of the scale-out slice (they
+change memory and layout, not values).
 """
 
 from __future__ import annotations

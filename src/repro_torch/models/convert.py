@@ -9,7 +9,10 @@ port's model (:mod:`repro_torch.models.lm`) holding the same numbers, so
 both packages compute the same function: float leaves as trainable
 parameters, int8 ``w_q`` and its ``scale`` as buffers.  It reads numpy
 only: the caller turns the reference's arrays into numpy
-(``np.asarray``).
+(``np.asarray``).  The tensors are always full: a model laid out on a mesh
+takes its local slices afterwards (``lm.shard``, through
+``sharding.local_slice``), as the reference's ``init`` is followed by a
+``device_put``.
 """
 
 from __future__ import annotations

@@ -15,8 +15,18 @@ The paper's technique surfaces here as :class:`NmcLinear`'s modes:
                 NM-Carus vmacc loop; the CUDA ``nmc_matmul`` kernel on the
                 card)
 
-The reference's ``shard_*`` helpers are no-ops without a device mesh and
-wait for the scale-out slice of the port.
+Tensor parallelism is written out where the reference leaves it to
+GSPMD: :func:`~repro_torch.models.lm.shard` gives a linear its
+``parallel`` kind on a mesh with a ``model`` axis, ``"col"`` (the local
+slice of the output columns, the bias sliced with them) or ``"row"`` (the
+local slice of the input rows; the partial products summed over ``model``,
+then the bias added once), an :class:`MLP` its mesh (the region's input
+enters through ``copy_to_model``), and an :class:`Embedding` its
+vocabulary range (vocab-parallel: the local rows looked up, zero
+elsewhere, summed over ``model``).  The reference's ``shard_hidden`` and
+``shard_batch_only`` steer GSPMD toward that layout; with the layout
+explicit they are no-ops here.  ``shard_seq`` waits with the
+``seq_parallel`` knob.
 """
 
 from __future__ import annotations
@@ -27,8 +37,20 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.distributed import context as C
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+
+
+def shard_hidden(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """A layout hint to GSPMD in the reference; the port's layout is
+    explicit, so ``x`` as it is."""
+    return x
+
+
+def shard_batch_only(x: torch.Tensor) -> torch.Tensor:
+    """A layout hint to GSPMD in the reference; ``x`` as it is."""
+    return x
 
 
 def param(t: torch.Tensor | None) -> nn.Parameter | None:
@@ -54,7 +76,11 @@ def _init_dense(gen: torch.Generator, shape: tuple, device,
 class NmcLinear(nn.Module):
     """``y = act(x @ W + b)``.  Holds either a float weight ``w`` (d_in,
     d_out) or its int8 serving form ``w_q`` with a per-output-channel
-    ``scale``; ``b`` is optional either way."""
+    ``scale``; ``b`` is optional either way.  On a mesh, ``parallel`` is
+    ``"col"`` or ``"row"`` (module docstring) and ``mesh`` the mesh."""
+
+    parallel: str | None = None
+    mesh: C.Mesh | None = None
 
     def __init__(self, w: torch.Tensor | None = None,
                  b: torch.Tensor | None = None, *,
@@ -77,6 +103,9 @@ class NmcLinear(nn.Module):
     @torch.no_grad()
     def quantized(self) -> "NmcLinear":
         """The NMC (int8) serving form of this linear."""
+        if self.parallel is not None:
+            raise NotImplementedError("serving a tensor-parallel linear "
+                                      "waits for sharded serving")
         if self.w_q is not None:
             return self
         wq, s = ref.quantize_rowwise(self.w, axis=0)
@@ -107,6 +136,8 @@ class NmcLinear(nn.Module):
         else:
             w = self.w.to(dtype)
         y = x2.to(dtype) @ w
+        if self.parallel == "row":
+            y = C.reduce_from_model(y, self.mesh)
         if self.b is not None:
             y = y + self.b.to(dtype)
         return ref.apply_act(y, act).to(dtype).reshape(*lead, -1)
@@ -211,6 +242,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class Embedding(nn.Module):
+    """A (vocab, d) table; vocab-parallel on a mesh: ``vocab_offset`` is
+    the first row of the local slice and ``mesh`` the mesh."""
+
+    vocab_offset: int | None = None
+    mesh: C.Mesh | None = None
+
     def __init__(self, table: torch.Tensor):
         super().__init__()
         self.register_parameter("table", param(table))
@@ -221,7 +258,13 @@ class Embedding(nn.Module):
         return cls(_init_dense(gen, (vocab, d), device, scale=0.02))
 
     def forward(self, ids: torch.Tensor, dtype=torch.bfloat16):
-        return self.table[ids].to(dtype)
+        if self.vocab_offset is None:
+            return self.table[ids].to(dtype)
+        n = self.table.shape[0]
+        local = ids - self.vocab_offset
+        hit = (local >= 0) & (local < n)
+        rows = self.table[local.clamp(0, n - 1)] * hit[..., None]
+        return C.reduce_from_model(rows, self.mesh).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +272,10 @@ class Embedding(nn.Module):
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """Gated (SwiGLU, with ``wg``) or plain two-layer MLP."""
+    """Gated (SwiGLU, with ``wg``) or plain two-layer MLP; tensor-parallel
+    on a mesh (``wi`` / ``wg`` column-, ``wo`` row-parallel)."""
+
+    mesh: C.Mesh | None = None
 
     def __init__(self, wi: NmcLinear, wo: NmcLinear,
                  wg: NmcLinear | None = None):
@@ -246,6 +292,8 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, act: str = "silu",
                 nmc_mode: str = "none") -> torch.Tensor:
+        if self.mesh is not None:
+            x = C.copy_to_model(x, self.mesh)
         if self.wg is not None:
             h = self.wi(x, nmc_mode=nmc_mode) * \
                 self.wg(x, nmc_mode=nmc_mode, act="silu")

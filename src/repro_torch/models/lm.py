@@ -32,6 +32,16 @@ The serving entry points (``forward``, ``prefill``, ``decode_step``,
 ``init_caches``) run under ``torch.inference_mode()``; :func:`loss_fn`,
 the training objective, runs with autograd recording, through the
 model's own ``forward``.
+
+:func:`shard` lays a model out on a mesh (every rank draws or loads the
+same full weights, then keeps its slices, as the reference's ``init``
+then ``device_put``): data parallelism for every family; tensor and
+expert parallelism over ``model`` for the GQA decoders, dense and MoE
+(column-parallel projections and head, row-parallel ``wo`` / MLP ``wo``,
+vocab-parallel embedding, expert-local dispatch).  The head's logits are
+gathered over ``model`` before the loss, so the cross entropy stays the
+single-rank function.  Serving a model sharded over ``model`` waits for
+sharded caches.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed import context as C
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -208,11 +220,20 @@ class LMBase(nn.Module):
         """The embedded ``batch["tokens"]``."""
         return self.embed(batch["tokens"], cfg.dtype)
 
+    #: the layout on a mesh (:func:`shard`), None on one rank
+    layout: sharding.Layout | None = None
+
     def logits(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         """The LM head over every position (at prefill the dynamic
         activation scale of ``w8a8`` covers all of them, as in the
-        reference, so the head is not cut to the last position first)."""
-        return self.head(self.final_norm(x), nmc_mode=cfg.nmc_mode)
+        reference, so the head is not cut to the last position first);
+        a vocab-parallel head's logits gathered over ``model``."""
+        h = self.final_norm(x)
+        mesh = self.head.mesh
+        if mesh is None:
+            return self.head(h, nmc_mode=cfg.nmc_mode)
+        y = self.head(C.copy_to_model(h, mesh), nmc_mode=cfg.nmc_mode)
+        return C.gather_from_model(y, mesh, -1)
 
 
 class DecoderLM(LMBase):
@@ -596,12 +617,20 @@ def loss_fn(params: LMBase, batch: dict, cfg: ModelConfig,
     return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 
 
+def _check_serving(params: LMBase, cfg: ModelConfig) -> None:
+    _check_family(cfg)
+    if params.layout is not None and params.layout.mesh.model_size() > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: serving a model sharded over 'model' waits for "
+            f"sharded caches (cache_shardings)")
+
+
 @torch.inference_mode()
 def prefill(params: LMBase, batch: dict, cfg: ModelConfig,
             max_len: int) -> tuple:
     """Process the prompt (a VLM's images first; an encoder-decoder's
     frames through the encoder), return (last-position logits, caches)."""
-    _check_family(cfg)
+    _check_serving(params, cfg)
     return params.prefill(batch, cfg, max_len)
 
 
@@ -611,15 +640,115 @@ def decode_step(params: LMBase, tokens: torch.Tensor, caches: dict,
     """One decode step.  tokens: (B, 1) the new token ids; cache_len: (B,)
     lengths INCLUDING the new token.  Returns (logits (B, vocab), caches),
     the caches updated in place."""
-    _check_family(cfg)
+    _check_serving(params, cfg)
     return params.decode_step(tokens, caches, cache_len, cfg)
 
 
 @torch.inference_mode()
 def init_caches(params: LMBase, cfg: ModelConfig, batch: int,
                 max_len: int, dtype=torch.bfloat16) -> dict:
-    _check_family(cfg)
+    _check_serving(params, cfg)
     return params.init_caches(cfg, batch, max_len, dtype)
+
+
+#: the families whose layers run tensor- and expert-parallel over `model`
+TP_FAMILIES = ("dense", "moe")
+
+
+@torch.no_grad()
+def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
+    """Lay ``params`` (full weights, the same on every rank) out on
+    ``mesh``: each parameter replaced by its local slice
+    (:func:`sharding.local_slice` under :func:`sharding.param_shardings`),
+    the modules told their part, and ``params.layout`` set.  A ``model``
+    axis over 1 takes a GQA decoder, dense or MoE; another family raises
+    ``NotImplementedError`` (its rules exist, its execution waits).  The
+    heads must divide over ``model``; where the KV heads do not, ``wk``
+    and ``wv`` stay whole (the rule would split them by columns, through
+    a head) and each rank takes the KV heads its query heads read."""
+    _check_family(cfg)
+    if mesh.model_size() > 1 and (cfg.family not in TP_FAMILIES or cfg.mla):
+        kind = "MLA" if cfg.mla else cfg.family
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over a model axis of "
+            f"{mesh.model_size()} runs the GQA decoders ({TP_FAMILIES}), "
+            f"not the {kind} family yet (ROADMAP queue 1, item 6)")
+    named = dict(params.named_parameters())
+    shard_of = sharding.param_shardings(named, mesh)
+    tp = mesh.model_size()
+    if tp > 1 and cfg.n_heads % tp:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} heads over a model axis of {tp}")
+    if tp > 1 and cfg.n_kv_heads % tp:
+        # the rule shards wk / wv by columns; the heads need whole ones
+        for n in named:
+            if sharding.path_of(n)[-3:-1] in (["attn", "wk"],
+                                              ["attn", "wv"]):
+                shard_of[n] = sharding.Sharding(mesh,
+                                                (None,) * named[n].dim())
+    moments = {n: sharding.Sharding(mesh, s) for n, s in
+               sharding.moment_specs(
+                   named, mesh, {n: sh.spec for n, sh in shard_of.items()}
+               ).items()}
+    for name, p in named.items():
+        p.data = sharding.local_slice(p.data, shard_of[name])
+    partial = set()
+    if mesh.model_size() > 1:
+        partial = _mark_parallel(params, cfg, shard_of, mesh)
+    for mod in params.modules():
+        if isinstance(mod, MOE.MoE):
+            mod.mesh = mesh
+            if mod.bank_keys == MOE.BANKS and \
+                    mod.wi.shape[0] != cfg.n_experts:
+                mod.expert_offset = mesh.index(C.MODEL_AXIS) * \
+                    mod.wi.shape[0]
+    params.layout = sharding.Layout(mesh, shard_of, moments,
+                                    frozenset(partial))
+    return params
+
+
+def _mark_parallel(params: LMBase, cfg: ModelConfig, shard_of: dict,
+                   mesh: C.Mesh) -> set:
+    """Set each linear's ``parallel`` kind, the MLPs', attentions' and the
+    vocab-parallel embedding's mesh; return the names whose gradient is
+    partial over ``model``."""
+    model = C.MODEL_AXIS
+    partial = set()
+    for mname, mod in params.named_modules():
+        pre = f"{mname}." if mname else ""
+        if isinstance(mod, L.NmcLinear) and mod.w is not None:
+            spec = shard_of[pre + "w"].spec
+            mod.parallel = "col" if spec[-1] == model else \
+                "row" if spec[-2] == model else None
+            mod.mesh = mesh if mod.parallel else None
+        elif isinstance(mod, L.Embedding) and pre == "embed.":
+            if shard_of[pre + "table"].spec[0] == model:
+                mod.mesh = mesh
+                mod.vocab_offset = mesh.index(model) * mod.table.shape[0]
+        elif isinstance(mod, MOE.MoE):
+            partial |= {pre + "router." + n
+                        for n, _ in mod.router.named_parameters()}
+    for mname, mod in params.named_modules():
+        pre = f"{mname}." if mname else ""
+        if isinstance(mod, L.MLP) and mod.wi.parallel == "col":
+            mod.mesh = mesh
+        elif isinstance(mod, A.GQAttention) and mod.wq.parallel == "col":
+            mod.mesh = mesh
+            if mod.wk.parallel != "col":
+                mod.kv_select = _kv_select(cfg, mesh)
+                partial |= {f"{pre}{w}.{n}" for w in ("wk", "wv")
+                            for n, _ in getattr(mod, w).named_parameters()}
+    return partial
+
+
+def _kv_select(cfg: ModelConfig, mesh: C.Mesh) -> list:
+    """The KV head each of this rank's query heads reads (``model`` does
+    not divide the KV heads, so the local query heads never cover whole
+    groups: one KV head per query head)."""
+    h_loc = cfg.n_heads // mesh.model_size()
+    group = cfg.n_heads // cfg.n_kv_heads
+    h0 = mesh.index(C.MODEL_AXIS) * h_loc
+    return [(h0 + i) // group for i in range(h_loc)]
 
 
 def cache_batch_axes(cfg: ModelConfig, caches: dict) -> dict:

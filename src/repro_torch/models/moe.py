@@ -1,21 +1,32 @@
 """Mixture-of-Experts: top-k routing, capacity-bounded dispatch, SwiGLU
-expert banks (float, or int8 per (expert, out-channel)) and shared experts.
+expert banks (float, or int8 per (expert, out-channel)) and shared experts,
+with expert parallelism over the ``model`` axis of a mesh.
 
-The counterpart of the JAX package's ``models/moe.py`` on one shard (its
-``axis=None`` branch: every expert local); expert parallelism waits for the
-scale-out slice of the port.  Each token picks its ``top_k`` experts by a
-float32 softmax router, renormalised over the picks.  The ``t * k``
-assignments are dispatched token-major: an assignment's slot is the running
-count of its expert, and those at or past the capacity
-``max(int(t * k * capacity_factor / E), 1)`` are dropped (they contribute
-nothing; the shared experts still apply).  Kept tokens fill an ``(E, cap,
-d)`` buffer in the activation dtype, run through every expert's SwiGLU, and
-are scatter-added back weighted by their routing probability.
+The counterpart of the JAX package's ``models/moe.py``.  Each token picks
+its ``top_k`` experts by a float32 softmax router, renormalised over the
+picks.  The ``t * k`` assignments are dispatched token-major: an
+assignment's slot is the running count of its expert, and those at or past
+the capacity ``max(int(t * k * capacity_factor / E), 1)`` are dropped
+(they contribute nothing; the shared experts still apply).  Kept tokens
+fill an ``(E, cap, d)`` buffer in the activation dtype, run through every
+expert's SwiGLU, and are scatter-added back weighted by their routing
+probability.
+
+On a mesh (:func:`~repro_torch.models.lm.shard`), as the reference's
+``shard_map`` branch: with a ``model`` axis the tokens enter replicated
+over it (``copy_to_model``), each rank owns ``E / model`` experts (the
+first at ``expert_offset``) and dispatches only the assignments to them,
+the partial outputs are summed over ``model`` and ``aux`` averaged over
+it.  The routing, the capacity, the drops and ``aux`` come from the tokens
+the rank holds: those of its data shard.  With data axes and no ``model``
+axis the reference takes no ``shard_map`` and routes the global batch
+(GSPMD), so the port gathers the tokens over the data axes, routes them
+all and keeps its rows.
 
 The router, the expert products and the dequantize of int8 banks are plain
 PyTorch, as they are XLA (not Pallas) in the reference; the shared experts
-are :class:`~repro_torch.models.layers.MLP` projections and follow
-``nmc_mode`` (``nmc_matmul`` in ``w8a8``).
+are :class:`~repro_torch.models.layers.MLP` projections (tensor-parallel
+on a mesh) and follow ``nmc_mode`` (``nmc_matmul`` in ``w8a8``).
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import context as C
 from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -79,23 +91,29 @@ def expert_ffn(buf: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
 
 
 def moe_local(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
-              wg: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig) -> tuple:
-    """Dispatch, expert FFN and combine over the ``t`` tokens of x (t, d).
-    Returns (y (t, d), aux)."""
+              wg: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig,
+              e0: int = 0) -> tuple:
+    """Dispatch, expert FFN and combine over the ``t`` tokens of x (t, d)
+    for the experts ``e0`` to ``e0 + len(wi)`` (every expert unless
+    sharded).  Returns (y (t, d): the local experts' part, aux)."""
     t, d = x.shape
-    dtype, k = x.dtype, cfg.top_k
+    dtype, k, e_loc = x.dtype, cfg.top_k, wi.shape[0]
     r = route(x, wr, cfg)
     flat_e = r.top_e.reshape(-1)
     flat_p = r.top_p.reshape(-1).to(dtype)
     tok_ix = torch.arange(t, device=x.device).repeat_interleave(k)
     slot_c = torch.clamp(r.slot, 0, r.cap - 1)
-    buf = torch.zeros((cfg.n_experts, r.cap, d), dtype=dtype,
-                      device=x.device)
+    keep = r.keep
+    le = flat_e
+    if e_loc != cfg.n_experts:
+        keep = keep & (flat_e >= e0) & (flat_e < e0 + e_loc)
+        le = torch.clamp(flat_e - e0, 0, e_loc - 1)
+    buf = torch.zeros((e_loc, r.cap, d), dtype=dtype, device=x.device)
     # a dropped assignment adds 0 * x to a clamped slot, as the reference
-    buf.index_put_((flat_e, slot_c), r.keep.to(dtype)[:, None] * x[tok_ix],
+    buf.index_put_((le, slot_c), keep.to(dtype)[:, None] * x[tok_ix],
                    accumulate=True)
     out = expert_ffn(buf, wi, wg, wo)
-    contrib = out[flat_e, slot_c] * torch.where(r.keep, flat_p, 0.0)[:, None]
+    contrib = out[le, slot_c] * torch.where(keep, flat_p, 0.0)[:, None]
     # each token's k contributions added in pick order, one rounding per
     # add as the reference's scatter-add (an atomic index_add_ on the card
     # would add them in any order, and a bf16 sum would then vary by run)
@@ -111,7 +129,11 @@ class MoE(nn.Module):
     float32, never quantized by ``quantize_tree``), the expert banks
     ``wi`` / ``wg`` (E, d, f) and ``wo`` (E, f, d) in float or as
     ``wi_q`` / ``wi_s`` ... (int8 with an (E, d_out) scale), and the
-    optional shared gated MLP."""
+    optional shared gated MLP.  On a mesh ``mesh`` is set and the banks
+    hold the experts from ``expert_offset`` on (module docstring)."""
+
+    mesh: C.Mesh | None = None
+    expert_offset: int = 0
 
     def __init__(self, router: L.NmcLinear, banks: dict,
                  shared: L.MLP | None = None):
@@ -154,6 +176,9 @@ class MoE(nn.Module):
         """The NMC serving form: int8 expert banks, the shared experts'
         linears quantized, the router left in float (its logit margins
         decide routing)."""
+        if self.mesh is not None:
+            raise NotImplementedError("serving an expert-parallel MoE waits "
+                                      "for sharded serving")
         if self.quantized_banks:
             banks = {k: getattr(self, k) for k in QUANT_BANKS}
         else:
@@ -181,10 +206,24 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
         """x: (B, S, D) -> (y, aux float32): the routed experts over all
-        B * S tokens at once, plus the shared experts."""
+        B * S tokens at once (on a mesh: module docstring), plus the
+        shared experts."""
         b, s, d = x.shape
-        y2, aux = moe_local(x.reshape(-1, d), self.router_weight(x.dtype),
-                            *self.expert_weights(x.dtype), cfg)
+        x2, mesh = x.reshape(-1, d), self.mesh
+        gather = mesh is not None and mesh.model_size() == 1 and \
+            mesh.size(mesh.data_axes()) > 1
+        if gather:
+            x2 = C.gather_from_data(x2, mesh)
+        elif mesh is not None and mesh.model_size() > 1:
+            x2 = C.copy_to_model(x2, mesh)
+        y2, aux = moe_local(x2, self.router_weight(x.dtype),
+                            *self.expert_weights(x.dtype), cfg,
+                            self.expert_offset)
+        if gather:
+            y2 = y2.narrow(0, mesh.index(mesh.data_axes()) * b * s, b * s)
+        elif mesh is not None and mesh.model_size() > 1:
+            y2 = C.reduce_from_model(y2, mesh)
+            aux = C.mean_over_model(aux, mesh)
         y = y2.reshape(b, s, d)
         if self.shared is not None:
             y = y + self.shared(x, nmc_mode=cfg.nmc_mode)

@@ -42,6 +42,11 @@ def test_import_without_jax_or_reference():
             "repro_torch.train.trainer, repro_torch.data.pipeline, "
             "repro_torch.checkpoint.ckpt, "
             "repro_torch.distributed.compress, "
+            "repro_torch.distributed.context, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.distributed.pipeline, "
+            "repro_torch.distributed.checks, "
+            "repro_torch.launch.mesh, repro_torch.runtime.elastic, "
             "repro_torch.examples.train_tinylm; "
             "repro_torch.configs.get('qwen1.5-0.5b'); "
             "repro_torch.configs.get('moonshot-v1-16b-a3b'); "

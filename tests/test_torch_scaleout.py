@@ -1,0 +1,568 @@
+"""The port's scale-out (``repro_torch.{distributed,launch,runtime}`` and
+the mesh-aware train step) against the JAX reference on the CPU: ranks
+spawned by ``launch.mesh.run_ranks`` over gloo, smoke configs in float32.
+
+One spawn per world size runs every check of its meshes
+(``distributed.checks.sequence``): two ranks for the (1, 2) and (2, 1)
+meshes, the refusals, the hybrid's data parallelism and the elastic
+reshard; four for (2, 2) and the 4-stage pipeline.  Each spawn is joined
+within a timeout.  The reference runs in this process on one device,
+except its own 2 x 2 run of the MoE, in one subprocess with four fake
+devices.
+
+Tolerances: those of ``tests/test_torch_train.py`` (loss ``rtol 1e-5``;
+gradients ``rtol 1e-4`` with an ``atol`` of ``1e-5`` of the tensor's
+largest; one step from a mid-run optimizer state, params / ``m`` / ``v``
+``rtol 1e-5`` / ``atol 1e-6``; with compression, the reference's own
+compression and AdamW applied to the gathered gradients: the error state
+bit for bit, the rest ``rtol 1e-6`` / ``atol 1e-8``), and every gathered
+gradient against the port's single-rank run at the gradients' tolerance.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import ckpt as jckpt
+from repro.configs import base as jcb
+from repro.distributed import compress as jgc
+from repro.distributed.pipeline import bubble_fraction as jbubble
+from repro.models import lm as jlm
+from repro.optim import adamw as jadamw
+from repro.train import step as jstep
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs import base as cb
+from repro_torch.data import pipeline as tpipe
+from repro_torch.distributed import checks
+from repro_torch.distributed.pipeline import bubble_fraction
+from repro_torch.launch.mesh import run_ranks
+from repro_torch.models import lm
+from repro_torch.models.convert import params_from_jax
+from repro_torch.optim import adamw as tadamw
+from repro_torch.runtime.elastic import (HeartbeatMonitor, MembershipWatcher,
+                                         make_mesh_for)
+from repro_torch.train import step as tstep
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARCHS = {"qwen": "qwen1.5-0.5b", "moonshot": "moonshot-v1-16b-a3b"}
+GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-5
+STEP_TOL = dict(rtol=1e-5, atol=1e-6)
+OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+ROWS, SEQ = 4, 16
+SPAWN_TIMEOUT = 240.0
+
+#: (arch, mesh shape, microbatches, compression) of the two-rank world
+STEPS_2 = [("qwen", (1, 2), 1, False), ("qwen", (2, 1), 1, False),
+           ("moonshot", (1, 2), 1, False), ("moonshot", (2, 1), 1, False),
+           ("qwen", (2, 1), 2, False), ("moonshot", (2, 1), 2, False),
+           ("qwen", (2, 1), 1, True), ("moonshot", (2, 1), 1, True),
+           ("qwen", (1, 2), 1, True)]
+STEPS_4 = [("qwen", (2, 2), 1, False), ("moonshot", (2, 2), 1, False)]
+#: the families a model axis refuses, one smoke config each
+REFUSED = ("deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-125m",
+           "whisper-tiny", "pixtral-12b")
+
+
+def _cfgs(arch: str, **kw) -> tuple:
+    return (jcb.get(arch, smoke=True).scaled(dtype=jnp.float32, **kw),
+            cb.get(arch, smoke=True).scaled(dtype=torch.float32, **kw))
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(arch: str):
+    return jlm.init_params(jax.random.PRNGKey(0), _cfgs(arch)[0])
+
+
+def _named(tree, tcfg) -> dict:
+    """A reference tree shaped as the params under the port's names
+    (numpy)."""
+    model = params_from_jax(_np(tree), tcfg, "cpu")
+    return {n: t.detach().numpy() for n, t in model.named_parameters()}
+
+
+def _dense_tree(named: dict, like) -> dict:
+    """The port's {name: array} as the reference's tree (``layers``
+    stacked on axis 0)."""
+    n_layers = len(like["layers"]["ln1"]["g"])
+
+    def leaf(path, _):
+        keys = [p.key for p in path]
+        if keys[0] == "layers":
+            rest = ".".join(keys[1:])
+            return jnp.asarray(np.stack([named[f"layers.{i}.{rest}"]
+                                         for i in range(n_layers)]))
+        return jnp.asarray(named[".".join(keys)])
+    return jax.tree_util.tree_map_with_path(leaf, like)
+
+
+@functools.lru_cache(maxsize=None)
+def _opt_state(arch: str, compress: bool):
+    """A mid-run optimizer state (the reference's tree): nonzero moments,
+    step 2 (numpy-seeded), as ``test_torch_train.py``'s."""
+    rng = np.random.default_rng(7)
+
+    def draw(scale, square=False):
+        def one(p):
+            x = rng.normal(size=p.shape).astype(np.float32) * scale
+            return jnp.asarray(x * x + 1e-4 if square else x)
+        return jax.tree.map(one, _weights(arch))
+    state = {"m": draw(1e-2), "v": draw(1e-2, square=True),
+             "step": jnp.asarray(2, jnp.int32)}
+    if compress:
+        state["grad_err"] = draw(1e-4)
+    return state
+
+
+def _port_state(arch: str, compress: bool) -> dict:
+    tcfg = _cfgs(arch)[1]
+    st = _opt_state(arch, compress)
+    out = {k: _named(st[k], tcfg) for k in st if k != "step"}
+    out["step"] = int(st["step"])
+    return out
+
+
+def _batch(arch: str) -> dict:
+    data = tpipe.SyntheticLM(tpipe.DataConfig(global_batch=ROWS,
+                                              seq_len=SEQ, seed=3),
+                             _cfgs(arch)[1])
+    return data.batch_at(1)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch: str, n_mb: int) -> dict:
+    """The reference's single-device step: its gradients (per microbatch
+    ``value_and_grad``, summed and divided), metrics, params and moments,
+    under the port's names."""
+    jcfg, tcfg = _cfgs(arch)
+    jp = _weights(arch)
+    batch = {k: jnp.asarray(v) for k, v in _batch(arch).items()}
+    vg = jax.jit(jax.value_and_grad(lambda p, b: jlm.loss_fn(p, b, jcfg),
+                                    has_aux=True))
+    rows = ROWS // n_mb
+    total = None
+    for i in range(n_mb):
+        _, g = vg(jp, {k: v[i * rows:(i + 1) * rows]
+                       for k, v in batch.items()})
+        total = g if total is None else jax.tree.map(jnp.add, total, g)
+    grads = jax.tree.map(lambda x: x / n_mb, total)
+    new, st, met = jax.jit(jstep.make_train_step(
+        jcfg, jadamw.AdamWConfig(**OPT), n_mb))(
+            jp, _opt_state(arch, False), batch)
+    return {"grads": _named(grads, tcfg), "params": _named(new, tcfg),
+            "m": _named(st["m"], tcfg), "v": _named(st["v"], tcfg),
+            "metrics": {k: float(v) for k, v in met.items()}}
+
+
+@functools.lru_cache(maxsize=None)
+def _single(arch: str, n_mb: int, compress: bool) -> dict:
+    """The port's single-rank step on the same state: its gradients."""
+    _, tcfg = _cfgs(arch)
+    model = params_from_jax(_np(_weights(arch)), tcfg, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in _batch(arch).items()}
+    _, _, g = tstep.accumulated_grads(tstep.make_loss(tcfg), model, tb, n_mb)
+    return {n: t.numpy() for n, t in g.items()}
+
+
+def _assert_close_grads(got: dict, want: dict, what: str):
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        atol = GRAD_ATOL_SCALE * float(np.abs(w).max()) + 1e-12
+        np.testing.assert_allclose(got[name], w, rtol=GRAD_RTOL, atol=atol,
+                                   err_msg=f"{what} {name}")
+
+
+def _step_call(key, shape, n_mb, compress) -> tuple:
+    arch = ARCHS[key]
+    return ("sharded_step", (_cfgs(arch)[1], shape, _np(_weights(arch)),
+                             _port_state(arch, compress), _batch(arch), OPT,
+                             n_mb, compress))
+
+
+def _spawn(world: int, calls: dict) -> dict:
+    results = run_ranks(checks.sequence, world, list(calls.values()),
+                        backend="gloo", device="cpu",
+                        timeout=SPAWN_TIMEOUT, collective_timeout=120.0)
+    return dict(zip(calls, results[0]))
+
+
+@pytest.fixture(scope="module")
+def world2(tmp_path_factory):
+    ckdir = str(tmp_path_factory.mktemp("elastic") / "ck")
+    calls = {case: _step_call(*case) for case in STEPS_2}
+    calls["refused"] = ("refusals", ([cb.get(a, smoke=True).scaled(
+        dtype=torch.float32) for a in REFUSED],))
+    calls["zamba2"] = _step_call_dp_or_kv("zamba2-2.7b", (2, 1))
+    calls["kv1"] = _step_call_dp_or_kv("qwen1.5-0.5b", (1, 2), n_kv_heads=1)
+    calls["elastic"] = ("elastic_check", (
+        _cfgs("qwen1.5-0.5b")[1],
+        dict(total_steps=4, ckpt_every=2, log_every=100, ckpt_dir=ckdir),
+        dict(global_batch=4, seq_len=16), OPT, 3, (1, 2), 1))
+    out = _spawn(2, calls)
+    out["ckdir"] = ckdir
+    return out
+
+
+def _single_rank_case(arch: str, **kw) -> tuple:
+    """(port config, reference weights, batch) of a config held to the
+    port's single-rank run only."""
+    jcfg, tcfg = _cfgs(arch, **kw)
+    w = _np(jlm.init_params(jax.random.PRNGKey(0), jcfg))
+    data = tpipe.SyntheticLM(tpipe.DataConfig(global_batch=ROWS,
+                                              seq_len=SEQ, seed=3), tcfg)
+    return tcfg, w, data.batch_at(1)
+
+
+def _step_call_dp_or_kv(arch: str, shape: tuple, **kw) -> tuple:
+    tcfg, w, batch = _single_rank_case(arch, **kw)
+    model = params_from_jax(w, tcfg, "cpu")
+    zeros = {n: np.zeros(p.shape, np.float32)
+             for n, p in model.named_parameters()}
+    state = {"m": zeros, "v": dict(zeros), "step": 0}
+    return ("sharded_step", (tcfg, shape, w, state, batch, OPT, 1, False))
+
+
+def _single_rank_grads(arch: str, **kw) -> tuple:
+    tcfg, w, batch = _single_rank_case(arch, **kw)
+    model = params_from_jax(w, tcfg, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, _, g = tstep.accumulated_grads(tstep.make_loss(tcfg), model, tb)
+    return float(loss), {n: t.numpy() for n, t in g.items()}
+
+
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory):
+    rng = np.random.default_rng(0)
+    n_stages, n_micro, b, d = 4, 8, 16, 32
+    stages = [{"w": (rng.normal(size=(d, d)) * 0.3).astype(np.float32),
+               "b": rng.normal(size=(d,)).astype(np.float32)}
+              for _ in range(n_stages)]
+    x = rng.normal(size=(b, d)).astype(np.float32)
+    calls = {case: _step_call(*case) for case in STEPS_4}
+    calls["pipeline"] = ("pipeline_check",
+                         (checks.tanh_stage, stages, x, n_micro))
+    return _spawn(4, calls)
+
+
+def _result(world2, world4, case) -> dict:
+    return (world4 if case in STEPS_4 else world2)[case]
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", [c for c in STEPS_2 + STEPS_4
+                                  if not (c[0] == "moonshot"
+                                          and c[1] == (2, 2))],
+                         ids=lambda c: f"{c[0]}-{c[1][0]}x{c[1][1]}-mb{c[2]}"
+                         f"{'-int8' if c[3] else ''}")
+def test_sharded_step_matches_reference(world2, world4, case):
+    arch, shape, n_mb, compress = case
+    got = _result(world2, world4, case)
+    ref = _reference(ARCHS[arch], n_mb)
+    _assert_close_grads(got["grads"], ref["grads"], "reference")
+    _assert_close_grads(got["grads"], _single(ARCHS[arch], n_mb, compress),
+                        "single rank")
+    assert sorted(got["metrics"]) == sorted(ref["metrics"])
+    for key in ("loss", "nll", "aux", "lr") + (() if compress
+                                                else ("grad_norm",)):
+        np.testing.assert_allclose(got["metrics"][key], ref["metrics"][key],
+                                   rtol=1e-5, atol=1e-7, err_msg=key)
+    assert got["step"] == 3
+    if not compress:
+        for key in ("params", "m", "v"):
+            for n, w in ref[key].items():
+                np.testing.assert_allclose(got[key][n], w, **STEP_TOL,
+                                           err_msg=f"{key} {n}")
+        return
+    # the reference's compression and AdamW on the gathered gradients
+    jp = _weights(ARCHS[arch])
+    jst = _opt_state(ARCHS[arch], True)
+    tcfg = _cfgs(ARCHS[arch])[1]
+    cg, err = jgc.compress_tree(_dense_tree(got["grads"], jp),
+                                jst["grad_err"])
+    core = {k: jst[k] for k in ("m", "v", "step")}
+    wp, wst, wmet = jadamw.apply_updates(jp, jgc.decompress_tree(cg), core,
+                                         jadamw.AdamWConfig(**OPT))
+    np.testing.assert_allclose(got["metrics"]["grad_norm"],
+                               float(wmet["grad_norm"]), rtol=1e-6)
+    for key, want in (("params", wp), ("m", wst["m"]), ("v", wst["v"]),
+                      ("grad_err", err)):
+        for n, w in _named(want, tcfg).items():
+            if key == "grad_err":
+                assert np.array_equal(got[key][n], w), n
+            else:
+                np.testing.assert_allclose(got[key][n], w, rtol=1e-6,
+                                           atol=1e-8, err_msg=f"{key} {n}")
+
+
+def test_layout_of_the_steps(world2):
+    """ZeRO-2 on (2, 1): each moment is half the parameter along its data
+    dim, but where the reference puts the data axis on its leaf's stack
+    dim (the stacked q/k/v biases, (2, 64): the layer axis is the only
+    free one, ``model`` holding the other), which a port tensor lacks, so
+    that moment stays whole.  On a model axis only the MoE router is
+    summed over it."""
+    q21 = world2[("qwen", (2, 1), 1, False)]
+    full = dict(lm.init_params(_cfgs("qwen1.5-0.5b")[1], torch.Generator(),
+                               "meta").named_parameters())
+    whole = sorted(n for n, s in q21["local_m"].items()
+                   if s == tuple(full[n].shape))
+    assert whole == sorted(f"layers.{i}.attn.{w}.b" for i in range(2)
+                           for w in ("wq", "wk", "wv"))
+    for n, s in q21["local_m"].items():
+        if n not in whole:
+            assert 2 * int(np.prod(s)) == full[n].numel(), n
+    assert world2[("qwen", (1, 2), 1, False)]["partial"] == []
+    moe = world2[("moonshot", (1, 2), 1, False)]["partial"]
+    assert moe and all(".moe.router." in n for n in moe)
+
+
+@pytest.fixture(scope="module")
+def reference_2x2(tmp_path_factory):
+    """The reference's own train step of moonshot-smoke on a 2 x 2 (data,
+    model) mesh of fake devices, from the same state and batch."""
+    tmp = tmp_path_factory.mktemp("ref2x2")
+    arch = ARCHS["moonshot"]
+    state = _np(_opt_state(arch, False))
+    np.savez(tmp / "in.npz", tokens=_batch(arch)["tokens"],
+             **{f"{k}/{jax.tree_util.keystr(p)}": v
+                for k in ("m", "v")
+                for p, v in jax.tree_util.tree_flatten_with_path(
+                    state[k])[0]})
+    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", _REF_2X2, str(tmp), arch,
+                          json.dumps(OPT)], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = np.load(tmp / "out.npz")
+    tcfg = _cfgs(arch)[1]
+    like = _weights(arch)
+
+    def tree(prefix):
+        return jax.tree_util.tree_map_with_path(
+            lambda p, _: res[f"{prefix}/{jax.tree_util.keystr(p)}"], like)
+    return {"grads": _named(tree("grads"), tcfg),
+            "params": _named(tree("params"), tcfg),
+            "m": _named(tree("m"), tcfg), "v": _named(tree("v"), tcfg),
+            "metrics": json.loads(str(res["metrics"]))}
+
+
+_REF_2X2 = textwrap.dedent("""
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import json, sys
+    import numpy as np
+    import jax, jax.numpy as jnp
+    sys.path.insert(0, "src")
+    from repro.configs import base as cb
+    from repro.distributed import context, sharding
+    from repro.launch.mesh import make_mesh
+    from repro.models import lm
+    from repro.optim import adamw
+    from repro.train import step as step_lib
+
+    tmp, arch, opt = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+    cfg = cb.get(arch, smoke=True).scaled(dtype=jnp.float32)
+    inp = np.load(os.path.join(tmp, "in.npz"))
+    params = lm.init_params(jax.random.PRNGKey(0), cfg)
+    key = jax.tree_util.keystr
+    state = {k: jax.tree_util.tree_map_with_path(
+        lambda p, _: jnp.asarray(inp[f"{k}/{key(p)}"]), params)
+        for k in ("m", "v")}
+    state["step"] = jnp.asarray(2, jnp.int32)
+    batch = {"tokens": jnp.asarray(inp["tokens"])}
+    mesh = make_mesh(np.array(jax.devices()).reshape(2, 2),
+                     ("data", "model"))
+    with context.use_mesh(mesh):
+        ps = jax.device_put(params, sharding.param_shardings(params, mesh))
+        _, grads = jax.jit(jax.value_and_grad(
+            lambda p, b: lm.loss_fn(p, b, cfg), has_aux=True))(ps, batch)
+        new, st, met = jax.jit(step_lib.make_train_step(
+            cfg, adamw.AdamWConfig(**opt)))(ps, state, batch)
+    out = {"metrics": json.dumps({k: float(v) for k, v in met.items()})}
+    for name, t in (("grads", grads), ("params", new), ("m", st["m"]),
+                    ("v", st["v"])):
+        for p, v in jax.tree_util.tree_flatten_with_path(t)[0]:
+            out[f"{name}/{key(p)}"] = np.asarray(v)
+    np.savez(os.path.join(tmp, "out.npz"), **out)
+""")
+
+
+def test_moe_on_2x2_follows_the_reference_2x2_run(world4, reference_2x2):
+    """On (2, 2) the capacity, the drops and ``aux`` come from each data
+    shard's tokens: the gradient is the mean of each shard's own, the
+    reported ``aux`` data shard 0's (the reference's own 2 x 2 run, not
+    its single-device step)."""
+    got, ref = world4[("moonshot", (2, 2), 1, False)], reference_2x2
+    _assert_close_grads(got["grads"], ref["grads"], "reference 2x2")
+    for key in ("loss", "nll", "aux", "grad_norm", "lr"):
+        np.testing.assert_allclose(got["metrics"][key], ref["metrics"][key],
+                                   rtol=1e-5, atol=1e-7, err_msg=key)
+    single = _reference(ARCHS["moonshot"], 1)["metrics"]
+    assert abs(got["metrics"]["aux"] - single["aux"]) > 1e-3
+    for key in ("params", "m", "v"):
+        for n, w in ref[key].items():
+            np.testing.assert_allclose(got[key][n], w, **STEP_TOL,
+                                       err_msg=f"{key} {n}")
+
+
+# ---------------------------------------------------------------------------
+# families, pipeline, elastic
+# ---------------------------------------------------------------------------
+
+def test_hybrid_data_parallel_matches_single_rank(world2):
+    """zamba2-smoke on (2, 1): its gradients the port's single-rank ones,
+    its loss the single-rank loss."""
+    got = world2["zamba2"]
+    loss, grads = _single_rank_grads("zamba2-2.7b")
+    _assert_close_grads(got["grads"], grads, "single rank")
+    np.testing.assert_allclose(got["metrics"]["loss"], loss, rtol=1e-5)
+
+
+def test_kv_heads_that_model_does_not_divide(world2):
+    """qwen-smoke with one KV head on (1, 2): ``wk`` / ``wv`` stay whole,
+    each rank takes the KV head its query heads read, and their partial
+    gradients are summed over ``model`` to the single-rank ones."""
+    got = world2["kv1"]
+    loss, grads = _single_rank_grads("qwen1.5-0.5b", n_kv_heads=1)
+    _assert_close_grads(got["grads"], grads, "single rank")
+    np.testing.assert_allclose(got["metrics"]["loss"], loss, rtol=1e-5)
+    assert got["partial"] == sorted(f"layers.{i}.attn.{w}.{p}"
+                                    for i in range(2) for w in ("wk", "wv")
+                                    for p in ("w", "b"))
+
+
+@pytest.mark.parametrize("arch", REFUSED)
+def test_model_axis_refuses_unported_families(world2, arch):
+    msg = world2["refused"][REFUSED.index(arch)]
+    cfg = cb.get(arch, smoke=True)
+    kind = "MLA" if cfg.mla else cfg.family
+    assert msg is not None and f"not the {kind} family" in msg, msg
+
+
+def test_pipeline_matches_sequential(world4):
+    """4 stages, 8 microbatches of 2 rows: ``pipeline_apply`` equals the
+    stages in sequence (``test_pipeline.py``'s bound)."""
+    res = world4["pipeline"]
+    assert res["err"] < 1e-5, res
+    assert res["bubble"] == jbubble(4, 8) == bubble_fraction(4, 8)
+
+
+def test_bubble_fraction():
+    assert bubble_fraction(4, 12) == jbubble(4, 12) == 3 / 15
+    assert bubble_fraction(1, 8) == jbubble(1, 8) == 0.0
+
+
+def test_elastic_reshard_checkpoint(world2):
+    """A trainer on (1, 2), crashed at step 3 and restored from step 2
+    (the replayed step's loss equal bit for bit), writes its step-4
+    checkpoint; restored onto (2, 1) through ``reshard_state`` and through
+    ``ckpt.restore`` with shardings, the gathered state equals the written
+    one bit for bit, as do the parameters moved back onto (1, 2) from
+    their (2, 1) slices; and one more step runs."""
+    res = world2["elastic"]
+    assert res["run"] == {"final_step": 4, "restarts": 1}
+    assert res["last"] == 4
+    assert res["same"] == {"reshard": True, "restore": True,
+                           "round_trip": True}
+    steps = [s["step"] for s in res["steps"]]
+    assert steps == [0, 1, 2, 2, 3]
+    assert res["steps"][2]["loss"] == res["steps"][3]["loss"]
+    assert [c["step"] for c in res["checkpoints"]] == [2, 4]
+    assert np.isfinite(res["resumed_loss"])
+
+
+def test_the_reference_restores_the_sharded_checkpoint(world2):
+    """The checkpoint the (1, 2) ranks wrote loads in the reference's
+    ``ckpt.restore`` bit for bit against the port's own restore."""
+    ckdir = world2["ckdir"]
+    tcfg = _cfgs("qwen1.5-0.5b")[1]
+    model, opt = tstep.init_train_state(torch.Generator(), tcfg,
+                                        device="cpu")
+    params = dict(model.named_parameters())
+    mine = ckpt.restore(ckdir, 4, {"params": params, "opt": opt})
+    like = jax.tree.map(lambda t: jnp.zeros(tuple(t.shape), jnp.float32)
+                        if t.dtype == torch.float32 else
+                        jnp.zeros((), jnp.int32),
+                        {"params": {n: p.detach() for n, p in
+                                    params.items()}, "opt": opt})
+    theirs = jckpt.restore(ckdir, 4, like)
+    flat_mine = jax.tree.leaves(jax.tree.map(lambda t: t.numpy(), mine))
+    flat_theirs = jax.tree.leaves(_np(theirs))
+    assert len(flat_mine) == len(flat_theirs) == 3 * len(params) + 1
+    for a, b in zip(flat_mine, flat_theirs):
+        assert a.tobytes() == b.tobytes()
+
+
+def test_membership_watcher_and_mesh_rebuild():
+    w = MembershipWatcher(events={3: 1})
+    assert w.view.n_devices == 1
+    assert w.poll(1) is None
+    v = w.poll(3)
+    assert v is not None and v.generation == 1
+    mesh = make_mesh_for(v.n_devices, model_parallel=1, device="cpu")
+    assert mesh.size(("data", "model")) == 1
+
+
+def test_heartbeat_monitor():
+    hb = HeartbeatMonitor(timeout_s=1.0)
+    hb.beat(0.0)
+    hb.beat(0.5)
+    hb.beat(5.0)
+    assert hb.failures == 1
+
+
+def test_data_ranks_rows(tmp_path):
+    """``local_rows`` gives each data rank its share of every microbatch,
+    so the ranks' rows of microbatch i, in order, are the global
+    microbatch i; a file dataset's host shards are the global batch's
+    rows, the synthetic stream is seeded per host (the trainer reads the
+    global batch and keeps its rows)."""
+    import types
+    x = torch.arange(16).reshape(8, 2)
+    for n_mb in (1, 2):
+        parts = []
+        for i in range(2):
+            mesh = types.SimpleNamespace(
+                data_axes=lambda: ("data",), size=lambda axes: 2,
+                index=lambda axes, i=i: i)
+            parts.append(tstep.local_rows({"tokens": x}, mesh,
+                                          n_mb)["tokens"])
+        for j, mb in enumerate(tstep.split_batch({"tokens": x}, n_mb)):
+            got = torch.cat([tstep.split_batch({"tokens": p},
+                                               n_mb)[j]["tokens"]
+                             for p in parts])
+            assert torch.equal(got, mb["tokens"])
+    tcfg = _cfgs("qwen1.5-0.5b")[1]
+    one = tpipe.SyntheticLM(tpipe.DataConfig(global_batch=4, seq_len=8),
+                            tcfg).batch_at(2)["tokens"]
+    two = [tpipe.SyntheticLM(tpipe.DataConfig(global_batch=4, seq_len=8,
+                                              n_hosts=2, host_id=h),
+                             tcfg).batch_at(2)["tokens"] for h in (0, 1)]
+    assert np.array_equal(two[0], one[:2])
+    assert not np.array_equal(two[1], one[2:])
+    path = tmp_path / "tokens.bin"
+    np.arange(40 * 9, dtype=np.uint16).tofile(path)
+    whole = tpipe.PackedFileDataset(str(path), tpipe.DataConfig(
+        global_batch=4, seq_len=8)).batch_at(3)
+    for h in (0, 1):
+        part = tpipe.PackedFileDataset(str(path), tpipe.DataConfig(
+            global_batch=4, seq_len=8, n_hosts=2, host_id=h)).batch_at(3)
+        assert np.array_equal(part["tokens"],
+                              whole["tokens"][2 * h:2 * h + 2])
