@@ -93,10 +93,14 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   (``launch.mesh.run_ranks``, rank function
   ``distributed.checks.chip_scaleout``): tensor parallelism (qwen1.5-0.5b
   at full width and depth on data 1 x model 2), data parallelism with
-  ZeRO-2 moments (on 2 x 1) and expert parallelism (moonshot-v1-16b-a3b at
-  full width cut to 2 layers, 32 experts a rank), each one train step
-  against the single-rank step (loss, every gathered gradient and updated
-  parameter, every attention launch replayed); the trainer on 1 x 2 with
+  ZeRO-2 moments (on 2 x 1), expert parallelism (moonshot-v1-16b-a3b at
+  full width cut to 2 layers, 32 experts a rank), MLA with expert
+  parallelism (deepseek-v2-lite-16b at full width cut to 2 layers, 8 heads
+  a rank on ``flash_attention``'s CUDA-core route) and Mamba2 tensor
+  parallelism (zamba2-2.7b at full width cut to 2 groups of 6 layers, 40
+  SSM heads a rank), each one train step against the single-rank step
+  (loss, every gathered gradient and updated parameter, every attention
+  launch replayed on the route it takes); the trainer on 1 x 2 with
   a crash, its checkpoint restored onto 2 x 1 through
   ``elastic.reshard_state`` bit for bit and one more step; the GPipe
   pipeline of qwen's 24 blocks in 2 stages against the blocks in
@@ -2902,8 +2906,21 @@ def phase_training(report: dict, device, seed: int = 0) -> dict:
 
 
 SCALEOUT_MOE_LAYERS = 2
-#: the scale-out phase: qwen1.5-0.5b at full width and depth and
-#: moonshot-v1-16b-a3b at full width cut to 2 layers, the training phase's
+#: deepseek-v2-lite-16b cut to its dense first layer and one MoE layer
+#: (~1.09 B parameters: ~17 GB of float32 p, g, m, v for rank 0's
+#: single-rank reference; ~250 GB at 27 layers)
+SCALEOUT_MLA_LAYERS = 2
+#: zamba2-2.7b cut to 2 groups of 6 Mamba2 layers, so that the shared block
+#: is applied twice and its gradient accumulates over groups (~0.75 B
+#: parameters)
+SCALEOUT_HYBRID_LAYERS = 12
+#: the elastic trainer's qwen1.5-0.5b cut to 8 of 24 layers at full width
+#: (a 4.97 GB training state instead of 7.43), to keep the whole run inside
+#: its time limit; (a), (b) and the pipeline keep all 24
+SCALEOUT_TRAINER_LAYERS = 8
+#: the scale-out phase: qwen1.5-0.5b at full width and depth,
+#: moonshot-v1-16b-a3b, deepseek-v2-lite-16b and zamba2-2.7b at full width
+#: cut in depth (above), the training phase's
 #: batch (8 rows of 512 tokens in 2 microbatches); the trainer's 4 steps of
 #: 2 rows of 256 tokens with a checkpoint every 2 and a crash at step 3;
 #: the pipeline's 8 rows of 512 in 4 microbatches over 2 stages
@@ -2912,23 +2929,44 @@ SCALEOUT = dict(rows=8, seq=512, n_mb=2,
                              ckpt_every=2, fail_at=3),
                 pipeline=dict(rows=8, n_micro=4))
 #: the loss of a sharded step against the single-rank step (relative); for
-#: the MoE, or twice the plain path's own 1-ulp spread where that is larger
-#: (routing is discrete: an ulp can move a top-k pick, as MOE_LOGITS_SPREAD)
+#: the parts in SCALEOUT_SPREAD_PARTS, or twice the plain path's own 1-ulp
+#: spread where that is larger (MOE_LOGITS_SPREAD): the MoE models' routing
+#: is discrete (an ulp can move a top-k pick), and the hybrid's loss is
+#: chaotic under rounding (zamba2 cut to 12 layers, on an H100: 8.19e-5
+#: under 1-ulp input noise, 5.2e-5 between kernels and plain on one rank;
+#: its float32 sharded step gives the single-rank loss exactly on the CPU)
 SCALEOUT_LOSS_RTOL = 1e-4
+SCALEOUT_SPREAD_PARTS = ("c", "f", "g")
 SCALEOUT_TIMEOUT = 600.0
 
 
-def scaleout_expected(cfg, moe_cfg) -> dict:
+def scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg
+                      ) -> dict:
     """``flash_attention`` launches a rank makes in each part of the
-    phase: a step's layers x microbatches; the trainer's 5 steps run
-    (0, 1, 2, the crash at 3, 2 replayed, 3) and the resumed one; the
-    pipeline's stage of half the layers x its microbatches."""
+    phase: a step's attention layers (the hybrid's shared-block
+    applications) x microbatches; the trainer's 5 steps run (0, 1, 2, the
+    crash at 3, 2 replayed, 3) and the resumed one; the pipeline's stage
+    of half the layers x its microbatches."""
     n_mb, tr = SCALEOUT["n_mb"], SCALEOUT["trainer"]
     return {"a": cfg.n_layers * n_mb, "b": cfg.n_layers * n_mb,
             "c": moe_cfg.n_layers * n_mb,
-            "d": cfg.n_layers * tr["n_mb"] * (tr["total_steps"] + 1),
-            "d_resumed": cfg.n_layers * tr["n_mb"],
-            "e": cfg.n_layers // 2 * SCALEOUT["pipeline"]["n_micro"]}
+            "d": trainer_cfg.n_layers * tr["n_mb"]
+            * (tr["total_steps"] + 1),
+            "d_resumed": trainer_cfg.n_layers * tr["n_mb"],
+            "e": cfg.n_layers // 2 * SCALEOUT["pipeline"]["n_micro"],
+            "f": mla_cfg.n_layers * n_mb,
+            "g": hybrid_cfg.n_layers // hybrid_cfg.attn_every * n_mb}
+
+
+def attention_route(cfg) -> str:
+    """The ``flash_attention`` route a model's training launches take
+    (``kernels/flash_attention.route`` at its head dims: MLA's D = nope +
+    rope, Dv = v)."""
+    from repro_torch.kernels import flash_attention as fa
+    if cfg.mla:
+        return fa.route(cfg.dtype, cfg.qk_nope_dim + cfg.qk_rope_dim,
+                        cfg.v_head_dim)
+    return fa.route(cfg.dtype, cfg.head_dim, cfg.head_dim)
 
 
 def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
@@ -2943,13 +2981,23 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     within SCALEOUT_LOSS_RTOL, every gathered gradient and updated
     parameter within the training phase's limits from the plain path's
     1-ulp spread), every attention launch replayed.  (d) ``Trainer(mesh=
-    (1, 2))`` with a crash at step 3 (the replayed step's loss equal bit
-    for bit), its checkpoint restored onto (2, 1) by
-    ``elastic.reshard_state`` (the gathered state equal to the written one
-    bit for bit) and one more step; (e) ``pipeline_apply``, 2 stages of 12
-    blocks, 4 microbatches of 2 rows, against the blocks in sequence.
-    Both ranks compute on the one card, so the times are correctness-run
-    times, not a measure of scaling."""
+    (1, 2))`` of qwen cut to 8 layers with a crash at step 3 (the replayed
+    step's loss equal bit for bit), its checkpoint restored onto (2, 1) by
+    ``elastic.reshard_state`` (each rank's slices equal to the written
+    state's bit for bit) and one more step; (e) ``pipeline_apply``, 2
+    stages of 12 blocks, 4 microbatches of 2 rows, against the blocks in
+    sequence; (f)
+    MLA with expert parallelism, deepseek-v2-lite-16b at full width cut to
+    2 layers (the dense one and one MoE) on (1, 2), 8 heads and 32 experts
+    a rank, its attention on ``flash_attention``'s CUDA-core route (D 192,
+    Dv 128), the assignments dropped on each rank reported; (g) Mamba2
+    tensor parallelism, zamba2-2.7b at full width cut to 12 layers (2
+    groups) on (1, 2), 40 SSM heads and 16 attention heads a rank.  (f)
+    and (g) are held to (a)-(c)'s gradient and parameter limits and to
+    (c)'s loss rule (SCALEOUT_SPREAD_PARTS); each launch is expected on
+    the route ``flash_attention.route`` gives its shape.  Both ranks compute
+    on the one card, so the times are correctness-run times, not a
+    measure of scaling."""
     import dataclasses
     import math
     import re
@@ -2960,8 +3008,14 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     from repro_torch.launch.mesh import run_ranks
     cfg = configs.get(TRAIN_ARCH)
     moe_cfg = configs.get(MOE_ARCH).scaled(n_layers=SCALEOUT_MOE_LAYERS)
+    mla_cfg = configs.get(MLA_ARCH).scaled(n_layers=SCALEOUT_MLA_LAYERS)
+    hybrid_cfg = configs.get(HYBRID_ARCH).scaled(
+        n_layers=SCALEOUT_HYBRID_LAYERS)
+    trainer_cfg = cfg.scaled(n_layers=SCALEOUT_TRAINER_LAYERS)
     smi = report["nvidia_smi"]
-    spec = dict(SCALEOUT, qwen=cfg, moe=moe_cfg, seed=seed,
+    spec = dict(SCALEOUT, qwen=cfg, moe=moe_cfg, mla=mla_cfg,
+                hybrid=hybrid_cfg, trainer_model=trainer_cfg,
+                seed=seed,
                 grad_spread=TRAIN_GRAD_SPREAD, grad_floor=TRAIN_GRAD_FLOOR,
                 opt=dict(lr=1e-3, warmup_steps=1, total_steps=10),
                 trainer=dict(SCALEOUT["trainer"], ckpt_dir=str(
@@ -2979,30 +3033,49 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
         shutil.rmtree(ckdir, ignore_errors=True)
     wall = time.perf_counter() - t0
     r0 = ranks[0]
-    want = scaleout_expected(cfg, moe_cfg)
+    want = scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg)
+    want_route = {p: attention_route(c) for p, c in
+                  (("a", cfg), ("b", cfg), ("c", moe_cfg), ("d", cfg),
+                   ("d_resumed", cfg), ("e", cfg), ("f", mla_cfg),
+                   ("g", hybrid_cfg))}
+    steps = "abcfg"
     launches = {"flash_attention": 0, "nmc_matmul": 0, "vrf_alu": 0}
     routes = {"tensor_core": 0, "cuda_core": 0}
+    by_part = {}
     counts = []
     for r in ranks:
-        parts = {p: r[p]["counted"] for p in "abc"}
+        parts = {p: r[p]["counted"] for p in steps}
         parts.update(d=r["d"]["counted"], d_resumed=r["d"]["counted_resumed"],
                      e=r["e"]["counted"])
         for part, c in parts.items():
             counts.append((r["rank"], part, c["flash_attention"],
                            c["nmc_matmul"], c["attention_routes"]))
             if c["flash_attention"] != want[part] or c["nmc_matmul"] or \
-                    c["attention_routes"]["tensor_core"] != \
+                    c["attention_routes"][want_route[part]] != \
                     c["flash_attention"]:
                 raise AssertionError(
                     f"scaleout ({part}) rank {r['rank']}: launches {c}, "
-                    f"expected {want[part]} flash_attention on the tensor "
-                    f"cores and no nmc_matmul")
+                    f"expected {want[part]} flash_attention on the "
+                    f"{want_route[part]} route and no nmc_matmul")
             launches["flash_attention"] += c["flash_attention"]
             for k, n in c["attention_routes"].items():
                 routes[k] += n
-    replay_err = max(r[p]["replay"]["max_abs_err"] for r in ranks
-                     for p in "abc")
-    for part, key in (("a", "TP"), ("b", "DP ZeRO-2"), ("c", "EP")):
+                row = by_part.setdefault(part.split("_")[0], {})
+                row[k] = row.get(k, 0) + n
+    replay_by_route = {}
+    for r in ranks:
+        for p in steps:
+            rep = r[p]["replay"]
+            if rep["launches"] != want[p] or \
+                    rep["routes"] != {want_route[p]: want[p]}:
+                raise AssertionError(f"scaleout ({p}) rank {r['rank']}: "
+                                     f"replayed {rep}, expected {want[p]} "
+                                     f"on {want_route[p]}")
+            for k, err in rep["max_abs_err_by_route"].items():
+                replay_by_route[k] = max(replay_by_route.get(k, 0.0), err)
+    replay_err = max(replay_by_route.values())
+    for part, key in (("a", "TP"), ("b", "DP ZeRO-2"), ("c", "EP"),
+                      ("f", "MLA + EP"), ("g", "Mamba2 TP")):
         res = r0[part]
         log(f"scaleout ({part}) {key}: loss {res['metrics']['loss']:.6f} vs "
             f"single rank {res['reference']['loss']:.6f} (rel "
@@ -3016,8 +3089,13 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
             f"; peak GB {[r[part]['peak_gb'] for r in ranks]}; "
             f"moments {[r[part]['local_moments'] for r in ranks]} of "
             f"{res['full_moments']}; collectives (calls, bytes, staged) "
-            f"{res['counted']['traffic']}; {res['seconds']:.1f} s; [{smi}]")
-        loss_limit = SCALEOUT_LOSS_RTOL if part != "c" else max(
+            f"{res['counted']['traffic']}; partial over model "
+            f"{len(res['partial'])}; MoE assignments dropped (tokens, "
+            f"assignments, dropped) by rank "
+            f"{[r[part]['moe_drops'] for r in ranks]}; "
+            f"{res['seconds']:.1f} s; [{smi}]")
+        loss_limit = SCALEOUT_LOSS_RTOL \
+            if part not in SCALEOUT_SPREAD_PARTS else max(
             SCALEOUT_LOSS_RTOL,
             MOE_LOGITS_SPREAD * res["reference"]["loss_spread"])
         res["loss_limit"] = loss_limit
@@ -3041,7 +3119,8 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     d, e = r0["d"], r0["e"]
     first = [s["loss"] for s in d["steps"]
              if s["step"] == SCALEOUT["trainer"]["fail_at"] - 1]
-    log(f"scaleout (d) trainer (1, 2): {d['run']}, steps "
+    log(f"scaleout (d) trainer (1, 2), {trainer_cfg.n_layers} layers: "
+        f"{d['run']}, steps "
         f"{[(s['step'], s.get('loss')) for s in d['steps']]}, checkpoints "
         f"{d['checkpoints']} in {d['run_seconds']:.1f} s; restored onto "
         f"(2, 1) (reshard, restore) and back onto (1, 2) (round trip) bit "
@@ -3062,24 +3141,31 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     if not e["finite"] or e["bubble"] != 0.2:
         raise AssertionError(f"scaleout (e): {e}")
     log(f"scaleout: {launches['flash_attention']} flash_attention launches "
-        f"on the main path by route {routes} (rank, part, launches, "
-        f"nmc_matmul, routes: {counts}); replays max abs err {replay_err}; "
+        f"on the main path by route {routes}, by part {by_part} (rank, "
+        f"part, launches, nmc_matmul, routes: {counts}); replays max abs "
+        f"err by route {replay_by_route}; "
         f"ranks {wall:.1f} s wall, {[round(r['seconds'], 1) for r in ranks]}"
         f" s in the ranks")
 
     def plain(res):
         return {k: v for k, v in res.items() if k not in ("steps",)}
     report["scaleout"] = dict(
-        moe_layers=SCALEOUT_MOE_LAYERS, **{k: v for k, v in SCALEOUT.items()},
-        ranks=[{p: plain(r[p]) for p in "abcde"} | {"seconds": r["seconds"]}
-               for r in ranks],
+        moe_layers=SCALEOUT_MOE_LAYERS, mla_layers=SCALEOUT_MLA_LAYERS,
+        hybrid_layers=SCALEOUT_HYBRID_LAYERS,
+        trainer_layers=SCALEOUT_TRAINER_LAYERS,
+        **{k: v for k, v in SCALEOUT.items()},
+        ranks=[{p: plain(r[p]) for p in "abcdefg"}
+               | {"seconds": r["seconds"]} for r in ranks],
         trainer_steps=d["steps"], launches=launches, attention_routes=routes,
+        attention_routes_by_part=by_part,
         matmul_routes={"tensor_core": 0, "dp4a": 0},
-        replay={"attention_by_route": {"tensor_core": replay_err},
+        replay={"attention_by_route": replay_by_route,
                 "max_abs_err": {"nmc_matmul": 0.0,
                                 "flash_attention": replay_err}},
         wall_seconds=wall, nvidia_smi=smi,
-        moe_config=dataclasses.asdict(moe_cfg) | {"dtype": str(moe_cfg.dtype)})
+        **{f"{k}_config": dataclasses.asdict(c) | {"dtype": str(c.dtype)}
+           for k, c in (("moe", moe_cfg), ("mla", mla_cfg),
+                        ("hybrid", hybrid_cfg))})
     return launches
 
 

@@ -16,10 +16,13 @@ configs, ``chip_smoke.py`` over gloo on the card at full width.
   the stages applied in sequence.
 * :func:`elastic_check`: a trainer with a crash on one mesh, its
   checkpoint restored onto another through ``elastic.reshard_state`` and
-  ``ckpt.restore`` with shardings, gathered and held to the written state
-  bit for bit, then one more step.
+  ``ckpt.restore`` with shardings, each rank's slices held to the same
+  slices of the written state bit for bit, then one more step.
 * :func:`chip_scaleout`: ``chip_smoke.phase_scaleout``'s ranks at full
-  width on the card.
+  width on the card: one train step of each of qwen (tensor and data
+  parallel), moonshot (expert parallel), deepseek (MLA and expert
+  parallel) and zamba2 (Mamba2 and its shared block tensor parallel)
+  against the single-rank step, the elastic trainer and the pipeline.
 """
 
 from __future__ import annotations
@@ -163,8 +166,9 @@ def elastic_check(device, cfg, tc_kw: dict, data_kw: dict, opt_kw: dict,
     its launches counted), its last checkpoint restored in full and
     resharded onto a mesh of ``model_b`` ranks on ``model``
     (``elastic.make_mesh_for``) by ``elastic.reshard_state``, and restored
-    there by ``ckpt.restore`` with shardings: both gathered and held to
-    the written state bit for bit; the parameters moved back onto
+    there by ``ckpt.restore`` with shardings: both held to the written
+    state bit for bit, slice by slice (:func:`_equal_slices`); the
+    parameters moved back onto
     ``shape_a`` by ``reshard_state`` from their shardings on the new mesh,
     likewise; then one more step on the new mesh.  ``tc_kw["ckpt_dir"]``
     must start empty.  Returns, on rank 0, what was recorded and whether
@@ -220,15 +224,16 @@ def elastic_check(device, cfg, tc_kw: dict, data_kw: dict, opt_kw: dict,
     local = {"params": dict(model.named_parameters()), "opt": opt}
     written = ckpt.restore(tc.ckpt_dir, last, _full_like(local, shard_b))
     moved = elastic.reshard_state(written, mesh_b, lambda tree, m: shard_b)
-    same = {"reshard": _equal_gathered(moved, shard_b, written),
-            "restore": _equal_gathered(
+    same = {"reshard": _equal_slices(moved, shard_b, written, device),
+            "restore": _equal_slices(
                 ckpt.restore(tc.ckpt_dir, last, local, shard_b), shard_b,
-                written)}
+                written, device)}
     mesh_a = make_mesh(shape_a, AXES, device)
     shard_a = sharding.param_shardings(written["params"], mesh_a)
     back = elastic.reshard_state(moved["params"], mesh_a,
                                  lambda tree, m: shard_a, shard_b["params"])
-    same["round_trip"] = _equal_gathered(back, shard_a, written["params"])
+    same["round_trip"] = _equal_slices(back, shard_a, written["params"],
+                                       device)
     del written, back
     with torch.no_grad():
         for n, p in local["params"].items():
@@ -267,14 +272,22 @@ def _full_like(local: dict, shardings: dict) -> dict:
     return torch.empty(shape, dtype=local.dtype)
 
 
-def _equal_gathered(local: dict, shardings: dict, full: dict) -> bool:
+def _equal_slices(local: dict, shardings: dict, full: dict,
+                  device) -> bool:
     """Whether ``local`` gathered under ``shardings`` equals ``full`` bit
-    for bit, on every rank (a collective)."""
-    if isinstance(local, dict):
-        return all([_equal_gathered(local[k], shardings[k], full[k])
-                    for k in sorted(local)])
-    got = sharding.gather_full(local, shardings)
-    return bool(torch.equal(got.cpu(), full.cpu()))
+    for bit: every rank's slice equal to the same slice of ``full``
+    (:func:`sharding.local_slice`, the inverse of ``gather_full``), agreed
+    over the world by one all-reduce of a flag; nothing is gathered."""
+    def same(loc, sh, ful) -> bool:
+        if isinstance(loc, dict):
+            return all(same(loc[k], sh[k], ful[k]) for k in sorted(loc))
+        return bool(torch.equal(loc.cpu(),
+                                sharding.local_slice(ful, sh).cpu()))
+    differ = torch.tensor([0 if same(local, shardings, full) else 1],
+                          device=device)
+    if dist.is_initialized():
+        dist.all_reduce(differ)
+    return int(differ) == 0
 
 
 def sequence(device, calls: list) -> list:
@@ -317,20 +330,47 @@ class _AttentionRecorder:
 
     def replay(self) -> dict:
         """Every launch against the plain version (``kernels/checks.py``'s
-        tolerance; raises beyond it): launches, shapes, max abs err."""
+        tolerance; raises beyond it): launches, shapes, the route each
+        launch takes by ``flash_attention.route`` (launches and max abs
+        err by route), max abs err."""
         from repro_torch.kernels import checks as kchecks
         from repro_torch.kernels import flash_attention as fa
-        worst, shapes = 0.0, {}
+        worst, shapes, routes, by_route = 0.0, {}, {}, {}
         with torch.no_grad():
             for i, (args, kw, out) in enumerate(self.calls):
                 want = fa.chunked_attention(*args, **kw)
                 tol = kchecks.attention_tolerance(args[0].dtype)
-                worst = max(worst, kchecks.close(f"attention launch {i}",
-                                                 out, want, *tol))
+                err = kchecks.close(f"attention launch {i}", out, want, *tol)
+                worst = max(worst, err)
                 key = str(tuple(args[0].shape))
                 shapes[key] = shapes.get(key, 0) + 1
+                r = fa.route(args[0].dtype, args[0].shape[-1],
+                             args[2].shape[-1])
+                routes[r] = routes.get(r, 0) + 1
+                by_route[r] = max(by_route.get(r, 0.0), err)
         return {"launches": len(self.calls), "shapes": shapes,
+                "routes": routes, "max_abs_err_by_route": by_route,
                 "max_abs_err": worst}
+
+
+class _MoEDrops:
+    """``[(tokens, assignments, assignments dropped)]`` of every MoE
+    routing inside the block, in call order (``moe.route`` wrapped)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self._moe, self._orig = [], moe, moe.route
+
+        def route(x, wr, cfg):
+            r = self._orig(x, wr, cfg)
+            self.calls.append((int(x.shape[0]), int(r.keep.numel()),
+                               int((~r.keep).sum())))
+            return r
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._orig
 
 
 def _launches() -> dict:
@@ -544,11 +584,14 @@ def _sharded_run(cfg, mesh, batch: dict, spec: dict, ref: dict | None,
                                      n_mb)
     _reset(device)
     profile = profile and _rank0() and torch.device(device).type == "cuda"
-    with _AttentionRecorder() as rec, _StepGrads() as kept:
+    with _AttentionRecorder() as rec, _StepGrads() as kept, \
+            _MoEDrops() as drops:
         with _profiler() if profile else _null() as p:
             with _Events(device) as ev:
                 _, opt, metrics = train(model, opt, batch)
             out["counted"] = _counted(device)
+    out["moe_drops"] = drops.calls
+    out["partial"] = sorted(lay.partial)
     out["step_ms"] = ev.ms
     if profile:
         out["step_device_ms"] = _device_ms(p)
@@ -588,15 +631,26 @@ def _device_ms(prof) -> float | None:
     return us * 1e-3 or None
 
 
+#: ``chip_scaleout``'s one-step parts: (part, config key of the spec, mesh
+#: shape); (b) reuses (a)'s reference
+STEP_PARTS = (("a", "qwen", (1, 2)), ("b", "qwen", (2, 1)),
+              ("c", "moe", (1, 2)), ("f", "mla", (1, 2)),
+              ("g", "hybrid", (1, 2)))
+
+
 def chip_scaleout(device, spec: dict) -> dict:
     """``chip_smoke.phase_scaleout`` on every rank of a world of two over
     gloo, both on ``device``: (a) tensor parallelism, qwen on (1, 2); (b)
     data parallelism with ZeRO-2, qwen on (2, 1); (c) expert parallelism,
     the cut moonshot on (1, 2); (d) the trainer on (1, 2) with a crash,
-    its checkpoint restored onto (2, 1) through ``reshard_state``; (e) the
-    pipeline, qwen's blocks in 2 stages.  ``spec`` holds the configs,
-    sizes and limits.  Returns each part's results and this rank's
-    counted launches and collectives."""
+    of ``spec["trainer_model"]`` (qwen cut in depth), its checkpoint
+    restored onto (2, 1) through ``reshard_state``; (e) the
+    pipeline, qwen's blocks in 2 stages; (f) MLA with expert parallelism,
+    the cut deepseek on (1, 2), 8 heads and 32 experts a rank; (g) Mamba2
+    tensor parallelism, the cut zamba2 on (1, 2), 40 SSM and 16 attention
+    heads a rank, its shared block applied by each of 2 groups.  ``spec``
+    holds the configs, sizes and limits.  Returns each part's results and
+    this rank's counted launches and collectives."""
     import time
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     out, t_all = {"rank": dist.get_rank()}, time.perf_counter()
@@ -607,31 +661,29 @@ def chip_scaleout(device, spec: dict) -> dict:
         return {k: torch.from_numpy(v).to(device)
                 for k, v in data.batch_at(0).items()}
 
-    for part, key, shape in (("a", "qwen", (1, 2)), ("b", "qwen", (2, 1)),
-                             ("c", "moe", (1, 2))):
+    for part, key, shape in STEP_PARTS:
         t0 = time.perf_counter()
         cfg = spec[key]
         batch = batch_of(cfg, spec["rows"], spec["seq"])
         if part != "b":                       # (b) reuses (a)'s reference
-            if _rank0():
-                refs = _reference(cfg, batch, spec, device)
-                _free(device)
+            refs = _reference(cfg, batch, spec, device) if _rank0() else None
+            _free(device)
             dist.barrier()
         mesh = make_mesh(shape, AXES, device)
-        res = _sharded_run(cfg, mesh, batch, spec, refs if _rank0() else None,
-                           device, profile=part == "a")
+        res = _sharded_run(cfg, mesh, batch, spec, refs, device,
+                           profile=part == "a")
         if _rank0():
             res["reference"] = {k: refs[k] for k in ("loss", "loss_plain",
                                                      "loss_spread")}
-            if part != "a":
-                del refs
+        if part != "a":
+            refs = None
         _free(device)
         dist.barrier()
         res["seconds"] = time.perf_counter() - t0
         out[part] = res
     tr = spec["trainer"]
     out["d"] = elastic_check(
-        device, spec["qwen"],
+        device, spec["trainer_model"],
         dict(total_steps=tr["total_steps"], ckpt_every=tr["ckpt_every"],
              ckpt_dir=tr["ckpt_dir"], log_every=1, n_microbatches=tr["n_mb"],
              seed=spec["seed"]),

@@ -308,7 +308,9 @@ class Layout:
     (on its full shape), the moments' (ZeRO-2), and the parameters whose
     local gradient is partial over ``model`` (replicated weights read
     inside a model-parallel region: the MoE router, keys and values that
-    ``model`` does not divide): the train step sums those over ``model``."""
+    ``model`` does not divide, MLA's latent projections, Mamba2's B / C /
+    dt projections, ``conv_bc`` and gated-norm gain): the train step sums
+    those over ``model``."""
     mesh: Any
     params: dict
     moments: dict

@@ -18,6 +18,16 @@ KV heads through the same ``flash_attention`` (heads are independent).
 Where ``model`` does not divide ``n_kv_heads``, ``wk`` and ``wv`` stay
 whole: each rank computes every KV head and takes those its query heads
 read (``kv_select``).
+
+MLA on such a mesh runs the rank's heads too: ``wq``, ``w_uk`` and
+``w_uv`` column-parallel (their columns are head-major), ``wo``
+row-parallel, ``n_heads / model`` heads through ``flash_attention``.
+``w_dkv``, ``w_krope`` and ``norm_ckv`` stay whole: every rank computes
+the whole latent ``ckv`` and the shared RoPE key, and each differentiates
+them through its own heads only, so their gradients are partial and
+summed over ``model`` by the train step.  The absorbed decode reads
+``cfg.n_heads`` and runs on one rank (serving a model sharded over
+``model`` raises, ``lm._check_serving``).
 """
 
 from __future__ import annotations
@@ -175,7 +185,11 @@ class MLAttention(nn.Module):
     """DeepSeek-V2's multi-head latent attention (the reference's
     ``mla_*``): q from ``wq``; K and V decompressed by ``w_uk`` / ``w_uv``
     from the normalised latent ``ckv = norm_ckv(w_dkv(x))``; one RoPE key
-    ``w_krope(x)`` shared by every head."""
+    ``w_krope(x)`` shared by every head.  On a mesh ``mesh`` is set and the
+    column-parallel projections hold this rank's heads (module
+    docstring): the head count is read from their widths."""
+
+    mesh: C.Mesh | None = None
 
     def __init__(self, wq: L.NmcLinear, w_dkv: L.NmcLinear,
                  w_krope: L.NmcLinear, w_uk: L.NmcLinear, w_uv: L.NmcLinear,
@@ -201,10 +215,11 @@ class MLAttention(nn.Module):
     def _q_and_latent(self, x: torch.Tensor, cfg: ModelConfig, cos,
                       sin) -> tuple:
         """x: (B, S, D) -> q_nope (B,S,H,dn), q_rope (B,S,H,dr), ckv
-        (B,S,r) and the shared key krope (B,S,1,dr), rope applied."""
+        (B,S,r) and the shared key krope (B,S,1,dr), rope applied (H this
+        rank's heads on a mesh)."""
         b, s, _ = x.shape
         dn, dr, mode = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.nmc_mode
-        q = self.wq(x, nmc_mode=mode).reshape(b, s, cfg.n_heads, dn + dr)
+        q = self.wq(x, nmc_mode=mode).reshape(b, s, -1, dn + dr)
         ckv = self.norm_ckv(self.w_dkv(x, nmc_mode=mode))
         krope = L.apply_rope(self.w_krope(x, nmc_mode=mode)[:, :, None, :],
                              cos, sin)
@@ -215,10 +230,13 @@ class MLAttention(nn.Module):
         """The expanded (flash-compatible) form: (out (B,S,D), ckv, krope
         (B,S,dr))."""
         b, s, _ = x.shape
-        h, dr, mode = cfg.n_heads, cfg.qk_rope_dim, cfg.nmc_mode
+        dr, mode = cfg.qk_rope_dim, cfg.nmc_mode
         positions = torch.arange(s, device=x.device) + q_offset
         cos, sin = L.rope_table(positions, dr, cfg.rope_theta)
+        if self.mesh is not None:
+            x = C.copy_to_model(x, self.mesh)
         q_nope, q_rope, ckv, krope = self._q_and_latent(x, cfg, cos, sin)
+        h = q_nope.shape[2]
         k_nope = self.w_uk(ckv, nmc_mode=mode).reshape(b, s, h,
                                                         cfg.qk_nope_dim)
         v = self.w_uv(ckv, nmc_mode=mode).reshape(b, s, h, cfg.v_head_dim)

@@ -36,9 +36,10 @@ model's own ``forward``.
 :func:`shard` lays a model out on a mesh (every rank draws or loads the
 same full weights, then keeps its slices, as the reference's ``init``
 then ``device_put``): data parallelism for every family; tensor and
-expert parallelism over ``model`` for the GQA decoders, dense and MoE
-(column-parallel projections and head, row-parallel ``wo`` / MLP ``wo``,
-vocab-parallel embedding, expert-local dispatch).  The head's logits are
+expert parallelism over ``model`` for the dense and MoE decoders (GQA or
+MLA) and the hybrid (column-parallel projections and head, row-parallel
+``wo`` / MLP ``wo`` / ``out_proj``, vocab-parallel embedding,
+expert-local dispatch, Mamba2 heads).  The head's logits are
 gathered over ``model`` before the loss, so the cross entropy stays the
 single-rank function.  Serving a model sharded over ``model`` waits for
 sharded caches.
@@ -652,7 +653,7 @@ def init_caches(params: LMBase, cfg: ModelConfig, batch: int,
 
 
 #: the families whose layers run tensor- and expert-parallel over `model`
-TP_FAMILIES = ("dense", "moe")
+TP_FAMILIES = ("dense", "moe", "hybrid")
 
 
 @torch.no_grad()
@@ -661,25 +662,35 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
     ``mesh``: each parameter replaced by its local slice
     (:func:`sharding.local_slice` under :func:`sharding.param_shardings`),
     the modules told their part, and ``params.layout`` set.  A ``model``
-    axis over 1 takes a GQA decoder, dense or MoE; another family raises
-    ``NotImplementedError`` (its rules exist, its execution waits).  The
-    heads must divide over ``model``; where the KV heads do not, ``wk``
-    and ``wv`` stay whole (the rule would split them by columns, through
-    a head) and each rank takes the KV heads its query heads read."""
+    axis over 1 takes the dense and MoE decoders, with GQA or MLA (its
+    latent projections ``w_dkv``, ``w_krope``, ``norm_ckv`` whole), and
+    the hybrid (Mamba2 on local heads, the shared GQA block
+    tensor-parallel); the xLSTM, encoder-decoder and VLM families raise
+    ``NotImplementedError`` (their rules exist, their execution waits).
+    The heads (attention and SSM) must divide over ``model``; where the
+    KV heads do not, ``wk`` and ``wv`` stay whole (the rule would split
+    them by columns, through a head) and each rank takes the KV heads its
+    query heads read.  ``params.layout.partial`` names the whole tensors
+    read inside a model-parallel region, whose gradients are partial over
+    ``model``: the MoE routers, whole KV heads, MLA's latent projections,
+    Mamba2's ``in_b`` / ``in_c`` / ``in_dt`` / ``conv_bc_*`` / ``norm.g``."""
     _check_family(cfg)
-    if mesh.model_size() > 1 and (cfg.family not in TP_FAMILIES or cfg.mla):
-        kind = "MLA" if cfg.mla else cfg.family
+    if mesh.model_size() > 1 and cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over a model axis of "
-            f"{mesh.model_size()} runs the GQA decoders ({TP_FAMILIES}), "
-            f"not the {kind} family yet (ROADMAP queue 1, item 6)")
+            f"{mesh.model_size()} runs the families {TP_FAMILIES}, "
+            f"not the {cfg.family} family yet (ROADMAP queue 1, item 6)")
     named = dict(params.named_parameters())
     shard_of = sharding.param_shardings(named, mesh)
     tp = mesh.model_size()
     if tp > 1 and cfg.n_heads % tp:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_heads} heads over a model axis of {tp}")
-    if tp > 1 and cfg.n_kv_heads % tp:
+    if tp > 1 and cfg.family == "hybrid" and cfg.ssm_heads % tp:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.ssm_heads} SSM heads over a model axis of "
+            f"{tp}")
+    if tp > 1 and not cfg.mla and cfg.n_kv_heads % tp:
         # the rule shards wk / wv by columns; the heads need whole ones
         for n in named:
             if sharding.path_of(n)[-3:-1] in (["attn", "wk"],
@@ -709,9 +720,9 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
 
 def _mark_parallel(params: LMBase, cfg: ModelConfig, shard_of: dict,
                    mesh: C.Mesh) -> set:
-    """Set each linear's ``parallel`` kind, the MLPs', attentions' and the
-    vocab-parallel embedding's mesh; return the names whose gradient is
-    partial over ``model``."""
+    """Set each linear's ``parallel`` kind, the MLPs', attentions',
+    Mamba2 layers' and the vocab-parallel embedding's mesh; return the
+    names whose gradient is partial over ``model``."""
     model = C.MODEL_AXIS
     partial = set()
     for mname, mod in params.named_modules():
@@ -736,9 +747,21 @@ def _mark_parallel(params: LMBase, cfg: ModelConfig, shard_of: dict,
             mod.mesh = mesh
             if mod.wk.parallel != "col":
                 mod.kv_select = _kv_select(cfg, mesh)
-                partial |= {f"{pre}{w}.{n}" for w in ("wk", "wv")
-                            for n, _ in getattr(mod, w).named_parameters()}
+                partial |= _names(mod, pre, ("wk", "wv"))
+        elif isinstance(mod, A.MLAttention) and mod.wq.parallel == "col":
+            mod.mesh = mesh
+            partial |= _names(mod, pre, ("w_dkv", "w_krope", "norm_ckv"))
+        elif isinstance(mod, SSM.Mamba2) and mod.in_x.parallel == "col":
+            mod.mesh = mesh
+            partial |= _names(mod, pre, ("in_b", "in_c", "in_dt", "norm"))
+            partial |= {pre + n for n in ("conv_bc_w", "conv_bc_b")}
     return partial
+
+
+def _names(mod: nn.Module, pre: str, children: tuple) -> set:
+    """The full names of the parameters of ``mod``'s ``children``."""
+    return {f"{pre}{c}.{n}" for c in children
+            for n, _ in getattr(mod, c).named_parameters()}
 
 
 def _kv_select(cfg: ModelConfig, mesh: C.Mesh) -> list:

@@ -17,6 +17,23 @@ activation dtype, as in the reference.
 A prompt longer than ``ssm_chunk`` must be a multiple of it: the reference
 reshapes the sequence into whole chunks and fails otherwise, and the port
 raises instead of padding.
+
+On a mesh with a ``model`` axis (:func:`~repro_torch.models.lm.shard`) a
+layer runs the rank's heads, which are independent: ``in_z`` / ``in_x``
+column-parallel over the head-major ``d_inner``, ``conv_x`` split over
+those channels, ``A_log`` / ``D`` / ``dt_bias`` over heads, ``out_proj``
+row-parallel.  ``in_b``, ``in_c``, ``in_dt``, ``conv_bc`` and the gated
+norm's gain stay whole: every rank projects B and C (shared by every
+head) and all of ``dt``, of which it takes its heads' slice before the
+softplus with its own ``dt_bias``.  The gated RMSNorm normalises by the
+RMS over the whole ``d_inner``: each rank's sum of squares is summed over
+``model`` in the forward and its gradient summed again in the backward
+(each rank's output reads the global sum through its own slice only);
+each rank scales by its slice of the gain.  The whole tensors read inside
+the region (``in_b``, ``in_c``, ``in_dt``, ``conv_bc_*``, ``norm.g``)
+get partial gradients, summed over ``model`` by the train step.  The
+decode step and the prefill state run on one rank (serving a model
+sharded over ``model`` raises, ``lm._check_serving``).
 """
 
 from __future__ import annotations
@@ -27,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import context as C
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -61,7 +79,9 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     float32); a: (H,) negative; b, c: (B,S,N) (one group, broadcast over
     heads).  Returns y (B,S,H,P) and the final state (B,H,P,N), both in
     ``xh``'s dtype; the decays and scores are formed in float32 and
-    rounded to it, as the reference rounds them."""
+    rounded to it, as the reference rounds them.  The gradient is the
+    reference's wherever that is finite, and finite where a masked
+    segment's exponential overflows (the reference's is NaN there)."""
     bsz, s, h, p = xh.shape
     n = b.shape[-1]
     if s % chunk:
@@ -83,8 +103,11 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,nc,q,q,H)
     causal = torch.tril(torch.ones((q, q), dtype=torch.bool,
                                    device=xh.device))
-    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg),
-                        torch.zeros((), device=xh.device))
+    # masked before the exp: the reference exponentiates first, and where a
+    # masked (i < j) segment overflows its gradient is 0 * inf = NaN; the
+    # values are the same bit for bit
+    decay = torch.exp(seg.masked_fill(~causal[None, None, :, :, None],
+                                      float("-inf")))
     scores = (cb[..., None] * decay * dtc[:, :, None, :, :]).to(dtype)
     y_diag = torch.einsum("bcijh,bcjhp->bcihp", scores, xc)
 
@@ -111,7 +134,11 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 class Mamba2(nn.Module):
     """One Mamba2 layer: the z / x / B / C / dt projections, the causal
     depthwise convs over x (``conv_x``) and over B and C together
-    (``conv_bc``), the SSD, the gated RMSNorm and ``out_proj``."""
+    (``conv_bc``), the SSD, the gated RMSNorm and ``out_proj``.  On a mesh
+    ``mesh`` is set and the split tensors hold this rank's heads (module
+    docstring)."""
+
+    mesh: C.Mesh | None = None
 
     def __init__(self, proj: dict, conv_x_w: torch.Tensor,
                  conv_x_b: torch.Tensor, conv_bc_w: torch.Tensor,
@@ -169,7 +196,27 @@ class Mamba2(nn.Module):
 
     def _gated_out(self, y: torch.Tensor, z: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
-        return self.out_proj(self.norm(y * F.silu(z)), nmc_mode=cfg.nmc_mode)
+        u = y * F.silu(z)
+        if self.mesh is None:
+            return self.out_proj(self.norm(u), nmc_mode=cfg.nmc_mode)
+        # the RMS over the whole d_inner: the local sums of squares summed
+        # over `model`, and their gradient summed again in the backward
+        uf = u.float()
+        ss = C.copy_to_model(C.reduce_from_model(
+            (uf * uf).sum(dim=-1, keepdim=True), self.mesh), self.mesh)
+        n = u.shape[-1]
+        g = self.norm.g.narrow(0, self.mesh.index(C.MODEL_AXIS) * n, n)
+        normed = (uf * torch.rsqrt(ss / cfg.d_inner + self.norm.eps)
+                  * g).to(u.dtype)
+        return self.out_proj(normed, nmc_mode=cfg.nmc_mode)
+
+    def _local_heads(self, dt: torch.Tensor) -> torch.Tensor:
+        """This rank's heads of the whole ``dt`` projection (all of it off
+        a mesh)."""
+        h = self.A_log.shape[0]
+        if self.mesh is None:
+            return dt
+        return dt.narrow(-1, self.mesh.index(C.MODEL_AXIS) * h, h)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
                 return_state: bool = False):
@@ -178,17 +225,19 @@ class Mamba2(nn.Module):
         ``{"ssm": (B,H,P,N), "conv_x": (B,k-1,d_inner), "conv_bc":
         (B,k-1,2N)}`` (the convs' last k - 1 raw inputs)."""
         bsz, s, _ = x.shape
-        n, h, pdim = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+        n, pdim = cfg.ssm_state, cfg.ssm_head_dim
+        if self.mesh is not None:
+            x = C.copy_to_model(x, self.mesh)
         z, xs_raw, bm_raw, cm_raw, dt = self._proj(x, cfg)
         bc_raw = torch.cat([bm_raw, cm_raw], dim=-1)
         xs = conv_full(self.conv_x_w, self.conv_x_b, xs_raw)
         bc = conv_full(self.conv_bc_w, self.conv_bc_b, bc_raw)
-        dt = F.softplus(dt.float() + self.dt_bias)
-        xh = xs.reshape(bsz, s, h, pdim)
+        dt = F.softplus(self._local_heads(dt).float() + self.dt_bias)
+        xh = xs.reshape(bsz, s, -1, pdim)
         y, state = ssd_chunked(xh, dt, -torch.exp(self.A_log), bc[..., :n],
                                bc[..., n:], min(cfg.ssm_chunk, s))
         y = y + self.D.to(y.dtype)[None, None, :, None] * xh
-        out = self._gated_out(y.reshape(bsz, s, cfg.d_inner), z, cfg)
+        out = self._gated_out(y.reshape(bsz, s, -1), z, cfg)
         if not return_state:
             return out
         k = cfg.ssm_conv - 1

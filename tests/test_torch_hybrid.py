@@ -125,6 +125,52 @@ def test_mamba2_prefill_and_decode_match_reference(s):
         _assert_tree(tst, jst)
 
 
+def test_ssd_gradient_is_finite_where_the_reference_overflows():
+    """``dt * A`` of 2-8 a step over a chunk of 16: a masked (i < j)
+    segment's exponential overflows float32.  The reference exponentiates
+    before masking, so its gradient in ``dt`` is NaN there (at chunk 1,
+    the same function, it is finite); the port masks first: the same
+    values bit for bit, and the gradient of the overflow-free chunk-1
+    form, the reference's there."""
+    rng = np.random.default_rng(0)
+    b, s, h, p, n = 1, 32, 4, 8, 8
+    xh, bm, cm = (rng.normal(size=shape).astype(np.float32)
+                  for shape in ((b, s, h, p), (b, s, n), (b, s, n)))
+    dt = np.full((b, s, h), 1.0, np.float32)
+    a = -2.0 * np.arange(1, h + 1, dtype=np.float32)
+
+    def jgrads(chunk):
+        def loss(*args):
+            y, st = JSSM._ssd_chunked(args[0], args[1], jnp.asarray(a),
+                                      args[2], args[3], chunk)
+            return jnp.sum(y ** 2) + jnp.sum(st ** 2)
+        return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2, 3))(
+            xh, dt, bm, cm)], JSSM._ssd_chunked(xh, dt, jnp.asarray(a), bm,
+                                                cm, chunk)
+
+    def tgrads(chunk):
+        ts = [torch.tensor(t, requires_grad=True) for t in (xh, dt, bm, cm)]
+        with torch.enable_grad():    # the file's fixture disables it
+            y, st = SSM.ssd_chunked(ts[0], ts[1], torch.tensor(a), ts[2],
+                                    ts[3], chunk)
+            (torch.sum(y ** 2) + torch.sum(st ** 2)).backward()
+        return [t.grad.numpy() for t in ts], (y.detach(), st.detach())
+    ref16, (jy, jst) = jgrads(16)
+    assert np.isnan(ref16[1]).any()
+    ref1, _ = jgrads(1)
+    got16, (y, st) = tgrads(16)
+    got1, _ = tgrads(1)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(st.numpy(), np.asarray(jst), rtol=1e-5,
+                               atol=1e-5)
+    for g16, g1, r1 in zip(got16, got1, ref1):
+        assert np.isfinite(g16).all()
+        scale = float(np.abs(r1).max())
+        np.testing.assert_allclose(g16, g1, rtol=1e-4, atol=1e-5 * scale)
+        np.testing.assert_allclose(g16, r1, rtol=1e-4, atol=1e-5 * scale)
+
+
 def test_ragged_prompt_past_the_chunk_raises_in_both():
     """S = chunk + 4: the reference's reshape into whole chunks fails, and
     the port raises rather than pad; in a Mamba2 layer and in the LM."""

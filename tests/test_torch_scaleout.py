@@ -5,10 +5,10 @@ spawned by ``launch.mesh.run_ranks`` over gloo, smoke configs in float32.
 One spawn per world size runs every check of its meshes
 (``distributed.checks.sequence``): two ranks for the (1, 2) and (2, 1)
 meshes, the refusals, the hybrid's data parallelism and the elastic
-reshard; four for (2, 2) and the 4-stage pipeline.  Each spawn is joined
-within a timeout.  The reference runs in this process on one device,
-except its own 2 x 2 run of the MoE, in one subprocess with four fake
-devices.
+reshard; four for (2, 2), (1, 4) and the 4-stage pipeline.  Each spawn is
+joined within a timeout.  The reference runs in this process on one
+device, except its own 2 x 2 runs of the MoE models (moonshot's GQA,
+deepseek's MLA), in one subprocess with four fake devices.
 
 Tolerances: those of ``tests/test_torch_train.py`` (loss ``rtol 1e-5``;
 gradients ``rtol 1e-4`` with an ``atol`` of ``1e-5`` of the tensor's
@@ -55,11 +55,16 @@ from repro_torch.runtime.elastic import (HeartbeatMonitor, MembershipWatcher,
 from repro_torch.train import step as tstep
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = {"qwen": "qwen1.5-0.5b", "moonshot": "moonshot-v1-16b-a3b"}
+ARCHS = {"qwen": "qwen1.5-0.5b", "moonshot": "moonshot-v1-16b-a3b",
+         "deepseek": "deepseek-v2-lite-16b", "zamba2": "zamba2-2.7b"}
+#: the MoE models, whose (2, 2) step follows the reference's own 2 x 2 run
+MOE_ARCHS = ("moonshot", "deepseek")
 GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-5
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 ROWS, SEQ = 4, 16
+#: zamba2-smoke's 4 SSD chunks of 16 (the other cases run one chunk)
+CHUNKS_SEQ = 64
 SPAWN_TIMEOUT = 240.0
 
 #: (arch, mesh shape, microbatches, compression) of the two-rank world
@@ -67,11 +72,16 @@ STEPS_2 = [("qwen", (1, 2), 1, False), ("qwen", (2, 1), 1, False),
            ("moonshot", (1, 2), 1, False), ("moonshot", (2, 1), 1, False),
            ("qwen", (2, 1), 2, False), ("moonshot", (2, 1), 2, False),
            ("qwen", (2, 1), 1, True), ("moonshot", (2, 1), 1, True),
-           ("qwen", (1, 2), 1, True)]
-STEPS_4 = [("qwen", (2, 2), 1, False), ("moonshot", (2, 2), 1, False)]
+           ("qwen", (1, 2), 1, True), ("deepseek", (1, 2), 1, False),
+           ("zamba2", (1, 2), 1, False)]
+#: of the four-rank world; model 4 is the reference's own model size
+#: (deepseek-smoke: 4 heads, 8 experts; zamba2-smoke: 8 SSM heads, 4
+#: attention heads)
+STEPS_4 = [("qwen", (2, 2), 1, False), ("moonshot", (2, 2), 1, False),
+           ("deepseek", (2, 2), 1, False), ("zamba2", (2, 2), 1, False),
+           ("deepseek", (1, 4), 1, False), ("zamba2", (1, 4), 1, False)]
 #: the families a model axis refuses, one smoke config each
-REFUSED = ("deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-125m",
-           "whisper-tiny", "pixtral-12b")
+REFUSED = ("xlstm-125m", "whisper-tiny", "pixtral-12b")
 
 
 def _cfgs(arch: str, **kw) -> tuple:
@@ -208,6 +218,8 @@ def world2(tmp_path_factory):
         dtype=torch.float32) for a in REFUSED],))
     calls["zamba2"] = _step_call_dp_or_kv("zamba2-2.7b", (2, 1))
     calls["kv1"] = _step_call_dp_or_kv("qwen1.5-0.5b", (1, 2), n_kv_heads=1)
+    calls["zamba2_chunks"] = _step_call_dp_or_kv("zamba2-2.7b", (1, 2),
+                                                 seq=CHUNKS_SEQ)
     calls["elastic"] = ("elastic_check", (
         _cfgs("qwen1.5-0.5b")[1],
         dict(total_steps=4, ckpt_every=2, log_every=100, ckpt_dir=ckdir),
@@ -217,18 +229,19 @@ def world2(tmp_path_factory):
     return out
 
 
-def _single_rank_case(arch: str, **kw) -> tuple:
-    """(port config, reference weights, batch) of a config held to the
-    port's single-rank run only."""
+def _single_rank_case(arch: str, seq: int = SEQ, **kw) -> tuple:
+    """(port config, reference weights, batch of ``seq`` tokens a row) of
+    a config held to the port's single-rank run only."""
     jcfg, tcfg = _cfgs(arch, **kw)
     w = _np(jlm.init_params(jax.random.PRNGKey(0), jcfg))
     data = tpipe.SyntheticLM(tpipe.DataConfig(global_batch=ROWS,
-                                              seq_len=SEQ, seed=3), tcfg)
+                                              seq_len=seq, seed=3), tcfg)
     return tcfg, w, data.batch_at(1)
 
 
-def _step_call_dp_or_kv(arch: str, shape: tuple, **kw) -> tuple:
-    tcfg, w, batch = _single_rank_case(arch, **kw)
+def _step_call_dp_or_kv(arch: str, shape: tuple, seq: int = SEQ,
+                        **kw) -> tuple:
+    tcfg, w, batch = _single_rank_case(arch, seq, **kw)
     model = params_from_jax(w, tcfg, "cpu")
     zeros = {n: np.zeros(p.shape, np.float32)
              for n, p in model.named_parameters()}
@@ -236,8 +249,8 @@ def _step_call_dp_or_kv(arch: str, shape: tuple, **kw) -> tuple:
     return ("sharded_step", (tcfg, shape, w, state, batch, OPT, 1, False))
 
 
-def _single_rank_grads(arch: str, **kw) -> tuple:
-    tcfg, w, batch = _single_rank_case(arch, **kw)
+def _single_rank_grads(arch: str, seq: int = SEQ, **kw) -> tuple:
+    tcfg, w, batch = _single_rank_case(arch, seq, **kw)
     model = params_from_jax(w, tcfg, "cpu")
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     loss, _, g = tstep.accumulated_grads(tstep.make_loss(tcfg), model, tb)
@@ -267,7 +280,7 @@ def _result(world2, world4, case) -> dict:
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("case", [c for c in STEPS_2 + STEPS_4
-                                  if not (c[0] == "moonshot"
+                                  if not (c[0] in MOE_ARCHS
                                           and c[1] == (2, 2))],
                          ids=lambda c: f"{c[0]}-{c[1][0]}x{c[1][1]}-mb{c[2]}"
                          f"{'-int8' if c[3] else ''}")
@@ -335,32 +348,42 @@ def test_layout_of_the_steps(world2):
 
 @pytest.fixture(scope="module")
 def reference_2x2(tmp_path_factory):
-    """The reference's own train step of moonshot-smoke on a 2 x 2 (data,
-    model) mesh of fake devices, from the same state and batch."""
+    """The reference's own train step of each MoE smoke model on a 2 x 2
+    (data, model) mesh of fake devices, from the same state and batch
+    (one subprocess for both): {key in ``MOE_ARCHS``: its results}."""
     tmp = tmp_path_factory.mktemp("ref2x2")
-    arch = ARCHS["moonshot"]
-    state = _np(_opt_state(arch, False))
-    np.savez(tmp / "in.npz", tokens=_batch(arch)["tokens"],
-             **{f"{k}/{jax.tree_util.keystr(p)}": v
-                for k in ("m", "v")
-                for p, v in jax.tree_util.tree_flatten_with_path(
-                    state[k])[0]})
+    for key in MOE_ARCHS:
+        arch = ARCHS[key]
+        state = _np(_opt_state(arch, False))
+        np.savez(tmp / f"in_{key}.npz", tokens=_batch(arch)["tokens"],
+                 **{f"{k}/{jax.tree_util.keystr(p)}": v
+                    for k in ("m", "v")
+                    for p, v in jax.tree_util.tree_flatten_with_path(
+                        state[k])[0]})
     env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
-    out = subprocess.run([sys.executable, "-c", _REF_2X2, str(tmp), arch,
-                          json.dumps(OPT)], capture_output=True, text=True,
-                         env=env, cwd=REPO, timeout=300)
+    out = subprocess.run([sys.executable, "-c", _REF_2X2, str(tmp),
+                          json.dumps(OPT)] +
+                         [f"{k}={ARCHS[k]}" for k in MOE_ARCHS],
+                         capture_output=True, text=True, env=env, cwd=REPO,
+                         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    res = np.load(tmp / "out.npz")
-    tcfg = _cfgs(arch)[1]
-    like = _weights(arch)
+    results = {}
+    for key in MOE_ARCHS:
+        arch = ARCHS[key]
+        res = np.load(tmp / f"out_{key}.npz")
+        tcfg = _cfgs(arch)[1]
+        like = _weights(arch)
 
-    def tree(prefix):
-        return jax.tree_util.tree_map_with_path(
-            lambda p, _: res[f"{prefix}/{jax.tree_util.keystr(p)}"], like)
-    return {"grads": _named(tree("grads"), tcfg),
-            "params": _named(tree("params"), tcfg),
-            "m": _named(tree("m"), tcfg), "v": _named(tree("v"), tcfg),
-            "metrics": json.loads(str(res["metrics"]))}
+        def tree(prefix):
+            return jax.tree_util.tree_map_with_path(
+                lambda p, _: res[f"{prefix}/{jax.tree_util.keystr(p)}"],
+                like)
+        results[key] = {"grads": _named(tree("grads"), tcfg),
+                        "params": _named(tree("params"), tcfg),
+                        "m": _named(tree("m"), tcfg),
+                        "v": _named(tree("v"), tcfg),
+                        "metrics": json.loads(str(res["metrics"]))}
+    return results
 
 
 _REF_2X2 = textwrap.dedent("""
@@ -377,31 +400,48 @@ _REF_2X2 = textwrap.dedent("""
     from repro.optim import adamw
     from repro.train import step as step_lib
 
-    tmp, arch, opt = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
-    cfg = cb.get(arch, smoke=True).scaled(dtype=jnp.float32)
-    inp = np.load(os.path.join(tmp, "in.npz"))
-    params = lm.init_params(jax.random.PRNGKey(0), cfg)
+    tmp, opt = sys.argv[1], json.loads(sys.argv[2])
     key = jax.tree_util.keystr
-    state = {k: jax.tree_util.tree_map_with_path(
-        lambda p, _: jnp.asarray(inp[f"{k}/{key(p)}"]), params)
-        for k in ("m", "v")}
-    state["step"] = jnp.asarray(2, jnp.int32)
-    batch = {"tokens": jnp.asarray(inp["tokens"])}
     mesh = make_mesh(np.array(jax.devices()).reshape(2, 2),
                      ("data", "model"))
-    with context.use_mesh(mesh):
-        ps = jax.device_put(params, sharding.param_shardings(params, mesh))
-        _, grads = jax.jit(jax.value_and_grad(
-            lambda p, b: lm.loss_fn(p, b, cfg), has_aux=True))(ps, batch)
-        new, st, met = jax.jit(step_lib.make_train_step(
-            cfg, adamw.AdamWConfig(**opt)))(ps, state, batch)
-    out = {"metrics": json.dumps({k: float(v) for k, v in met.items()})}
-    for name, t in (("grads", grads), ("params", new), ("m", st["m"]),
-                    ("v", st["v"])):
-        for p, v in jax.tree_util.tree_flatten_with_path(t)[0]:
-            out[f"{name}/{key(p)}"] = np.asarray(v)
-    np.savez(os.path.join(tmp, "out.npz"), **out)
+    for item in sys.argv[3:]:
+        name, arch = item.split("=")
+        cfg = cb.get(arch, smoke=True).scaled(dtype=jnp.float32)
+        inp = np.load(os.path.join(tmp, f"in_{name}.npz"))
+        params = lm.init_params(jax.random.PRNGKey(0), cfg)
+        state = {k: jax.tree_util.tree_map_with_path(
+            lambda p, _: jnp.asarray(inp[f"{k}/{key(p)}"]), params)
+            for k in ("m", "v")}
+        state["step"] = jnp.asarray(2, jnp.int32)
+        batch = {"tokens": jnp.asarray(inp["tokens"])}
+        with context.use_mesh(mesh):
+            ps = jax.device_put(params,
+                                sharding.param_shardings(params, mesh))
+            _, grads = jax.jit(jax.value_and_grad(
+                lambda p, b: lm.loss_fn(p, b, cfg), has_aux=True))(ps, batch)
+            new, st, met = jax.jit(step_lib.make_train_step(
+                cfg, adamw.AdamWConfig(**opt)))(ps, state, batch)
+        out = {"metrics": json.dumps({k: float(v) for k, v in met.items()})}
+        for label, t in (("grads", grads), ("params", new), ("m", st["m"]),
+                         ("v", st["v"])):
+            for p, v in jax.tree_util.tree_flatten_with_path(t)[0]:
+                out[f"{label}/{key(p)}"] = np.asarray(v)
+        np.savez(os.path.join(tmp, f"out_{name}.npz"), **out)
 """)
+
+
+def _follows_the_reference_2x2(world4, reference_2x2, key):
+    got, ref = world4[(key, (2, 2), 1, False)], reference_2x2[key]
+    _assert_close_grads(got["grads"], ref["grads"], "reference 2x2")
+    for k in ("loss", "nll", "aux", "grad_norm", "lr"):
+        np.testing.assert_allclose(got["metrics"][k], ref["metrics"][k],
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
+    single = _reference(ARCHS[key], 1)["metrics"]
+    assert abs(got["metrics"]["aux"] - single["aux"]) > 1e-3
+    for k in ("params", "m", "v"):
+        for n, w in ref[k].items():
+            np.testing.assert_allclose(got[k][n], w, **STEP_TOL,
+                                       err_msg=f"{k} {n}")
 
 
 def test_moe_on_2x2_follows_the_reference_2x2_run(world4, reference_2x2):
@@ -409,17 +449,14 @@ def test_moe_on_2x2_follows_the_reference_2x2_run(world4, reference_2x2):
     shard's tokens: the gradient is the mean of each shard's own, the
     reported ``aux`` data shard 0's (the reference's own 2 x 2 run, not
     its single-device step)."""
-    got, ref = world4[("moonshot", (2, 2), 1, False)], reference_2x2
-    _assert_close_grads(got["grads"], ref["grads"], "reference 2x2")
-    for key in ("loss", "nll", "aux", "grad_norm", "lr"):
-        np.testing.assert_allclose(got["metrics"][key], ref["metrics"][key],
-                                   rtol=1e-5, atol=1e-7, err_msg=key)
-    single = _reference(ARCHS["moonshot"], 1)["metrics"]
-    assert abs(got["metrics"]["aux"] - single["aux"]) > 1e-3
-    for key in ("params", "m", "v"):
-        for n, w in ref[key].items():
-            np.testing.assert_allclose(got[key][n], w, **STEP_TOL,
-                                       err_msg=f"{key} {n}")
+    _follows_the_reference_2x2(world4, reference_2x2, "moonshot")
+
+
+def test_mla_moe_on_2x2_follows_the_reference_2x2_run(world4,
+                                                      reference_2x2):
+    """deepseek-smoke on (2, 2): MLA on local heads and the expert-parallel
+    MoE, each data shard routed alone, as the reference's own 2 x 2 run."""
+    _follows_the_reference_2x2(world4, reference_2x2, "deepseek")
 
 
 # ---------------------------------------------------------------------------
@@ -435,6 +472,15 @@ def test_hybrid_data_parallel_matches_single_rank(world2):
     np.testing.assert_allclose(got["metrics"]["loss"], loss, rtol=1e-5)
 
 
+def test_mamba2_tensor_parallel_over_several_chunks(world2):
+    """zamba2-smoke on (1, 2) at 4 SSD chunks a row: the inter-chunk
+    recurrence on local heads gives the single-rank loss and gradients."""
+    got = world2["zamba2_chunks"]
+    loss, grads = _single_rank_grads("zamba2-2.7b", CHUNKS_SEQ)
+    _assert_close_grads(got["grads"], grads, "single rank")
+    np.testing.assert_allclose(got["metrics"]["loss"], loss, rtol=1e-5)
+
+
 def test_kv_heads_that_model_does_not_divide(world2):
     """qwen-smoke with one KV head on (1, 2): ``wk`` / ``wv`` stay whole,
     each rank takes the KV head its query heads read, and their partial
@@ -446,6 +492,27 @@ def test_kv_heads_that_model_does_not_divide(world2):
     assert got["partial"] == sorted(f"layers.{i}.attn.{w}.{p}"
                                     for i in range(2) for w in ("wk", "wv")
                                     for p in ("w", "b"))
+
+
+def test_mla_partial_gradients(world2):
+    """deepseek-smoke on (1, 2): the whole tensors read inside the
+    model-parallel region, summed over ``model``, are exactly MLA's latent
+    projections (in the dense layer too) and the MoE router."""
+    got = world2[("deepseek", (1, 2), 1, False)]
+    want = {f"{stack}.attn.{w}" for stack in ("dense_layers.0", "layers.0")
+            for w in ("w_dkv.w", "w_krope.w", "norm_ckv.g")}
+    assert got["partial"] == sorted(want | {"layers.0.moe.router.w"})
+
+
+def test_mamba2_partial_gradients(world2):
+    """zamba2-smoke on (1, 2): the partial set is exactly each Mamba2
+    layer's ``in_b``, ``in_c``, ``in_dt``, ``conv_bc_*`` and the gated
+    norm's gain; the shared GQA block has none (its KV heads divide)."""
+    got = world2[("zamba2", (1, 2), 1, False)]
+    want = {f"mamba.{g}.{e}.{n}" for g in range(2) for e in range(2)
+            for n in ("in_b.w", "in_c.w", "in_dt.w", "conv_bc_w",
+                      "conv_bc_b", "norm.g")}
+    assert got["partial"] == sorted(want)
 
 
 @pytest.mark.parametrize("arch", REFUSED)
