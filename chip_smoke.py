@@ -213,14 +213,15 @@ def kernel(engine: str):
         else cuda_engine.carus_wave
 
 
-def compare(engine: str, fields, state, sew: int) -> int:
+def compare(engine: str, fields, state, sew: int) -> tuple[int, float]:
     """Run kernel and plain version on the same card tensors; return the
-    largest absolute difference of the final images (0 when bit-exact)."""
+    largest absolute difference of the final images (0 when bit-exact)
+    and the plain version's ms (:func:`time_plain`)."""
     import torch
-    want = plain_version(engine, fields, state, sew)
+    want, plain_ms = time_plain(engine, fields, state, sew)
     got = kernel(engine)(fields, state.clone(), sew)
     torch.cuda.synchronize()
-    return int((got.long() - want.long()).abs().max())
+    return int((got.long() - want.long()).abs().max()), plain_ms
 
 
 def bound_ms(engine: str, programs) -> tuple[float, str]:
@@ -262,18 +263,19 @@ def time_kernel(engine: str, fields, state, sew: int, reps: int) -> dict:
                                    flush=host_ahead)}
 
 
-def time_plain(engine: str, fields, state, sew: int) -> float:
-    """One run: the plain version takes seconds per Caesar wave, and the
-    kernel-vs-plain phase already ran it at these shapes (warm)."""
+def time_plain(engine: str, fields, state, sew: int) -> tuple:
+    """The plain version's final images and its ms by CUDA events, one run
+    (it takes seconds per Caesar wave): the kernel-vs-plain phase times
+    the run it checks against, and the timing phase reports that time."""
     import torch
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    plain_version(engine, fields, state, sew)
+    out = plain_version(engine, fields, state, sew)
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end)
+    return out, start.elapsed_time(end)
 
 
 # ---------------------------------------------------------------------------
@@ -415,20 +417,20 @@ def phase_kernels_vs_plain(report: dict, device) -> dict:
             for p in progs:
                 check.verify_program(p).raise_if_errors()
             fields, state = wave_tensors(progs, states, device)
-            err = compare(engine, fields, state, sew)
+            err, plain_ms = compare(engine, fields, state, sew)
             log(f"kernel vs plain: {engine} sew={sew} T={WAVE_TILES} "
                 f"n={LARGEST_BUCKET[engine]}: max_abs_err={err}")
             if err:
                 raise AssertionError(f"{engine} sew={sew}: kernel != plain")
             errs[engine] = max(errs[engine], err)
-            waves[(engine, sew)] = (progs, states)
+            waves[(engine, sew)] = (progs, states, plain_ms)
     for engine, dense in (("caesar", dense_caesar_waves),
                           ("carus", dense_carus_waves)):
         for sew in SEWS:
             for label, (progs, states) in dense(sew).items():
                 check.assert_wave(progs)
                 fields, state = wave_tensors(progs, states, device)
-                err = compare(engine, fields, state, sew)
+                err, _ = compare(engine, fields, state, sew)
                 log(f"kernel vs plain: {engine} {label} sew={sew} "
                     f"T={len(progs)} n={progs[0].n_instr}: "
                     f"max_abs_err={err}")
@@ -443,7 +445,7 @@ def phase_kernels_vs_plain(report: dict, device) -> dict:
                 .pad_to(conformance.CONF_BUCKET)
             state = conformance.golden_state(engine, sew)[None]
             fields, st = wave_tensors([prog], state, device)
-            err = compare(engine, fields, st, sew)
+            err, _ = compare(engine, fields, st, sew)
             if err:
                 raise AssertionError(f"golden {engine}/{label} sew={sew}: "
                                      f"kernel != plain")
@@ -746,21 +748,21 @@ def phase_staging(report: dict) -> dict:
 
 def phase_timing(report: dict, waves: dict, device) -> dict:
     """ms per launch at T in {1, 128} at the largest Table V bucket; the
-    plain version is timed at T=128 and SEW 8 only, the row the kernels
-    line reports (it takes 17-26 s per Caesar wave).
+    plain version's time at T=128 and SEW 8 only, the row the kernels
+    line reports: that of its run in the kernel-vs-plain phase on the same
+    wave (it takes 17-26 s per Caesar wave, so it is not run again).
     Then the Caesar waves of :func:`caesar_timed_waves` (Table V gemm and
     leaky_relu, the serial chain), each with its rounds per window, and
     the Carus waves of :func:`carus_timed_waves` (Table V gemm, matmul and
     conv2d, slide-dense), each with its records and barriers."""
     rows = []
-    for (engine, sew), (progs, states) in sorted(waves.items()):
+    for (engine, sew), (progs, states, plain_ms) in sorted(waves.items()):
         for n_tiles in (1, WAVE_TILES):
             ps, st = progs[:n_tiles], states[:n_tiles]
             fields, state = wave_tensors(ps, st, device)
             times = time_kernel(engine, fields, state, sew,
                                 reps=20 if engine == "caesar" else 100)
-            plain = time_plain(engine, fields, state, sew) \
-                if n_tiles == WAVE_TILES and sew == 8 else None
+            plain = plain_ms if n_tiles == WAVE_TILES and sew == 8 else None
             bms, by = bound_ms(engine, ps)
             rows.append(dict(engine=engine, sew=sew, tiles=n_tiles,
                              n_instr=ps[0].n_instr, **times, plain_ms=plain,
@@ -1710,10 +1712,10 @@ XLSTM_ARCH = "xlstm-125m"
 
 #: the serving phases' depth cuts (layers; every width kept), so that the
 #: whole run stays inside its time limit with the scale-out phase
-#: (``PERF.md`` §4): moonshot 16 of 48 layers, pixtral 20 of 40, zamba2 30
-#: of 54 (5 of 9 groups), xlstm 6 of 12 blocks (sLSTM at 3)
-SERVE_DEPTH = {"moonshot-v1-16b-a3b": 16, "pixtral-12b": 20,
-               "zamba2-2.7b": 30, "xlstm-125m": 6}
+#: (``PERF.md`` §4): moonshot 8 of 48 layers, pixtral 10 of 40, zamba2 18
+#: of 54 (3 of 9 groups), xlstm 6 of 12 blocks (sLSTM at 3)
+SERVE_DEPTH = {"moonshot-v1-16b-a3b": 8, "pixtral-12b": 10,
+               "zamba2-2.7b": 18, "xlstm-125m": 6}
 
 
 def block_by_block_model(arch: str, device, seed: int = 0) -> tuple:
@@ -2914,39 +2916,49 @@ SCALEOUT_MLA_LAYERS = 2
 #: is applied twice and its gradient accumulates over groups (~0.75 B
 #: parameters)
 SCALEOUT_HYBRID_LAYERS = 12
+#: pixtral-12b cut to 2 of 40 layers at full width, so that a gradient
+#: accumulates across layers (~1.91 B parameters: ~31 GB of float32 p, g,
+#: m, v for rank 0's single-rank reference; ~205 GB at 40)
+SCALEOUT_VLM_LAYERS = 2
 #: the elastic trainer's qwen1.5-0.5b cut to 8 of 24 layers at full width
 #: (a 4.97 GB training state instead of 7.43), to keep the whole run inside
 #: its time limit; (a), (b) and the pipeline keep all 24
 SCALEOUT_TRAINER_LAYERS = 8
-#: the scale-out phase: qwen1.5-0.5b at full width and depth,
-#: moonshot-v1-16b-a3b, deepseek-v2-lite-16b and zamba2-2.7b at full width
-#: cut in depth (above), the training phase's
-#: batch (8 rows of 512 tokens in 2 microbatches); the trainer's 4 steps of
-#: 2 rows of 256 tokens with a checkpoint every 2 and a crash at step 3;
-#: the pipeline's 8 rows of 512 in 4 microbatches over 2 stages
-SCALEOUT = dict(rows=8, seq=512, n_mb=2,
+#: the scale-out phase: qwen1.5-0.5b, xlstm-125m and whisper-tiny at full
+#: width and depth, moonshot-v1-16b-a3b, deepseek-v2-lite-16b, zamba2-2.7b
+#: and pixtral-12b at full width cut in depth (above), the training
+#: phase's batch (8 rows of 512 tokens in 2 microbatches; whisper's with
+#: 1500 frames a row), pixtral's 4 rows of 1536 positions (1024 image +
+#: 512 text) in 2 microbatches; the trainer's 4 steps of 2 rows of 256
+#: tokens with a checkpoint every 2 and a crash at step 3; the pipeline's
+#: 8 rows of 512 in 4 microbatches over 2 stages
+SCALEOUT = dict(rows=8, seq=512, n_mb=2, batches={"vlm": (4, 1536)},
                 trainer=dict(rows=2, seq=256, n_mb=1, total_steps=4,
                              ckpt_every=2, fail_at=3),
                 pipeline=dict(rows=8, n_micro=4))
 #: the loss of a sharded step against the single-rank step (relative); for
 #: the parts in SCALEOUT_SPREAD_PARTS, or twice the plain path's own 1-ulp
 #: spread where that is larger (MOE_LOGITS_SPREAD): the MoE models' routing
-#: is discrete (an ulp can move a top-k pick), and the hybrid's loss is
-#: chaotic under rounding (zamba2 cut to 12 layers, on an H100: 8.19e-5
-#: under 1-ulp input noise, 5.2e-5 between kernels and plain on one rank;
-#: its float32 sharded step gives the single-rank loss exactly on the CPU)
+#: is discrete (an ulp can move a top-k pick), and the hybrid's and the
+#: xLSTM's losses are chaotic under rounding (on an H100: zamba2 cut to 12
+#: layers 8.19e-5 under 1-ulp input noise, 5.2e-5 between kernels and
+#: plain on one rank; xlstm-125m 4.56e-4 under 1-ulp noise, its bf16
+#: sharded step 1.17e-4 from the single-rank one; in float32 on the CPU
+#: the sharded step gives the single-rank loss exactly for zamba2 and to
+#: rounding for the xLSTM at 12 blocks, tests/test_torch_scaleout.py)
 SCALEOUT_LOSS_RTOL = 1e-4
-SCALEOUT_SPREAD_PARTS = ("c", "f", "g")
+SCALEOUT_SPREAD_PARTS = ("c", "f", "g", "h")
 SCALEOUT_TIMEOUT = 600.0
 
 
-def scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg
-                      ) -> dict:
+def scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg,
+                      encdec_cfg, vlm_cfg) -> dict:
     """``flash_attention`` launches a rank makes in each part of the
     phase: a step's attention layers (the hybrid's shared-block
-    applications) x microbatches; the trainer's 5 steps run (0, 1, 2, the
-    crash at 3, 2 replayed, 3) and the resumed one; the pipeline's stage
-    of half the layers x its microbatches."""
+    applications; the encoder-decoder's encoder, self- and cross-attention
+    layers; none in the xLSTM) x microbatches; the trainer's 5 steps run
+    (0, 1, 2, the crash at 3, 2 replayed, 3) and the resumed one; the
+    pipeline's stage of half the layers x its microbatches."""
     n_mb, tr = SCALEOUT["n_mb"], SCALEOUT["trainer"]
     return {"a": cfg.n_layers * n_mb, "b": cfg.n_layers * n_mb,
             "c": moe_cfg.n_layers * n_mb,
@@ -2955,7 +2967,10 @@ def scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg
             "d_resumed": trainer_cfg.n_layers * tr["n_mb"],
             "e": cfg.n_layers // 2 * SCALEOUT["pipeline"]["n_micro"],
             "f": mla_cfg.n_layers * n_mb,
-            "g": hybrid_cfg.n_layers // hybrid_cfg.attn_every * n_mb}
+            "g": hybrid_cfg.n_layers // hybrid_cfg.attn_every * n_mb,
+            "h": 0,
+            "i": (encdec_cfg.n_enc_layers + 2 * encdec_cfg.n_layers) * n_mb,
+            "j": vlm_cfg.n_layers * n_mb}
 
 
 def attention_route(cfg) -> str:
@@ -2992,12 +3007,19 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     a rank, its attention on ``flash_attention``'s CUDA-core route (D 192,
     Dv 128), the assignments dropped on each rank reported; (g) Mamba2
     tensor parallelism, zamba2-2.7b at full width cut to 12 layers (2
-    groups) on (1, 2), 40 SSM heads and 16 attention heads a rank.  (f)
-    and (g) are held to (a)-(c)'s gradient and parameter limits and to
-    (c)'s loss rule (SCALEOUT_SPREAD_PARTS); each launch is expected on
-    the route ``flash_attention.route`` gives its shape.  Both ranks compute
-    on the one card, so the times are correctness-run times, not a
-    measure of scaling."""
+    groups) on (1, 2), 40 SSM heads and 16 attention heads a rank; (h)
+    xLSTM tensor parallelism, xlstm-125m at full width and depth on (1,
+    2), 2 mLSTM and 2 sLSTM heads a rank, no attention, its collectives
+    also by site; (i) the encoder-decoder, whisper-tiny at full width and
+    depth on (1, 2), 3 heads a rank, ``embed`` and ``head`` whole (vocab
+    51865); (j) the VLM, pixtral-12b at full width cut to 2 layers on (1,
+    2), 16 query and 4 KV heads a rank, 4 rows of 1024 image + 512 text
+    positions.  (f)-(j) are held to (a)-(c)'s gradient and parameter
+    limits, (f)-(h) to (c)'s loss rule (SCALEOUT_SPREAD_PARTS), (i) and
+    (j) to SCALEOUT_LOSS_RTOL; each launch is expected on the route
+    ``flash_attention.route`` gives its shape.  Both ranks compute on the
+    one card, so the times are correctness-run times, not a measure of
+    scaling."""
     import dataclasses
     import math
     import re
@@ -3011,10 +3033,14 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     mla_cfg = configs.get(MLA_ARCH).scaled(n_layers=SCALEOUT_MLA_LAYERS)
     hybrid_cfg = configs.get(HYBRID_ARCH).scaled(
         n_layers=SCALEOUT_HYBRID_LAYERS)
+    xlstm_cfg = configs.get(XLSTM_ARCH)
+    encdec_cfg = configs.get(ENCDEC_ARCH)
+    vlm_cfg = configs.get(VLM_ARCH).scaled(n_layers=SCALEOUT_VLM_LAYERS)
     trainer_cfg = cfg.scaled(n_layers=SCALEOUT_TRAINER_LAYERS)
     smi = report["nvidia_smi"]
     spec = dict(SCALEOUT, qwen=cfg, moe=moe_cfg, mla=mla_cfg,
-                hybrid=hybrid_cfg, trainer_model=trainer_cfg,
+                hybrid=hybrid_cfg, xlstm=xlstm_cfg, encdec=encdec_cfg,
+                vlm=vlm_cfg, trainer_model=trainer_cfg,
                 seed=seed,
                 grad_spread=TRAIN_GRAD_SPREAD, grad_floor=TRAIN_GRAD_FLOOR,
                 opt=dict(lr=1e-3, warmup_steps=1, total_steps=10),
@@ -3033,12 +3059,14 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
         shutil.rmtree(ckdir, ignore_errors=True)
     wall = time.perf_counter() - t0
     r0 = ranks[0]
-    want = scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg)
+    want = scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg,
+                             encdec_cfg, vlm_cfg)
     want_route = {p: attention_route(c) for p, c in
                   (("a", cfg), ("b", cfg), ("c", moe_cfg), ("d", cfg),
                    ("d_resumed", cfg), ("e", cfg), ("f", mla_cfg),
-                   ("g", hybrid_cfg))}
-    steps = "abcfg"
+                   ("g", hybrid_cfg), ("h", xlstm_cfg), ("i", encdec_cfg),
+                   ("j", vlm_cfg))}
+    steps = "abcfghij"
     launches = {"flash_attention": 0, "nmc_matmul": 0, "vrf_alu": 0}
     routes = {"tensor_core": 0, "cuda_core": 0}
     by_part = {}
@@ -3066,8 +3094,8 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     for r in ranks:
         for p in steps:
             rep = r[p]["replay"]
-            if rep["launches"] != want[p] or \
-                    rep["routes"] != {want_route[p]: want[p]}:
+            if rep["launches"] != want[p] or rep["routes"] != (
+                    {want_route[p]: want[p]} if want[p] else {}):
                 raise AssertionError(f"scaleout ({p}) rank {r['rank']}: "
                                      f"replayed {rep}, expected {want[p]} "
                                      f"on {want_route[p]}")
@@ -3075,7 +3103,9 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
                 replay_by_route[k] = max(replay_by_route.get(k, 0.0), err)
     replay_err = max(replay_by_route.values())
     for part, key in (("a", "TP"), ("b", "DP ZeRO-2"), ("c", "EP"),
-                      ("f", "MLA + EP"), ("g", "Mamba2 TP")):
+                      ("f", "MLA + EP"), ("g", "Mamba2 TP"),
+                      ("h", "xLSTM TP"), ("i", "enc-dec TP"),
+                      ("j", "VLM TP")):
         res = r0[part]
         log(f"scaleout ({part}) {key}: loss {res['metrics']['loss']:.6f} vs "
             f"single rank {res['reference']['loss']:.6f} (rel "
@@ -3094,6 +3124,11 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
             f"assignments, dropped) by rank "
             f"{[r[part]['moe_drops'] for r in ranks]}; "
             f"{res['seconds']:.1f} s; [{smi}]")
+        if part == "h":
+            log(f"scaleout (h) forward gathers by site (calls, bytes) by "
+                f"rank: {[r['h']['traffic_by_site'] for r in ranks]}; "
+                f"collectives in all by rank "
+                f"{[r['h']['counted']['traffic'] for r in ranks]}")
         loss_limit = SCALEOUT_LOSS_RTOL \
             if part not in SCALEOUT_SPREAD_PARTS else max(
             SCALEOUT_LOSS_RTOL,
@@ -3151,10 +3186,10 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
         return {k: v for k, v in res.items() if k not in ("steps",)}
     report["scaleout"] = dict(
         moe_layers=SCALEOUT_MOE_LAYERS, mla_layers=SCALEOUT_MLA_LAYERS,
-        hybrid_layers=SCALEOUT_HYBRID_LAYERS,
+        hybrid_layers=SCALEOUT_HYBRID_LAYERS, vlm_layers=SCALEOUT_VLM_LAYERS,
         trainer_layers=SCALEOUT_TRAINER_LAYERS,
         **{k: v for k, v in SCALEOUT.items()},
-        ranks=[{p: plain(r[p]) for p in "abcdefg"}
+        ranks=[{p: plain(r[p]) for p in "abcdefghij"}
                | {"seconds": r["seconds"]} for r in ranks],
         trainer_steps=d["steps"], launches=launches, attention_routes=routes,
         attention_routes_by_part=by_part,
@@ -3165,7 +3200,8 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
         wall_seconds=wall, nvidia_smi=smi,
         **{f"{k}_config": dataclasses.asdict(c) | {"dtype": str(c.dtype)}
            for k, c in (("moe", moe_cfg), ("mla", mla_cfg),
-                        ("hybrid", hybrid_cfg))})
+                        ("hybrid", hybrid_cfg), ("xlstm", xlstm_cfg),
+                        ("encdec", encdec_cfg), ("vlm", vlm_cfg))})
     return launches
 
 

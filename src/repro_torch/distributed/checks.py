@@ -10,8 +10,8 @@ configs, ``chip_smoke.py`` over gloo on the card at full width.
   reference's weights, laid out on a (data, model) mesh: the metrics, the
   gradients as the step reduces them, the updated parameters and moments,
   every one gathered in full on rank 0.
-* :func:`refusals`: the families that refuse a ``model`` axis, with their
-  messages.
+* :func:`refusals`: the configs that ``shard`` refuses on a ``model``
+  axis, with their messages.
 * :func:`pipeline_check`: ``pipeline_apply`` over a stage axis against
   the stages applied in sequence.
 * :func:`elastic_check`: a trainer with a crash on one mesh, its
@@ -21,8 +21,9 @@ configs, ``chip_smoke.py`` over gloo on the card at full width.
 * :func:`chip_scaleout`: ``chip_smoke.phase_scaleout``'s ranks at full
   width on the card: one train step of each of qwen (tensor and data
   parallel), moonshot (expert parallel), deepseek (MLA and expert
-  parallel) and zamba2 (Mamba2 and its shared block tensor parallel)
-  against the single-rank step, the elastic trainer and the pipeline.
+  parallel), zamba2 (Mamba2 and its shared block tensor parallel),
+  xlstm, whisper and pixtral (tensor parallel) against the single-rank
+  step, the elastic trainer and the pipeline.
 """
 
 from __future__ import annotations
@@ -373,6 +374,57 @@ class _MoEDrops:
         self._moe.route = self._orig
 
 
+class _TrafficBySite:
+    """Collectives a rank runs inside each site of ``sites`` ({label:
+    (class, method name)}, the methods wrapped for the block), by label
+    and op: [calls, bytes] (``context.traffic``'s count); a site nested in
+    another counts in the inner one only.  A backward's collectives run
+    outside every forward method and count in none."""
+
+    def __init__(self, sites: dict):
+        self.sites = sites
+
+    def __enter__(self):
+        from repro_torch.distributed import context
+        self.by_site, self._stack, self._wrapped = {}, [], []
+        self._ctx, self._count = context, context._count
+
+        def count(op, t, staged):
+            self._count(op, t, staged)
+            if self._stack:
+                row = self.by_site.setdefault(self._stack[-1], {}) \
+                    .setdefault(op, [0, 0])
+                row[0] += 1
+                row[1] += t.numel() * t.element_size()
+        context._count = count
+        for label, (cls, name) in self.sites.items():
+            orig = getattr(cls, name)
+
+            def wrapped(*args, _orig=orig, _label=label, **kw):
+                self._stack.append(_label)
+                try:
+                    return _orig(*args, **kw)
+                finally:
+                    self._stack.pop()
+            setattr(cls, name, wrapped)
+            self._wrapped.append((cls, name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        self._ctx._count = self._count
+        for cls, name, orig in self._wrapped:
+            setattr(cls, name, orig)
+
+
+def _xlstm_sites() -> dict:
+    """(h)'s forward gathers: the mLSTM's ``u``, the sLSTM's hidden states
+    (``forward`` outside its FFN) and its FFN's ``u``."""
+    from repro_torch.models import xlstm
+    return {"mlstm_u": (xlstm.MLSTM, "_proj"),
+            "slstm_hs": (xlstm.SLSTM, "forward"),
+            "slstm_ffn_u": (xlstm.SLSTM, "_ffn")}
+
+
 def _launches() -> dict:
     from repro_torch import kernels
     from repro_torch.kernels import flash_attention as fa
@@ -563,8 +615,9 @@ class _StepGrads:
 def _sharded_run(cfg, mesh, batch: dict, spec: dict, ref: dict | None,
                  device, profile: bool) -> dict:
     """One sharded train step from the mid-run state (the main path: its
-    launches counted, every attention launch recorded and replayed), its
-    events ms (and device ms when ``profile``), its gradients and updated
+    launches counted, every attention launch recorded and replayed; an
+    xLSTM's collectives also by site, :func:`_xlstm_sites`), its events
+    ms (and device ms when ``profile``), its gradients and updated
     parameters gathered against ``ref`` on rank 0."""
     n_mb, seed = spec["n_mb"], spec["seed"]
     model, shapes = _model(cfg, seed, device, mesh)
@@ -584,13 +637,15 @@ def _sharded_run(cfg, mesh, batch: dict, spec: dict, ref: dict | None,
                                      n_mb)
     _reset(device)
     profile = profile and _rank0() and torch.device(device).type == "cuda"
+    sites = _xlstm_sites() if cfg.family == "xlstm" else {}
     with _AttentionRecorder() as rec, _StepGrads() as kept, \
-            _MoEDrops() as drops:
+            _MoEDrops() as drops, _TrafficBySite(sites) as by_site:
         with _profiler() if profile else _null() as p:
             with _Events(device) as ev:
                 _, opt, metrics = train(model, opt, batch)
             out["counted"] = _counted(device)
     out["moe_drops"] = drops.calls
+    out["traffic_by_site"] = by_site.by_site
     out["partial"] = sorted(lay.partial)
     out["step_ms"] = ev.ms
     if profile:
@@ -635,7 +690,8 @@ def _device_ms(prof) -> float | None:
 #: shape); (b) reuses (a)'s reference
 STEP_PARTS = (("a", "qwen", (1, 2)), ("b", "qwen", (2, 1)),
               ("c", "moe", (1, 2)), ("f", "mla", (1, 2)),
-              ("g", "hybrid", (1, 2)))
+              ("g", "hybrid", (1, 2)), ("h", "xlstm", (1, 2)),
+              ("i", "encdec", (1, 2)), ("j", "vlm", (1, 2)))
 
 
 def chip_scaleout(device, spec: dict) -> dict:
@@ -648,9 +704,15 @@ def chip_scaleout(device, spec: dict) -> dict:
     pipeline, qwen's blocks in 2 stages; (f) MLA with expert parallelism,
     the cut deepseek on (1, 2), 8 heads and 32 experts a rank; (g) Mamba2
     tensor parallelism, the cut zamba2 on (1, 2), 40 SSM and 16 attention
-    heads a rank, its shared block applied by each of 2 groups.  ``spec``
-    holds the configs, sizes and limits.  Returns each part's results and
-    this rank's counted launches and collectives."""
+    heads a rank, its shared block applied by each of 2 groups; (h) xLSTM
+    tensor parallelism, xlstm on (1, 2), 2 mLSTM and 2 sLSTM heads a rank;
+    (i) the encoder-decoder, whisper on (1, 2), 3 heads a rank, ``embed``
+    and ``head`` whole; (j) the VLM, the cut pixtral on (1, 2), 16 query
+    and 4 KV heads a rank, ``img_proj`` whole.  ``spec`` holds the
+    configs, sizes and limits; ``spec["batches"]`` a part's (rows,
+    sequence) where it differs from ``spec["rows"]`` and ``spec["seq"]``.
+    Returns each part's results and this rank's counted launches and
+    collectives."""
     import time
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     out, t_all = {"rank": dist.get_rank()}, time.perf_counter()
@@ -664,7 +726,8 @@ def chip_scaleout(device, spec: dict) -> dict:
     for part, key, shape in STEP_PARTS:
         t0 = time.perf_counter()
         cfg = spec[key]
-        batch = batch_of(cfg, spec["rows"], spec["seq"])
+        batch = batch_of(cfg, *spec.get("batches", {}).get(
+            key, (spec["rows"], spec["seq"])))
         if part != "b":                       # (b) reuses (a)'s reference
             refs = _reference(cfg, batch, spec, device) if _rank0() else None
             _free(device)

@@ -190,6 +190,22 @@ class RMSNorm(nn.Module):
         return (y * self.g).to(x.dtype)
 
 
+def rms_norm_over_model(u: torch.Tensor, norm: RMSNorm,
+                        mesh: C.Mesh) -> torch.Tensor:
+    """``norm`` over a feature dim of which this rank holds its contiguous
+    slice (``u``'s last dim): the local sums of squares summed over
+    ``model`` in the forward and their gradient summed again in the
+    backward, divided by the whole width, times this rank's slice of
+    ``norm.g`` (whose gradient is then partial over ``model``)."""
+    uf = u.float()
+    ss = C.copy_to_model(C.reduce_from_model(
+        (uf * uf).sum(dim=-1, keepdim=True), mesh), mesh)
+    n = u.shape[-1]
+    g = norm.g.narrow(0, mesh.index(C.MODEL_AXIS) * n, n)
+    return (uf * torch.rsqrt(ss / (n * mesh.model_size()) + norm.eps)
+            * g).to(u.dtype)
+
+
 class LayerNorm(nn.Module):
     """Gain ``g`` and bias ``b``, computed in float32 and cast back."""
 

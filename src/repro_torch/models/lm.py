@@ -35,13 +35,14 @@ model's own ``forward``.
 
 :func:`shard` lays a model out on a mesh (every rank draws or loads the
 same full weights, then keeps its slices, as the reference's ``init``
-then ``device_put``): data parallelism for every family; tensor and
-expert parallelism over ``model`` for the dense and MoE decoders (GQA or
-MLA) and the hybrid (column-parallel projections and head, row-parallel
-``wo`` / MLP ``wo`` / ``out_proj``, vocab-parallel embedding,
-expert-local dispatch, Mamba2 heads).  The head's logits are
-gathered over ``model`` before the loss, so the cross entropy stays the
-single-rank function.  Serving a model sharded over ``model`` waits for
+then ``device_put``): data parallelism, and tensor and expert
+parallelism over ``model``, for every family (column-parallel projections
+and head, row-parallel ``wo`` / MLP ``wo`` / ``out_proj`` / ``down``,
+vocab-parallel embedding, expert-local dispatch, Mamba2, mLSTM and sLSTM
+heads, the encoder-decoder's encoder and cross K/V on local heads; a VLM's
+``img_proj`` whole).  A vocab-parallel head's logits are gathered over
+``model`` before the loss, so the cross entropy stays the single-rank
+function.  Serving a model sharded over ``model`` waits for
 sharded caches.
 """
 
@@ -184,9 +185,14 @@ class CrossDecoderBlock(nn.Module):
         the w8 form (weights dequantized, then a matmul in the activation
         dtype); never an ``nmc_matmul`` launch."""
         b, se, _ = enc.shape
-        shape = (b, se, cfg.n_kv_heads, cfg.head_dim)
-        return (self.xattn.wk(enc).reshape(shape).transpose(1, 2),
-                self.xattn.wv(enc).reshape(shape).transpose(1, 2))
+        # this rank's KV heads on a mesh (``enc`` entered the region in
+        # EncDecLM.hidden)
+        shape = (b, se, -1, cfg.head_dim)
+        k = self.xattn.wk(enc).reshape(shape)
+        v = self.xattn.wv(enc).reshape(shape)
+        if self.xattn.kv_select is not None:
+            k, v = k[:, :, self.xattn.kv_select], v[:, :, self.xattn.kv_select]
+        return k.transpose(1, 2), v.transpose(1, 2)
 
     def _cross_and_mlp(self, x: torch.Tensor, kv: tuple,
                        cfg: ModelConfig) -> torch.Tensor:
@@ -417,7 +423,12 @@ class EncDecLM(LMBase):
 
     def hidden(self, x: torch.Tensor, enc: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
-        """Every decoder layer over ``x``, against the encoder output."""
+        """Every decoder layer over ``x``, against the encoder output (on a
+        mesh, entering the model-parallel region once: every layer's cross
+        K/V projections give partial gradients of it)."""
+        mesh = self.layers[0].xattn.mesh if len(self.layers) else None
+        if mesh is not None:
+            enc = C.copy_to_model(enc, mesh)
         for blk in self.layers:
             x = blk(x, blk.cross_kv(enc, cfg), cfg)
         return x
@@ -652,34 +663,28 @@ def init_caches(params: LMBase, cfg: ModelConfig, batch: int,
     return params.init_caches(cfg, batch, max_len, dtype)
 
 
-#: the families whose layers run tensor- and expert-parallel over `model`
-TP_FAMILIES = ("dense", "moe", "hybrid")
-
-
 @torch.no_grad()
 def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
     """Lay ``params`` (full weights, the same on every rank) out on
     ``mesh``: each parameter replaced by its local slice
     (:func:`sharding.local_slice` under :func:`sharding.param_shardings`),
     the modules told their part, and ``params.layout`` set.  A ``model``
-    axis over 1 takes the dense and MoE decoders, with GQA or MLA (its
-    latent projections ``w_dkv``, ``w_krope``, ``norm_ckv`` whole), and
-    the hybrid (Mamba2 on local heads, the shared GQA block
-    tensor-parallel); the xLSTM, encoder-decoder and VLM families raise
-    ``NotImplementedError`` (their rules exist, their execution waits).
+    axis over 1 takes every family: the dense and MoE decoders, with GQA
+    or MLA (its latent projections ``w_dkv``, ``w_krope``, ``norm_ckv``
+    whole), the VLM (``img_proj`` whole, outside the model-parallel
+    regions), the hybrid (Mamba2 on local heads, the shared GQA block
+    tensor-parallel), the encoder-decoder (its encoder, self- and
+    cross-attention on local heads; an odd vocabulary keeps ``embed`` and
+    ``head`` whole) and the xLSTM (mLSTM and sLSTM on local heads).
     The heads (attention and SSM) must divide over ``model``; where the
     KV heads do not, ``wk`` and ``wv`` stay whole (the rule would split
     them by columns, through a head) and each rank takes the KV heads its
     query heads read.  ``params.layout.partial`` names the whole tensors
     read inside a model-parallel region, whose gradients are partial over
     ``model``: the MoE routers, whole KV heads, MLA's latent projections,
-    Mamba2's ``in_b`` / ``in_c`` / ``in_dt`` / ``conv_bc_*`` / ``norm.g``."""
+    Mamba2's ``in_b`` / ``in_c`` / ``in_dt`` / ``conv_bc_*`` / ``norm.g``,
+    the mLSTM's ``wf`` and ``out_norm.g``."""
     _check_family(cfg)
-    if mesh.model_size() > 1 and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over a model axis of "
-            f"{mesh.model_size()} runs the families {TP_FAMILIES}, "
-            f"not the {cfg.family} family yet (ROADMAP queue 1, item 6)")
     named = dict(params.named_parameters())
     shard_of = sharding.param_shardings(named, mesh)
     tp = mesh.model_size()
@@ -721,8 +726,8 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
 def _mark_parallel(params: LMBase, cfg: ModelConfig, shard_of: dict,
                    mesh: C.Mesh) -> set:
     """Set each linear's ``parallel`` kind, the MLPs', attentions',
-    Mamba2 layers' and the vocab-parallel embedding's mesh; return the
-    names whose gradient is partial over ``model``."""
+    Mamba2, mLSTM and sLSTM blocks' and the vocab-parallel embedding's
+    mesh; return the names whose gradient is partial over ``model``."""
     model = C.MODEL_AXIS
     partial = set()
     for mname, mod in params.named_modules():
@@ -755,6 +760,12 @@ def _mark_parallel(params: LMBase, cfg: ModelConfig, shard_of: dict,
             mod.mesh = mesh
             partial |= _names(mod, pre, ("in_b", "in_c", "in_dt", "norm"))
             partial |= {pre + n for n in ("conv_bc_w", "conv_bc_b")}
+        elif isinstance(mod, XL.MLSTM) and mod.up.parallel == "col":
+            mod.mesh = mesh
+            # out_norm's gain is read by slices; wf (whole) by local heads
+            partial |= _names(mod, pre, ("out_norm", "wf"))
+        elif isinstance(mod, XL.SLSTM) and mod.w_z.parallel == "col":
+            mod.mesh = mesh
     return partial
 
 

@@ -26,7 +26,9 @@ row-parallel.  ``in_b``, ``in_c``, ``in_dt``, ``conv_bc`` and the gated
 norm's gain stay whole: every rank projects B and C (shared by every
 head) and all of ``dt``, of which it takes its heads' slice before the
 softplus with its own ``dt_bias``.  The gated RMSNorm normalises by the
-RMS over the whole ``d_inner``: each rank's sum of squares is summed over
+RMS over the whole ``d_inner``
+(:func:`~repro_torch.models.layers.rms_norm_over_model`, which the
+mLSTM's ``out_norm`` shares): each rank's sum of squares is summed over
 ``model`` in the forward and its gradient summed again in the backward
 (each rank's output reads the global sum through its own slice only);
 each rank scales by its slice of the gain.  The whole tensors read inside
@@ -197,17 +199,9 @@ class Mamba2(nn.Module):
     def _gated_out(self, y: torch.Tensor, z: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
         u = y * F.silu(z)
-        if self.mesh is None:
-            return self.out_proj(self.norm(u), nmc_mode=cfg.nmc_mode)
-        # the RMS over the whole d_inner: the local sums of squares summed
-        # over `model`, and their gradient summed again in the backward
-        uf = u.float()
-        ss = C.copy_to_model(C.reduce_from_model(
-            (uf * uf).sum(dim=-1, keepdim=True), self.mesh), self.mesh)
-        n = u.shape[-1]
-        g = self.norm.g.narrow(0, self.mesh.index(C.MODEL_AXIS) * n, n)
-        normed = (uf * torch.rsqrt(ss / cfg.d_inner + self.norm.eps)
-                  * g).to(u.dtype)
+        # on a mesh, the RMS over the whole d_inner
+        normed = self.norm(u) if self.mesh is None \
+            else L.rms_norm_over_model(u, self.norm, self.mesh)
         return self.out_proj(normed, nmc_mode=cfg.nmc_mode)
 
     def _local_heads(self, dt: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,22 @@ there too.
 A prompt longer than ``ssm_chunk`` must be a multiple of it: the reference
 reshapes the sequence into whole chunks and fails otherwise, and the port
 raises instead of padding.
+
+On a mesh with a ``model`` axis (:func:`~repro_torch.models.lm.shard`)
+both blocks run the rank's heads, every split tensor holding the rule's
+contiguous slice.  mLSTM: ``up`` / ``up_gate`` / ``wq`` / ``wk`` / ``wv``
+column-parallel over the head-major ``d_i``, ``wi`` over the heads,
+``wf`` whole (the rule replicates it; each rank keeps its heads' gates),
+``down`` row-parallel; ``u`` is gathered over ``model`` because the
+q / k / v and gate projections contract over the whole ``d_i``, and
+``out_norm`` takes the RMS over the whole ``d_i``
+(:func:`~repro_torch.models.layers.rms_norm_over_model`).  sLSTM: ``w_*``
+column-parallel over the head-major ``d``, ``r_*`` split over heads, the
+time loop on the local heads with no collective inside it, its hidden
+states gathered before the residual; the FFN follows the layout of its
+``up`` and ``down`` (``fix_divisibility`` may keep either whole).
+Decode and the state initialisers for serving read ``cfg.n_heads`` and
+run on one rank (serving a model sharded over ``model`` raises).
 """
 
 from __future__ import annotations
@@ -32,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import context as C
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -124,14 +141,20 @@ def mlstm_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (num / den[..., None]).to(q.dtype)
 
 
+def mlstm_head_dim(cfg: ModelConfig) -> int:
+    """P = d_i / n_heads, the same on every rank of a mesh."""
+    return int(cfg.d_model * cfg.proj_factor_mlstm) // cfg.n_heads
+
+
 class MLSTM(nn.Module):
     """One mLSTM block: RMSNorm, the up projection ``up`` and its silu gate
     ``up_gate`` (d -> d_i = d * proj_factor_mlstm), q / k / v (d_i -> d_i),
     the per-head input and forget gates ``wi`` / ``wf`` (d_i -> H), the
     matrix memory, ``out_norm`` and ``down`` (d_i -> d), a residual
-    around it all."""
+    around it all.  On a mesh ``mesh`` is set (module docstring)."""
 
     KEYS = ("up", "up_gate", "wq", "wk", "wv", "wi", "wf", "down")
+    mesh: C.Mesh | None = None
 
     def __init__(self, norm: L.RMSNorm, lin: dict, out_norm: L.RMSNorm):
         super().__init__()
@@ -162,22 +185,34 @@ class MLSTM(nn.Module):
         """(g, q, k, v, log_i, log_f): the silu gate (B,S,d_i), q / k / v
         (B,S,H,P) in the activation dtype, the gates (B,S,H) float32."""
         b, s, _ = x.shape
-        mode = cfg.nmc_mode
+        mode, mesh = cfg.nmc_mode, self.mesh
         xn = self.norm(x)
+        if mesh is not None:
+            xn = C.copy_to_model(xn, mesh)
         u = self.up(xn, nmc_mode=mode)
         g = self.up_gate(xn, nmc_mode=mode, act="silu")
-        heads = (b, s, cfg.n_heads, -1)
+        if mesh is not None:
+            # the projections below contract over the whole d_i and give
+            # partial gradients of it: summed before the gather narrows
+            u = C.copy_to_model(C.gather_from_model(u, mesh), mesh)
+        # by the head dim: the local head count follows from the widths
+        heads = (b, s, -1, mlstm_head_dim(cfg))
         q, k, v = (lin(u, nmc_mode=mode).reshape(heads)
                    for lin in (self.wq, self.wk, self.wv))
         log_i = self.wi(u).float()
-        log_f = F.logsigmoid(self.wf(u).float())
-        return g, q, k, v, log_i, log_f
+        log_f = self.wf(u)
+        if mesh is not None:            # wf whole: this rank's heads' gates
+            h = log_i.shape[-1]
+            log_f = log_f.narrow(-1, mesh.index(C.MODEL_AXIS) * h, h)
+        return g, q, k, v, log_i, F.logsigmoid(log_f.float())
 
     def _out(self, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
              cfg: ModelConfig) -> torch.Tensor:
         """x + down(out_norm(y) * g), y (B,S,H,P)."""
-        y = self.out_norm(y.reshape(g.shape)) * g
-        return x + self.down(y, nmc_mode=cfg.nmc_mode)
+        y = y.reshape(g.shape)
+        y = self.out_norm(y) if self.mesh is None \
+            else L.rms_norm_over_model(y, self.out_norm, self.mesh)
+        return x + self.down(y * g, nmc_mode=cfg.nmc_mode)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
                 return_state: bool = False):
@@ -199,9 +234,7 @@ class MLSTM(nn.Module):
 
 
 def mlstm_state_init(cfg: ModelConfig, batch: int, device=None) -> tuple:
-    di = int(cfg.d_model * cfg.proj_factor_mlstm)
-    h = cfg.n_heads
-    p = di // h
+    h, p = cfg.n_heads, mlstm_head_dim(cfg)
     kw = {"dtype": torch.float32, "device": device}
     return (torch.zeros((batch, h, p, p), **kw),
             torch.zeros((batch, h, p), **kw),
@@ -222,7 +255,10 @@ class SLSTM(nn.Module):
     ``r_z`` ... (H, P, P) float32, the scalar memory, a residual; then
     ``ffn_norm`` and the gated FFN ``up`` (d -> 2 d_f, d_f = d *
     proj_factor_slstm) and ``down`` (d_f -> d), tanh-form gelu on the first
-    half times the second, a residual."""
+    half times the second, a residual.  On a mesh ``mesh`` is set (module
+    docstring)."""
+
+    mesh: C.Mesh | None = None
 
     def __init__(self, norm: L.RMSNorm, w: dict, r: dict,
                  ffn_norm: L.RMSNorm, up: L.NmcLinear, down: L.NmcLinear):
@@ -258,6 +294,8 @@ class SLSTM(nn.Module):
         """The gates' input pre-activations (B, S, 4, D) float32, in
         :data:`GATES` order."""
         xn = self.norm(x)
+        if self.mesh is not None:
+            xn = C.copy_to_model(xn, self.mesh)
         return torch.stack([getattr(self, f"w_{g}")(xn).float()
                             for g in GATES], dim=2)
 
@@ -292,18 +330,39 @@ class SLSTM(nn.Module):
         return torch.stack(hs, dim=1), (c, n, m, hprev)
 
     def _ffn(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-        u = self.up(self.ffn_norm(x), nmc_mode=cfg.nmc_mode)
+        """x + down(gelu(u[:d_f]) * u[d_f:]), u = up(ffn_norm(x)).  A
+        column-parallel ``up`` splits u contiguously, not by halves, so u
+        is gathered and the product formed whole; a row-parallel ``down``
+        then reads this rank's rows of it, and the gradient of the gathered
+        u is partial over ``model``."""
+        mode, mesh = cfg.nmc_mode, self.up.mesh
+        h = self.ffn_norm(x)
+        if self.up.parallel is None:
+            u = self.up(h, nmc_mode=mode)
+        else:
+            u = C.gather_from_model(
+                self.up(C.copy_to_model(h, mesh), nmc_mode=mode), mesh)
+            if self.down.parallel == "row":
+                u = C.copy_to_model(u, mesh)
         df = u.shape[-1] // 2
         h = F.gelu(u[..., :df], approximate="tanh") * u[..., df:]
-        return x + self.down(h, nmc_mode=cfg.nmc_mode)
+        if self.down.parallel == "row":
+            n = self.down.w.shape[0]
+            h = h.narrow(-1, self.down.mesh.index(C.MODEL_AXIS) * n, n)
+        return x + self.down(h, nmc_mode=mode)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
                 return_state: bool = False, state: tuple | None = None):
         """x: (B, S, D) from ``state`` (a zero state when None).  With
         ``return_state`` also the state after the last position."""
         if state is None:
-            state = slstm_state_init(cfg, x.shape[0], x.device)
+            heads, p = self.r_z.shape[:2]
+            state = slstm_state_init(cfg, x.shape[0], x.device, heads * p)
         hs, last = self.recurrence(self._proj(x, cfg), state)
+        if self.mesh is not None:
+            # what follows reads the whole hidden state on every rank, so
+            # its gradient is whole there: a plain gather
+            hs = C.gather_from_model(hs, self.mesh)
         out = self._ffn(x + hs.to(x.dtype), cfg)
         return (out, last) if return_state else out
 
@@ -316,8 +375,11 @@ class SLSTM(nn.Module):
         return out
 
 
-def slstm_state_init(cfg: ModelConfig, batch: int, device=None) -> tuple:
-    d = cfg.d_model
+def slstm_state_init(cfg: ModelConfig, batch: int, device=None,
+                     width: int | None = None) -> tuple:
+    """The zero state ``(c, n, m, h)``, (B, width) float32 each: the whole
+    ``d_model`` unless ``width`` (a rank's heads) is given."""
+    d = width or cfg.d_model
     kw = {"dtype": torch.float32, "device": device}
     return (torch.zeros((batch, d), **kw), torch.zeros((batch, d), **kw),
             torch.full((batch, d), M0, **kw), torch.zeros((batch, d), **kw))

@@ -4,11 +4,13 @@ spawned by ``launch.mesh.run_ranks`` over gloo, smoke configs in float32.
 
 One spawn per world size runs every check of its meshes
 (``distributed.checks.sequence``): two ranks for the (1, 2) and (2, 1)
-meshes, the refusals, the hybrid's data parallelism and the elastic
-reshard; four for (2, 2), (1, 4) and the 4-stage pipeline.  Each spawn is
-joined within a timeout.  The reference runs in this process on one
-device, except its own 2 x 2 runs of the MoE models (moonshot's GQA,
-deepseek's MLA), in one subprocess with four fake devices.
+meshes, the refusals, the hybrid's data parallelism, the xLSTM over
+several chunks, at full depth and with a row-parallel FFN, whisper with
+an odd vocabulary and the elastic reshard; four for (2, 2), (1, 4) and
+the 4-stage pipeline.  Each spawn is joined within a timeout.  The
+reference runs in this process on one device, except its own 2 x 2 runs
+of the MoE models (moonshot's GQA, deepseek's MLA), in one subprocess
+with four fake devices.
 
 Tolerances: those of ``tests/test_torch_train.py`` (loss ``rtol 1e-5``;
 gradients ``rtol 1e-4`` with an ``atol`` of ``1e-5`` of the tensor's
@@ -56,14 +58,17 @@ from repro_torch.train import step as tstep
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = {"qwen": "qwen1.5-0.5b", "moonshot": "moonshot-v1-16b-a3b",
-         "deepseek": "deepseek-v2-lite-16b", "zamba2": "zamba2-2.7b"}
+         "deepseek": "deepseek-v2-lite-16b", "zamba2": "zamba2-2.7b",
+         "xlstm": "xlstm-125m", "whisper": "whisper-tiny",
+         "pixtral": "pixtral-12b"}
 #: the MoE models, whose (2, 2) step follows the reference's own 2 x 2 run
 MOE_ARCHS = ("moonshot", "deepseek")
 GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-5
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 ROWS, SEQ = 4, 16
-#: zamba2-smoke's 4 SSD chunks of 16 (the other cases run one chunk)
+#: zamba2-smoke's 4 SSD chunks of 16, xlstm-smoke's 4 mLSTM chunks (the
+#: other cases run one chunk)
 CHUNKS_SEQ = 64
 SPAWN_TIMEOUT = 240.0
 
@@ -73,15 +78,25 @@ STEPS_2 = [("qwen", (1, 2), 1, False), ("qwen", (2, 1), 1, False),
            ("qwen", (2, 1), 2, False), ("moonshot", (2, 1), 2, False),
            ("qwen", (2, 1), 1, True), ("moonshot", (2, 1), 1, True),
            ("qwen", (1, 2), 1, True), ("deepseek", (1, 2), 1, False),
-           ("zamba2", (1, 2), 1, False)]
+           ("zamba2", (1, 2), 1, False), ("xlstm", (1, 2), 1, False),
+           ("whisper", (1, 2), 1, False), ("pixtral", (1, 2), 1, False)]
 #: of the four-rank world; model 4 is the reference's own model size
 #: (deepseek-smoke: 4 heads, 8 experts; zamba2-smoke: 8 SSM heads, 4
-#: attention heads)
+#: attention heads; xlstm-smoke: 4 heads, its sLSTM FFN whole;
+#: pixtral-smoke: 2 KV heads, so wk / wv whole)
 STEPS_4 = [("qwen", (2, 2), 1, False), ("moonshot", (2, 2), 1, False),
            ("deepseek", (2, 2), 1, False), ("zamba2", (2, 2), 1, False),
-           ("deepseek", (1, 4), 1, False), ("zamba2", (1, 4), 1, False)]
-#: the families a model axis refuses, one smoke config each
-REFUSED = ("xlstm-125m", "whisper-tiny", "pixtral-12b")
+           ("deepseek", (1, 4), 1, False), ("zamba2", (1, 4), 1, False),
+           ("xlstm", (1, 4), 1, False), ("whisper", (2, 2), 1, False),
+           ("pixtral", (1, 4), 1, False)]
+#: one smoke config of each family ported last, whose single head a model
+#: axis of 2 does not divide: ``shard`` refuses it
+HEADS_REFUSED = ("xlstm-125m", "whisper-tiny", "pixtral-12b")
+#: xlstm-smoke with d_f = 128, so that its sLSTM FFN's ``down`` is
+#: row-parallel on model 2 (at d_f 85 it stays whole)
+XLSTM_EVEN_FFN = dict(proj_factor_slstm=2.0)
+#: xlstm-smoke at xlstm-125m's depth and block pattern, 8 mLSTM chunks a row
+XLSTM_DEEP, XLSTM_DEEP_SEQ = dict(n_layers=12, slstm_layers=(3, 9)), 128
 
 
 def _cfgs(arch: str, **kw) -> tuple:
@@ -215,11 +230,20 @@ def world2(tmp_path_factory):
     ckdir = str(tmp_path_factory.mktemp("elastic") / "ck")
     calls = {case: _step_call(*case) for case in STEPS_2}
     calls["refused"] = ("refusals", ([cb.get(a, smoke=True).scaled(
-        dtype=torch.float32) for a in REFUSED],))
+        dtype=torch.float32, n_heads=1, n_kv_heads=1)
+        for a in HEADS_REFUSED],))
     calls["zamba2"] = _step_call_dp_or_kv("zamba2-2.7b", (2, 1))
     calls["kv1"] = _step_call_dp_or_kv("qwen1.5-0.5b", (1, 2), n_kv_heads=1)
     calls["zamba2_chunks"] = _step_call_dp_or_kv("zamba2-2.7b", (1, 2),
                                                  seq=CHUNKS_SEQ)
+    calls["xlstm_chunks"] = _step_call_dp_or_kv("xlstm-125m", (1, 2),
+                                                seq=CHUNKS_SEQ)
+    calls["xlstm_even_ffn"] = _step_call_dp_or_kv("xlstm-125m", (1, 2),
+                                                  **XLSTM_EVEN_FFN)
+    calls["xlstm_deep"] = _step_call_dp_or_kv("xlstm-125m", (1, 2),
+                                              XLSTM_DEEP_SEQ, **XLSTM_DEEP)
+    calls["whisper_odd_vocab"] = _step_call_dp_or_kv("whisper-tiny", (1, 2),
+                                                     vocab_size=255)
     calls["elastic"] = ("elastic_check", (
         _cfgs("qwen1.5-0.5b")[1],
         dict(total_steps=4, ckpt_every=2, log_every=100, ckpt_dir=ckdir),
@@ -515,12 +539,112 @@ def test_mamba2_partial_gradients(world2):
     assert got["partial"] == sorted(want)
 
 
-@pytest.mark.parametrize("arch", REFUSED)
-def test_model_axis_refuses_unported_families(world2, arch):
-    msg = world2["refused"][REFUSED.index(arch)]
-    cfg = cb.get(arch, smoke=True)
-    kind = "MLA" if cfg.mla else cfg.family
-    assert msg is not None and f"not the {kind} family" in msg, msg
+def test_mlstm_tensor_parallel_over_several_chunks(world2):
+    """xlstm-smoke on (1, 2) at 4 mLSTM chunks a row: the inter-chunk
+    matrix memory on local heads gives the single-rank loss and
+    gradients."""
+    got = world2["xlstm_chunks"]
+    loss, grads = _single_rank_grads("xlstm-125m", CHUNKS_SEQ)
+    _assert_close_grads(got["grads"], grads, "single rank")
+    np.testing.assert_allclose(got["metrics"]["loss"], loss, rtol=1e-5)
+
+
+def test_xlstm_loss_at_full_depth(world2):
+    """xlstm-smoke at 12 blocks (sLSTM at 3 and 9) on (1, 2) in float32:
+    the sharded step's loss is the single-rank loss to float32 rounding,
+    though the model's loss and gradients are chaotic under rounding
+    (``chip_smoke.SCALEOUT_SPREAD_PARTS`` holds its bf16 loss on the card
+    to its own 1-ulp spread)."""
+    got = world2["xlstm_deep"]
+    loss, _ = _single_rank_grads("xlstm-125m", XLSTM_DEEP_SEQ, **XLSTM_DEEP)
+    np.testing.assert_allclose(got["metrics"]["loss"], loss, rtol=1e-6)
+
+
+def test_slstm_row_parallel_ffn(world2):
+    """xlstm-smoke at d_f 128 on (1, 2): the sLSTM FFN's ``up`` and
+    ``down`` both split, the product formed whole from the gathered ``up``
+    and read by rows: the single-rank loss and gradients."""
+    got = world2["xlstm_even_ffn"]
+    loss, grads = _single_rank_grads("xlstm-125m", **XLSTM_EVEN_FFN)
+    _assert_close_grads(got["grads"], grads, "single rank")
+    np.testing.assert_allclose(got["metrics"]["loss"], loss, rtol=1e-5)
+    assert got["local_m"]["blocks.1.up.w"] == (64, 128)
+    assert got["local_m"]["blocks.1.down.w"] == (64, 64)
+
+
+def test_encdec_with_an_odd_vocabulary(world2):
+    """whisper-smoke with 255 tokens on (1, 2), as whisper-tiny's 51865:
+    ``embed`` and ``head`` stay whole on each rank (the head's logits
+    need no gather), and the step gives the single-rank loss and
+    gradients; at 256 both are split over ``model``."""
+    got = world2["whisper_odd_vocab"]
+    loss, grads = _single_rank_grads("whisper-tiny", vocab_size=255)
+    _assert_close_grads(got["grads"], grads, "single rank")
+    np.testing.assert_allclose(got["metrics"]["loss"], loss, rtol=1e-5)
+    assert got["local_m"]["embed.table"] == (255, 64)
+    assert got["local_m"]["head.w"] == (64, 255)
+    even = world2[("whisper", (1, 2), 1, False)]["local_m"]
+    assert even["embed.table"] == (128, 64)
+    assert even["head.w"] == (64, 128)
+
+
+def test_xlstm_partial_gradients(world2):
+    """xlstm-smoke on (1, 2): the partial set is exactly the mLSTM blocks'
+    ``out_norm.g`` (read by slices) and ``wf.w`` (the rule keeps it whole;
+    each rank reads its heads' gates); the sLSTM block has none."""
+    got = world2[("xlstm", (1, 2), 1, False)]
+    want = {f"blocks.{i}.{n}" for i in (0, 2)
+            for n in ("out_norm.g", "wf.w")}
+    assert got["partial"] == sorted(want)
+
+
+def _fake_mesh(model: int):
+    """A (data 1, model ``model``) mesh of rank 0 with no process group:
+    enough for ``shard``, which slices and marks without collectives."""
+    from repro_torch.distributed import context
+    return context.Mesh(("data", "model"), {"data": 1, "model": model},
+                        {"data": 0, "model": 0}, {}, torch.device("cpu"),
+                        "gloo")
+
+
+@pytest.mark.parametrize("model, kw, kinds", [
+    (2, {}, ("col", None)), (4, {}, (None, None)),
+    (2, XLSTM_EVEN_FFN, ("col", "row"))],
+    ids=["model2", "model4", "model2-even-ffn"])
+def test_slstm_ffn_layouts(model, kw, kinds):
+    """The sLSTM FFN's layout follows its linears' own ``parallel``:
+    xlstm-smoke's d_f 85 keeps ``down`` whole on model 2 and both whole on
+    model 4; at d_f 128 both split on model 2."""
+    tcfg = _cfgs("xlstm-125m", **kw)[1]
+    model_ = lm.shard(lm.init_params(tcfg, torch.Generator(), "cpu"), tcfg,
+                      _fake_mesh(model))
+    blk = model_.blocks[1]
+    assert (blk.up.parallel, blk.down.parallel) == kinds
+    assert blk.mesh is not None and blk.w_z.parallel == "col"
+
+
+def test_encdec_partial_gradients(world2):
+    """whisper-smoke on (1, 2): nothing is partial: the encoder output
+    enters the region once, and every cross K/V head divides."""
+    assert world2[("whisper", (1, 2), 1, False)]["partial"] == []
+
+
+def test_vlm_partial_gradients(world2):
+    """pixtral-smoke on (1, 2): nothing is partial; ``img_proj`` runs
+    whole outside every model-parallel region, its gradient whole."""
+    assert world2[("pixtral", (1, 2), 1, False)]["partial"] == []
+    tcfg = _cfgs("pixtral-12b")[1]
+    model_ = lm.shard(lm.init_params(tcfg, torch.Generator(), "cpu"), tcfg,
+                      _fake_mesh(2))
+    assert model_.img_proj.parallel is None and model_.img_proj.mesh is None
+
+
+@pytest.mark.parametrize("arch", HEADS_REFUSED)
+def test_model_axis_refuses_heads_it_does_not_divide(world2, arch):
+    """Every family runs on a model axis; one head over 2 still raises."""
+    msg = world2["refused"][HEADS_REFUSED.index(arch)]
+    name = cb.get(arch, smoke=True).name
+    assert msg == f"{name}: 1 heads over a model axis of 2", msg
 
 
 def test_pipeline_matches_sequential(world4):
