@@ -2534,6 +2534,14 @@ TRAIN_LOSS_RTOL = 1e-3
 #: nondeterministic forward could move it
 TRAIN_REPLAY_RTOL = 1e-3
 TRAIN_TIMED_STEPS = 3
+#: the training phase's activation-checkpointing part: qwen1.5-0.5b at full
+#: width and depth, 2 rows of 4096 tokens (the reference's ``train_4k``
+#: sequence; its global batch of 256 cut to 2 for one card) in one
+#: microbatch, one gradient each with remat off, "full" and "dots"
+TRAIN_REMAT = dict(rows=2, seq_len=4096)
+TRAIN_REMAT_RUNS = (("off", False, "full"), ("full", True, "full"),
+                    ("dots", True, "dots"))
+TRAIN_REMAT_TIMED = 3
 
 
 def attention_backward_bound_ms(b, hq, hkv, sq, d, dv, elem) -> dict:
@@ -2671,6 +2679,104 @@ def profiled_train_step(model, opt_state, batch, cfg, opt_cfg,
     return out
 
 
+def training_remat(model, cfg, device, limits: dict, smi: str) -> dict:
+    """(d) Gradients of ``model`` on a TRAIN_REMAT batch with each of
+    TRAIN_REMAT_RUNS, from the same weights: the loss equal to the
+    remat-off one bit for bit, every gradient within its ``limits`` (part
+    (a)'s, TRAIN_GRAD_SPREAD times the plain path's 1-ulp spread) of the
+    remat-off gradient and whether it is bit-equal; every
+    ``flash_attention`` launch of the remat-off warm-up gradient (this
+    shape is run nowhere else) replayed against the plain version, within
+    the tolerances of kernels/checks.py; each run's peak memory
+    allocated (the peak statistics reset before its first timed
+    gradient), its ``flash_attention`` launches (one a layer, twice under
+    remat: forward and recompute) and the ms by events of
+    TRAIN_REMAT_TIMED gradients, after one untimed gradient with the same
+    policy (which loads the checkpointing code and leaves the allocator
+    the blocks that policy asks for); "full"'s peak below remat-off's."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import checks as dchecks
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import step as step_lib
+    data = SyntheticLM(DataConfig(global_batch=TRAIN_REMAT["rows"],
+                                  seq_len=TRAIN_REMAT["seq_len"], seed=1),
+                       cfg)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch_at(0).items()}
+
+    def timed(c):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+        ev[0].record()
+        out = step_lib.grads_of(step_lib.make_loss(c), model, batch)
+        ev[1].record()
+        ev[1].synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+    runs, g_off, loss_off = {}, None, None
+    replay = None
+    for label, remat, policy in TRAIN_REMAT_RUNS:
+        c = cfg.scaled(remat=remat, remat_policy=policy)
+        if remat:
+            timed(c)
+        else:
+            with recorded_lm_kernel_calls(("flash_attention",)) as calls:
+                timed(c)
+            with torch.no_grad():
+                replay = replay_against_plain(calls)
+            del calls
+            if replay["launches"]["flash_attention"] != cfg.n_layers:
+                raise AssertionError(f"training (d): {replay['launches']} "
+                                     f"launches replayed, expected "
+                                     f"{cfg.n_layers} flash_attention")
+            log(f"training (d) remat off: {cfg.n_layers} attention launches"
+                f" at {TRAIN_REMAT} replayed against the plain version, "
+                f"max abs err {replay['max_abs_err']['flash_attention']:.3g}"
+                f" by route {replay['attention_by_route']}; [{smi}]")
+        torch.cuda.reset_peak_memory_stats(device)
+        fa0 = fa.flash_attention.launches
+        (loss, _, g), ms = timed(c)
+        run = dict(ms=[ms],
+                   peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+                   flash_attention=fa.flash_attention.launches - fa0,
+                   loss=float(loss))
+        want = cfg.n_layers * (2 if remat else 1)
+        if run["flash_attention"] != want:
+            raise AssertionError(f"training (d) {label}: "
+                                 f"{run['flash_attention']} flash_attention "
+                                 f"launches, expected {want}")
+        if g_off is None:
+            g_off, loss_off = {n: t.cpu() for n, t in g.items()}, run["loss"]
+        else:
+            worst, bad, equal = {"name": None, "ratio": 0.0}, [], True
+            for n, t in g.items():
+                ref = g_off[n].to(device)
+                equal = equal and torch.equal(t, ref)
+                err = dchecks.rel_l2(t, ref)
+                if err / limits[n] > worst["ratio"]:
+                    worst = {"name": n, "ratio": err / limits[n],
+                             "rel_l2": err}
+                if not err <= limits[n]:
+                    bad.append((n, err, limits[n]))
+            run.update(grads_bit_equal=equal, worst_grad=worst)
+            if bad or run["loss"] != loss_off:
+                raise AssertionError(f"training (d) {label}: loss "
+                                     f"{run['loss']} vs {loss_off} "
+                                     f"without remat, gradients past their "
+                                     f"limits {bad[:5]}")
+        del g, loss
+        for _ in range(TRAIN_REMAT_TIMED - 1):
+            run["ms"].append(timed(c)[1])
+        runs[label] = run
+        log(f"training (d) remat {label}: {run}; [{smi}]")
+    if not runs["full"]["peak_gb"] < runs["off"]["peak_gb"]:
+        raise AssertionError(f"training (d): peak with remat 'full' "
+                             f"{runs['full']['peak_gb']} GB, without "
+                             f"{runs['off']['peak_gb']} GB")
+    del g_off, batch
+    torch.cuda.empty_cache()
+    return dict(TRAIN_REMAT, runs=runs, replay=replay)
+
+
 def phase_training(report: dict, device, seed: int = 0) -> dict:
     """The port's training path at qwen1.5-0.5B's full width and depth
     (float32 master weights, bf16 activations, ``nmc_mode="none"``): (a)
@@ -2684,7 +2790,11 @@ def phase_training(report: dict, device, seed: int = 0) -> dict:
     step's ms split by CUDA events, its device ms (profiler: the
     gradient, the update, the attention forward launches and the backward
     recomputes), one attention forward's and one backward recompute's at
-    the training shape beside their bounds and SDPA's, peak memory."""
+    the training shape beside their bounds and SDPA's, peak memory.
+    (a)-(c) run with ``remat=False`` (the full config's default is on), so
+    that their launches and times stay comparable with earlier runs; (d)
+    activation checkpointing at 2 x 4096 tokens
+    (:func:`training_remat`)."""
     import math
     import shutil
     import torch
@@ -2698,7 +2808,7 @@ def phase_training(report: dict, device, seed: int = 0) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.train import step as step_lib
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    cfg = configs.get(TRAIN_ARCH)
+    cfg = configs.get(TRAIN_ARCH).scaled(remat=False)
     if cfg.nmc_mode != "none" or cfg.dtype != torch.bfloat16:
         raise AssertionError(f"{TRAIN_ARCH} trains in bf16 without NMC, "
                              f"got {cfg.nmc_mode} {cfg.dtype}")
@@ -2785,6 +2895,10 @@ def phase_training(report: dict, device, seed: int = 0) -> dict:
         raise AssertionError(f"loss through the kernels {loss_k} vs plain "
                              f"{loss_p}")
     del g_k, g_p
+
+    # (d) activation checkpointing, from the same weights
+    remat = training_remat(model, cfg, device,
+                           {n: g["limit"] for n, g in grads.items()}, smi)
 
     # (b) the trainer with a crash: the main path
     ckdir = REPO / "chiprun_out" / "train_ckpt"
@@ -2903,7 +3017,7 @@ def phase_training(report: dict, device, seed: int = 0) -> dict:
         matmul_routes=mm_routes, trainer_seconds=run_s,
         trainer_steps=steps, checkpoints=saves, step_split_ms=split,
         peak_memory_gb=peak_gb, profiled_step=prof, attention=attn,
-        nvidia_smi=smi)
+        remat=remat, nvidia_smi=smi)
     return launches
 
 
@@ -2956,11 +3070,13 @@ def scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg,
     """``flash_attention`` launches a rank makes in each part of the
     phase: a step's attention layers (the hybrid's shared-block
     applications; the encoder-decoder's encoder, self- and cross-attention
-    layers; none in the xLSTM) x microbatches; the trainer's 5 steps run
+    layers; none in the xLSTM) x microbatches, twice under remat (forward
+    and recompute); the trainer's 5 steps run
     (0, 1, 2, the crash at 3, 2 replayed, 3) and the resumed one; the
     pipeline's stage of half the layers x its microbatches."""
     n_mb, tr = SCALEOUT["n_mb"], SCALEOUT["trainer"]
     return {"a": cfg.n_layers * n_mb, "b": cfg.n_layers * n_mb,
+            "k": 2 * cfg.n_layers * n_mb,
             "c": moe_cfg.n_layers * n_mb,
             "d": trainer_cfg.n_layers * tr["n_mb"]
             * (tr["total_steps"] + 1),
@@ -3014,8 +3130,13 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     depth on (1, 2), 3 heads a rank, ``embed`` and ``head`` whole (vocab
     51865); (j) the VLM, pixtral-12b at full width cut to 2 layers on (1,
     2), 16 query and 4 KV heads a rank, 4 rows of 1024 image + 512 text
-    positions.  (f)-(j) are held to (a)-(c)'s gradient and parameter
-    limits, (f)-(h) to (c)'s loss rule (SCALEOUT_SPREAD_PARTS), (i) and
+    positions; (k) sequence parallelism with activation checkpointing,
+    (a) with ``seq_parallel`` and ``remat`` on, against (a)'s reference,
+    its collectives by op beside (a)'s (the recompute's count as
+    they run) and its peak memory.  The parts but (k) pin ``remat=False``
+    (the full configs' default is on), so that their launches,
+    collectives and times stay comparable with earlier runs.  (f)-(j)
+    and (k) are held to (a)-(c)'s gradient and parameter limits, (f)-(h) to (c)'s loss rule (SCALEOUT_SPREAD_PARTS), (i) and
     (j) to SCALEOUT_LOSS_RTOL; each launch is expected on the route
     ``flash_attention.route`` gives its shape.  Both ranks compute on the
     one card, so the times are correctness-run times, not a measure of
@@ -3028,19 +3149,23 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     from repro_torch import configs
     from repro_torch.distributed import checks as dchecks
     from repro_torch.launch.mesh import run_ranks
-    cfg = configs.get(TRAIN_ARCH)
-    moe_cfg = configs.get(MOE_ARCH).scaled(n_layers=SCALEOUT_MOE_LAYERS)
-    mla_cfg = configs.get(MLA_ARCH).scaled(n_layers=SCALEOUT_MLA_LAYERS)
+    cfg = configs.get(TRAIN_ARCH).scaled(remat=False)
+    moe_cfg = configs.get(MOE_ARCH).scaled(n_layers=SCALEOUT_MOE_LAYERS,
+                                           remat=False)
+    mla_cfg = configs.get(MLA_ARCH).scaled(n_layers=SCALEOUT_MLA_LAYERS,
+                                           remat=False)
     hybrid_cfg = configs.get(HYBRID_ARCH).scaled(
-        n_layers=SCALEOUT_HYBRID_LAYERS)
-    xlstm_cfg = configs.get(XLSTM_ARCH)
-    encdec_cfg = configs.get(ENCDEC_ARCH)
-    vlm_cfg = configs.get(VLM_ARCH).scaled(n_layers=SCALEOUT_VLM_LAYERS)
+        n_layers=SCALEOUT_HYBRID_LAYERS, remat=False)
+    xlstm_cfg = configs.get(XLSTM_ARCH).scaled(remat=False)
+    encdec_cfg = configs.get(ENCDEC_ARCH).scaled(remat=False)
+    vlm_cfg = configs.get(VLM_ARCH).scaled(n_layers=SCALEOUT_VLM_LAYERS,
+                                           remat=False)
     trainer_cfg = cfg.scaled(n_layers=SCALEOUT_TRAINER_LAYERS)
+    sp_cfg = cfg.scaled(seq_parallel=True, remat=True)
     smi = report["nvidia_smi"]
-    spec = dict(SCALEOUT, qwen=cfg, moe=moe_cfg, mla=mla_cfg,
-                hybrid=hybrid_cfg, xlstm=xlstm_cfg, encdec=encdec_cfg,
-                vlm=vlm_cfg, trainer_model=trainer_cfg,
+    spec = dict(SCALEOUT, qwen=cfg, qwen_sp=sp_cfg, moe=moe_cfg,
+                mla=mla_cfg, hybrid=hybrid_cfg, xlstm=xlstm_cfg,
+                encdec=encdec_cfg, vlm=vlm_cfg, trainer_model=trainer_cfg,
                 seed=seed,
                 grad_spread=TRAIN_GRAD_SPREAD, grad_floor=TRAIN_GRAD_FLOOR,
                 opt=dict(lr=1e-3, warmup_steps=1, total_steps=10),
@@ -3062,11 +3187,12 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     want = scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg,
                              encdec_cfg, vlm_cfg)
     want_route = {p: attention_route(c) for p, c in
-                  (("a", cfg), ("b", cfg), ("c", moe_cfg), ("d", cfg),
+                  (("a", cfg), ("b", cfg), ("k", sp_cfg),
+                   ("c", moe_cfg), ("d", cfg),
                    ("d_resumed", cfg), ("e", cfg), ("f", mla_cfg),
                    ("g", hybrid_cfg), ("h", xlstm_cfg), ("i", encdec_cfg),
                    ("j", vlm_cfg))}
-    steps = "abcfghij"
+    steps = "abkcfghij"
     launches = {"flash_attention": 0, "nmc_matmul": 0, "vrf_alu": 0}
     routes = {"tensor_core": 0, "cuda_core": 0}
     by_part = {}
@@ -3102,7 +3228,8 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
             for k, err in rep["max_abs_err_by_route"].items():
                 replay_by_route[k] = max(replay_by_route.get(k, 0.0), err)
     replay_err = max(replay_by_route.values())
-    for part, key in (("a", "TP"), ("b", "DP ZeRO-2"), ("c", "EP"),
+    for part, key in (("a", "TP"), ("b", "DP ZeRO-2"),
+                      ("k", "TP + SP + remat"), ("c", "EP"),
                       ("f", "MLA + EP"), ("g", "Mamba2 TP"),
                       ("h", "xLSTM TP"), ("i", "enc-dec TP"),
                       ("j", "VLM TP")):
@@ -3124,6 +3251,19 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
             f"assignments, dropped) by rank "
             f"{[r[part]['moe_drops'] for r in ranks]}; "
             f"{res['seconds']:.1f} s; [{smi}]")
+        if part == "k":
+            log(f"scaleout (k) collectives (calls, bytes, staged) by rank, "
+                f"forward, recompute and backward: "
+                f"{[r['k']['counted']['traffic'] for r in ranks]} beside "
+                f"(a)'s {[r['a']['counted']['traffic'] for r in ranks]}; "
+                f"peak GB by rank {[r['k']['peak_gb'] for r in ranks]} "
+                f"beside (a)'s {[r['a']['peak_gb'] for r in ranks]}; "
+                f"attention launches replayed by rank "
+                f"{[r['k']['replay']['shapes'] for r in ranks]}; "
+                f"partial over model {res['partial'][:3]} ...")
+            if any("reduce_scatter" not in r["k"]["counted"]["traffic"]
+                   for r in ranks):
+                raise AssertionError("scaleout (k): no reduce-scatter")
         if part == "h":
             log(f"scaleout (h) forward gathers by site (calls, bytes) by "
                 f"rank: {[r['h']['traffic_by_site'] for r in ranks]}; "
@@ -3189,7 +3329,7 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
         hybrid_layers=SCALEOUT_HYBRID_LAYERS, vlm_layers=SCALEOUT_VLM_LAYERS,
         trainer_layers=SCALEOUT_TRAINER_LAYERS,
         **{k: v for k, v in SCALEOUT.items()},
-        ranks=[{p: plain(r[p]) for p in "abcdefghij"}
+        ranks=[{p: plain(r[p]) for p in "abcdefghijk"}
                | {"seconds": r["seconds"]} for r in ranks],
         trainer_steps=d["steps"], launches=launches, attention_routes=routes,
         attention_routes_by_part=by_part,
@@ -3201,7 +3341,8 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
         **{f"{k}_config": dataclasses.asdict(c) | {"dtype": str(c.dtype)}
            for k, c in (("moe", moe_cfg), ("mla", mla_cfg),
                         ("hybrid", hybrid_cfg), ("xlstm", xlstm_cfg),
-                        ("encdec", encdec_cfg), ("vlm", vlm_cfg))})
+                        ("encdec", encdec_cfg), ("vlm", vlm_cfg),
+                        ("sp", sp_cfg))})
     return launches
 
 
@@ -3721,7 +3862,8 @@ def main() -> int:
     # (deepseek's on the CUDA-core route); its row reports the route that
     # its times are of
     replays = [report["serving"]["attention_replay"]] + \
-        [report[p]["replay"] for p in lm_paths if p != "serving"]
+        [report[p]["replay"] for p in lm_paths if p != "serving"] + \
+        [report["training"]["remat"]["replay"]]
     attn_errs = dict(lm_errs["flash_attention"])
     for rep in replays:
         for kind, err in rep["attention_by_route"].items():

@@ -22,7 +22,7 @@ def smoke() -> ModelConfig:
         n_heads=4, n_kv_heads=4, d_ff=96, vocab_size=256, mla=True,
         kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16,
         moe=True, n_experts=8, top_k=2, moe_d_ff=96, n_shared_experts=2,
-        first_dense_layers=1, dense_d_ff=128, capacity_factor=2.0)
+        first_dense_layers=1, dense_d_ff=128, capacity_factor=2.0, remat=False)
 
 
 base.register("deepseek-v2-lite-16b", full, smoke)

@@ -16,7 +16,8 @@ def full() -> ModelConfig:
 def smoke() -> ModelConfig:
     return ModelConfig(
         name="danube-smoke", family="dense", n_layers=2, d_model=64,
-        n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256, window=32)
+        n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256, window=32,
+        remat=False)
 
 
 base.register("h2o-danube-1.8b", full, smoke)

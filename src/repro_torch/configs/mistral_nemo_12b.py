@@ -15,7 +15,8 @@ def full() -> ModelConfig:
 def smoke() -> ModelConfig:
     return ModelConfig(
         name="nemo-smoke", family="dense", n_layers=2, d_model=64,
-        n_heads=4, n_kv_heads=2, head_dim=32, d_ff=128, vocab_size=256)
+        n_heads=4, n_kv_heads=2, head_dim=32, d_ff=128, vocab_size=256,
+        remat=False)
 
 
 base.register("mistral-nemo-12b", full, smoke)

@@ -19,7 +19,7 @@ def smoke() -> ModelConfig:
         name="moonshot-smoke", family="moe", n_layers=2, d_model=64,
         n_heads=4, n_kv_heads=4, d_ff=96, vocab_size=256, moe=True,
         n_experts=8, top_k=2, moe_d_ff=96, n_shared_experts=2,
-        capacity_factor=2.0)
+        capacity_factor=2.0, remat=False)
 
 
 base.register("moonshot-v1-16b-a3b", full, smoke)

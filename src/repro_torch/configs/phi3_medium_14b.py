@@ -15,7 +15,7 @@ def full() -> ModelConfig:
 def smoke() -> ModelConfig:
     return ModelConfig(
         name="phi3-smoke", family="dense", n_layers=2, d_model=80,
-        n_heads=4, n_kv_heads=2, d_ff=160, vocab_size=256)
+        n_heads=4, n_kv_heads=2, d_ff=160, vocab_size=256, remat=False)
 
 
 base.register("phi3-medium-14b", full, smoke)

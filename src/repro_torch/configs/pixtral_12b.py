@@ -18,7 +18,7 @@ def smoke() -> ModelConfig:
     return ModelConfig(
         name="pixtral-smoke", family="vlm", n_layers=2, d_model=64,
         n_heads=4, n_kv_heads=2, head_dim=32, d_ff=128, vocab_size=256,
-        vlm=True, n_img_tokens=8)
+        vlm=True, n_img_tokens=8, remat=False)
 
 
 base.register("pixtral-12b", full, smoke)

@@ -15,7 +15,8 @@ def full() -> ModelConfig:
 def smoke() -> ModelConfig:
     return ModelConfig(
         name="qwen-smoke", family="dense", n_layers=2, d_model=64,
-        n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=512, qkv_bias=True)
+        n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=512, qkv_bias=True,
+        remat=False)
 
 
 base.register("qwen1.5-0.5b", full, smoke)

@@ -18,7 +18,7 @@ def smoke() -> ModelConfig:
     return ModelConfig(
         name="whisper-smoke", family="encdec", n_layers=2, n_enc_layers=2,
         d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=256,
-        encdec=True, learned_pos=True, enc_seq=32, act="gelu")
+        encdec=True, learned_pos=True, enc_seq=32, act="gelu", remat=False)
 
 
 base.register("whisper-tiny", full, smoke)

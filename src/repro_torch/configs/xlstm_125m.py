@@ -16,7 +16,7 @@ def smoke() -> ModelConfig:
     return ModelConfig(
         name="xlstm-smoke", family="xlstm", n_layers=3, d_model=64,
         n_heads=4, n_kv_heads=4, d_ff=0, vocab_size=256,
-        slstm_layers=(1,), ssm_chunk=16)
+        slstm_layers=(1,), ssm_chunk=16, remat=False)
 
 
 base.register("xlstm-125m", full, smoke)

@@ -21,7 +21,7 @@ def smoke() -> ModelConfig:
     return ModelConfig(
         name="zamba2-smoke", family="hybrid", n_layers=4, d_model=64,
         n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=256, ssm_state=16,
-        ssm_head_dim=16, ssm_chunk=16, attn_every=2, window=64)
+        ssm_head_dim=16, ssm_chunk=16, attn_every=2, window=64, remat=False)
 
 
 base.register("zamba2-2.7b", full, smoke)

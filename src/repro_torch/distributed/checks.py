@@ -92,17 +92,24 @@ def sharded_step(device, cfg, shape: tuple, weights: dict, state: dict,
     rank 0 (None elsewhere): ``metrics`` (floats), ``grads`` (as the step
     reduces them, before compression), ``params``, ``m``, ``v`` and
     ``grad_err`` after the step, each {name: full numpy}; ``partial``,
-    the names summed over ``model``."""
+    the names summed over ``model`` where the stream is split, and
+    ``partial_now``, those the step summed; ``traffic``, the collectives
+    of the gradient ({op: [calls, bytes, staged bytes]})."""
+    from repro_torch.distributed import context
     mesh = make_mesh(shape, AXES, device)
     model = lm.shard(params_from_jax(weights, cfg, device), cfg, mesh)
     lay = model.layout
     opt = load_state(model, state, device)
     tb = {k: torch.from_numpy(np.array(v)).to(device)
           for k, v in batch.items()}
+    context.reset_traffic()
+    local = step_lib.local_rows(tb, mesh, n_mb)
+    split = model.splits_rows(local, cfg)
     _, _, g = step_lib.accumulated_grads(
-        step_lib.make_loss(cfg), model,
-        step_lib.local_rows(tb, mesh, n_mb), n_mb)
-    grads = _host(step_lib.reduce_grads(g, lay), lay.params)
+        step_lib.make_loss(cfg), model, local, n_mb)
+    g = step_lib.reduce_grads(g, lay, split)
+    traffic = {k: list(v) for k, v in context.traffic.items()}
+    grads = _host(g, lay.params)
     train = step_lib.make_train_step(cfg, adamw.AdamWConfig(**opt_kw), n_mb,
                                      compress)
     _, opt, metrics = train(model, opt, tb)
@@ -112,6 +119,7 @@ def sharded_step(device, cfg, shape: tuple, weights: dict, state: dict,
            "m": _host(opt["m"], lay.moments),
            "v": _host(opt["v"], lay.moments),
            "partial": sorted(lay.partial),
+           "partial_now": sorted(lay.partial_for(split)), "traffic": traffic,
            "local_m": {n: tuple(t.shape) for n, t in opt["m"].items()}}
     if compress:
         out["grad_err"] = _host(opt["grad_err"], lay.params)
@@ -686,9 +694,10 @@ def _device_ms(prof) -> float | None:
     return us * 1e-3 or None
 
 
-#: ``chip_scaleout``'s one-step parts: (part, config key of the spec, mesh
-#: shape); (b) reuses (a)'s reference
+#: ``chip_scaleout``'s one-step parts, in order: (part, config key of the
+#: spec, mesh shape); (b) and (k) reuse (a)'s reference
 STEP_PARTS = (("a", "qwen", (1, 2)), ("b", "qwen", (2, 1)),
+              ("k", "qwen_sp", (1, 2)),
               ("c", "moe", (1, 2)), ("f", "mla", (1, 2)),
               ("g", "hybrid", (1, 2)), ("h", "xlstm", (1, 2)),
               ("i", "encdec", (1, 2)), ("j", "vlm", (1, 2)))
@@ -708,8 +717,10 @@ def chip_scaleout(device, spec: dict) -> dict:
     tensor parallelism, xlstm on (1, 2), 2 mLSTM and 2 sLSTM heads a rank;
     (i) the encoder-decoder, whisper on (1, 2), 3 heads a rank, ``embed``
     and ``head`` whole; (j) the VLM, the cut pixtral on (1, 2), 16 query
-    and 4 KV heads a rank, ``img_proj`` whole.  ``spec`` holds the
-    configs, sizes and limits; ``spec["batches"]`` a part's (rows,
+    and 4 KV heads a rank, ``img_proj`` whole; (k) sequence parallelism
+    with activation checkpointing, (a)'s model, batch and mesh with
+    ``seq_parallel`` and ``remat`` on, against (a)'s reference.  ``spec``
+    holds the configs, sizes and limits; ``spec["batches"]`` a part's (rows,
     sequence) where it differs from ``spec["rows"]`` and ``spec["seq"]``.
     Returns each part's results and this rank's counted launches and
     collectives."""
@@ -728,7 +739,7 @@ def chip_scaleout(device, spec: dict) -> dict:
         cfg = spec[key]
         batch = batch_of(cfg, *spec.get("batches", {}).get(
             key, (spec["rows"], spec["seq"])))
-        if part != "b":                       # (b) reuses (a)'s reference
+        if part not in ("b", "k"):            # they reuse (a)'s reference
             refs = _reference(cfg, batch, spec, device) if _rank0() else None
             _free(device)
             dist.barrier()
@@ -738,7 +749,7 @@ def chip_scaleout(device, spec: dict) -> dict:
         if _rank0():
             res["reference"] = {k: refs[k] for k in ("loss", "loss_plain",
                                                      "loss_spread")}
-        if part != "a":
+        if part not in ("a", "b"):            # (k), after them, is the last
             refs = None
         _free(device)
         dist.barrier()

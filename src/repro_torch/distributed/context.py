@@ -20,10 +20,18 @@ result cast back).  The autograd-aware ones are the four of tensor
 parallelism: :func:`copy_to_model` (forward identity, backward all-reduce
 over ``model``), :func:`reduce_from_model` (forward all-reduce, backward
 identity), :func:`gather_from_model` (forward all-gather on one dim,
-backward the local slice) and :func:`mean_over_model`; and
+backward the local slice) and :func:`mean_over_model`;
 :func:`gather_from_data` (forward all-gather of rows over the data axes,
 backward their sum and the local rows), with which a MoE layer under data
-parallelism alone routes the global batch as the reference's GSPMD does.
+parallelism alone routes the global batch as the reference's GSPMD does;
+and the three of sequence parallelism, where the residual stream holds
+this rank's rows of the sequence between the model-parallel regions:
+:func:`gather_from_seq` (enter a region: forward all-gather on the
+sequence dim, backward reduce-scatter), :func:`reduce_scatter_to_seq`
+(leave it: forward reduce-scatter, backward all-gather) and
+:func:`split_to_seq` (split a replicated stream: forward the local rows,
+backward all-gather).  :func:`enter_region` and :func:`leave_region` pick
+a region's entry and exit, with or without sequence parallelism.
 
 A backend may run a collective on host tensors only: :data:`HOST_STAGED`
 names, by backend, the collectives whose CUDA tensors go through a pinned
@@ -201,6 +209,33 @@ def all_gather(t: torch.Tensor, axes, mesh: Mesh, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim).to(t.device)
 
 
+def reduce_scatter(t: torch.Tensor, axes, mesh: Mesh,
+                   dim: int) -> torch.Tensor:
+    """The sum of ``t`` over ``axes``, of which this rank keeps its part on
+    ``dim`` (``t.shape[dim] / n`` rows, in row-major rank order), as a new
+    tensor of t's dtype (floats summed in float32); ``t`` itself where the
+    axes span one rank."""
+    group = mesh.group(axes)
+    if group is None:
+        return t
+    n = mesh.size(axes)
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                         f"over {n} ranks")
+    work = _wide(t.movedim(dim, 0)).contiguous()
+    staged = _staged("reduce_scatter", mesh, work)
+    _count("reduce_scatter", work, staged)
+    out = torch.empty((work.shape[0] // n,) + tuple(work.shape[1:]),
+                      dtype=work.dtype, device=work.device)
+    if staged:
+        host, got = _on_host(work), _on_host(out)
+        dist.reduce_scatter_tensor(got, host, group=group)
+        out.copy_(got)
+    else:
+        dist.reduce_scatter_tensor(out, work, group=group)
+    return out.movedim(0, dim).to(t.dtype).contiguous()
+
+
 def broadcast(t: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
     """``t`` of the first rank along ``axes`` (index 0 on each), on every
     rank of the group (a new tensor)."""
@@ -335,6 +370,40 @@ class _GatherFromData(torch.autograd.Function):
         return g.narrow(0, ctx.mesh.index(axes) * ctx.n, ctx.n), None
 
 
+class _GatherFromSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return all_gather(x, MODEL_AXIS, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, MODEL_AXIS, ctx.mesh, ctx.dim), None, None
+
+
+class _ReduceScatterToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return reduce_scatter(x, MODEL_AXIS, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, MODEL_AXIS, ctx.mesh, ctx.dim), None, None
+
+
+class _SplitToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        n = x.shape[dim] // mesh.model_size()
+        return x.narrow(dim, mesh.index(MODEL_AXIS) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, MODEL_AXIS, ctx.mesh, ctx.dim), None, None
+
+
 def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Enter a model-parallel region: x as it is; its gradient summed over
     the model ranks (each holds the part its local slice produced)."""
@@ -364,3 +433,42 @@ def gather_from_data(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     gradient of this rank's rows is the sum of every rank's gradient of
     them."""
     return _GatherFromData.apply(x, mesh)
+
+
+def gather_from_seq(x: torch.Tensor, mesh: Mesh, dim: int = 1
+                    ) -> torch.Tensor:
+    """Enter a model-parallel region from a sequence-split stream: the
+    model ranks' rows of x concatenated on ``dim``; the gradient (partial:
+    each rank's part of the region) summed over the model ranks and each
+    rank's rows kept."""
+    return _GatherFromSeq.apply(x, mesh, dim % x.dim())
+
+
+def reduce_scatter_to_seq(x: torch.Tensor, mesh: Mesh, dim: int = 1
+                          ) -> torch.Tensor:
+    """Leave a model-parallel region onto a sequence-split stream: the
+    model ranks' partial x summed, this rank's rows on ``dim`` kept; the
+    gradient of every row gathered from the rank that holds it."""
+    return _ReduceScatterToSeq.apply(x, mesh, dim % x.dim())
+
+
+def split_to_seq(x: torch.Tensor, mesh: Mesh, dim: int = 1
+                 ) -> torch.Tensor:
+    """This rank's rows on ``dim`` of x, the same on every model rank;
+    the gradient of the whole x gathered from the ranks' rows."""
+    return _SplitToSeq.apply(x, mesh, dim % x.dim())
+
+
+def enter_region(x: torch.Tensor, mesh: Mesh, sp: bool) -> torch.Tensor:
+    """Enter a model-parallel region: from this rank's rows of a
+    sequence-split stream (``sp``, :func:`gather_from_seq`) or from a
+    replicated one (:func:`copy_to_model`)."""
+    return gather_from_seq(x, mesh) if sp else copy_to_model(x, mesh)
+
+
+def leave_region(y: torch.Tensor, mesh: Mesh, sp: bool) -> torch.Tensor:
+    """Leave a model-parallel region, the ranks' partial ``y`` summed: onto
+    this rank's rows of a sequence-split stream (``sp``,
+    :func:`reduce_scatter_to_seq`) or a replicated one
+    (:func:`reduce_from_model`)."""
+    return reduce_scatter_to_seq(y, mesh) if sp else reduce_from_model(y, mesh)

@@ -309,12 +309,22 @@ class Layout:
     local gradient is partial over ``model`` (replicated weights read
     inside a model-parallel region: the MoE router, keys and values that
     ``model`` does not divide, MLA's latent projections, Mamba2's B / C /
-    dt projections, ``conv_bc`` and gated-norm gain): the train step sums
-    those over ``model``."""
+    dt projections, ``conv_bc`` and gated-norm gain; under
+    ``seq_parallel`` also every replicated weight that acts on this rank's
+    rows of a sequence-split stream, ``seq_partial``): the train step sums
+    those over ``model`` (:meth:`partial_for`)."""
     mesh: Any
     params: dict
     moments: dict
     partial: frozenset = frozenset()
+    seq_partial: frozenset = frozenset()
+
+    def partial_for(self, split: bool) -> frozenset:
+        """The names whose gradients are partial over ``model`` after a
+        forward that did (``split``) or did not split its stream on the
+        sequence (``LMBase.splits_rows``): ``seq_partial`` only in the
+        first case."""
+        return self.partial if split else self.partial - self.seq_partial
 
     def state_shardings(self, opt_state: dict) -> dict:
         """The Shardings of the train state ``{"params", "opt"}``."""

@@ -28,6 +28,11 @@ them through its own heads only, so their gradients are partial and
 summed over ``model`` by the train step.  The absorbed decode reads
 ``cfg.n_heads`` and runs on one rank (serving a model sharded over
 ``model`` raises, ``lm._check_serving``).
+
+Under sequence parallelism (``sp=True``, :mod:`~repro_torch.models.layers`)
+both enter their region by gathering the whole sequence and leave it by
+a reduce-scatter onto this rank's rows: the attention itself still sees
+every position, so each launch keeps its shape.
 """
 
 from __future__ import annotations
@@ -91,21 +96,25 @@ class GQAttention(nn.Module):
             k = L.apply_rope(k, cos, sin)
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
-    def _out(self, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    def _out(self, o: torch.Tensor, cfg: ModelConfig,
+             sp: bool = False) -> torch.Tensor:
         b, _, s, _ = o.shape
         return self.wo(o.transpose(1, 2).reshape(b, s, -1),
-                       nmc_mode=cfg.nmc_mode)
+                       nmc_mode=cfg.nmc_mode, sp=sp)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, *,
                 causal: bool = True, q_offset: int = 0,
-                kv: tuple | None = None) -> torch.Tensor:
+                kv: tuple | None = None, sp: bool = False) -> torch.Tensor:
         """Train/prefill path (the reference's ``gqa_apply``).  ``kv``,
         ``(k, v)`` of shape (B, KV, Skv, hd), overrides K/V
         (cross-attention): then only q is projected.  The reference
-        projects k and v from ``x`` there too and never reads them."""
-        positions = torch.arange(x.shape[1], device=x.device) + q_offset
+        projects k and v from ``x`` there too and never reads them.
+        ``sp``: x is this rank's rows of a sequence-split stream (the
+        region gathers the whole sequence; the output is this rank's rows
+        again)."""
         if self.mesh is not None:
-            x = C.copy_to_model(x, self.mesh)
+            x = C.enter_region(x, self.mesh, sp)
+        positions = torch.arange(x.shape[1], device=x.device) + q_offset
         if kv is not None:
             b, s, _ = x.shape
             q = self.wq(x, nmc_mode=cfg.nmc_mode).reshape(
@@ -116,11 +125,11 @@ class GQAttention(nn.Module):
                 q = L.apply_rope(q, cos, sin)
             o = ops.attention(q.transpose(1, 2), *kv, causal=causal,
                               window=cfg.window, q_offset=q_offset)
-            return self._out(o, cfg)
+            return self._out(o, cfg, sp)
         q, k, v = self.qkv(x, cfg, positions)
         o = ops.attention(q, k, v, causal=causal, window=cfg.window,
                           q_offset=q_offset)
-        return self._out(o, cfg)
+        return self._out(o, cfg, sp)
 
     def prefill(self, x: torch.Tensor, cfg: ModelConfig,
                 max_len: int) -> tuple:
@@ -226,15 +235,16 @@ class MLAttention(nn.Module):
         return q[..., :dn], L.apply_rope(q[..., dn:], cos, sin), ckv, krope
 
     def _expanded(self, x: torch.Tensor, cfg: ModelConfig,
-                  q_offset: int) -> tuple:
+                  q_offset: int, sp: bool = False) -> tuple:
         """The expanded (flash-compatible) form: (out (B,S,D), ckv, krope
-        (B,S,dr))."""
+        (B,S,dr)); with ``sp`` x and out are this rank's rows of a
+        sequence-split stream (ckv and krope cover the whole sequence)."""
+        if self.mesh is not None:
+            x = C.enter_region(x, self.mesh, sp)
         b, s, _ = x.shape
         dr, mode = cfg.qk_rope_dim, cfg.nmc_mode
         positions = torch.arange(s, device=x.device) + q_offset
         cos, sin = L.rope_table(positions, dr, cfg.rope_theta)
-        if self.mesh is not None:
-            x = C.copy_to_model(x, self.mesh)
         q_nope, q_rope, ckv, krope = self._q_and_latent(x, cfg, cos, sin)
         h = q_nope.shape[2]
         k_nope = self.w_uk(ckv, nmc_mode=mode).reshape(b, s, h,
@@ -244,13 +254,14 @@ class MLAttention(nn.Module):
         k = torch.cat([k_nope, krope.expand(b, s, h, dr)], -1).transpose(1, 2)
         o = ops.attention(q, k, v.transpose(1, 2), causal=True,
                           q_offset=q_offset)
-        out = self.wo(o.transpose(1, 2).reshape(b, s, -1), nmc_mode=mode)
+        out = self.wo(o.transpose(1, 2).reshape(b, s, -1), nmc_mode=mode,
+                      sp=sp)
         return out, ckv, krope[:, :, 0]
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, *,
-                q_offset: int = 0) -> torch.Tensor:
+                q_offset: int = 0, sp: bool = False) -> torch.Tensor:
         """Train/prefill path (the reference's ``mla_apply``; causal)."""
-        return self._expanded(x, cfg, q_offset)[0]
+        return self._expanded(x, cfg, q_offset, sp)[0]
 
     def prefill(self, x: torch.Tensor, cfg: ModelConfig,
                 max_len: int) -> tuple:

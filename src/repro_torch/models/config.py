@@ -2,10 +2,17 @@
 
 The counterpart of the JAX package's ``models/config.py`` with torch dtypes.
 The layout on a mesh comes from the sharding rules
-(:mod:`repro_torch.distributed.sharding`, applied by ``lm.shard``); the
-reference's knobs ``remat``, ``remat_policy``, ``scan_layers`` and
-``seq_parallel`` wait for the second half of the scale-out slice (they
-change memory and layout, not values).
+(:mod:`repro_torch.distributed.sharding`, applied by ``lm.shard``).  The
+training knobs change memory and layout, not values:
+
+* ``remat`` / ``remat_policy``: activation checkpointing of each layer's
+  training forward (``lm.py``), ``"full"`` recomputing everything,
+  ``"dots"`` saving the outputs of matrix products;
+* ``seq_parallel``: the residual stream split on the sequence over
+  ``model`` between the model-parallel regions (``layers.shard_seq``);
+* ``scan_layers``: carried with the reference's meaning, which is none:
+  the reference reads it nowhere (its stacks are always scanned), and the
+  port's layers always run in a Python loop.
 """
 
 from __future__ import annotations
@@ -96,6 +103,13 @@ class ModelConfig:
     kv_cache_dtype: str = "bf16"
 
     dtype: Any = torch.bfloat16
+
+    # distribution / training knobs
+    remat: bool = True
+    remat_policy: str = "full"   # full | dots (save matmul outputs)
+    scan_layers: bool = True
+    seq_parallel: bool = False   # residual stream split on the sequence
+                                 # over `model` between the regions
 
     def __post_init__(self):
         if self.head_dim == 0:

@@ -25,8 +25,17 @@ enters through ``copy_to_model``), and an :class:`Embedding` its
 vocabulary range (vocab-parallel: the local rows looked up, zero
 elsewhere, summed over ``model``).  The reference's ``shard_hidden`` and
 ``shard_batch_only`` steer GSPMD toward that layout; with the layout
-explicit they are no-ops here.  ``shard_seq`` waits with the
-``seq_parallel`` knob.
+explicit they are no-ops here.
+
+Sequence parallelism (``cfg.seq_parallel``, the reference's
+``shard_seq``): where :func:`seq_split` holds, the residual stream between
+the model-parallel regions holds this rank's rows of the sequence
+(:func:`shard_seq`); with ``sp=True`` a region is entered with
+:func:`~repro_torch.distributed.context.gather_from_seq` instead of
+``copy_to_model`` (``MLP`` and the attentions) and left with
+``reduce_scatter_to_seq`` instead of the all-reduce (a row-parallel
+linear; its bias then added once, on the local rows), both chosen by
+``context.enter_region`` / ``leave_region``.
 """
 
 from __future__ import annotations
@@ -51,6 +60,20 @@ def shard_hidden(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
 def shard_batch_only(x: torch.Tensor) -> torch.Tensor:
     """A layout hint to GSPMD in the reference; ``x`` as it is."""
     return x
+
+
+def seq_split(x: torch.Tensor, mesh: C.Mesh | None) -> bool:
+    """Whether ``shard_seq`` splits ``x`` on ``mesh``: the reference's
+    rule, false with no mesh, no ``model`` axis over 1, ``x.ndim < 3`` or
+    a sequence (dim 1) that ``model`` does not divide."""
+    return mesh is not None and mesh.model_size() > 1 and x.dim() >= 3 \
+        and x.shape[1] % mesh.model_size() == 0
+
+
+def shard_seq(x: torch.Tensor, mesh: C.Mesh | None) -> torch.Tensor:
+    """The sequence-parallel residual stream: this rank's rows of ``x`` on
+    dim 1 where :func:`seq_split` holds, ``x`` as it is elsewhere."""
+    return C.split_to_seq(x, mesh) if seq_split(x, mesh) else x
 
 
 def param(t: torch.Tensor | None) -> nn.Parameter | None:
@@ -120,8 +143,12 @@ class NmcLinear(nn.Module):
         return self.w_q.float() * self.scale.float()[None, :]
 
     def forward(self, x: torch.Tensor, *, nmc_mode: str = "none",
-                act: str = "none", dtype=None) -> torch.Tensor:
-        """Any leading batch dims; contraction over the last."""
+                act: str = "none", dtype=None,
+                sp: bool = False) -> torch.Tensor:
+        """Any leading batch dims; contraction over the last.  A
+        row-parallel linear with ``sp`` leaves its region onto a
+        sequence-split stream: x (B, S, d_in / model) -> (B, S / model,
+        d_out)."""
         dtype = dtype or x.dtype
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
@@ -135,12 +162,12 @@ class NmcLinear(nn.Module):
             w = self.w_q.to(dtype) * self.scale.to(dtype)[None, :]
         else:
             w = self.w.to(dtype)
-        y = x2.to(dtype) @ w
+        y = (x2.to(dtype) @ w).reshape(*lead, -1)
         if self.parallel == "row":
-            y = C.reduce_from_model(y, self.mesh)
+            y = C.leave_region(y, self.mesh, sp)
         if self.b is not None:
             y = y + self.b.to(dtype)
-        return ref.apply_act(y, act).to(dtype).reshape(*lead, -1)
+        return ref.apply_act(y, act).to(dtype)
 
 
 def quantize_expert_bank(w: torch.Tensor) -> tuple:
@@ -307,12 +334,14 @@ class MLP(nn.Module):
         return cls(wi, NmcLinear.init(gen, d_ff, d, device=device), wg)
 
     def forward(self, x: torch.Tensor, act: str = "silu",
-                nmc_mode: str = "none") -> torch.Tensor:
+                nmc_mode: str = "none", sp: bool = False) -> torch.Tensor:
+        """``sp``: x is this rank's rows of a sequence-split stream, and so
+        is the output."""
         if self.mesh is not None:
-            x = C.copy_to_model(x, self.mesh)
+            x = C.enter_region(x, self.mesh, sp)
         if self.wg is not None:
             h = self.wi(x, nmc_mode=nmc_mode) * \
                 self.wg(x, nmc_mode=nmc_mode, act="silu")
         else:
             h = self.wi(x, nmc_mode=nmc_mode, act=act)
-        return self.wo(h, nmc_mode=nmc_mode)
+        return self.wo(h, nmc_mode=nmc_mode, sp=sp)

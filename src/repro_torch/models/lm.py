@@ -44,12 +44,40 @@ heads, the encoder-decoder's encoder and cross K/V on local heads; a VLM's
 ``model`` before the loss, so the cross entropy stays the single-rank
 function.  Serving a model sharded over ``model`` waits for
 sharded caches.
+
+Activation checkpointing (``cfg.remat``, the reference's ``_maybe_remat``)
+wraps the training forward at the reference's granularity: one
+checkpoint per decoder layer (dense, VLM, a MoE model's dense and MoE
+layers), per encoder and per decoder layer (encoder-decoder), per group
+of ``attn_every`` Mamba2 layers with the shared block (hybrid), none for
+the xLSTM.  It applies only where autograd records (prefill and decode are
+unchanged) and runs ``torch.utils.checkpoint`` without reentry: the
+backward runs each checkpointed forward again, so the kernel launches,
+collectives (``context.traffic``) and MoE routings inside it count twice,
+once in the forward and once in the recompute (which stops after the last
+tensor the backward needs: collectives after it run once).
+``remat_policy="dots"`` (JAX's ``checkpoint_dots``) saves the outputs of
+the matrix products (``aten.mm``, ``addmm``, ``bmm``, ``baddbmm``) and
+recomputes the rest; the CUDA kernels are called through ``ctypes``, out
+of the dispatcher's sight, so ``flash_attention`` is recomputed under both
+policies (JAX would save an einsum attention's products: the two packages
+differ there in memory, not in values).
+
+Sequence parallelism (``cfg.seq_parallel`` on a ``model`` axis, where
+``layers.seq_split`` holds for the embedded stream): the dense, MoE and
+VLM stream holds this rank's rows of the sequence from the embedding to
+``final_norm``, gathered before the head; the hybrid's only around its
+shared block (its Mamba2 layers need the whole sequence).  The
+encoder-decoder and the xLSTM run as without it.  The norm gains then see
+local rows, so their gradients are partial over ``model``
+(``Layout.seq_partial``).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt_lib
 
 from repro_torch.distributed import context as C
 from repro_torch.distributed import sharding
@@ -65,6 +93,9 @@ DEC_POSITIONS = 32768
 
 #: the model families the port runs (every family of the reference)
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "encdec", "xlstm")
+#: the families whose stream ``seq_parallel`` splits (the reference's
+#: ``shard_seq`` sits in its decoder block only)
+SEQ_FAMILIES = ("dense", "moe", "vlm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -72,6 +103,30 @@ def _check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port runs the families {FAMILIES}, not "
             f"{cfg.family!r}")
+
+
+#: the products that ``remat_policy="dots"`` saves
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return ckpt_lib.CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else ckpt_lib.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return ckpt_lib.create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat(fn, cfg: ModelConfig, *args):
+    """``fn(*args)``, checkpointed where ``cfg.remat`` and autograd
+    records (the reference's ``_maybe_remat``; module docstring)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    kw = {"context_fn": _dots_contexts} if cfg.remat_policy == "dots" else {}
+    return ckpt_lib.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _stack(caches: list) -> dict:
@@ -109,16 +164,20 @@ class DecoderBlock(nn.Module):
         return cls(ln1, attn, ln2, mlp=L.MLP.init(
             gen, cfg.d_model, d_ff or cfg.d_ff, cfg.act, device))
 
-    def _ffn(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
+    def _ffn(self, x: torch.Tensor, cfg: ModelConfig,
+             sp: bool = False) -> tuple:
         """(x + FFN(ln2(x)), the MoE aux loss or None)."""
         h = self.ln2(x)
         if self.moe is not None:
-            y, aux = self.moe(h, cfg)
+            y, aux = self.moe(h, cfg, sp)
             return x + y, aux
-        return x + self.mlp(h, cfg.act, nmc_mode=cfg.nmc_mode), None
+        return x + self.mlp(h, cfg.act, nmc_mode=cfg.nmc_mode, sp=sp), None
 
-    def forward(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
-        return self._ffn(x + self.attn(self.ln1(x), cfg), cfg)
+    def forward(self, x: torch.Tensor, cfg: ModelConfig,
+                sp: bool = False) -> tuple:
+        """``sp``: x and the result are this rank's rows of a
+        sequence-split stream."""
+        return self._ffn(x + self.attn(self.ln1(x), cfg, sp=sp), cfg, sp)
 
     def prefill(self, x: torch.Tensor, cfg: ModelConfig,
                 max_len: int) -> tuple:
@@ -230,16 +289,39 @@ class LMBase(nn.Module):
     #: the layout on a mesh (:func:`shard`), None on one rank
     layout: sharding.Layout | None = None
 
-    def logits(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    def splits_rows(self, batch: dict, cfg: ModelConfig) -> bool:
+        """Whether the teacher-forced forward over ``batch`` splits its
+        embedded stream on the sequence: ``cfg.seq_parallel``, a family
+        of :data:`SEQ_FAMILIES`, and the reference's rule
+        (``layers.seq_split``) on the layout's mesh for the embedded
+        length (a VLM's image positions before its tokens).  The train
+        step reads it too, for the gradients it sums over ``model``."""
+        lay = self.layout
+        if lay is None or not cfg.seq_parallel or \
+                cfg.family not in SEQ_FAMILIES:
+            return False
+        n = batch["tokens"].shape[1]
+        if cfg.family == "vlm":
+            n += batch["images"].shape[1]
+        model = lay.mesh.model_size()
+        return model > 1 and n % model == 0
+
+    def logits(self, x: torch.Tensor, cfg: ModelConfig,
+               split: bool = False) -> torch.Tensor:
         """The LM head over every position (at prefill the dynamic
         activation scale of ``w8a8`` covers all of them, as in the
         reference, so the head is not cut to the last position first);
-        a vocab-parallel head's logits gathered over ``model``."""
+        a vocab-parallel head's logits gathered over ``model``.
+        ``split``: x is this rank's rows of a sequence-split stream,
+        normalised there and gathered whole before the head."""
         h = self.final_norm(x)
         mesh = self.head.mesh
         if mesh is None:
+            if split:        # a whole head: every rank reads every row
+                h = C.gather_from_model(h, self.layout.mesh, 1)
             return self.head(h, nmc_mode=cfg.nmc_mode)
-        y = self.head(C.copy_to_model(h, mesh), nmc_mode=cfg.nmc_mode)
+        h = C.enter_region(h, mesh, split)
+        y = self.head(h, nmc_mode=cfg.nmc_mode)
         return C.gather_from_model(y, mesh, -1)
 
 
@@ -277,13 +359,16 @@ class DecoderLM(LMBase):
             return self.vlm_embed(batch["images"], batch["tokens"], cfg)
         return super().inputs(batch, cfg)
 
-    def hidden(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
-        """Every block over the embedded ``x``: (x, the MoE layers' summed
-        aux loss, 0 without any)."""
+    def hidden(self, x: torch.Tensor, cfg: ModelConfig,
+               split: bool = False) -> tuple:
+        """Every block over the embedded ``x`` (each checkpointed under
+        ``cfg.remat``): (x, the MoE layers' summed aux loss, 0 without
+        any).  ``split``: x and the result are this rank's rows of the
+        sequence-split stream."""
         auxs = []
         for _, blocks in self.stacks():
             for blk in blocks:
-                x, aux = blk(x, cfg)
+                x, aux = remat(blk, cfg, x, cfg, split)
                 if aux is not None:
                     auxs.append(aux)
         aux = torch.stack(auxs).sum() if auxs \
@@ -291,8 +376,12 @@ class DecoderLM(LMBase):
         return x, aux
 
     def forward(self, batch: dict, cfg: ModelConfig) -> tuple:
-        x, aux = self.hidden(self.inputs(batch, cfg), cfg)
-        return self.logits(x, cfg), aux
+        x = self.inputs(batch, cfg)
+        split = self.splits_rows(batch, cfg)
+        if split:
+            x = L.shard_seq(x, self.layout.mesh)
+        x, aux = self.hidden(x, cfg, split)
+        return self.logits(x, cfg, split), aux
 
     def prefill(self, batch: dict, cfg: ModelConfig, max_len: int) -> tuple:
         x = self.inputs(batch, cfg)
@@ -339,16 +428,31 @@ class HybridLM(LMBase):
         self.final_norm = final_norm
         self.head = head
 
-    def hidden(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
-        """Every group over the embedded ``x``: (x, 0)."""
+    def _group(self, x: torch.Tensor, group: nn.ModuleList,
+               cfg: ModelConfig, split: bool) -> torch.Tensor:
+        """One group: its Mamba2 layers, then the shared block (``split``:
+        over this rank's rows of the sequence, entered split and left
+        gathered)."""
+        for layer in group:
+            x = x + layer(x, cfg)
+        if not split:
+            return self.shared_attn(x, cfg)[0]
+        mesh = self.layout.mesh
+        x, _ = self.shared_attn(L.shard_seq(x, mesh), cfg, True)
+        return C.gather_from_model(x, mesh, 1)
+
+    def hidden(self, x: torch.Tensor, cfg: ModelConfig,
+               split: bool = False) -> tuple:
+        """Every group over the embedded ``x`` (each checkpointed under
+        ``cfg.remat``): (x, 0).  ``split``: the shared block runs on this
+        rank's rows of the sequence."""
         for group in self.mamba:
-            for layer in group:
-                x = x + layer(x, cfg)
-            x, _ = self.shared_attn(x, cfg)
+            x = remat(self._group, cfg, x, group, cfg, split)
         return x, torch.zeros((), device=x.device)
 
     def forward(self, batch: dict, cfg: ModelConfig) -> tuple:
-        x, aux = self.hidden(self.inputs(batch, cfg), cfg)
+        x = self.inputs(batch, cfg)
+        x, aux = self.hidden(x, cfg, self.splits_rows(batch, cfg))
         return self.logits(x, cfg), aux
 
     def prefill(self, batch: dict, cfg: ModelConfig, max_len: int) -> tuple:
@@ -412,7 +516,7 @@ class EncDecLM(LMBase):
         output."""
         x = frames.to(cfg.dtype)
         for blk in self.enc_layers:
-            x = blk(x, cfg)
+            x = remat(blk, cfg, x, cfg)
         return self.enc_norm(x)
 
     def inputs(self, batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -429,8 +533,11 @@ class EncDecLM(LMBase):
         mesh = self.layers[0].xattn.mesh if len(self.layers) else None
         if mesh is not None:
             enc = C.copy_to_model(enc, mesh)
+
+        def layer(x, enc, blk):
+            return blk(x, blk.cross_kv(enc, cfg), cfg)
         for blk in self.layers:
-            x = blk(x, blk.cross_kv(enc, cfg), cfg)
+            x = remat(layer, cfg, x, enc, blk)
         return x
 
     def forward(self, batch: dict, cfg: ModelConfig) -> tuple:
@@ -610,7 +717,14 @@ def loss_fn(params: LMBase, batch: dict, cfg: ModelConfig,
     MoE aux loss: ``(loss, {"nll", "aux"})``, differentiable in the
     model's parameters.  ``batch["tokens"]`` supervises; a VLM's image
     positions are dropped first; an optional ``batch["mask"]`` (B, S)
-    weights the targets (the mean over the kept ones, at least 1)."""
+    weights the targets (the mean over the kept ones, at least 1).
+
+    On a model laid out over ``n`` data ranks, ``batch`` is this rank's
+    rows, and a masked mean is the reference's global one: the weighted
+    sum over this rank's rows times ``n`` over the kept count summed over
+    the data ranks (at least 1), so that the mean of the ranks' values,
+    which the train step takes of the loss and of the gradients, is the
+    global masked mean and its gradient."""
     _check_family(cfg)
     logits, aux = params(batch, cfg)
     tokens = batch["tokens"]
@@ -623,7 +737,13 @@ def loss_fn(params: LMBase, batch: dict, cfg: ModelConfig,
     mask = batch.get("mask")
     if mask is not None:
         m = mask[:, 1:].float()
-        loss = torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+        count, scale = torch.sum(m), 1.0
+        lay = params.layout
+        if lay is not None and lay.mesh.size(lay.mesh.data_axes()) > 1:
+            axes = lay.mesh.data_axes()
+            count = C.all_reduce(count, axes, lay.mesh)
+            scale = float(lay.mesh.size(axes))
+        loss = torch.sum(nll * m) * scale / torch.clamp_min(count, 1.0)
     else:
         loss = torch.mean(nll)
     return loss + aux_weight * aux, {"nll": loss, "aux": aux}
@@ -683,7 +803,11 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
     read inside a model-parallel region, whose gradients are partial over
     ``model``: the MoE routers, whole KV heads, MLA's latent projections,
     Mamba2's ``in_b`` / ``in_c`` / ``in_dt`` / ``conv_bc_*`` / ``norm.g``,
-    the mLSTM's ``wf`` and ``out_norm.g``."""
+    the mLSTM's ``wf`` and ``out_norm.g``; under ``cfg.seq_parallel`` (the
+    families of :data:`SEQ_FAMILIES`) also every replicated weight of a
+    block that runs on this rank's rows of the sequence, and the dense,
+    MoE and VLM models' ``final_norm.g`` (``layout.seq_partial``, partial
+    only in a step whose stream was split)."""
     _check_family(cfg)
     named = dict(params.named_parameters())
     shard_of = sharding.param_shardings(named, mesh)
@@ -708,9 +832,11 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
                ).items()}
     for name, p in named.items():
         p.data = sharding.local_slice(p.data, shard_of[name])
-    partial = set()
+    partial, seq_partial = set(), set()
     if mesh.model_size() > 1:
         partial = _mark_parallel(params, cfg, shard_of, mesh)
+        if cfg.seq_parallel and cfg.family in SEQ_FAMILIES:
+            seq_partial = _seq_partial(params, cfg, shard_of) - partial
     for mod in params.modules():
         if isinstance(mod, MOE.MoE):
             mod.mesh = mesh
@@ -719,7 +845,8 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
                 mod.expert_offset = mesh.index(C.MODEL_AXIS) * \
                     mod.wi.shape[0]
     params.layout = sharding.Layout(mesh, shard_of, moments,
-                                    frozenset(partial))
+                                    frozenset(partial | seq_partial),
+                                    frozenset(seq_partial))
     return params
 
 
@@ -767,6 +894,21 @@ def _mark_parallel(params: LMBase, cfg: ModelConfig, shard_of: dict,
         elif isinstance(mod, XL.SLSTM) and mod.w_z.parallel == "col":
             mod.mesh = mesh
     return partial
+
+
+def _seq_partial(params: LMBase, cfg: ModelConfig, shard_of: dict) -> set:
+    """The replicated parameters of the blocks that run on this rank's
+    rows of a sequence-split stream (norm gains, row-parallel biases,
+    whatever stays whole), and ``final_norm``'s but for the hybrid, whose
+    stream is whole outside its shared block."""
+    if cfg.family == "hybrid":
+        blocks = [("shared_attn.", params.shared_attn)]
+    else:
+        blocks = [(f"{key}.{i}.", blk) for key, stack in params.stacks()
+                  for i, blk in enumerate(stack)]
+        blocks.append(("final_norm.", params.final_norm))
+    return {pre + n for pre, mod in blocks for n, _ in mod.named_parameters()
+            if not sharding.is_model_sharded(shard_of[pre + n])}
 
 
 def _names(mod: nn.Module, pre: str, children: tuple) -> set:

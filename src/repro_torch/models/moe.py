@@ -18,10 +18,12 @@ over it (``copy_to_model``), each rank owns ``E / model`` experts (the
 first at ``expert_offset``) and dispatches only the assignments to them,
 the partial outputs are summed over ``model`` and ``aux`` averaged over
 it.  The routing, the capacity, the drops and ``aux`` come from the tokens
-the rank holds: those of its data shard.  With data axes and no ``model``
-axis the reference takes no ``shard_map`` and routes the global batch
-(GSPMD), so the port gathers the tokens over the data axes, routes them
-all and keeps its rows.
+the rank holds: those of its data shard.  Under sequence parallelism the
+tokens enter by a gather of the sequence instead (the same rows) and the
+partial outputs leave by a reduce-scatter onto this rank's rows.  With
+data axes and no ``model`` axis the reference takes no ``shard_map`` and
+routes the global batch (GSPMD), so the port gathers the tokens over the
+data axes, routes them all and keeps its rows.
 
 The router, the expert products and the dequantize of int8 banks are plain
 PyTorch, as they are XLA (not Pallas) in the reference; the shared experts
@@ -204,27 +206,33 @@ class MoE(nn.Module):
                      * getattr(self, f"{k}_s").to(dtype)[..., None, :]
                      for k in BANKS)
 
-    def forward(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
+    def forward(self, x: torch.Tensor, cfg: ModelConfig,
+                sp: bool = False) -> tuple:
         """x: (B, S, D) -> (y, aux float32): the routed experts over all
         B * S tokens at once (on a mesh: module docstring), plus the
-        shared experts."""
-        b, s, d = x.shape
-        x2, mesh = x.reshape(-1, d), self.mesh
+        shared experts.  ``sp``: x and y are this rank's rows of a
+        sequence-split stream; the experts route the gathered sequence,
+        the rows they would see without it."""
+        mesh = self.mesh
+        tp = mesh is not None and mesh.model_size() > 1
+        h = x
+        if tp:
+            h = C.enter_region(x, mesh, sp)
+        b, s, d = h.shape
+        x2 = h.reshape(-1, d)
         gather = mesh is not None and mesh.model_size() == 1 and \
             mesh.size(mesh.data_axes()) > 1
         if gather:
             x2 = C.gather_from_data(x2, mesh)
-        elif mesh is not None and mesh.model_size() > 1:
-            x2 = C.copy_to_model(x2, mesh)
         y2, aux = moe_local(x2, self.router_weight(x.dtype),
                             *self.expert_weights(x.dtype), cfg,
                             self.expert_offset)
         if gather:
             y2 = y2.narrow(0, mesh.index(mesh.data_axes()) * b * s, b * s)
-        elif mesh is not None and mesh.model_size() > 1:
-            y2 = C.reduce_from_model(y2, mesh)
-            aux = C.mean_over_model(aux, mesh)
         y = y2.reshape(b, s, d)
+        if tp:
+            y = C.leave_region(y, mesh, sp)
+            aux = C.mean_over_model(aux, mesh)
         if self.shared is not None:
-            y = y + self.shared(x, nmc_mode=cfg.nmc_mode)
+            y = y + self.shared(x, nmc_mode=cfg.nmc_mode, sp=sp)
         return y, aux.float()

@@ -98,14 +98,13 @@ def accumulated_grads(loss_fn, model: lm.LMBase, batch: dict,
 def local_rows(batch: dict, mesh: C.Mesh, n_microbatches: int = 1) -> dict:
     """This data rank's rows of the global batch: its contiguous share of
     each of the ``n_microbatches`` microbatches (so that the data ranks'
-    rows of microbatch i, in rank order, are the global microbatch i)."""
+    rows of microbatch i, in rank order, are the global microbatch i).  A
+    ``"mask"`` is cut like the tokens; ``lm.loss_fn`` takes its kept count
+    over the data ranks."""
     axes = mesh.data_axes()
     n, i = mesh.size(axes), mesh.index(axes)
     if n == 1:
         return batch
-    if "mask" in batch:
-        raise NotImplementedError("a masked loss over a data split: its "
-                                  "mean needs the global mask count")
     out = {}
     for k, x in batch.items():
         if x.shape[0] % (n * n_microbatches):
@@ -117,11 +116,14 @@ def local_rows(batch: dict, mesh: C.Mesh, n_microbatches: int = 1) -> dict:
     return out
 
 
-def reduce_grads(grads: dict, layout: sharding.Layout) -> dict:
-    """Sum the partial gradients over ``model``, then average all of them
-    over the data axes (float32)."""
+def reduce_grads(grads: dict, layout: sharding.Layout, split: bool) -> dict:
+    """Sum the partial gradients over ``model`` (``split``: those of a
+    forward that split its stream on the sequence,
+    ``Layout.partial_for``), then average all of them over the data axes
+    (float32)."""
     mesh, names = layout.mesh, list(grads)
-    part = [n for n in names if n in layout.partial]
+    partial = layout.partial_for(split)
+    part = [n for n in names if n in partial]
     if part:
         for n, g in zip(part, C.all_reduce_many([grads[n] for n in part],
                                                 C.MODEL_AXIS, mesh)):
@@ -136,7 +138,9 @@ def reduce_grads(grads: dict, layout: sharding.Layout) -> dict:
 def data_metrics(loss, metrics: dict, means: dict,
                  mesh: C.Mesh) -> dict:
     """The step's ``loss`` / ``nll`` / ``aux`` over the data ranks, as the
-    reference reports them: ``nll`` (the last microbatch's) averaged; a
+    reference reports them: ``nll`` (the last microbatch's) averaged (a
+    masked ``nll`` is each rank's share of the global masked mean,
+    ``lm.loss_fn``, so its average is that mean); a
     MoE layer's ``aux``, computed per data shard under expert
     parallelism, as data shard 0 holds it (the reference's ``shard_map``
     returns each shard's own ``aux`` as the "replicated" value and the
@@ -185,7 +189,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         metrics = dict(metrics, loss=loss)
         amax_over = None
         if layout is not None:
-            g = reduce_grads(g, layout)
+            g = reduce_grads(g, layout, model.splits_rows(batch, cfg))
             metrics = data_metrics(loss, metrics, means, layout.mesh)
             amax_over = _amax_over_model(layout)
         if compress_grads:

@@ -9,8 +9,17 @@ several chunks, at full depth and with a row-parallel FFN, whisper with
 an odd vocabulary and the elastic reshard; four for (2, 2), (1, 4) and
 the 4-stage pipeline.  Each spawn is joined within a timeout.  The
 reference runs in this process on one device, except its own 2 x 2 runs
-of the MoE models (moonshot's GQA, deepseek's MLA), in one subprocess
-with four fake devices.
+(the MoE models, moonshot's GQA and deepseek's MLA; qwen and moonshot
+with sequence parallelism and activation checkpointing; qwen's masked
+loss in two microbatches), in one subprocess with four fake devices.
+
+Sequence parallelism (``seq_parallel`` with ``remat``) runs as further
+cases of the same worlds: each case against the same mesh's step
+without it and against the reference, its traffic with reduce-scatters
+and its split norm gains summed over ``model``; where it cannot split (a
+sequence ``model`` does not divide, the encoder-decoder, the xLSTM) the
+step without it.  The masked loss over a data split against the
+single-rank masked step and the reference's.
 
 Tolerances: those of ``tests/test_torch_train.py`` (loss ``rtol 1e-5``;
 gradients ``rtol 1e-4`` with an ``atol`` of ``1e-5`` of the tensor's
@@ -97,6 +106,21 @@ HEADS_REFUSED = ("xlstm-125m", "whisper-tiny", "pixtral-12b")
 XLSTM_EVEN_FFN = dict(proj_factor_slstm=2.0)
 #: xlstm-smoke at xlstm-125m's depth and block pattern, 8 mLSTM chunks a row
 XLSTM_DEEP, XLSTM_DEEP_SEQ = dict(n_layers=12, slstm_layers=(3, 9)), 128
+#: sequence parallelism with activation checkpointing
+SP = dict(seq_parallel=True, remat=True)
+#: the sequence-parallel cases (arch, mesh shape); those on (2, 2) follow
+#: the reference's own 2 x 2 run with the same knobs
+SP_CASES = [("qwen", (1, 2)), ("moonshot", (1, 2)), ("deepseek", (1, 2)),
+            ("zamba2", (1, 2)), ("pixtral", (1, 2)), ("qwen", (2, 2)),
+            ("moonshot", (2, 2))]
+#: where sequence parallelism cannot split: 15 tokens on model 2, and the
+#: families whose stream it leaves whole
+SP_WHOLE = ["qwen-15", "whisper", "xlstm"]
+SP_SEQ_ODD = 15
+#: each row's share of kept targets in the masked batch: the kept counts
+#: differ between the data ranks and between the microbatches
+MASK_KEEP = (0.9, 0.3, 0.6, 0.15)
+MASK_SHAPES = [(2, 1), (2, 2)]
 
 
 def _cfgs(arch: str, **kw) -> tuple:
@@ -161,21 +185,26 @@ def _port_state(arch: str, compress: bool) -> dict:
     return out
 
 
-def _batch(arch: str) -> dict:
+def _batch(arch: str, mask: bool = False) -> dict:
     data = tpipe.SyntheticLM(tpipe.DataConfig(global_batch=ROWS,
                                               seq_len=SEQ, seed=3),
                              _cfgs(arch)[1])
-    return data.batch_at(1)
+    b = data.batch_at(1)
+    if mask:
+        rng = np.random.default_rng(11)
+        keep = np.array(MASK_KEEP)[:, None]
+        b["mask"] = (rng.random(b["tokens"].shape) < keep).astype(np.int32)
+    return b
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(arch: str, n_mb: int) -> dict:
+def _reference(arch: str, n_mb: int, mask: bool = False) -> dict:
     """The reference's single-device step: its gradients (per microbatch
     ``value_and_grad``, summed and divided), metrics, params and moments,
     under the port's names."""
     jcfg, tcfg = _cfgs(arch)
     jp = _weights(arch)
-    batch = {k: jnp.asarray(v) for k, v in _batch(arch).items()}
+    batch = {k: jnp.asarray(v) for k, v in _batch(arch, mask).items()}
     vg = jax.jit(jax.value_and_grad(lambda p, b: jlm.loss_fn(p, b, jcfg),
                                     has_aux=True))
     rows = ROWS // n_mb
@@ -194,11 +223,12 @@ def _reference(arch: str, n_mb: int) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _single(arch: str, n_mb: int, compress: bool) -> dict:
+def _single(arch: str, n_mb: int, compress: bool, mask: bool = False
+            ) -> dict:
     """The port's single-rank step on the same state: its gradients."""
     _, tcfg = _cfgs(arch)
     model = params_from_jax(_np(_weights(arch)), tcfg, "cpu")
-    tb = {k: torch.from_numpy(v) for k, v in _batch(arch).items()}
+    tb = {k: torch.from_numpy(v) for k, v in _batch(arch, mask).items()}
     _, _, g = tstep.accumulated_grads(tstep.make_loss(tcfg), model, tb, n_mb)
     return {n: t.numpy() for n, t in g.items()}
 
@@ -211,11 +241,12 @@ def _assert_close_grads(got: dict, want: dict, what: str):
                                    err_msg=f"{what} {name}")
 
 
-def _step_call(key, shape, n_mb, compress) -> tuple:
+def _step_call(key, shape, n_mb, compress, mask: bool = False,
+               **kw) -> tuple:
     arch = ARCHS[key]
-    return ("sharded_step", (_cfgs(arch)[1], shape, _np(_weights(arch)),
-                             _port_state(arch, compress), _batch(arch), OPT,
-                             n_mb, compress))
+    return ("sharded_step", (_cfgs(arch, **kw)[1], shape,
+                             _np(_weights(arch)), _port_state(arch, compress),
+                             _batch(arch, mask), OPT, n_mb, compress))
 
 
 def _spawn(world: int, calls: dict) -> dict:
@@ -244,6 +275,14 @@ def world2(tmp_path_factory):
                                               XLSTM_DEEP_SEQ, **XLSTM_DEEP)
     calls["whisper_odd_vocab"] = _step_call_dp_or_kv("whisper-tiny", (1, 2),
                                                      vocab_size=255)
+    for key, shape in SP_CASES:
+        if shape == (1, 2):
+            calls[("sp", key, shape)] = _step_call(key, shape, 1, False, **SP)
+    calls[("sp", "qwen-15")] = _step_call_dp_or_kv(
+        "qwen1.5-0.5b", (1, 2), SP_SEQ_ODD, **SP)
+    for key in ("whisper", "xlstm"):
+        calls[("sp", key)] = _step_call(key, (1, 2), 1, False, **SP)
+    calls[("mask", (2, 1))] = _step_call("qwen", (2, 1), 2, False, mask=True)
     calls["elastic"] = ("elastic_check", (
         _cfgs("qwen1.5-0.5b")[1],
         dict(total_steps=4, ckpt_every=2, log_every=100, ckpt_dir=ckdir),
@@ -290,6 +329,10 @@ def world4(tmp_path_factory):
               for _ in range(n_stages)]
     x = rng.normal(size=(b, d)).astype(np.float32)
     calls = {case: _step_call(*case) for case in STEPS_4}
+    for key, shape in SP_CASES:
+        if shape == (2, 2):
+            calls[("sp", key, shape)] = _step_call(key, shape, 1, False, **SP)
+    calls[("mask", (2, 2))] = _step_call("qwen", (2, 2), 2, False, mask=True)
     calls["pipeline"] = ("pipeline_check",
                          (checks.tanh_stage, stages, x, n_micro))
     return _spawn(4, calls)
@@ -370,31 +413,43 @@ def test_layout_of_the_steps(world2):
     assert moe and all(".moe.router." in n for n in moe)
 
 
+#: the reference's own 2 x 2 runs: name -> (arch key, config knobs,
+#: microbatches, masked)
+REF_2X2 = {"moonshot": ("moonshot", {}, 1, False),
+           "deepseek": ("deepseek", {}, 1, False),
+           "qwen-sp": ("qwen", SP, 1, False),
+           "moonshot-sp": ("moonshot", SP, 1, False),
+           "qwen-mask": ("qwen", {}, 2, True)}
+
+
 @pytest.fixture(scope="module")
 def reference_2x2(tmp_path_factory):
-    """The reference's own train step of each MoE smoke model on a 2 x 2
-    (data, model) mesh of fake devices, from the same state and batch
-    (one subprocess for both): {key in ``MOE_ARCHS``: its results}."""
+    """The reference's own train step on a 2 x 2 (data, model) mesh of fake
+    devices, from the same state and batch, of each run of
+    :data:`REF_2X2` (one subprocess for all): {name: its results}."""
     tmp = tmp_path_factory.mktemp("ref2x2")
-    for key in MOE_ARCHS:
+    specs = []
+    for name, (key, kw, n_mb, mask) in REF_2X2.items():
         arch = ARCHS[key]
         state = _np(_opt_state(arch, False))
-        np.savez(tmp / f"in_{key}.npz", tokens=_batch(arch)["tokens"],
+        batch = _batch(arch, mask)
+        np.savez(tmp / f"in_{name}.npz", **batch,
                  **{f"{k}/{jax.tree_util.keystr(p)}": v
                     for k in ("m", "v")
                     for p, v in jax.tree_util.tree_flatten_with_path(
                         state[k])[0]})
+        specs.append(json.dumps(dict(name=name, arch=arch, kw=kw,
+                                     n_mb=n_mb)))
     env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", _REF_2X2, str(tmp),
-                          json.dumps(OPT)] +
-                         [f"{k}={ARCHS[k]}" for k in MOE_ARCHS],
+                          json.dumps(OPT)] + specs,
                          capture_output=True, text=True, env=env, cwd=REPO,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     results = {}
-    for key in MOE_ARCHS:
+    for name, (key, _, _, _) in REF_2X2.items():
         arch = ARCHS[key]
-        res = np.load(tmp / f"out_{key}.npz")
+        res = np.load(tmp / f"out_{name}.npz")
         tcfg = _cfgs(arch)[1]
         like = _weights(arch)
 
@@ -402,7 +457,7 @@ def reference_2x2(tmp_path_factory):
             return jax.tree_util.tree_map_with_path(
                 lambda p, _: res[f"{prefix}/{jax.tree_util.keystr(p)}"],
                 like)
-        results[key] = {"grads": _named(tree("grads"), tcfg),
+        results[name] = {"grads": _named(tree("grads"), tcfg),
                         "params": _named(tree("params"), tcfg),
                         "m": _named(tree("m"), tcfg),
                         "v": _named(tree("v"), tcfg),
@@ -429,22 +484,33 @@ _REF_2X2 = textwrap.dedent("""
     mesh = make_mesh(np.array(jax.devices()).reshape(2, 2),
                      ("data", "model"))
     for item in sys.argv[3:]:
-        name, arch = item.split("=")
-        cfg = cb.get(arch, smoke=True).scaled(dtype=jnp.float32)
+        spec = json.loads(item)
+        name, n_mb = spec["name"], spec["n_mb"]
+        cfg = cb.get(spec["arch"], smoke=True).scaled(dtype=jnp.float32,
+                                                      **spec["kw"])
         inp = np.load(os.path.join(tmp, f"in_{name}.npz"))
         params = lm.init_params(jax.random.PRNGKey(0), cfg)
         state = {k: jax.tree_util.tree_map_with_path(
             lambda p, _: jnp.asarray(inp[f"{k}/{key(p)}"]), params)
             for k in ("m", "v")}
         state["step"] = jnp.asarray(2, jnp.int32)
-        batch = {"tokens": jnp.asarray(inp["tokens"])}
+        batch = {k: jnp.asarray(inp[k]) for k in ("tokens", "mask")
+                 if k in inp}
+        rows = batch["tokens"].shape[0] // n_mb
         with context.use_mesh(mesh):
             ps = jax.device_put(params,
                                 sharding.param_shardings(params, mesh))
-            _, grads = jax.jit(jax.value_and_grad(
-                lambda p, b: lm.loss_fn(p, b, cfg), has_aux=True))(ps, batch)
+            vg = jax.jit(jax.value_and_grad(
+                lambda p, b: lm.loss_fn(p, b, cfg), has_aux=True))
+            grads = None
+            for i in range(n_mb):
+                _, g = vg(ps, {k: v[i * rows:(i + 1) * rows]
+                               for k, v in batch.items()})
+                grads = g if grads is None else jax.tree.map(jnp.add,
+                                                             grads, g)
+            grads = jax.tree.map(lambda x: x / n_mb, grads)
             new, st, met = jax.jit(step_lib.make_train_step(
-                cfg, adamw.AdamWConfig(**opt)))(ps, state, batch)
+                cfg, adamw.AdamWConfig(**opt), n_mb))(ps, state, batch)
         out = {"metrics": json.dumps({k: float(v) for k, v in met.items()})}
         for label, t in (("grads", grads), ("params", new), ("m", st["m"]),
                          ("v", st["v"])):
@@ -481,6 +547,99 @@ def test_mla_moe_on_2x2_follows_the_reference_2x2_run(world4,
     """deepseek-smoke on (2, 2): MLA on local heads and the expert-parallel
     MoE, each data shard routed alone, as the reference's own 2 x 2 run."""
     _follows_the_reference_2x2(world4, reference_2x2, "deepseek")
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism and the masked loss over a data split
+# ---------------------------------------------------------------------------
+
+def _assert_same_step(got: dict, want: dict, what: str):
+    _assert_close_grads(got["grads"], want["grads"], what)
+    for k in ("loss", "nll", "aux", "grad_norm", "lr"):
+        np.testing.assert_allclose(got["metrics"][k], want["metrics"][k],
+                                   rtol=1e-5, atol=1e-7,
+                                   err_msg=f"{what} {k}")
+    for k in ("params", "m", "v"):
+        for n, w in want[k].items():
+            np.testing.assert_allclose(got[k][n], w, **STEP_TOL,
+                                       err_msg=f"{what} {k} {n}")
+
+
+def _split_norms(names) -> set:
+    """The norm gains that act on this rank's rows of a split stream: every
+    decoder block's ``ln1`` / ``ln2`` and ``final_norm``, or the hybrid's
+    shared block's two."""
+    names = set(names)
+    if "shared_attn.ln1.g" in names:
+        return {"shared_attn.ln1.g", "shared_attn.ln2.g"}
+    return {n for n in names if n.endswith((".ln1.g", ".ln2.g"))} | \
+        {"final_norm.g"}
+
+
+@pytest.mark.parametrize("case", SP_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1][0]}x{c[1][1]}")
+def test_sequence_parallel_step(world2, world4, reference_2x2, case):
+    """``seq_parallel`` with ``remat``: the same mesh's step without them
+    (loss, gradients, the updated state) and the reference's (its
+    single-device step on (1, 2), its own 2 x 2 run with the same knobs on
+    (2, 2)); reduce-scatters in the gradient's traffic, none without it;
+    the split norm gains summed over ``model`` beside the step's other
+    partial gradients."""
+    key, shape = case
+    world = world4 if shape == (2, 2) else world2
+    got, tp = world[("sp", key, shape)], world[(key, shape, 1, False)]
+    _assert_same_step(got, tp, "TP step")
+    if shape == (2, 2):
+        _assert_same_step(got, reference_2x2[f"{key}-sp"], "reference 2x2")
+    else:
+        _assert_same_step(got, _reference(ARCHS[key], 1), "reference")
+    assert got["traffic"]["reduce_scatter"][0] > 0
+    assert "reduce_scatter" not in tp["traffic"]
+    assert set(got["partial"]) == set(tp["partial"]) | \
+        _split_norms(got["grads"])
+    assert got["partial_now"] == got["partial"]
+
+
+@pytest.mark.parametrize("case", SP_WHOLE)
+def test_sequence_parallel_without_a_split(world2, case):
+    """Where ``shard_seq`` is a no-op (15 tokens on a model axis of 2; the
+    encoder-decoder and the xLSTM, whose stream the reference never
+    splits) the step with ``seq_parallel`` and ``remat`` runs no
+    reduce-scatter and is the step without them."""
+    got = world2[("sp", case)]
+    assert "reduce_scatter" not in got["traffic"]
+    if case == "qwen-15":
+        loss, grads = _single_rank_grads("qwen1.5-0.5b", SP_SEQ_ODD)
+        _assert_close_grads(got["grads"], grads, "single rank")
+        np.testing.assert_allclose(got["metrics"]["loss"], loss, rtol=1e-5)
+        # the norm gains would be partial had the stream been split
+        assert set(got["partial"]) == _split_norms(got["grads"])
+        assert got["partial_now"] == []
+        return
+    tp = world2[(case, (1, 2), 1, False)]
+    _assert_same_step(got, tp, "TP step")
+    _assert_same_step(got, _reference(ARCHS[case], 1), "reference")
+    assert got["partial"] == got["partial_now"] == tp["partial"]
+
+
+@pytest.mark.parametrize("shape", MASK_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_masked_loss_over_a_data_split(world2, world4, reference_2x2,
+                                       shape):
+    """qwen-smoke with a target mask in 2 microbatches over 2 data ranks,
+    the kept counts differing between the ranks and the microbatches:
+    each microbatch's loss is the global masked mean, so the loss, ``nll``
+    and gradients are the single-rank masked step's and the reference's
+    (its single-device step, and on (2, 2) its own 2 x 2 run)."""
+    mask = _batch(ARCHS["qwen"], mask=True)["mask"][:, 1:]
+    counts = mask.reshape(2, 2, -1).sum(axis=-1)     # (microbatch, rank)
+    assert len(set(counts.ravel().tolist())) == counts.size
+    got = (world4 if shape == (2, 2) else world2)[("mask", shape)]
+    _assert_close_grads(got["grads"], _single(ARCHS["qwen"], 2, False, True),
+                        "single rank")
+    _assert_same_step(got, _reference(ARCHS["qwen"], 2, True), "reference")
+    if shape == (2, 2):
+        _assert_same_step(got, reference_2x2["qwen-mask"], "reference 2x2")
 
 
 # ---------------------------------------------------------------------------
