@@ -105,6 +105,14 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   ``elastic.reshard_state`` bit for bit and one more step; the GPipe
   pipeline of qwen's 24 blocks in 2 stages against the blocks in
   sequence.
+* The dry run (``python -m repro_torch.launch.dryrun``, no card): in a
+  spawned CPU process beside the scale-out phase, the scale-out steps of
+  tensor parallelism and of sequence parallelism with remat traced on the
+  ``meta`` device over a fake (data 1, model 2) world, their collectives
+  required to equal, call for call and byte for byte, what rank 0 counted
+  on the card; the training phase's activation-checkpointing gradients
+  traced on one rank, their predicted peak memory printed beside the
+  measured one.
 * The dispatch queue's staging: 128 tiles, 4 image-carrying programs
   chained on each, on both engines and in both schedulers; outputs
   against the plain engines and the oracles, the queue's counters, every
@@ -2693,7 +2701,9 @@ def training_remat(model, cfg, device, limits: dict, smi: str) -> dict:
     remat: forward and recompute) and the ms by events of
     TRAIN_REMAT_TIMED gradients, after one untimed gradient with the same
     policy (which loads the checkpointing code and leaves the allocator
-    the blocks that policy asks for); "full"'s peak below remat-off's."""
+    the blocks that policy asks for), with the bytes allocated when the
+    peak statistics were reset (the model, and whatever else the phase
+    holds); "full"'s peak below remat-off's."""
     import torch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.distributed import checks as dchecks
@@ -2733,10 +2743,12 @@ def training_remat(model, cfg, device, limits: dict, smi: str) -> dict:
                 f"max abs err {replay['max_abs_err']['flash_attention']:.3g}"
                 f" by route {replay['attention_by_route']}; [{smi}]")
         torch.cuda.reset_peak_memory_stats(device)
+        before_gb = torch.cuda.memory_allocated(device) / 1e9
         fa0 = fa.flash_attention.launches
         (loss, _, g), ms = timed(c)
         run = dict(ms=[ms],
                    peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+                   allocated_before_gb=before_gb,
                    flash_attention=fa.flash_attention.launches - fa0,
                    loss=float(loss))
         want = cfg.n_layers * (2 if remat else 1)
@@ -3346,6 +3358,161 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     return launches
 
 
+#: the dry run's part: a (1, 2) fake world for scale-out (a) and (k), and
+#: the training phase's (d) gradients on one rank, traced on ``meta`` in a
+#: spawned CPU process (no default group, no kernel) while the scale-out
+#: phase runs (~30 s of traces on one core); what it adds to the run, the
+#: wait for its result after the scale-out phase and the comparison, must
+#: stay under DRYRUN_BUDGET_S
+DRYRUN_BUDGET_S = 30.0
+DRYRUN_TIMEOUT = 300.0
+
+
+def dryrun_child(conn, src: str) -> None:
+    """The spawned process: ``launch.dryrun`` on the CPU over the scale-out
+    phase's (a) and (k) steps (qwen1.5-0.5b at full width on a fake (data
+    1, model 2) world, SCALEOUT's batch and microbatches; (k) with
+    ``seq_parallel`` and ``remat``) and over (d)'s gradient function
+    (TRAIN_REMAT's batch, remat off / "full" / "dots", one rank): each
+    census, its trace seconds, sent back through ``conn``."""
+    import traceback
+    sys.path.insert(0, src)
+    try:
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch import configs
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.launch import dryrun
+        from repro_torch.launch import specs as S
+        from repro_torch.train import step as step_lib
+        cfg = configs.get(TRAIN_ARCH)
+        out = {"torch": torch.__version__}
+        shape = ShapeSpec("scaleout", SCALEOUT["seq"], SCALEOUT["rows"],
+                          "train")
+        # (a)'s and (k)'s configs as phase_scaleout builds them
+        for part, c in (("a", cfg.scaled(remat=False)),
+                        ("k", cfg.scaled(seq_parallel=True, remat=True))):
+            out[part] = dryrun.run_cell(
+                TRAIN_ARCH, shape, False, cfg_override=c, mesh_shape=(1, 2),
+                n_microbatches=SCALEOUT["n_mb"])
+        remat_shape = ShapeSpec("remat", TRAIN_REMAT["seq_len"],
+                                TRAIN_REMAT["rows"], "train")
+        for label, remat, policy in TRAIN_REMAT_RUNS:
+            c = cfg.scaled(remat=remat, remat_policy=policy)
+            loss_fn = step_lib.make_loss(c)
+            t0 = time.perf_counter()
+            _, step, _ = dryrun.trace_step(
+                lambda m, b, f=loss_fn: step_lib.grads_of(f, m, b),
+                (S.abstract_params(c), S.input_specs(c, remat_shape)))
+            out[f"d_{label}"] = dict(step, trace_s=time.perf_counter() - t0)
+        conn.send(("ok", out))
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+@contextlib.contextmanager
+def dryrun_in_background():
+    """Start :func:`dryrun_child` in a spawned process; yield a function
+    that waits for its result (raising with the child's traceback); the
+    process is stopped on leaving."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=dryrun_child, args=(send, str(REPO / "src")))
+    t0 = time.perf_counter()
+    proc.start()
+    send.close()
+
+    def result() -> dict:
+        if not recv.poll(max(0.0, DRYRUN_TIMEOUT -
+                             (time.perf_counter() - t0))):
+            raise AssertionError(f"dry run: no result within "
+                                 f"{DRYRUN_TIMEOUT} s")
+        status, value = recv.recv()
+        if status != "ok":
+            raise AssertionError(f"dry run failed:\n{value}")
+        value["process_s"] = time.perf_counter() - t0
+        return value
+    try:
+        yield result
+    finally:
+        if proc.is_alive():
+            proc.join(5.0)
+        if proc.is_alive():
+            proc.terminate()
+        proc.join()
+        recv.close()
+
+
+def phase_dryrun(report: dict, result) -> dict:
+    """The dry run against the card (``launch/dryrun.py``, no card in
+    it): (a)'s and (k)'s collectives as the dry run counts them on a fake
+    (1, 2) world must equal, call for call and result byte for byte, what
+    rank 0 of ``phase_scaleout`` counted on the card in the same window
+    (``context.traffic`` around the train step); (d)'s predicted peak
+    bytes (the gradient function on ``meta``, its arguments the model and
+    the batch) beside the peak ``training_remat`` measured and the bytes
+    allocated before it.  The wait for the child within
+    DRYRUN_BUDGET_S."""
+    from repro_torch.launch.analysis import KINDS
+    smi = report["nvidia_smi"]
+    t0 = time.perf_counter()
+    dry = result()
+    wait_s = time.perf_counter() - t0
+    out = {"torch": dry["torch"], "process_s": dry["process_s"],
+           "collectives": {}, "remat_peaks": {}}
+    traced_s = 0.0
+    for part in ("a", "k"):
+        rec = dry[part]
+        traced_s += rec["trace_s"]
+        card = report["scaleout"]["ranks"][0][part]["counted"]["traffic"]
+        want = {KINDS[op]: [row[0], row[3]] for op, row in card.items()}
+        got = {k: [v["count"], v["result_bytes"]]
+               for k, v in rec["census"]["collectives"].items()}
+        out["collectives"][part] = dict(
+            dry_run=got, card=want, census=rec["census"],
+            memory=rec["memory"], trace_s=rec["trace_s"],
+            card_peak_gb=report["scaleout"]["ranks"][0][part]["peak_gb"])
+        log(f"dry run ({part}) on a fake (1, 2) world: collectives (calls, "
+            f"result bytes) {got}; on the card, rank 0 {want}; predicted "
+            f"peak {rec['memory']['peak_bytes'] / 1e9:.2f} GB (the step "
+            f"alone), card {out['collectives'][part]['card_peak_gb']:.2f} GB"
+            f" (with the single-rank reference's state); "
+            f"{rec['trace_s']:.1f} s; [{smi}]")
+        if got != want:
+            raise AssertionError(f"dry run ({part}): collectives {got}, the "
+                                 f"card counted {want}")
+    for label, _, _ in TRAIN_REMAT_RUNS:
+        d = dry[f"d_{label}"]
+        traced_s += d["trace_s"]
+        run = report["training"]["remat"]["runs"][label]
+        pred = d["memory"]["peak_bytes"] / 1e9
+        row = dict(predicted_peak_gb=pred,
+                   predicted_argument_gb=d["memory"]["argument_bytes"] / 1e9,
+                   measured_peak_gb=run["peak_gb"],
+                   allocated_before_gb=run["allocated_before_gb"],
+                   gap_gb=run["peak_gb"] - pred,
+                   flops=d["census"]["flops"], trace_s=d["trace_s"])
+        out["remat_peaks"][label] = row
+        log(f"dry run (d) remat {label}: predicted peak {pred:.2f} GB "
+            f"(arguments {row['predicted_argument_gb']:.2f}), measured "
+            f"{run['peak_gb']:.2f} GB, gap {row['gap_gb']:.2f} GB; "
+            f"allocated when the peak was reset "
+            f"{run['allocated_before_gb']:.2f} GB; {d['trace_s']:.1f} s; "
+            f"[{smi}]")
+    out.update(trace_s=traced_s, wait_s=wait_s)
+    log(f"dry run: {traced_s:.1f} s of traces, the process "
+        f"{dry['process_s']:.1f} s beside the scale-out phase, "
+        f"{wait_s:.1f} s waited for after it; torch {dry['torch']}")
+    if wait_s > DRYRUN_BUDGET_S:
+        raise AssertionError(f"dry run: waited {wait_s:.1f} s for it, past "
+                             f"{DRYRUN_BUDGET_S} s")
+    report["dryrun"] = out
+    return out
+
+
 VRF_META = {"name": "vrf_alu", "source": "src/repro_torch/csrc/vrf_alu.cu",
             "replaces": "src/repro/kernels/vrf_alu.py:35"}
 #: 32 registers x 1,048,576 elements: the VRF of a 1024-tile NM-Carus
@@ -3836,9 +4003,12 @@ def main() -> int:
                         ("vlm", phase_vlm), ("encdec", phase_encdec),
                         ("hybrid_serving", phase_hybrid_serving),
                         ("xlstm_serving", phase_xlstm_serving),
-                        ("training", phase_training),
-                        ("scaleout", phase_scaleout)):
+                        ("training", phase_training)):
         lm_paths[path] = timed_phase(path, phase, report, device)
+    with dryrun_in_background() as dry:
+        lm_paths["scaleout"] = timed_phase("scaleout", phase_scaleout,
+                                           report, device)
+        timed_phase("dryrun", phase_dryrun, report, dry)
     lm_timed = timed_phase("lm_timing", phase_lm_timing, report, device)
     vrf_err = timed_phase("vrf_vs_plain", phase_vrf_vs_plain, report, device)
     demo_launches = timed_phase("demo", phase_demo, report)

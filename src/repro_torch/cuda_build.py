@@ -66,9 +66,9 @@ def build_all() -> dict[str, pathlib.Path]:
         if out.exists():
             BUILD_LOG.setdefault(stem, {"seconds": 0.0, "ptxas": "(cached)"})
             continue
-        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        out.parent.mkdir(parents=True, exist_ok=True)
         procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -94,7 +94,7 @@ def sharded_step(device, cfg, shape: tuple, weights: dict, state: dict,
     ``grad_err`` after the step, each {name: full numpy}; ``partial``,
     the names summed over ``model`` where the stream is split, and
     ``partial_now``, those the step summed; ``traffic``, the collectives
-    of the gradient ({op: [calls, bytes, staged bytes]})."""
+    of the gradient ({op: [calls, bytes, staged bytes, result bytes]})."""
     from repro_torch.distributed import context
     mesh = make_mesh(shape, AXES, device)
     model = lm.shard(params_from_jax(weights, cfg, device), cfg, mesh)
@@ -397,8 +397,8 @@ class _TrafficBySite:
         self.by_site, self._stack, self._wrapped = {}, [], []
         self._ctx, self._count = context, context._count
 
-        def count(op, t, staged):
-            self._count(op, t, staged)
+        def count(op, t, staged, result):
+            self._count(op, t, staged, result)
             if self._stack:
                 row = self.by_site.setdefault(self._stack[-1], {}) \
                     .setdefault(op, [0, 0])

@@ -62,8 +62,8 @@ HOST_STAGED = {"gloo": frozenset({"send_recv"})}
 _MESH: Optional["Mesh"] = None
 
 #: collectives run, by name: [calls, bytes this rank sent or contributed,
-#: bytes staged through host memory] (telemetry, reset by
-#: :func:`reset_traffic`)
+#: bytes staged through host memory, bytes of the result this rank holds]
+#: (telemetry, reset by :func:`reset_traffic`)
 traffic: dict = {}
 
 
@@ -71,12 +71,13 @@ def reset_traffic() -> None:
     traffic.clear()
 
 
-def _count(op: str, t: torch.Tensor, staged: bool) -> None:
-    row = traffic.setdefault(op, [0, 0, 0])
-    nbytes = t.numel() * t.element_size()
+def _count(op: str, t: torch.Tensor, staged: bool, result: int) -> None:
+    row = traffic.setdefault(op, [0, 0, 0, 0])
+    nbytes = _nbytes(t)
     row[0] += 1
     row[1] += nbytes
     row[2] += nbytes if staged else 0
+    row[3] += result
 
 
 @dataclasses.dataclass(eq=False)
@@ -157,6 +158,10 @@ def has_model_axis() -> bool:
 # collectives (plain): no-ops where the axes span one rank
 # ---------------------------------------------------------------------------
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _staged(op: str, mesh: Mesh, t: torch.Tensor) -> bool:
     return t.device.type == "cuda" and \
         op in HOST_STAGED.get(mesh.backend, frozenset())
@@ -183,7 +188,8 @@ def all_reduce(t: torch.Tensor, axes, mesh: Mesh,
     if group is None:
         return t
     work = _wide(t)
-    _count("all_reduce", work, _staged("all_reduce", mesh, work))
+    _count("all_reduce", work, _staged("all_reduce", mesh, work),
+           _nbytes(work))
     if _staged("all_reduce", mesh, work):
         host = _on_host(work)
         dist.all_reduce(host, op, group=group)
@@ -201,7 +207,8 @@ def all_gather(t: torch.Tensor, axes, mesh: Mesh, dim: int) -> torch.Tensor:
         return t
     n = mesh.size(axes)
     src = t.contiguous()
-    _count("all_gather", src, _staged("all_gather", mesh, src))
+    _count("all_gather", src, _staged("all_gather", mesh, src),
+           n * _nbytes(src))
     if _staged("all_gather", mesh, src):
         src = _on_host(src)
     parts = [torch.empty_like(src) for _ in range(n)]
@@ -224,7 +231,7 @@ def reduce_scatter(t: torch.Tensor, axes, mesh: Mesh,
                          f"over {n} ranks")
     work = _wide(t.movedim(dim, 0)).contiguous()
     staged = _staged("reduce_scatter", mesh, work)
-    _count("reduce_scatter", work, staged)
+    _count("reduce_scatter", work, staged, _nbytes(work) // n)
     out = torch.empty((work.shape[0] // n,) + tuple(work.shape[1:]),
                       dtype=work.dtype, device=work.device)
     if staged:
@@ -244,7 +251,8 @@ def broadcast(t: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
         return t
     coords = {a: 0 for a in mesh._axes(axes)}
     work = t.contiguous().clone()
-    _count("broadcast", work, _staged("broadcast", mesh, work))
+    _count("broadcast", work, _staged("broadcast", mesh, work),
+           _nbytes(work))
     host = _on_host(work) if _staged("broadcast", mesh, work) else work
     dist.broadcast(host, mesh.global_rank(**coords), group=group)
     if host is not work:
@@ -262,7 +270,7 @@ def send_recv(t: torch.Tensor, axis: str, mesh: Mesh, shift: int = 1
     n, i = mesh.shape[axis], mesh.coords[axis]
     src = t.contiguous()
     staged = _staged("send_recv", mesh, src)
-    _count("send_recv", src, staged)
+    _count("send_recv", src, staged, _nbytes(src))
     if staged:
         src = _on_host(src)
     out = torch.empty_like(src)

@@ -48,7 +48,9 @@ kernel either: its attention gradient is XLA's autodiff of
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
+import functools
 import math
 
 import torch
@@ -88,6 +90,27 @@ def route(dtype, d: int, dv: int) -> str:
     return "cuda_core"
 
 
+#: true while a plain attention runs in the kernel's place, forward
+#: (:func:`chunked_attention`) or backward (:func:`attention_backward`):
+#: the counterpart of the reference's ``named_scope("flashattn_fallback")``,
+#: read by the dry run's census (:mod:`repro_torch.launch.analysis`).  The
+#: backward that autograd derives from :func:`chunked_attention` runs
+#: outside it.
+FALLBACK = contextvars.ContextVar("flashattn_fallback", default=False)
+
+
+def _fallback(fn):
+    @functools.wraps(fn)
+    def scoped(*args, **kwargs):
+        token = FALLBACK.set(True)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            FALLBACK.reset(token)
+    return scoped
+
+
+@_fallback
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                       kv_chunk: int = 1024):
     """Online-softmax attention over KV chunks in plain PyTorch; never
@@ -125,6 +148,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     return (acc / l).reshape(b, hq, sq, dv).to(q.dtype)
 
 
+@_fallback
 def attention_backward(q, k, v, do, *, causal=True, window=None,
                        q_offset=0, kv_chunk: int = 1024) -> tuple:
     """The gradients (dq, dk, dv) of :func:`chunked_attention`'s output at

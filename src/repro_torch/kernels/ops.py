@@ -8,7 +8,11 @@ the CUDA kernels, on the CPU they run the plain PyTorch versions.
 :func:`force_plain` is a scoped override that makes them run the plain
 versions on any device, so that a test or the smoke run can hold one
 against the other on the same inputs; nothing on the serving path
-enters it.
+enters it.  ``force_plain(kernel_autograd=True)`` keeps the card's
+program around the plain arithmetic: the attention's inputs made
+contiguous and, where autograd records, the kernel's autograd Function
+with the plain forward in the kernel's place (the dry run's route, on
+``meta``, where no kernel runs).
 
 Where autograd records (a train step on the card), :func:`attention`
 runs the kernel inside :class:`~repro_torch.kernels.flash_attention.
@@ -40,9 +44,13 @@ _PLAIN = contextvars.ContextVar("repro_torch_force_plain", default=False)
 
 
 @contextlib.contextmanager
-def force_plain():
-    """Run the plain versions instead of the kernels inside the block."""
-    token = _PLAIN.set(True)
+def force_plain(kernel_autograd: bool = False):
+    """Run the plain versions instead of the kernels inside the block;
+    with ``kernel_autograd``, an attention that autograd records through
+    :class:`FlashAttentionFn` (q, k and v saved, the backward
+    :func:`~repro_torch.kernels.flash_attention.attention_backward`), as
+    on the card."""
+    token = _PLAIN.set("kernel_autograd" if kernel_autograd else True)
     try:
         yield
     finally:
@@ -71,16 +79,17 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0):
     online softmax otherwise.  On the card, where autograd records and an
     input requires grad, the kernel's output gets its gradient from
     :class:`FlashAttentionFn`."""
-    if _PLAIN.get():
+    plain = _PLAIN.get()
+    if plain is True:
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
+    forward = chunked_attention if plain else _fa.flash_attention
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if q.device.type != "cpu" and torch.is_grad_enabled() and \
+    if (plain or q.device.type != "cpu") and torch.is_grad_enabled() and \
             any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFn.apply(q, k, v, _fa.flash_attention, causal,
-                                      window, q_offset)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset)
+        return FlashAttentionFn.apply(q, k, v, forward, causal, window,
+                                      q_offset)
+    return forward(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):

@@ -6,8 +6,11 @@ The counterpart of the JAX package's ``launch/mesh.py``:
 reshapes its device list, the port lays its world's ranks out row-major
 over the axes and creates one process group per axis and one for the data
 axes together (every rank creates every group, in the same order, as
-``torch.distributed`` requires).  ``make_production_mesh`` (the 256 and
-512 TPU-chip layouts) waits for the port of the dry run.
+``torch.distributed`` requires).  :func:`make_production_mesh` lays out
+the reference's production meshes, (data 16, model 16) and (pod 2, data
+16, model 16), over a world of 256 or 512 ranks; the dry run
+(:mod:`repro_torch.launch.dryrun`) builds them over a fake world on the
+``meta`` device.
 
 :func:`run_ranks` starts ``world`` processes (``spawn``), initialises each
 over a ``file://`` store in a fresh temporary directory (parallel test
@@ -93,6 +96,21 @@ def make_mesh(shape: tuple, axes: tuple, device=None) -> context.Mesh:
                         device=resolve_device(device),
                         backend=dist.get_backend() if dist.is_initialized()
                         else "none")
+
+
+#: the production meshes: (shape, axes) single-pod and multi-pod
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="meta") -> context.Mesh:
+    """Single pod: (data=16, model=16), 256 ranks.  Multi-pod: (pod=2,
+    data=16, model=16), 512 ranks.  Over the initialised world, which must
+    have that many ranks (:func:`make_mesh` raises otherwise); ``device``
+    is where this rank computes, ``meta`` for the dry run."""
+    shape, axes = PRODUCTION[multi_pod]
+    return make_mesh(shape, axes, device)
 
 
 def make_local_mesh(model_parallel: int = 1, device=None) -> context.Mesh:

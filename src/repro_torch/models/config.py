@@ -178,3 +178,16 @@ class ModelConfig:
             n += self.n_enc_layers * (per_attn + per_ffn)
             n += self.n_layers * per_attn          # cross-attention
         return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared; the
+        reference's formula)."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        full = self.param_count()
+        all_experts = 3 * d * self.moe_d_ff * self.n_experts \
+            * (self.n_layers - self.first_dense_layers)
+        active = 3 * d * self.moe_d_ff * self.top_k \
+            * (self.n_layers - self.first_dense_layers)
+        return full - all_experts + active

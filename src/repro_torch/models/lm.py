@@ -60,8 +60,9 @@ tensor the backward needs: collectives after it run once).
 the matrix products (``aten.mm``, ``addmm``, ``bmm``, ``baddbmm``) and
 recomputes the rest; the CUDA kernels are called through ``ctypes``, out
 of the dispatcher's sight, so ``flash_attention`` is recomputed under both
-policies (JAX would save an einsum attention's products: the two packages
-differ there in memory, not in values).
+policies, and so is the plain attention in its place (its products run
+under ``flash_attention.FALLBACK``; JAX would save an einsum attention's
+products: the two packages differ there in memory, not in values).
 
 Sequence parallelism (``cfg.seq_parallel`` on a ``model`` axis, where
 ``layers.seq_split`` holds for the embedded stream): the dense, MoE and
@@ -81,6 +82,7 @@ from torch.utils import checkpoint as ckpt_lib
 
 from repro_torch.distributed import context as C
 from repro_torch.distributed import sharding
+from repro_torch.kernels.flash_attention import FALLBACK
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -112,7 +114,8 @@ _DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
-    return ckpt_lib.CheckpointPolicy.MUST_SAVE if op in _DOTS \
+    return ckpt_lib.CheckpointPolicy.MUST_SAVE \
+        if op in _DOTS and not FALLBACK.get() \
         else ckpt_lib.CheckpointPolicy.PREFER_RECOMPUTE
 
 
@@ -649,8 +652,11 @@ def draw_blocks(cfg: ModelConfig, generator: torch.Generator | None,
     ``layers``, ``pos_dec``; the xLSTM blocks)."""
     _check_family(cfg)
     device = resolve_device(device)
-    gen = generator if generator is not None \
-        else torch.Generator(device=device).manual_seed(0)
+    if device.type == "meta":      # shapes only: nothing is drawn
+        gen = None
+    else:
+        gen = generator if generator is not None \
+            else torch.Generator(device=device).manual_seed(0)
     embed = L.Embedding.init(gen, cfg.vocab_size, cfg.d_model, device)
     head = each(L.NmcLinear.init(gen, cfg.d_model, cfg.vocab_size,
                                  device=device))
@@ -696,7 +702,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     positions, unit norm gains, zero biases, the Mamba2 layers' own, the
     sLSTM blocks' 0.1-normal recurrent weights),
     drawn from ``generator`` (a fresh seed-0 generator on ``device`` when
-    None).  ``device=None`` is the card and raises without one."""
+    None; none on ``device="meta"``, where the weights are shapes and
+    dtypes only).  ``device=None`` is the card and raises without one."""
     return draw_blocks(cfg, generator, device, lambda m: m)
 
 

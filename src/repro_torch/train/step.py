@@ -169,19 +169,24 @@ def _amax_over_model(layout: sharding.Layout):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    n_microbatches: int = 1, compress_grads: bool = False):
+                    n_microbatches: int = 1, compress_grads: bool = False,
+                    local_batch: bool = False):
     """Returns ``train_step(model, opt_state, batch) -> (model, opt_state,
     metrics)``; ``model`` and ``opt_state`` are updated in place.
     Microbatching: the batch is split on axis 0
     (:func:`accumulated_grads`).  With ``compress_grads`` the
     gradients go through int8 compression with error feedback, the error
-    kept in ``opt_state["grad_err"]``.  Metrics: ``loss``, ``nll``,
-    ``aux``, ``grad_norm`` and ``lr`` (tensors on the model's device)."""
+    kept in ``opt_state["grad_err"]``.  On a mesh the batch is the global
+    one, of which the step keeps this data rank's rows, or with
+    ``local_batch`` those rows already (:func:`local_rows`; the dry run
+    hands each rank its shard, as the reference's sharded input).
+    Metrics: ``loss``, ``nll``, ``aux``, ``grad_norm`` and ``lr`` (tensors
+    on the model's device)."""
     loss_fn = make_loss(cfg)
 
     def train_step(model: lm.LMBase, opt_state: dict, batch: dict) -> tuple:
         layout = model.layout
-        if layout is not None:
+        if layout is not None and not local_batch:
             batch = local_rows(batch, layout.mesh, n_microbatches)
         means: dict = {}
         loss, metrics, g = accumulated_grads(loss_fn, model, batch,

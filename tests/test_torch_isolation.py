@@ -47,6 +47,8 @@ def test_import_without_jax_or_reference():
             "repro_torch.distributed.pipeline, "
             "repro_torch.distributed.checks, "
             "repro_torch.launch.mesh, repro_torch.runtime.elastic, "
+            "repro_torch.launch.specs, repro_torch.launch.analysis, "
+            "repro_torch.launch.dryrun, "
             "repro_torch.examples.train_tinylm; "
             "repro_torch.configs.get('qwen1.5-0.5b'); "
             "repro_torch.configs.get('moonshot-v1-16b-a3b'); "
@@ -55,6 +57,8 @@ def test_import_without_jax_or_reference():
             "repro_torch.configs.get('whisper-tiny'); "
             "repro_torch.configs.get('zamba2-2.7b'); "
             "repro_torch.configs.get('xlstm-125m'); "
+            "repro_torch.launch.dryrun.run_cell('qwen1.5-0.5b', "
+            "'decode_32k', False); "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules if sys.modules[m] is not None); "
             "print('ok')")
