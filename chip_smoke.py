@@ -104,10 +104,16 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   a crash, its checkpoint restored onto 2 x 1 through
   ``elastic.reshard_state`` bit for bit and one more step; the GPipe
   pipeline of qwen's 24 blocks in 2 stages against the blocks in
-  sequence.
+  sequence; W8A8 serving on 1 x 2 (qwen1.5-0.5b at full width and depth,
+  deepseek-v2-lite-16b cut to 2 layers, zamba2-2.7b cut to 2 groups): a
+  prefill of 4 x 512 tokens into caches of 640 slots split over the
+  ranks, then 16 decode steps, against rank 0's single-rank serving
+  (logits, gathered caches, launches; the int32-out ``nmc_matmul`` and
+  the attention launches replayed).
 * The dry run (``python -m repro_torch.launch.dryrun``, no card): in a
   spawned CPU process beside the scale-out phase, the scale-out steps of
-  tensor parallelism and of sequence parallelism with remat traced on the
+  tensor parallelism and of sequence parallelism with remat, and the
+  serving part's decode step, traced on the
   ``meta`` device over a fake (data 1, model 2) world, their collectives
   required to equal, call for call and byte for byte, what rank 0 counted
   on the card; the training phase's activation-checkpointing gradients
@@ -3075,6 +3081,44 @@ SCALEOUT = dict(rows=8, seq=512, n_mb=2, batches={"vlm": (4, 1536)},
 SCALEOUT_LOSS_RTOL = 1e-4
 SCALEOUT_SPREAD_PARTS = ("c", "f", "g", "h")
 SCALEOUT_TIMEOUT = 600.0
+#: the scale-out phase's serving parts, two ranks on (data 1, model 2),
+#: W8A8: (l) qwen1.5-0.5b at full width and depth, (m)
+#: deepseek-v2-lite-16b at full width cut to 2 layers (its dense first
+#: layer and one MoE layer: MLA and expert parallelism), (n) zamba2-2.7b at
+#: full width cut to 2 groups (12 layers), its activations in float32 (in
+#: bf16 its Mamba2 states after 512 tokens move by 0.71 rel L2 under a
+#: 1-ulp nudge of the inputs: no check could tell a wrong state from a
+#: right one; in float32 0.21, the int8 roundings flipping all the same),
+#: and (o) that zamba2 with float weights in float32, where the sharded
+#: run's caches can be held to the fixed limit; each prefills 4 rows of
+#: 512 tokens into caches of 640 slots and decodes 16 steps of the tokens
+#: the single rank picked greedily
+SCALEOUT_SERVE = dict(rows=4, prompt=512, max_len=640, steps=16)
+SCALEOUT_SERVE_MLA_LAYERS = 2
+SCALEOUT_SERVE_HYBRID_LAYERS = 12
+#: (part, config key, label, spread factor, spread only where the 1-ulp
+#: spread reaches the fixed limits, prefill exact): compare_logits' rules,
+#: the MoE model always on its spread (its routing is discrete); where the
+#: sharded prefill does the single rank's arithmetic (column-parallel
+#: products, int32 row-parallel sums, attention on local heads: the dense
+#: and MLA parts), the caches' prompt slots are held to the attention
+#: tolerance after the prefill and after the last step
+SCALEOUT_SERVE_PARTS = (("l", "serve_dense", "qwen W8A8", MOE_LOGITS_SPREAD,
+                         True, True),
+                        ("m", "serve_mla", "MLA + EP W8A8", MOE_LOGITS_SPREAD,
+                         False, True),
+                        ("n", "serve_hybrid", "Mamba2 W8A8 float32",
+                         MOE_LOGITS_SPREAD, True, False),
+                        ("o", "serve_hybrid_float", "Mamba2 float32",
+                         MOE_LOGITS_SPREAD, True, False))
+#: the gathered caches after the prefill and after the last step against
+#: the single rank's, each field by relative L2: within this (about 2.5
+#: bf16 ulps), or within the part's spread factor times the single rank's
+#: own 1-ulp spread of that field where that is larger, but never past
+#: SCALEOUT_SERVE_CACHE_REL_L2_CAP (a zero state is 1 away, an unrelated
+#: one of the same norm about 1.4)
+SCALEOUT_SERVE_CACHE_REL_L2 = 1e-2
+SCALEOUT_SERVE_CACHE_REL_L2_CAP = 0.5
 
 
 def scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg,
@@ -3152,7 +3196,8 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     (j) to SCALEOUT_LOSS_RTOL; each launch is expected on the route
     ``flash_attention.route`` gives its shape.  Both ranks compute on the
     one card, so the times are correctness-run times, not a measure of
-    scaling."""
+    scaling.  (l)-(o): serving on (1, 2), SCALEOUT_SERVE and
+    :func:`scaleout_serving_checks`."""
     import dataclasses
     import math
     import re
@@ -3174,11 +3219,12 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
                                            remat=False)
     trainer_cfg = cfg.scaled(n_layers=SCALEOUT_TRAINER_LAYERS)
     sp_cfg = cfg.scaled(seq_parallel=True, remat=True)
+    serve_cfgs = scaleout_serving_configs()
     smi = report["nvidia_smi"]
     spec = dict(SCALEOUT, qwen=cfg, qwen_sp=sp_cfg, moe=moe_cfg,
                 mla=mla_cfg, hybrid=hybrid_cfg, xlstm=xlstm_cfg,
                 encdec=encdec_cfg, vlm=vlm_cfg, trainer_model=trainer_cfg,
-                seed=seed,
+                serve=SCALEOUT_SERVE, **serve_cfgs, seed=seed,
                 grad_spread=TRAIN_GRAD_SPREAD, grad_floor=TRAIN_GRAD_FLOOR,
                 opt=dict(lr=1e-3, warmup_steps=1, total_steps=10),
                 trainer=dict(SCALEOUT["trainer"], ckpt_dir=str(
@@ -3327,10 +3373,20 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
         f"{e['bubble']}, {e['run_seconds']:.2f} s; [{smi}]")
     if not e["finite"] or e["bubble"] != 0.2:
         raise AssertionError(f"scaleout (e): {e}")
+    serving = scaleout_serving_checks(ranks, serve_cfgs, smi)
+    for k in ("flash_attention", "nmc_matmul"):
+        launches[k] += serving["launches"][k]
+    for k, n in serving["attention_routes"].items():
+        routes[k] += n
+    for k, err in serving["attention_by_route"].items():
+        replay_by_route[k] = max(replay_by_route.get(k, 0.0), err)
+    replay_err = max(replay_by_route.values())
     log(f"scaleout: {launches['flash_attention']} flash_attention launches "
         f"on the main path by route {routes}, by part {by_part} (rank, "
-        f"part, launches, nmc_matmul, routes: {counts}); replays max abs "
-        f"err by route {replay_by_route}; "
+        f"part, launches, nmc_matmul, routes: {counts}; serving parts "
+        f"{serving['launches_by_part']}); {launches['nmc_matmul']} "
+        f"nmc_matmul launches by route {serving['matmul_routes']}; replays "
+        f"max abs err by route {replay_by_route}; "
         f"ranks {wall:.1f} s wall, {[round(r['seconds'], 1) for r in ranks]}"
         f" s in the ranks")
 
@@ -3341,11 +3397,14 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
         hybrid_layers=SCALEOUT_HYBRID_LAYERS, vlm_layers=SCALEOUT_VLM_LAYERS,
         trainer_layers=SCALEOUT_TRAINER_LAYERS,
         **{k: v for k, v in SCALEOUT.items()},
-        ranks=[{p: plain(r[p]) for p in "abcdefghijk"}
+        serve=SCALEOUT_SERVE, serve_mla_layers=SCALEOUT_SERVE_MLA_LAYERS,
+        serve_hybrid_layers=SCALEOUT_SERVE_HYBRID_LAYERS,
+        ranks=[{p: plain(v) for p, v in r.items()
+                if p not in ("rank", "seconds")}
                | {"seconds": r["seconds"]} for r in ranks],
         trainer_steps=d["steps"], launches=launches, attention_routes=routes,
-        attention_routes_by_part=by_part,
-        matmul_routes={"tensor_core": 0, "dp4a": 0},
+        attention_routes_by_part=by_part, serving=serving,
+        matmul_routes=serving["matmul_routes"],
         replay={"attention_by_route": replay_by_route,
                 "max_abs_err": {"nmc_matmul": 0.0,
                                 "flash_attention": replay_err}},
@@ -3356,6 +3415,133 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
                         ("encdec", encdec_cfg), ("vlm", vlm_cfg),
                         ("sp", sp_cfg))})
     return launches
+
+
+def scaleout_serving_configs() -> dict:
+    """The serving parts' configs (SCALEOUT_SERVE), by spec key."""
+    import torch
+    from repro_torch import configs
+    return {"serve_dense": configs.get(TRAIN_ARCH).scaled(nmc_mode="w8a8"),
+            "serve_mla": configs.get(MLA_ARCH).scaled(
+                n_layers=SCALEOUT_SERVE_MLA_LAYERS, nmc_mode="w8a8"),
+            "serve_hybrid": configs.get(HYBRID_ARCH).scaled(
+                n_layers=SCALEOUT_SERVE_HYBRID_LAYERS, nmc_mode="w8a8",
+                dtype=torch.float32),
+            "serve_hybrid_float": configs.get(HYBRID_ARCH).scaled(
+                n_layers=SCALEOUT_SERVE_HYBRID_LAYERS, nmc_mode="none",
+                dtype=torch.float32)}
+
+
+def scaleout_serving_checks(ranks: list, cfgs: dict, smi: str) -> dict:
+    """The serving parts (l)-(o) of ``phase_scaleout``: on each rank the
+    ``nmc_matmul`` launches of the sharded run equal the single rank's
+    (one launch a W8A8 linear either way, none with float weights; a
+    row-parallel one returns the int32 accumulator), all on the tensor
+    cores, the int32-out ones among them replayed bit for bit; the
+    ``flash_attention`` launches (the prefill's, on local heads) equal the
+    single rank's, on the route
+    ``flash_attention.route`` gives, replayed; on rank 0 the logits of the
+    prefill and every step (the rows gathered) against the single rank's
+    by compare_logits' rules (SCALEOUT_SERVE_PARTS), the gathered caches
+    after the prefill and after the last step by relative L2
+    (SCALEOUT_SERVE_CACHE_REL_L2, or the spread rule up to its cap) and,
+    where the part's prefill is exact, their prompt slots by the attention
+    tolerance.
+    Returns the parts' launches, routes, replays and results."""
+    r0 = ranks[0]
+    out = {"launches": {"flash_attention": 0, "nmc_matmul": 0},
+           "matmul_routes": {"tensor_core": 0, "dp4a": 0},
+           "attention_routes": {"tensor_core": 0, "cuda_core": 0},
+           "attention_by_route": {}, "launches_by_part": {}, "parts": {}}
+    for part, key, label, factor, if_reached, exact in \
+            SCALEOUT_SERVE_PARTS:
+        cfg = cfgs[key]
+        single = r0[part]["single_counted"]
+        route = attention_route(cfg)
+        for r in ranks:
+            res = r[part]
+            c, a, m = res["counted"], res["attention_replay"], \
+                res["int32_replay"]
+            w8a8 = cfg.nmc_mode == "w8a8"
+            if c["nmc_matmul"] != single["nmc_matmul"] or \
+                    c["matmul_routes"]["tensor_core"] != c["nmc_matmul"] or \
+                    w8a8 != (0 < c["matmul_int32"]) or \
+                    c["matmul_int32"] != m["launches"] or \
+                    w8a8 != (0 < c["nmc_matmul"]) or \
+                    not m["bit_equal"] or \
+                    c["flash_attention"] != single["flash_attention"] or \
+                    not c["flash_attention"] or \
+                    c["attention_routes"][route] != c["flash_attention"] or \
+                    a["launches"] != c["flash_attention"]:
+                raise AssertionError(
+                    f"scaleout ({part}) rank {r['rank']}: launches {c}, "
+                    f"single rank {single}, attention replay {a}, int32 "
+                    f"replay {m}")
+            for k in ("flash_attention", "nmc_matmul"):
+                out["launches"][k] += c[k]
+            for k, n in c["matmul_routes"].items():
+                out["matmul_routes"][k] += n
+            for k, n in c["attention_routes"].items():
+                out["attention_routes"][k] += n
+            for k, err in a["max_abs_err_by_route"].items():
+                out["attention_by_route"][k] = max(
+                    out["attention_by_route"].get(k, 0.0), err)
+            out["launches_by_part"].setdefault(part, []).append(
+                (r["rank"], c["nmc_matmul"], c["matmul_int32"],
+                 c["flash_attention"]))
+        res = r0[part]
+        st, spread = res["logits"], res["spread"]
+        rms_limit, agree_limit = 0.25 * st["logit_std"], 0.5
+        reached = spread["rms_diff"] >= rms_limit or \
+            spread["top1_agreement"] <= agree_limit
+        rule = "fixed"
+        if reached or not if_reached:
+            rule = "spread"
+            rms_limit = factor * spread["rms_diff"]
+            agree_limit = spread["top1_agreement"] / factor
+        cache_bad, worst_cache = [], (None, 0.0)
+        for when, fields in res["caches"].items():
+            for path, c in fields.items():
+                limit = min(SCALEOUT_SERVE_CACHE_REL_L2_CAP,
+                            max(SCALEOUT_SERVE_CACHE_REL_L2,
+                                factor * c["spread_rel_l2"]))
+                c["limit"] = limit
+                if c["rel_l2"] / limit >= worst_cache[1]:
+                    worst_cache = (f"{when} {path}", c["rel_l2"] / limit)
+                if not c["rel_l2"] <= limit or (
+                        exact and c["prompt_within_attention_tolerance"]
+                        is False):
+                    cache_bad.append((when, path, c))
+        log(f"scaleout ({part}) serving {label}, {cfg.name} "
+            f"{cfg.n_layers} layers on (1, 2): {res['positions']} positions "
+            f"(prefill and {SCALEOUT_SERVE['steps']} steps x "
+            f"{SCALEOUT_SERVE['rows']} rows) vs the single rank: logits "
+            f"{st} ({rule} limits: rms <= {rms_limit:.4g}, top-1 agreement "
+            f">= {agree_limit:.4f}; the single rank's 1-ulp spread "
+            f"{spread}); caches (max abs err, within the attention "
+            f"tolerance: all and the prompt's slots"
+            f"{', enforced' if exact else ''}; "
+            f"rel L2, the spread's rel L2) {res['caches']}, the "
+            f"worst rel L2 over its limit {worst_cache}; local caches "
+            f"(rank 0) "
+            f"{res['local_caches']}; launches (rank, nmc_matmul, int32-out, "
+            f"flash_attention) {out['launches_by_part'][part]}, single rank "
+            f"{single['nmc_matmul']} / {single['flash_attention']}; a decode "
+            f"step's collectives (calls, bytes, staged, result bytes) by "
+            f"rank {[r[part]['step_traffic'] for r in ranks]}; served in "
+            f"{[round(r[part]['serve_ms'], 1) for r in ranks]} ms by events,"
+            f" peak GB {[r[part]['peak_gb'] for r in ranks]}; "
+            f"{res['seconds']:.1f} s; [{smi}]")
+        if not res["finite"] or st["rms_diff"] > rms_limit or \
+                st["top1_agreement"] < agree_limit or cache_bad:
+            raise AssertionError(
+                f"scaleout ({part}): logits {st} against {rule} limits "
+                f"{rms_limit}, {agree_limit}; caches past their limits "
+                f"{cache_bad}")
+        out["parts"][part] = dict(rule=rule, rms_limit=rms_limit,
+                                  top1_agreement_limit=agree_limit,
+                                  spread_reaches_fixed_limits=reached)
+    return out
 
 
 #: the dry run's part: a (1, 2) fake world for scale-out (a) and (k), and
@@ -3395,6 +3581,12 @@ def dryrun_child(conn, src: str) -> None:
             out[part] = dryrun.run_cell(
                 TRAIN_ARCH, shape, False, cfg_override=c, mesh_shape=(1, 2),
                 n_microbatches=SCALEOUT["n_mb"])
+        # (l)'s decode step: its rows against caches of max_len slots
+        out["l"] = dryrun.run_cell(
+            TRAIN_ARCH, ShapeSpec("scaleout_serve", SCALEOUT_SERVE["max_len"],
+                                  SCALEOUT_SERVE["rows"], "decode"), False,
+            cfg_override=scaleout_serving_configs()["serve_dense"],
+            mesh_shape=(1, 2))
         remat_shape = ShapeSpec("remat", TRAIN_REMAT["seq_len"],
                                 TRAIN_REMAT["rows"], "train")
         for label, remat, policy in TRAIN_REMAT_RUNS:
@@ -3464,10 +3656,12 @@ def phase_dryrun(report: dict, result) -> dict:
     out = {"torch": dry["torch"], "process_s": dry["process_s"],
            "collectives": {}, "remat_peaks": {}}
     traced_s = 0.0
-    for part in ("a", "k"):
+    for part in ("a", "k", "l"):
         rec = dry[part]
         traced_s += rec["trace_s"]
-        card = report["scaleout"]["ranks"][0][part]["counted"]["traffic"]
+        ranks = report["scaleout"]["ranks"][0]
+        card = ranks[part]["step_traffic"] if part == "l" else \
+            ranks[part]["counted"]["traffic"]
         want = {KINDS[op]: [row[0], row[3]] for op, row in card.items()}
         got = {k: [v["count"], v["result_bytes"]]
                for k, v in rec["census"]["collectives"].items()}

@@ -18,12 +18,20 @@ configs, ``chip_smoke.py`` over gloo on the card at full width.
   checkpoint restored onto another through ``elastic.reshard_state`` and
   ``ckpt.restore`` with shardings, each rank's slices held to the same
   slices of the written state bit for bit, then one more step.
+* :func:`sharded_serving`: prefill and decode steps of a model given as
+  the reference's weights (quantized whole first under W8A8), laid out
+  on a (data, model) mesh: the logits and the caches gathered on rank 0.
+* :func:`serving_refusals`, :func:`row_parallel_w8a8`: the families that
+  serve on data axes only, with their messages; a W8A8 row-parallel
+  linear's int32 accumulator against one rank's, bit for bit.
 * :func:`chip_scaleout`: ``chip_smoke.phase_scaleout``'s ranks at full
   width on the card: one train step of each of qwen (tensor and data
   parallel), moonshot (expert parallel), deepseek (MLA and expert
   parallel), zamba2 (Mamba2 and its shared block tensor parallel),
   xlstm, whisper and pixtral (tensor parallel) against the single-rank
-  step, the elastic trainer and the pipeline.
+  step, the elastic trainer, the pipeline, and W8A8 serving of qwen,
+  deepseek and zamba2 (:data:`SERVE_PARTS`) against rank 0's single-rank
+  serving.
 """
 
 from __future__ import annotations
@@ -124,6 +132,149 @@ def sharded_step(device, cfg, shape: tuple, weights: dict, state: dict,
     if compress:
         out["grad_err"] = _host(opt["grad_err"], lay.params)
     return out if _rank0() else None
+
+
+def sharded_serving(device, cfg, shape: tuple, weights: dict, batch: dict,
+                    next_tokens: np.ndarray, max_len: int) -> dict:
+    """Prefill of the global ``batch`` (numpy: tokens, a VLM's images) and
+    then one decode step for each row of ``next_tokens`` (steps, B) on a
+    ``shape`` (data, model) mesh, the model from the reference's
+    ``weights`` (quantized whole first where ``cfg.nmc_mode`` is not
+    "none"), laid out by ``lm.shard``; each rank handed its rows.  Returns
+    on rank 0 (None elsewhere), gathered in full (numpy): ``logits``, the
+    prefill's and every step's; ``caches``, after the prefill and after
+    the last step (as the reference's trees); ``local``, rank 0's cache
+    shapes; ``traffic``, the collectives of the last step."""
+    from repro_torch.distributed import context
+    from repro_torch.models import layers as L
+    mesh = make_mesh(shape, AXES, device)
+    model = params_from_jax(weights, cfg, device)
+    if cfg.nmc_mode != "none":
+        model = L.quantize_tree(model)
+    model = lm.shard(model, cfg, mesh)
+    full = {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in batch.items()}
+    rows_sh = sharding.batch_shardings(full, mesh)
+    local = {k: sharding.local_slice(v, rows_sh[k]) for k, v in full.items()}
+    n = full["tokens"].shape[0]
+    logits_sh = sharding.Sharding(mesh, (rows_sh["tokens"].spec[0], None))
+    cache_sh = sharding.cache_shardings(
+        model.init_caches(cfg, n, max_len, cfg.dtype, "meta"), mesh, n)
+
+    def gathered(logits, caches=None) -> tuple:
+        out = _numpy(sharding.gather_full(logits, logits_sh))
+        if caches is None:
+            return out
+        return out, sharding.map_tree(
+            lambda t, sh: _numpy(sharding.gather_full(t, sh)), caches,
+            cache_sh)
+    logits, caches = lm.prefill(model, local, cfg, max_len, global_batch=n)
+    first, prefill_caches = gathered(logits, caches)
+    steps = [first]
+    cache_len = torch.full((n,), full["tokens"].shape[1]
+                           + (cfg.n_img_tokens if cfg.family == "vlm"
+                              else 0), dtype=torch.int32, device=device)
+    tokens = sharding.local_slice(
+        torch.from_numpy(np.array(next_tokens)).to(device).T,
+        rows_sh["tokens"])
+    for i in range(tokens.shape[1]):
+        cache_len = cache_len + 1
+        context.reset_traffic()
+        logits, caches = lm.decode_step(model, tokens[:, i:i + 1], caches,
+                                        cache_len, cfg, max_len=max_len)
+        traffic = {k: list(v) for k, v in context.traffic.items()}
+        steps.append(gathered(logits))
+    _, last_caches = gathered(logits, caches)
+    out = {"logits": steps, "caches": [prefill_caches, last_caches],
+           "local": sharding.map_tree(lambda t, sh: tuple(t.shape), caches,
+                                      cache_sh),
+           "traffic": traffic}
+    return out if _rank0() else None
+
+
+def serving_refusals(device, cfgs: list, model: int = 2) -> list:
+    """For each config, laid out on a (world / model, model) mesh, the
+    message of the ``NotImplementedError`` that ``lm.init_caches`` raises,
+    or None."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = make_mesh((world // model, model), AXES, device)
+    out = []
+    for cfg in cfgs:
+        m = lm.shard(lm.init_params(cfg, torch.Generator(device=device)
+                                    .manual_seed(0), device), cfg, mesh)
+        try:
+            lm.init_caches(m, cfg, world // model, 8)
+            out.append(None)
+        except NotImplementedError as e:
+            out.append(str(e))
+    return out
+
+
+def serving_misuse(device, cfg, max_len: int = 16) -> dict:
+    """On a (world / 2, 2) mesh, the ``ValueError`` messages of a prefill
+    of two rows that does not give its global batch (``"prefill"``) and of
+    a decode step of one row over caches laid out for two (``"decode"``),
+    or None where a call went through."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = make_mesh((world // 2, 2), AXES, device)
+    m = lm.shard(lm.init_params(cfg, torch.Generator(device=device)
+                                .manual_seed(0), device), cfg, mesh)
+    caches = lm.init_caches(m, cfg, 2 * (world // 2), max_len, cfg.dtype)
+    tokens = torch.zeros((2, 4), dtype=torch.int64, device=device)
+    calls = {"prefill": lambda: lm.prefill(m, {"tokens": tokens}, cfg,
+                                           max_len),
+             "decode": lambda: lm.decode_step(
+                 m, tokens[:1, :1], caches,
+                 torch.full((1,), 5, dtype=torch.int32, device=device), cfg,
+                 max_len=max_len)}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def row_parallel_w8a8(device, w: np.ndarray, b: np.ndarray,
+                      x: np.ndarray) -> dict | None:
+    """A W8A8 linear of the float ``w`` (d_in, d_out) and bias ``b``,
+    quantized whole, against its row-parallel layout over every rank of
+    the world (a (1, world) mesh): on rank 0 whether the int32
+    accumulator summed over ``model`` (``context.sum_exact``) equals the
+    single-rank accumulator, and the layer's output the single-rank
+    output, bit for bit (the plain ``nmc_matmul`` on the CPU)."""
+    from repro_torch.distributed import context
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+    world = dist.get_world_size()
+    mesh = make_mesh((1, world), AXES, device)
+    whole = L.NmcLinear(torch.from_numpy(w).to(device),
+                        torch.from_numpy(b).to(device)).quantized()
+    xt = torch.from_numpy(x).to(device)
+    names = {"w_q": ("model", None), "scale": (None,), "b": (None,)}
+    part = L.NmcLinear(
+        **{k: sharding.local_slice(getattr(whole, k),
+                                   sharding.Sharding(mesh, spec))
+           for k, spec in names.items()})
+    part.parallel, part.mesh = "row", mesh
+    part.amax_axes, part.amax_mesh = (context.MODEL_AXIS,), mesh
+    k = w.shape[0] // world
+    x_loc = xt.narrow(-1, mesh.index(context.MODEL_AXIS) * k, k)
+    xq, _ = ref.quantize_dynamic(xt)
+    acc = context.sum_exact(
+        ops.nmc_matmul(xq.narrow(-1, mesh.index(context.MODEL_AXIS) * k, k)
+                       .contiguous(), part.w_q, None, out_dtype=torch.int32),
+        context.MODEL_AXIS, mesh)
+    want = ops.nmc_matmul(xq, whole.w_q, None, out_dtype=torch.int32)
+    y = part(x_loc, nmc_mode="w8a8", act="silu")
+    y1 = whole(xt, nmc_mode="w8a8", act="silu")
+    if not _rank0():
+        return None
+    return {"accumulator_equal": bool(torch.equal(acc, want)),
+            "output_equal": bool(torch.equal(y, y1)),
+            "accumulator_dtype": str(acc.dtype)}
 
 
 def refusals(device, cfgs: list, model: int = 2) -> list:
@@ -362,6 +513,41 @@ class _AttentionRecorder:
                 "max_abs_err": worst}
 
 
+class _Int32Recorder:
+    """Records every ``nmc_matmul`` launch that returns the raw int32
+    accumulator (a row-parallel W8A8 linear's partial product) at the
+    dispatch layer, the wrapper still counting; :meth:`replay` holds each
+    against the plain version bit for bit."""
+
+    def __enter__(self):
+        import types
+        from repro_torch.kernels import ops
+        self.calls, self._ops, self._orig = [], ops, ops._mm
+        orig = ops._mm.nmc_matmul
+
+        def rec(x_q, w_q, scale, bias=None, **kw):
+            out = orig(x_q, w_q, scale, bias, **kw)
+            if kw.get("out_dtype") == torch.int32:
+                self.calls.append((x_q, w_q, out))
+            return out
+        ops._mm = types.SimpleNamespace(nmc_matmul=rec)
+        return self
+
+    def __exit__(self, *exc):
+        self._ops._mm = self._orig
+
+    def replay(self) -> dict:
+        from repro_torch.kernels import ref
+        shapes, equal = {}, True
+        for x_q, w_q, out in self.calls:
+            want = ref.nmc_matmul(x_q, w_q, None, out_dtype=torch.int32)
+            equal &= bool(torch.equal(out, want))
+            key = str((tuple(x_q.shape), tuple(w_q.shape)))
+            shapes[key] = shapes.get(key, 0) + 1
+        return {"launches": len(self.calls), "shapes": shapes,
+                "bit_equal": equal}
+
+
 class _MoEDrops:
     """``[(tokens, assignments, assignments dropped)]`` of every MoE
     routing inside the block, in call order (``moe.route`` wrapped)."""
@@ -436,9 +622,12 @@ def _xlstm_sites() -> dict:
 def _launches() -> dict:
     from repro_torch import kernels
     from repro_torch.kernels import flash_attention as fa
+    mm = kernels.nmc_matmul.nmc_matmul
     return {"flash_attention": fa.flash_attention.launches,
-            "nmc_matmul": kernels.nmc_matmul.nmc_matmul.launches,
-            "attention_routes": dict(fa.flash_attention.launches_by_route)}
+            "nmc_matmul": mm.launches,
+            "attention_routes": dict(fa.flash_attention.launches_by_route),
+            "matmul_routes": dict(mm.launches_by_route),
+            "matmul_int32": mm.launches_int32}
 
 
 def _sync(device) -> None:
@@ -719,7 +908,10 @@ def chip_scaleout(device, spec: dict) -> dict:
     and ``head`` whole; (j) the VLM, the cut pixtral on (1, 2), 16 query
     and 4 KV heads a rank, ``img_proj`` whole; (k) sequence parallelism
     with activation checkpointing, (a)'s model, batch and mesh with
-    ``seq_parallel`` and ``remat`` on, against (a)'s reference.  ``spec``
+    ``seq_parallel`` and ``remat`` on, against (a)'s reference; (l)-(n)
+    W8A8 serving on (1, 2) (:func:`_chip_serving`): qwen, deepseek cut to
+    2 layers and zamba2 cut to 2 groups at full width; (o) that zamba2
+    with float weights in float32.  ``spec``
     holds the configs, sizes and limits; ``spec["batches"]`` a part's (rows,
     sequence) where it differs from ``spec["rows"]`` and ``spec["seq"]``.
     Returns each part's results and this rank's counted launches and
@@ -755,6 +947,11 @@ def chip_scaleout(device, spec: dict) -> dict:
         dist.barrier()
         res["seconds"] = time.perf_counter() - t0
         out[part] = res
+    for part, key, shape in SERVE_PARTS:
+        t0 = time.perf_counter()
+        res = _chip_serving(device, spec[key], spec, shape)
+        res["seconds"] = time.perf_counter() - t0
+        out[part] = res
     tr = spec["trainer"]
     out["d"] = elastic_check(
         device, spec["trainer_model"],
@@ -766,6 +963,189 @@ def chip_scaleout(device, spec: dict) -> dict:
     out["e"] = _chip_pipeline(device, spec)
     out["seconds"] = time.perf_counter() - t_all
     return out
+
+
+#: ``chip_scaleout``'s serving parts: (part, config key, mesh shape)
+SERVE_PARTS = (("l", "serve_dense", (1, 2)), ("m", "serve_mla", (1, 2)),
+               ("n", "serve_hybrid", (1, 2)),
+               ("o", "serve_hybrid_float", (1, 2)))
+
+
+def _serving_model(cfg, seed: int, device, mesh=None):
+    """The serving model drawn from ``seed``, under W8A8 each block
+    quantized as drawn (the full weights, then laid out on ``mesh`` if
+    given)."""
+    from repro_torch.models import layers as L
+    each = L.quantize_tree if cfg.nmc_mode == "w8a8" else (lambda m: m)
+    model = lm.draw_blocks(cfg, torch.Generator(device=device)
+                           .manual_seed(seed), device, each)
+    return model if mesh is None else lm.shard(model, cfg, mesh)
+
+
+def _serve(model, cfg, batch: dict, tokens, max_len: int, n: int,
+           greedy: bool = False) -> dict:
+    """Prefill ``batch`` then one decode step per column of ``tokens``
+    (rows, steps; with ``greedy`` the previous step's top-1 instead, the
+    first taken from ``tokens``): the logits of every step, the caches
+    after the prefill (cloned) and at the end, the tokens fed, the
+    launches (prefill and steps) and the first step's collectives."""
+    from repro_torch.distributed import context
+    logits, caches = lm.prefill(model, batch, cfg, max_len, global_batch=n)
+    out = {"logits": [logits],
+           "prefill_caches": {key: {f: t.clone() for f, t in fields.items()}
+                              for key, fields in caches.items()}}
+    pos = batch["tokens"].shape[1] + (cfg.n_img_tokens
+                                      if cfg.family == "vlm" else 0)
+    cache_len = torch.full((n,), pos, dtype=torch.int32,
+                           device=logits.device)
+    fed = []
+    for i in range(tokens.shape[1]):
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32) \
+            if greedy and i else tokens[:, i:i + 1]
+        fed.append(tok)
+        cache_len = cache_len + 1
+        if i == 0:
+            traffic = {k: list(v) for k, v in context.traffic.items()}
+        logits, caches = lm.decode_step(model, tok, caches, cache_len, cfg,
+                                        max_len=max_len)
+        if i == 0:
+            out["step_traffic"] = {
+                k: [a - b for a, b in zip(v, traffic.get(k, [0, 0, 0, 0]))]
+                for k, v in context.traffic.items()
+                if v[0] != traffic.get(k, [0])[0]}
+        out["logits"].append(logits)
+    out.update(caches=caches, tokens=torch.cat(fed, dim=1))
+    return out
+
+
+def _logit_stats(got: torch.Tensor, want: torch.Tensor) -> dict:
+    got, want = got.float(), want.float()
+    return {"max_abs_diff": float((got - want).abs().max()),
+            "rms_diff": float((got - want).pow(2).mean().sqrt()),
+            "logit_std": float(want.std()),
+            "top1_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                    .float().mean())}
+
+
+def _chip_serving(device, cfg, spec: dict, shape: tuple) -> dict:
+    """One serving part on every rank (every attention launch of the
+    sharded run and every int32-out ``nmc_matmul`` launch replayed against
+    the plain versions): rank 0 first serves the W8A8 model on its own
+    (prefill of ``spec["serve"]``'s rows and prompt, then greedy decode
+    steps; and once more with its prefill's embedded inputs moved by one
+    ulp: the model's own spread), the tokens it fed are broadcast, and
+    the model laid out on ``shape`` serves the same tokens (each rank its
+    rows).  Returns this rank's launches (prefill and steps:
+    ``nmc_matmul`` by route and int32-out, ``flash_attention`` by route)
+    and the first decode step's collectives; on rank 0 the single-rank
+    run's launches, the sharded logits (every step, rows gathered) against
+    the single rank's and the spread's against it, and the gathered caches
+    after the prefill and at the end against the single rank's, by field:
+    max abs err, whether within ``kernels/checks.attention_tolerance``
+    (all of it, and the prompt's slots, which no decode step writes: None
+    for a state with no slots), relative L2, and the spread's relative
+    L2."""
+    from repro_torch.distributed import context
+    from repro_torch.kernels import checks as kchecks
+    sv = spec["serve"]
+    rows, n_steps, max_len = sv["rows"], sv["steps"], sv["max_len"]
+    gen = torch.Generator(device=device).manual_seed(spec["seed"] + 5)
+    batch = {"tokens": torch.randint(cfg.vocab_size, (rows, sv["prompt"]),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)}
+    first = torch.randint(cfg.vocab_size, (rows, n_steps), generator=gen,
+                          device=device, dtype=torch.int32)
+    out, ref, spread = {}, None, None
+    if _rank0():
+        model = _serving_model(cfg, spec["seed"], device)
+        _reset(device)
+        ref = _serve(model, cfg, batch, first, max_len, rows, greedy=True)
+        out["single_counted"] = _counted(device)
+        with nudged_inputs(model, spec["seed"] + 1):
+            spread = _serve(model, cfg, batch, ref["tokens"], max_len, rows)
+        del model
+        tokens = ref["tokens"]
+    else:
+        tokens = torch.zeros((rows, n_steps), dtype=torch.int32,
+                             device=device)
+    _free(device)
+    tokens = context.broadcast(tokens, "model", make_mesh(
+        (1, dist.get_world_size()), AXES, device))
+    mesh = make_mesh(shape, AXES, device)
+    model = _serving_model(cfg, spec["seed"], device, mesh)
+    full = {"tokens": batch["tokens"]}
+    rows_sh = sharding.batch_shardings(full, mesh)["tokens"]
+    local = {"tokens": sharding.local_slice(full["tokens"], rows_sh)}
+    _reset(device)
+    with _AttentionRecorder() as attn, _Int32Recorder() as acc:
+        with _Events(device) as ev:
+            got = _serve(model, cfg, local,
+                         sharding.local_slice(tokens, rows_sh), max_len,
+                         rows)
+        out["counted"] = _counted(device)
+    out.update(attention_replay=attn.replay(), int32_replay=acc.replay())
+    del attn, acc
+    out.update(step_traffic=got["step_traffic"],
+               serve_ms=ev.ms, peak_gb=_peak_gb(device),
+               local_caches={p: tuple(t.shape)
+                             for p, t in _flat(got["caches"]).items()})
+    logits_sh = sharding.Sharding(mesh, (rows_sh.spec[0], None))
+    cache_sh = sharding.cache_shardings(model.init_caches(
+        cfg, rows, max_len, cfg.dtype, "meta"), mesh, rows)
+    logits = torch.stack([sharding.gather_full(t, logits_sh)
+                          for t in got["logits"]])
+    caches = [sharding.map_tree(sharding.gather_full, got[k], cache_sh)
+              for k in ("prefill_caches", "caches")]
+    del got, model
+    if _rank0():
+        want = torch.stack(ref["logits"])
+        out["logits"] = _logit_stats(logits, want)
+        out["spread"] = _logit_stats(torch.stack(spread["logits"]), want)
+        out["finite"] = bool(torch.isfinite(logits).all())
+        out["positions"] = int(want.shape[0] * want.shape[1])
+        rtol, atol = kchecks.attention_tolerance(cfg.dtype)
+        out["caches"] = {}
+        for when, key in (("prefill", "prefill_caches"), ("end", "caches")):
+            want, pert = _flat(ref[key]), _flat(spread[key])
+            got_ = _flat(caches[when == "end"])
+            out["caches"][when] = {p: {
+                "max_abs_err": float((t.float() - want[p].float()).abs()
+                                     .max()),
+                "within_attention_tolerance": _within(t, want[p], rtol,
+                                                      atol),
+                "prompt_within_attention_tolerance": _within(
+                    _prompt_slots(t, max_len, sv["prompt"]),
+                    _prompt_slots(want[p], max_len, sv["prompt"]), rtol,
+                    atol),
+                "rel_l2": rel_l2(t, want[p]),
+                "spread_rel_l2": rel_l2(pert[p], want[p])}
+                for p, t in got_.items()}
+    del ref, spread, caches
+    _free(device)
+    dist.barrier()
+    return out
+
+
+def _within(got, want, rtol: float, atol: float) -> bool | None:
+    if got is None:
+        return None
+    got, want = got.float(), want.float()
+    return bool(torch.all((got - want).abs() <= atol + rtol * want.abs()))
+
+
+def _prompt_slots(t: torch.Tensor, max_len: int, prompt: int):
+    """The first ``prompt`` slots of a cache field (on its one dim of
+    ``max_len``), None for a field with no such dim (a Mamba2 state)."""
+    dims = [d for d, n in enumerate(t.shape) if n == max_len]
+    return t.narrow(dims[0], 0, prompt) if len(dims) == 1 else None
+
+
+def _flat(tree, pre: str = "") -> dict:
+    """{"key.field": tensor} of a cache tree of dicts."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _flat(v, f"{pre}{k}.").items()}
+    return {pre[:-1]: tree}
 
 
 def _chip_pipeline(device, spec: dict) -> dict:

@@ -33,6 +33,14 @@ sequence dim, backward reduce-scatter), :func:`reduce_scatter_to_seq`
 backward all-gather).  :func:`enter_region` and :func:`leave_region` pick
 a region's entry and exit, with or without sequence parallelism.
 
+Serving adds three that autograd never sees: :func:`all_max`, the
+maximum in the operand's own dtype (the W8A8 activation scale's absolute
+maximum, a decode attention's running maximum); :func:`sum_exact`, an
+integer sum (a row-parallel W8A8 accumulator, int32); and the reductions
+and gathers over axes that hold no process group together (a batch-1
+cache's sequence over the data axes and ``model``), run one axis after
+the other.
+
 A backend may run a collective on host tensors only: :data:`HOST_STAGED`
 names, by backend, the collectives whose CUDA tensors go through a pinned
 host buffer.  The choice follows the backend and the tensor's device,
@@ -180,10 +188,27 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t.clone()
 
 
+def _one_by_one(mesh: Mesh, axes) -> tuple:
+    """The axes to run a collective over one at a time, the last first:
+    those of a tuple the mesh holds no process group for (``("data",
+    "model")``, which splits a batch-1 cache's sequence), empty where the
+    tuple has its own group or is one axis."""
+    axes = mesh._axes(axes)
+    if len(axes) < 2 or axes in mesh.groups:
+        return ()
+    return tuple(reversed(axes))
+
+
 def all_reduce(t: torch.Tensor, axes, mesh: Mesh,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """The reduction of ``t`` over ``axes`` as a new tensor of t's dtype
-    (floats summed in float32); ``t`` itself where they span one rank."""
+    (floats summed in float32, integers exactly in their own dtype);
+    ``t`` itself where they span one rank.  Axes with no group of their
+    own together are reduced one after the other."""
+    if _one_by_one(mesh, axes):
+        for a in _one_by_one(mesh, axes):
+            t = all_reduce(t, a, mesh, op)
+        return t
     group = mesh.group(axes)
     if group is None:
         return t
@@ -199,9 +224,45 @@ def all_reduce(t: torch.Tensor, axes, mesh: Mesh,
     return work.to(t.dtype)
 
 
+def all_max(t: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over ``axes``, in t's own dtype
+    (a max is exact, so nothing is widened; reduce float32 or integer
+    operands: a backend need not take every dtype); ``t`` itself where
+    they span one rank."""
+    if _one_by_one(mesh, axes):
+        for a in _one_by_one(mesh, axes):
+            t = all_max(t, a, mesh)
+        return t
+    group = mesh.group(axes)
+    if group is None:
+        return t
+    work = t.contiguous().clone()
+    staged = _staged("all_reduce", mesh, work)
+    _count("all_reduce", work, staged, _nbytes(work))
+    host = _on_host(work) if staged else work
+    dist.all_reduce(host, dist.ReduceOp.MAX, group=group)
+    if host is not work:
+        work.copy_(host)
+    return work
+
+
+def sum_exact(t: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """The sum of an integer ``t`` over ``axes`` in its own dtype, exact
+    (the W8A8 row-parallel accumulator, int32: its partial sums add to
+    the single-rank accumulator bit for bit)."""
+    if t.is_floating_point():
+        raise TypeError(f"sum_exact: an integer tensor, not {t.dtype}")
+    return all_reduce(t, axes, mesh)
+
+
 def all_gather(t: torch.Tensor, axes, mesh: Mesh, dim: int) -> torch.Tensor:
     """The ranks' ``t`` along ``axes`` concatenated on ``dim`` in their
-    row-major order."""
+    row-major order (axes with no group of their own together gathered
+    one after the other, the last first: the row-major order again)."""
+    if _one_by_one(mesh, axes):
+        for a in _one_by_one(mesh, axes):
+            t = all_gather(t, a, mesh, dim)
+        return t
     group = mesh.group(axes)
     if group is None:
         return t

@@ -25,7 +25,12 @@ stack dims then dropped: where the reference would put the data axes on a
 stack dim, a port tensor keeps that moment whole on every data rank.
 
 :func:`local_slice` cuts a full tensor down to this rank's slice,
-:func:`gather_full` rebuilds the full tensor from every rank's slice.
+:func:`gather_full` rebuilds the full tensor from every rank's slice,
+:func:`relayout` moves a slice from one spec to another (gathered where
+the old one splits, narrowed where the new one does: a prefill's K / V
+from local heads to local slots), :func:`local_offset` gives a slice's
+first global index on a dim (a cache's first slot).  The int8 serving
+weights are laid out by the parameters' rules (:func:`tensor_shardings`).
 """
 
 from __future__ import annotations
@@ -175,6 +180,21 @@ def param_shardings(params: dict, mesh) -> dict:
             for n, t in params.items()}
 
 
+def tensor_shardings(named: dict, mesh, whole_kv: bool = False) -> dict:
+    """{name: Sharding} of a model's parameters, or of its buffers (an
+    int8 serving weight ``w_q`` and its ``scale``, an int8 expert bank and
+    its scales: the same rules read the same paths), divisibility fixed on
+    the full shapes.  ``whole_kv``: ``model`` does not divide the KV heads,
+    so GQA's ``wk`` / ``wv`` stay whole (the rule would split their
+    columns through a head; each rank takes the heads it reads)."""
+    out = param_shardings(named, mesh)
+    if whole_kv:
+        for n, t in named.items():
+            if path_of(n)[-3:-1] in (["attn", "wk"], ["attn", "wv"]):
+                out[n] = Sharding(mesh, (None,) * t.dim())
+    return out
+
+
 def moment_specs(params: dict, mesh, fixed: dict | None = None) -> dict:
     """{name: the moments' spec}: the parameter's, fixed (``fixed``, when
     given, holds them), extended with the data axes as the reference
@@ -264,6 +284,25 @@ def cache_shardings(caches, mesh, batch: int):
 # specs to data
 # ---------------------------------------------------------------------------
 
+def local_shape(shape: tuple, sh: Sharding) -> tuple:
+    """The shape of this rank's slice of a tensor of ``shape`` under
+    ``sh``."""
+    return tuple(n // sh.mesh.size(split_axes(sh, d)) if split_axes(sh, d)
+                 else n for d, n in enumerate(shape))
+
+
+def map_tree(fn, tree, shardings):
+    """``fn(leaf, its Sharding)`` over a tree of dicts, lists and tuples
+    (a cache tree and :func:`cache_shardings` of it), the same tree
+    back."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v, s)
+                          for v, s in zip(tree, shardings))
+    return fn(tree, shardings)
+
+
 def local_slice(full: torch.Tensor, sh: Sharding) -> torch.Tensor:
     """This rank's slice of ``full`` under ``sh`` (a copy, so that the full
     tensor can be freed)."""
@@ -286,6 +325,42 @@ def gather_full(local: torch.Tensor, sh: Sharding) -> torch.Tensor:
         axes = _axes_of(part)
         if axes:
             out = context.all_gather(out, axes, sh.mesh, dim)
+    return out
+
+
+def split_axes(sh: Sharding, dim: int) -> tuple:
+    """The mesh axes that split ``dim`` under ``sh`` (row-major), () where
+    it is whole."""
+    return _axes_of(sh.spec[dim]) if dim < len(sh.spec) else ()
+
+
+def local_offset(sh: Sharding, dim: int, local_size: int) -> int:
+    """The global index of this rank's first element on ``dim`` of a tensor
+    laid out by ``sh`` whose local slice holds ``local_size`` there: a
+    cache's first slot on its sequence split over ``model``, or over the
+    data axes and ``model`` together (a batch-1 cache); 0 where ``dim`` is
+    whole."""
+    axes = split_axes(sh, dim)
+    return sh.mesh.index(axes) * local_size if axes else 0
+
+
+def relayout(local: torch.Tensor, src: Sharding, dst: tuple) -> torch.Tensor:
+    """``local``, this rank's slice under ``src``, as its slice under the
+    spec ``dst`` on the same mesh: every dim whose axes differ gathered
+    over ``src``'s axes first (a collective along them), then narrowed to
+    ``dst``'s.  Where the specs agree, ``local`` itself."""
+    mesh = src.mesh
+    nd = local.dim()
+    src_parts = [split_axes(src, d) for d in range(nd)]
+    dst_parts = [_axes_of(dst[d]) if d < len(dst) else () for d in range(nd)]
+    out = local
+    for d in range(nd):
+        if src_parts[d] != dst_parts[d] and src_parts[d]:
+            out = context.all_gather(out, src_parts[d], mesh, d)
+    for d in range(nd):
+        if src_parts[d] != dst_parts[d] and dst_parts[d]:
+            size = out.shape[d] // mesh.size(dst_parts[d])
+            out = out.narrow(d, mesh.index(dst_parts[d]) * size, size)
     return out
 
 

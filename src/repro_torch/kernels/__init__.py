@@ -19,6 +19,7 @@ def reset_launch_counts() -> None:
         flash_attention.ROUTE_ID, 0)
     nmc_matmul.nmc_matmul.launches_by_route = dict.fromkeys(
         nmc_matmul.ROUTE_ID, 0)
+    nmc_matmul.nmc_matmul.launches_int32 = 0
     vrf_alu.vrf_alu.launches_by_route = dict.fromkeys(vrf_alu.ROUTE_ID, 0)
 
 

@@ -173,8 +173,13 @@ def nmc_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
                            f"{taken.value}, the wrapper's rule says {kind}")
     nmc_matmul.launches += 1
     nmc_matmul.launches_by_route[took] += 1
+    if out_dtype == torch.int32:
+        nmc_matmul.launches_int32 += 1
     return out
 
 
 nmc_matmul.launches = 0
 nmc_matmul.launches_by_route = dict.fromkeys(ROUTE_ID, 0)
+#: the launches that returned the raw int32 accumulator (a row-parallel
+#: W8A8 linear's partial product)
+nmc_matmul.launches_int32 = 0

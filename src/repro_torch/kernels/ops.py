@@ -20,7 +20,13 @@ FlashAttentionFn`, whose backward is plain PyTorch; on the CPU and under
 :func:`force_plain` autograd differentiates the plain version itself.
 
 :func:`chunked_attention` and :func:`decode_attention` are plain PyTorch
-everywhere: in the reference they are XLA, not Pallas.
+everywhere: in the reference they are XLA, not Pallas.  So are the two
+halves that :func:`decode_attention` is made of, which a decode over a
+cache whose slots are split across ranks runs apart:
+:func:`decode_attention_partial` (one slice of the slots: its attention
+and the logsumexp of its logits) and :func:`combine_partials` (the
+slices' attentions weighted by their logsumexps, by reductions the
+caller passes in: this module knows no collectives).
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ from repro_torch.kernels import vrf_alu as _vrf
 from repro_torch.kernels.flash_attention import (NEG_INF, FlashAttentionFn,
                                                  chunked_attention)
 
-__all__ = ["attention", "chunked_attention", "decode_attention",
-           "force_plain", "nmc_matmul", "vrf_alu"]
+__all__ = ["attention", "chunked_attention", "combine_partials",
+           "decode_attention", "decode_attention_partial", "force_plain",
+           "nmc_matmul", "partial_softmax", "vrf_alu"]
 
 _PLAIN = contextvars.ContextVar("repro_torch_force_plain", default=False)
 
@@ -92,22 +99,69 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0):
     return forward(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
+def _decode_mask(s: int, offset: int, cache_len, window, device):
+    """(B, s): which of ``s`` slots, at global positions ``offset`` on, a
+    row of ``cache_len`` attends to (within ``window`` where given)."""
+    kpos = torch.arange(offset, offset + s, device=device)[None, :]
+    clen = cache_len.to(device)[:, None]
+    mask = kpos < clen
+    if window is not None:
+        mask &= kpos > (clen - 1 - window)
+    return mask
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
     """Single-token decode attention against a (possibly padded) KV cache.
 
     q: (B, Hq, 1, D); caches: (B, Hkv, S, D); cache_len: (B,) valid
-    lengths (the new token is at index cache_len - 1)."""
+    lengths (the new token is at index cache_len - 1).  The one-slice case
+    of :func:`decode_attention_partial` (nothing to combine)."""
+    o, _ = decode_attention_partial(q, k_cache, v_cache, cache_len, 0,
+                                    window=window, lse=False)
+    return o[:, :, None].to(q.dtype)
+
+
+def partial_softmax(logits: torch.Tensor, lse: bool = True) -> tuple:
+    """Float32 logits (masked entries ``NEG_INF``) over the last dim ->
+    (their softmax, their logsumexp or None without ``lse``).  A slice
+    whose entries are all masked has a finite softmax and a logsumexp of
+    ``NEG_INF``, so that :func:`combine_partials` gives it weight
+    ``exp(NEG_INF - M) = 0`` beside any slice that holds an unmasked
+    entry."""
+    return (torch.softmax(logits, dim=-1),
+            torch.logsumexp(logits, dim=-1) if lse else None)
+
+
+def decode_attention_partial(q, k_cache, v_cache, cache_len, offset: int, *,
+                             window=None, lse: bool = True) -> tuple:
+    """:func:`decode_attention` over one slice of the slots: q (B, Hq, 1,
+    D) against k / v caches (B, Hkv, S_local, D / Dv) whose slots sit at
+    global positions ``offset`` to ``offset + S_local``, under the same
+    masks (``cache_len`` (B,) valid lengths, ``window``; a ring cache
+    passes ``min(cache_len, S_cache)`` and no window).  Returns float32
+    (o (B, Hq, Dv), the attention over the slice; lse (B, Hq), the
+    logsumexp of its logits, for :func:`combine_partials`; None without
+    ``lse``)."""
     b, hq, _, d = q.shape
     _, hkv, s, _ = k_cache.shape
     group = hq // hkv
     qf = q.float().reshape(b, hkv, group, d) * (1.0 / d ** 0.5)
     logits = torch.einsum("bhgd,bhkd->bhgk", qf, k_cache.float())
-    kpos = torch.arange(s, device=q.device)[None, :]
-    clen = cache_len.to(q.device)[:, None]
-    mask = kpos < clen
-    if window is not None:
-        mask &= kpos > (clen - 1 - window)
+    mask = _decode_mask(s, offset, cache_len, window, q.device)
     logits = logits.masked_fill(~mask[:, None, None], NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
-    return out.reshape(b, hq, 1, v_cache.shape[-1]).to(q.dtype)
+    p, lse = partial_softmax(logits, lse)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    return (o.reshape(b, hq, v_cache.shape[-1]),
+            None if lse is None else lse.reshape(b, hq))
+
+
+def combine_partials(o, lse, all_max, all_sum) -> torch.Tensor:
+    """The attention over every slice of the slots from each slice's
+    :func:`decode_attention_partial` (or :func:`partial_softmax`) parts:
+    each slice's ``o`` weighted by ``exp(lse - M)``, ``M`` the largest
+    ``lse`` over the slices, summed with the weights (one reduction of
+    both) and divided.  ``all_max`` / ``all_sum`` reduce a tensor over the
+    slices (the ranks that hold them).  Float32 (B, H, Dv)."""
+    w = torch.exp(lse - all_max(lse))
+    part = all_sum(torch.cat([o * w[..., None], w[..., None]], dim=-1))
+    return part[..., :-1] / part[..., -1:]

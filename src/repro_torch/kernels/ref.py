@@ -36,6 +36,14 @@ def nmc_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
             raise ValueError("out_dtype=int32 returns the raw accumulator: "
                              "scale, bias and act must be unset")
         return acc
+    return epilogue(acc, scale, bias, act, out_dtype)
+
+
+def epilogue(acc: torch.Tensor, scale: torch.Tensor,
+             bias: torch.Tensor | None = None, act: str = "none",
+             out_dtype=torch.float32) -> torch.Tensor:
+    """:func:`nmc_matmul`'s dequantize epilogue on an int32 accumulator
+    (M, N): ``act(acc * scale + bias)`` in float32, as ``out_dtype``."""
     # two roundings, as the reference: a product, then a sum (no FMA)
     y = acc.to(torch.float32) * scale.to(torch.float32)[None, :]
     if bias is not None:
@@ -63,10 +71,13 @@ def quantize_rowwise(w: torch.Tensor, axis: int = 0):
     return wq, s.reshape(-1)
 
 
-def quantize_dynamic(x: torch.Tensor):
+def quantize_dynamic(x: torch.Tensor, amax: torch.Tensor | None = None):
     """Per-tensor dynamic symmetric int8 quantization of activations: one
-    scale over the whole tensor, in the tensor's dtype."""
-    amax = torch.amax(x.abs())
+    scale over the whole tensor, in the tensor's dtype.  ``amax``: the
+    tensor's absolute maximum where ``x`` is one rank's part of it (the
+    maximum over every part), ``x``'s own when None."""
+    if amax is None:
+        amax = torch.amax(x.abs())
     s = torch.clamp_min(amax, 1e-8) / 127.0
     xq = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
     return xq, s

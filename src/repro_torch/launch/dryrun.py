@@ -28,9 +28,10 @@ is the same (``arch``, ``shape``, ``kind``, ``mesh``, ``n_devices``,
 ``memory``), the census under ``census`` (for the reference's ``hlo``)
 and ``trace_s`` (the layout and the step, for ``lower_s`` /
 ``compile_s``).  A cell whose layout works but whose step the port
-refuses (serving on a ``model`` axis waits for sharded caches) still
-gets its record: its arguments' bytes, the refusal's message under
-``refused`` and null step quantities.  A cell whose layout is refused
+refuses (a ``NotImplementedError`` from the step; no cell of ``--all``
+has one) still gets its record: its arguments' bytes, the refusal's
+message under ``refused`` and null step quantities.  A cell whose layout
+is refused
 (heads that ``model`` does not divide, ROADMAP fact 18) writes the
 reference's ``.err`` traceback and ``FAILED`` line.  ``--save-hlo`` has
 no counterpart: there is no compiled program to save.
@@ -90,31 +91,13 @@ def mesh_name(shape: tuple) -> str:
     return "x".join(str(s) for s in shape)
 
 
-def _lay_out_buffers(model: lm.LMBase, cfg, mesh) -> None:
-    """The int8 serving weights (buffers, which ``lm.shard`` leaves) cut
-    by the same rules; ``wk`` / ``wv`` whole where ``model`` does not
-    divide the KV heads, as ``lm.shard`` keeps their float form."""
-    named = dict(model.named_buffers())
-    specs = sharding.param_specs(named)
-    whole_kv = mesh.model_size() > 1 and not cfg.mla and \
-        cfg.n_kv_heads % mesh.model_size()
-    for name, buf in named.items():
-        spec = sharding.fix_divisibility(specs[name], tuple(buf.shape), mesh)
-        if whole_kv and sharding.path_of(name)[-3:-1] in (["attn", "wk"],
-                                                          ["attn", "wv"]):
-            spec = (None,) * buf.dim()
-        mod_name, _, leaf = name.rpartition(".")
-        model.get_submodule(mod_name)._buffers[leaf] = \
-            sharding.local_slice(buf, sharding.Sharding(mesh, spec))
-
-
 def lay_out(args: tuple, cfg, shape: ShapeSpec, mesh) -> tuple:
     """Rank 0's slices of a cell's abstract arguments: the model through
-    ``lm.shard`` (raises where the port refuses the layout), the moments
-    by its layout's ZeRO-2 specs, the batch by ``batch_shardings``, the
-    caches by ``cache_shardings``, the cache lengths whole."""
+    ``lm.shard`` (its int8 serving weights too; raises where the port
+    refuses the layout), the moments by its layout's ZeRO-2 specs, the
+    batch by ``batch_shardings``, the caches by ``cache_shardings``, the
+    cache lengths whole."""
     model = lm.shard(args[0], cfg, mesh)
-    _lay_out_buffers(model, cfg, mesh)
 
     def rows(batch: dict) -> dict:
         sh = sharding.batch_shardings(batch, mesh)
@@ -130,15 +113,8 @@ def lay_out(args: tuple, cfg, shape: ShapeSpec, mesh) -> tuple:
         return model, rows(args[1])
     _, tokens, caches, cache_len = args
     csh = sharding.cache_shardings(caches, mesh, shape.global_batch)
-
-    def cut(tree, shs):
-        if isinstance(tree, dict):
-            return {k: cut(v, shs[k]) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(cut(v, s) for v, s in zip(tree, shs))
-        return sharding.local_slice(tree, shs)
-    return model, rows({"tokens": tokens})["tokens"], cut(caches, csh), \
-        cache_len
+    return model, rows({"tokens": tokens})["tokens"], \
+        sharding.map_tree(sharding.local_slice, caches, csh), cache_len
 
 
 def trace_step(fn, args: tuple) -> tuple:

@@ -112,12 +112,15 @@ def cell_fn_and_inputs(cfg: ModelConfig, shape: ShapeSpec,
         return fn, args, (0, 1)
     if shape.kind == "prefill":
         def prefill(params, batch):
-            return lm.prefill(params, batch, cfg, shape.seq_len)
+            return lm.prefill(params, batch, cfg, shape.seq_len,
+                              global_batch=shape.global_batch)
         return prefill, (abstract_params(cfg, serve=True),
                          input_specs(cfg, shape)), ()
 
     def decode(params, tokens, caches, cache_len):
-        return lm.decode_step(params, tokens, caches, cache_len, cfg)
+        # on a model axis the caches' slices do not tell their full length
+        return lm.decode_step(params, tokens, caches, cache_len, cfg,
+                              max_len=cache_len_for(cfg, shape.seq_len))
     io = input_specs(cfg, shape)
     params = abstract_params(cfg, serve=True)
     args = (params, io["tokens"], abstract_caches(cfg, shape, params),

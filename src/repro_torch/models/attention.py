@@ -25,9 +25,23 @@ row-parallel, ``n_heads / model`` heads through ``flash_attention``.
 ``w_dkv``, ``w_krope`` and ``norm_ckv`` stay whole: every rank computes
 the whole latent ``ckv`` and the shared RoPE key, and each differentiates
 them through its own heads only, so their gradients are partial and
-summed over ``model`` by the train step.  The absorbed decode reads
-``cfg.n_heads`` and runs on one rank (serving a model sharded over
-``model`` raises, ``lm._check_serving``).
+summed over ``model`` by the train step.
+
+Serving on such a mesh (``lm.prefill`` / ``lm.decode_step``) keeps each
+layer's cache laid out by ``sharding.cache_shardings``: every KV head (or
+MLA's whole latent) for this rank's slots, the sequence split over
+``model`` (over the data axes and ``model`` together for a batch of one).
+Prefill runs on local heads through ``flash_attention`` and hands its K /
+V over to that layout (:func:`~repro_torch.distributed.sharding.relayout`:
+gathered over the heads, narrowed to the slots; only the narrow where
+``wk`` / ``wv`` or MLA's latent are whole).  Decode gathers every head's
+query (and the new token's k / v) over ``model``, writes the new token on
+the rank that holds its slot, attends over the rank's slots
+(``ops.decode_attention_partial``: the attention and the logsumexp of
+its logits) and combines the ranks' partials (``ops.combine_partials``:
+weighted by their logsumexps, a max and a sum over the split axes); each
+rank keeps its heads for the row-parallel ``wo`` (MLA: its heads'
+``W_uv`` first).
 
 Under sequence parallelism (``sp=True``, :mod:`~repro_torch.models.layers`)
 both enter their region by gathering the whole sequence and leave it by
@@ -44,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed import context as C
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -74,22 +89,24 @@ class GQAttention(nn.Module):
                              device),
             L.NmcLinear.init(gen, cfg.n_heads * hd, d, device=device))
 
-    def _project(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
+    def _project(self, x: torch.Tensor, cfg: ModelConfig,
+                 select: bool = True) -> tuple:
         """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd), before RoPE
-        (this rank's heads on a mesh)."""
+        (this rank's heads on a mesh; with ``select`` False, every KV head
+        where ``wk`` / ``wv`` are whole)."""
         b, s, _ = x.shape
         hd, mode = cfg.head_dim, cfg.nmc_mode
         q = self.wq(x, nmc_mode=mode).reshape(b, s, -1, hd)
         k = self.wk(x, nmc_mode=mode).reshape(b, s, -1, hd)
         v = self.wv(x, nmc_mode=mode).reshape(b, s, -1, hd)
-        if self.kv_select is not None:
+        if select and self.kv_select is not None:
             k, v = k[:, :, self.kv_select], v[:, :, self.kv_select]
         return q, k, v
 
     def qkv(self, x: torch.Tensor, cfg: ModelConfig,
-            positions: torch.Tensor) -> tuple:
+            positions: torch.Tensor, select: bool = True) -> tuple:
         """x: (B, S, D) -> q (B,H,S,hd), k/v (B,KV,S,hd), rope applied."""
-        q, k, v = self._project(x, cfg)
+        q, k, v = self._project(x, cfg, select)
         if not cfg.learned_pos:
             cos, sin = L.rope_table(positions, cfg.head_dim, cfg.rope_theta)
             q = L.apply_rope(q, cos, sin)
@@ -131,16 +148,31 @@ class GQAttention(nn.Module):
                           q_offset=q_offset)
         return self._out(o, cfg, sp)
 
-    def prefill(self, x: torch.Tensor, cfg: ModelConfig,
-                max_len: int) -> tuple:
+    def prefill(self, x: torch.Tensor, cfg: ModelConfig, max_len: int,
+                cache_sh: dict | None = None) -> tuple:
         """Full attention over the prompt AND the cache, padded to
-        ``max_len`` (the reference's ``gqa_prefill``)."""
+        ``max_len`` (the reference's ``gqa_prefill``).  ``cache_sh``: on a
+        mesh with a ``model`` axis, one layer's cache Shardings ({field:
+        Sharding of (B, KV, S, hd)}); the attention runs on this rank's
+        heads and the cache returned is its slice: every KV head, the
+        slots of its sequence split (:func:`cache_split`)."""
         s = x.shape[1]
-        q, k, v = self.qkv(x, cfg, torch.arange(s, device=x.device))
-        out = self._out(ops.attention(q, k, v, causal=True,
+        q, k, v = self.qkv(x, cfg, torch.arange(s, device=x.device),
+                           select=False)
+        ks, vs = k, v
+        if self.kv_select is not None:
+            ks, vs = k[:, self.kv_select], v[:, self.kv_select]
+        out = self._out(ops.attention(q, ks, vs, causal=True,
                                       window=cfg.window), cfg)
         pad = (0, 0, 0, max_len - s)
         kp, vp = F.pad(k, pad), F.pad(v, pad)
+        if cache_sh is not None:
+            # this rank's KV heads of every slot -> every head of its slots
+            sh = cache_split(cache_sh)
+            heads = C.MODEL_AXIS if self.wk.parallel == "col" else None
+            src = sharding.Sharding(sh.mesh, (sh.spec[0], heads, None, None))
+            kp = sharding.relayout(kp, src, sh.spec)
+            vp = sharding.relayout(vp, src, sh.spec)
         if cfg.kv_cache_dtype == "int8":
             kq, ks = quant_kv(kp)
             vq, vs = quant_kv(vp)
@@ -148,46 +180,66 @@ class GQAttention(nn.Module):
         return out, {"k": kp.to(x.dtype), "v": vp.to(x.dtype)}
 
     def decode_step(self, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-                    cache_len: torch.Tensor) -> tuple:
+                    cache_len: torch.Tensor,
+                    cache_sh: dict | None = None) -> tuple:
         """One-token decode (the reference's ``gqa_decode``).  cache:
         {"k","v"}: (B, KV, S_cache, hd), updated in place; cache_len (B,)
         absolute lengths including the new token.  Sliding-window archs
         with S_cache <= window use a RING cache: slot (len-1) mod S_cache
         holds the newest token (softmax is permutation-invariant, and RoPE
         is applied with absolute positions before the insert).
+        ``cache_sh``: the cache is this rank's slots of every KV head
+        (:meth:`prefill`): the new token's k / v (every KV head) and q
+        (every head) are gathered over ``model``, the rank holding a row's
+        slot writes it, every rank attends over its slots and the ranks'
+        partials are combined over the axes that split them; the rank's
+        heads of the result go on to the row-parallel ``wo``.
         Returns (out (B,1,D), cache)."""
         b = x.shape[0]
-        q, k, v = self._project(x, cfg)
+        q, k, v = self._project(x, cfg, select=cache_sh is None)
         if not cfg.learned_pos:
             cos, sin = L.rope_table(cache_len[:, None] - 1, cfg.head_dim,
                                     cfg.rope_theta)
             cos, sin = cos[:, :, None, :], sin[:, :, None, :]
             q = L.apply_rope(q, cos, sin)
             k = L.apply_rope(k, cos, sin)
-        s_cache = cache["k"].shape[2]
+        s_loc = cache["k"].shape[2]
+        split = cache_split(cache_sh) if cache_sh is not None else None
+        axes = () if split is None else sharding.split_axes(split, 2)
+        s_cache = s_loc * (split.mesh.size(axes) if axes else 1)
+        offset = 0 if split is None else sharding.local_offset(split, 2,
+                                                               s_loc)
+        if split is not None and self.mesh is not None:
+            q = C.all_gather(q, C.MODEL_AXIS, self.mesh, 2)
+            if self.wk.parallel == "col":
+                k = C.all_gather(k, C.MODEL_AXIS, self.mesh, 2)
+                v = C.all_gather(v, C.MODEL_AXIS, self.mesh, 2)
         ring = cfg.window is not None and s_cache <= cfg.window
         rows = torch.arange(b, device=x.device)
-        idx = ((cache_len - 1) % s_cache).long()
+        slot = ((cache_len - 1) % s_cache).long() - offset
+        own = None if split is None else (slot >= 0) & (slot < s_loc)
         k_new, v_new = k[:, 0], v[:, 0]                 # (B, KV, hd)
         if "k_s" in cache:                              # int8 cache
             for name, val in (("k", k_new), ("v", v_new)):
                 vq, vs = quant_kv(val)
-                cache[name][rows, :, idx] = vq
-                cache[name + "_s"][rows, :, idx] = vs
+                _write_slots(cache[name], rows, slot, own, vq)
+                _write_slots(cache[name + "_s"], rows, slot, own, vs)
             kc = dequant_kv(cache["k"], cache["k_s"], x.dtype)
             vc = dequant_kv(cache["v"], cache["v_s"], x.dtype)
         else:
-            cache["k"][rows, :, idx] = k_new.to(cache["k"].dtype)
-            cache["v"][rows, :, idx] = v_new.to(cache["v"].dtype)
+            _write_slots(cache["k"], rows, slot, own, k_new)
+            _write_slots(cache["v"], rows, slot, own, v_new)
             kc, vc = cache["k"], cache["v"]
-        if ring:
-            # every resident slot is within the window; mask warm-up slots
-            o = ops.decode_attention(q.transpose(1, 2), kc, vc,
-                                     torch.clamp_max(cache_len, s_cache))
-        else:
-            o = ops.decode_attention(q.transpose(1, 2), kc, vc, cache_len,
-                                     window=cfg.window)
-        return self._out(o, cfg), cache
+        # a ring: every resident slot is within the window; mask warm-up
+        # slots
+        lens, window = (torch.clamp_max(cache_len, s_cache), None) if ring \
+            else (cache_len, cfg.window)
+        o = _combine(*ops.decode_attention_partial(
+            q.transpose(1, 2), kc, vc, lens, offset, window=window,
+            lse=bool(axes)), axes, None if split is None else split.mesh)
+        if split is not None:
+            o = _local_heads(o, self.mesh)
+        return self._out(o.to(x.dtype)[:, :, None], cfg), cache
 
 
 class MLAttention(nn.Module):
@@ -263,88 +315,204 @@ class MLAttention(nn.Module):
         """Train/prefill path (the reference's ``mla_apply``; causal)."""
         return self._expanded(x, cfg, q_offset, sp)[0]
 
-    def prefill(self, x: torch.Tensor, cfg: ModelConfig,
-                max_len: int) -> tuple:
+    def prefill(self, x: torch.Tensor, cfg: ModelConfig, max_len: int,
+                cache_sh: dict | None = None) -> tuple:
         """The expanded attention over the prompt and the compressed cache
         ``{"ckv": (B, max_len, r), "krope": (B, max_len, dr)}`` (the
         reference's ``mla_prefill``, which projects ``ckv`` and ``krope``
         a second time: the same function of the same inputs, so the
-        forward's are reused)."""
+        forward's are reused).  ``cache_sh``: on a mesh with a ``model``
+        axis, one layer's cache Shardings; ``ckv`` and ``krope`` are whole
+        on every rank, which keeps the slots of its sequence split."""
         out, ckv, krope = self._expanded(x, cfg, 0)
         pad = (0, 0, 0, max_len - x.shape[1])
-        return out, {"ckv": F.pad(ckv, pad).to(x.dtype),
-                     "krope": F.pad(krope, pad).to(x.dtype)}
+        cache = {"ckv": F.pad(ckv, pad).to(x.dtype),
+                 "krope": F.pad(krope, pad).to(x.dtype)}
+        if cache_sh is not None:
+            sh = cache_split(cache_sh)
+            whole = sharding.Sharding(sh.mesh, (sh.spec[0], None, None))
+            cache = {k: sharding.relayout(t, whole, sh.spec)
+                     for k, t in cache.items()}
+        return out, cache
 
     def decode_step(self, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-                    cache_len: torch.Tensor) -> tuple:
+                    cache_len: torch.Tensor,
+                    cache_sh: dict | None = None) -> tuple:
         """Absorbed decode (the reference's ``mla_decode``): ``W_uk`` is
         folded into the query and ``W_uv`` applied after the attention, so
         the scores and the weighted sum run over the compressed cache, in
         float32 einsums with the float32 weights (``w``, or ``w_q`` times
         its scale).  cache: {"ckv", "krope"} updated in place at
-        ``cache_len - 1``.  Returns (out (B,1,D), cache)."""
+        ``cache_len - 1``.  ``cache_sh``: the cache is this rank's slots
+        (:meth:`prefill`): every head's latent query is gathered over
+        ``model``, the rank holding a row's slot writes it, the ranks'
+        partials over their slots are combined, and each rank applies its
+        heads' ``W_uv``.  Returns (out (B,1,D), cache)."""
         b = x.shape[0]
         cos, sin = L.rope_table(cache_len[:, None] - 1, cfg.qk_rope_dim,
                                 cfg.rope_theta)
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
         q_nope, q_rope, ckv_new, krope_new = self._q_and_latent(x, cfg, cos,
                                                                 sin)
+        s_loc = cache["ckv"].shape[1]
+        split = cache_split(cache_sh) if cache_sh is not None else None
+        offset = 0 if split is None else sharding.local_offset(split, 1,
+                                                               s_loc)
         rows = torch.arange(b, device=x.device)
-        idx = (cache_len - 1).long()
-        cache["ckv"][rows, idx] = ckv_new[:, 0].to(cache["ckv"].dtype)
-        cache["krope"][rows, idx] = krope_new[:, 0, 0].to(
-            cache["krope"].dtype)
+        slot = (cache_len - 1).long() - offset
+        own = None if split is None else (slot >= 0) & (slot < s_loc)
+        _write_slots(cache["ckv"], rows, slot, own, ckv_new[:, 0], dim=1)
+        _write_slots(cache["krope"], rows, slot, own, krope_new[:, 0, 0],
+                     dim=1)
         o = self.absorbed_attention(q_nope[:, 0], q_rope[:, 0], cache,
-                                    cache_len, cfg)
+                                    cache_len, cfg, split)
         return self.wo(o.reshape(b, 1, -1).to(x.dtype),
                        nmc_mode=cfg.nmc_mode), cache
 
-    def absorbed_attention(self, q_nope: torch.Tensor, q_rope: torch.Tensor,
-                           cache: dict, cache_len: torch.Tensor,
-                           cfg: ModelConfig) -> torch.Tensor:
-        """q_nope (B,H,dn), q_rope (B,H,dr) against the compressed cache ->
-        (B, H, dv) in float32: the scores ``(q_nope W_uk) ckv^T + q_rope
-        krope^T`` over the first ``cache_len`` slots, their softmax times
-        ``ckv``, then ``W_uv``."""
-        h, r = cfg.n_heads, cfg.kv_lora_rank
+    def latent_query(self, q_nope: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+        """q_nope (B,H,dn) -> ``q_nope W_uk`` (B,H,r) in float32 (H this
+        rank's heads on a mesh)."""
+        w_uk = self.w_uk.float_weight().reshape(cfg.kv_lora_rank, -1,
+                                                cfg.qk_nope_dim)
+        return torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk)
+
+    def latent_logits(self, q_lat: torch.Tensor, q_rope: torch.Tensor,
+                      cache: dict, cache_len: torch.Tensor, cfg: ModelConfig,
+                      offset: int = 0) -> torch.Tensor:
+        """The scores ``q_lat ckv^T + q_rope krope^T`` (B,H,S) in float32
+        over the cache's slots, at global positions ``offset`` on; those
+        at or past ``cache_len`` masked with ``NEG_INF``."""
         dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
         ckv = cache["ckv"].float()
-        w_uk = self.w_uk.float_weight().reshape(r, h, dn)
-        q_lat = torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk)
         logits = (torch.einsum("bhr,bsr->bhs", q_lat, ckv)
                   + torch.einsum("bhd,bsd->bhs", q_rope.float(),
                                  cache["krope"].float())) \
             * (1.0 / math.sqrt(dn + dr))
-        seen = torch.arange(ckv.shape[1], device=ckv.device)[None, :] \
-            < cache_len[:, None]
-        logits = logits.masked_fill(~seen[:, None, :], ops.NEG_INF)
-        o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(logits, dim=-1),
-                             ckv)
-        w_uv = self.w_uv.float_weight().reshape(r, h, cfg.v_head_dim)
+        seen = torch.arange(offset, offset + ckv.shape[1],
+                            device=ckv.device)[None, :] < cache_len[:, None]
+        return logits.masked_fill(~seen[:, None, :], ops.NEG_INF)
+
+    def latent_out(self, o_lat: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+        """o_lat (B,H,r) -> ``o_lat W_uv`` (B,H,dv) in float32."""
+        w_uv = self.w_uv.float_weight().reshape(cfg.kv_lora_rank, -1,
+                                                cfg.v_head_dim)
         return torch.einsum("bhr,rhv->bhv", o_lat, w_uv)
+
+    def absorbed_attention(self, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                           cache: dict, cache_len: torch.Tensor,
+                           cfg: ModelConfig,
+                           split: sharding.Sharding | None = None
+                           ) -> torch.Tensor:
+        """q_nope (B,H,dn), q_rope (B,H,dr) against the compressed cache ->
+        (B, H, dv) in float32: the scores ``(q_nope W_uk) ckv^T + q_rope
+        krope^T`` over the first ``cache_len`` slots, their softmax times
+        ``ckv``, then ``W_uv``.  ``split``: the cache is this rank's slots
+        laid out so (:func:`cache_split`): every head's latent query is
+        gathered over ``model``, the partials over the rank's slots are
+        combined with the other ranks', and the rank's heads go on to its
+        ``W_uv``."""
+        q_lat = self.latent_query(q_nope, cfg)
+        offset, axes = 0, ()
+        if split is not None:
+            offset = sharding.local_offset(split, 1, cache["ckv"].shape[1])
+            axes = sharding.split_axes(split, 1)
+            if self.mesh is not None:
+                q_lat = C.all_gather(q_lat, C.MODEL_AXIS, self.mesh, 1)
+                q_rope = C.all_gather(q_rope, C.MODEL_AXIS, self.mesh, 1)
+        p, lse = ops.partial_softmax(self.latent_logits(
+            q_lat, q_rope, cache, cache_len, cfg, offset), bool(axes))
+        o_lat = _combine(torch.einsum("bhs,bsr->bhr", p, cache["ckv"].float()),
+                         lse, axes, None if split is None else split.mesh)
+        if split is not None:
+            o_lat = _local_heads(o_lat, self.mesh)
+        return self.latent_out(o_lat, cfg)
+
+
+def cache_split(cache_sh: dict) -> sharding.Sharding:
+    """The Sharding of one layer's attention cache that splits its slots
+    (GQA's ``k`` (B, KV, S, hd) on dim 2, MLA's ``ckv`` (B, S, r) on dim
+    1): every field must split the same slots and nothing else but the
+    batch (dim 0), else the layout is one the port does not serve."""
+    key = "ckv" if "ckv" in cache_sh else "k"
+    sh = cache_sh[key]
+    seq = 1 if key == "ckv" else 2
+    for name, other in cache_sh.items():
+        parts = tuple(other.spec)
+        bad = [d for d, p in enumerate(parts) if p is not None
+               and d not in (0, seq)]
+        if bad or parts[0] != sh.spec[0] or parts[seq] != sh.spec[seq]:
+            raise NotImplementedError(
+                f"cache field {name!r} laid out as {parts}: the port serves "
+                f"a cache split on its batch and its slots only")
+    return sh
+
+
+def _write_slots(t: torch.Tensor, rows: torch.Tensor, slot: torch.Tensor,
+                 own: torch.Tensor | None, val: torch.Tensor,
+                 dim: int = 2) -> None:
+    """``t[row, ..., slot[row]] = val[row]`` on the slot dim ``dim`` (2:
+    (B, KV, S, ...); 1: (B, S, ...)) in ``t``'s dtype; with ``own``, only
+    the rows whose slot this rank holds (the others written back with
+    what they held: no row count leaves the device)."""
+    val = val.to(t.dtype)
+    if own is None:
+        idx = slot
+    else:
+        idx = slot.clamp(0, t.shape[dim] - 1)
+        old = t[rows, :, idx] if dim == 2 else t[rows, idx]
+        keep = own.reshape((-1,) + (1,) * (val.dim() - 1))
+        val = torch.where(keep, val, old)
+    if dim == 2:
+        t[rows, :, idx] = val
+    else:
+        t[rows, idx] = val
+
+
+def _combine(o: torch.Tensor, lse: torch.Tensor | None, axes: tuple,
+             mesh: C.Mesh | None) -> torch.Tensor:
+    """``ops.combine_partials`` of this rank's partial with those of the
+    ranks that hold the other slots: a max and a sum over the mesh
+    ``axes`` that split them (none: the rank's slots are all of them)."""
+    if not axes:
+        return o
+    return ops.combine_partials(o, lse, lambda t: C.all_max(t, axes, mesh),
+                                lambda t: C.all_reduce(t, axes, mesh))
+
+
+def _local_heads(o: torch.Tensor, mesh: C.Mesh | None) -> torch.Tensor:
+    """This rank's heads (dim 1) of every head's ``o`` (all of it with no
+    mesh)."""
+    if mesh is None:
+        return o
+    n = o.shape[1] // mesh.model_size()
+    return o.narrow(1, mesh.index(C.MODEL_AXIS) * n, n)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 dtype=torch.bfloat16) -> dict:
+    """One layer's cache fields as ``{field: (shape, dtype)}``: MLA's
+    compressed ``{"ckv", "krope"}`` in ``dtype``, or the GQA ``{"k",
+    "v"}`` (int8 with bf16 scales under ``kv_cache_dtype="int8"``)."""
+    if cfg.mla:
+        return {"ckv": ((batch, max_len, cfg.kv_lora_rank), dtype),
+                "krope": ((batch, max_len, cfg.qk_rope_dim), dtype)}
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        sshape = shape[:-1] + (1,)
+        return {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                "k_s": (sshape, torch.bfloat16),
+                "v_s": (sshape, torch.bfloat16)}
+    return {"k": (shape, dtype), "v": (shape, dtype)}
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """One layer's cache: MLA's compressed ``{"ckv", "krope"}`` in
-    ``dtype``, or the GQA ``{"k", "v"}`` (int8 with scales under
-    ``kv_cache_dtype="int8"``)."""
-    if cfg.mla:
-        return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
-                                   dtype=dtype, device=device),
-                "krope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
-                                     dtype=dtype, device=device)}
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    if cfg.kv_cache_dtype == "int8":
-        sshape = shape[:-1] + (1,)
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                "k_s": torch.zeros(sshape, dtype=torch.bfloat16,
-                                   device=device),
-                "v_s": torch.zeros(sshape, dtype=torch.bfloat16,
-                                   device=device)}
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """One layer's zero cache (:func:`cache_shapes`)."""
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in cache_shapes(cfg, batch, max_len,
+                                               dtype).items()}
 
 
 def quant_kv(x: torch.Tensor) -> tuple:

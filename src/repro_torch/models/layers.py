@@ -100,10 +100,14 @@ class NmcLinear(nn.Module):
     """``y = act(x @ W + b)``.  Holds either a float weight ``w`` (d_in,
     d_out) or its int8 serving form ``w_q`` with a per-output-channel
     ``scale``; ``b`` is optional either way.  On a mesh, ``parallel`` is
-    ``"col"`` or ``"row"`` (module docstring) and ``mesh`` the mesh."""
+    ``"col"`` or ``"row"`` (module docstring) and ``mesh`` the mesh;
+    ``amax_axes`` the axes over which the W8A8 activation scale's absolute
+    maximum is taken, on ``amax_mesh``."""
 
     parallel: str | None = None
     mesh: C.Mesh | None = None
+    amax_axes: tuple = ()
+    amax_mesh: C.Mesh | None = None
 
     def __init__(self, w: torch.Tensor | None = None,
                  b: torch.Tensor | None = None, *,
@@ -125,10 +129,15 @@ class NmcLinear(nn.Module):
 
     @torch.no_grad()
     def quantized(self) -> "NmcLinear":
-        """The NMC (int8) serving form of this linear."""
-        if self.parallel is not None:
-            raise NotImplementedError("serving a tensor-parallel linear "
-                                      "waits for sharded serving")
+        """The NMC (int8) serving form of this linear.  A linear laid out
+        on a mesh refuses: its per-output-channel scales span the whole
+        input dim, so the full weights are quantized first and then laid
+        out (``lm.shard`` slices ``w_q`` and ``scale``)."""
+        if self.parallel is not None or self.amax_mesh is not None:
+            raise NotImplementedError(
+                "quantize the full model, then lm.shard it: a laid-out "
+                "linear's per-output-channel scales would cover its slice "
+                "only")
         if self.w_q is not None:
             return self
         wq, s = ref.quantize_rowwise(self.w, axis=0)
@@ -154,10 +163,7 @@ class NmcLinear(nn.Module):
         x2 = x.reshape(-1, x.shape[-1])
         if self.w_q is not None:
             if nmc_mode == "w8a8":
-                xq, sx = ref.quantize_dynamic(x2)
-                y = ops.nmc_matmul(xq, self.w_q, self.scale * sx, self.b,
-                                   act=act, out_dtype=dtype)
-                return y.reshape(*lead, -1)
+                return self._w8a8(x2, act, dtype, sp).reshape(*lead, -1)
             # w8: dequantize the weights, matmul in the activation dtype
             w = self.w_q.to(dtype) * self.scale.to(dtype)[None, :]
         else:
@@ -168,6 +174,31 @@ class NmcLinear(nn.Module):
         if self.b is not None:
             y = y + self.b.to(dtype)
         return ref.apply_act(y, act).to(dtype)
+
+    def _w8a8(self, x2: torch.Tensor, act: str, dtype,
+              sp: bool) -> torch.Tensor:
+        """x2 (M, d_in) through ``nmc_matmul``.  The activation scale is
+        one per tensor, as the reference's over the whole logical x: the
+        absolute maximum over ``amax_axes`` (the data axes that split the
+        rows, ``model`` where it splits the contraction).  Row-parallel:
+        the kernel's raw int32 accumulator over the local K slice, summed
+        exactly over ``model`` (the single-rank accumulator bit for bit),
+        then the epilogue once, bias and ``act`` included."""
+        amax = torch.amax(x2.abs())
+        if self.amax_axes:
+            amax = C.all_max(amax.float(), self.amax_axes,
+                             self.amax_mesh).to(amax.dtype)
+        xq, sx = ref.quantize_dynamic(x2, amax)
+        if self.parallel != "row":
+            return ops.nmc_matmul(xq, self.w_q, self.scale * sx, self.b,
+                                  act=act, out_dtype=dtype)
+        if sp:
+            raise NotImplementedError("a W8A8 row-parallel linear leaves "
+                                      "its region onto the whole stream")
+        acc = C.sum_exact(ops.nmc_matmul(xq, self.w_q, None,
+                                         out_dtype=torch.int32),
+                          C.MODEL_AXIS, self.mesh)
+        return ref.epilogue(acc, self.scale * sx, self.b, act, dtype)
 
 
 def quantize_expert_bank(w: torch.Tensor) -> tuple:

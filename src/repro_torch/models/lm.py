@@ -42,8 +42,24 @@ vocab-parallel embedding, expert-local dispatch, Mamba2, mLSTM and sLSTM
 heads, the encoder-decoder's encoder and cross K/V on local heads; a VLM's
 ``img_proj`` whole).  A vocab-parallel head's logits are gathered over
 ``model`` before the loss, so the cross entropy stays the single-rank
-function.  Serving a model sharded over ``model`` waits for
-sharded caches.
+function.
+
+Serving on a mesh: :func:`shard` lays out the int8 serving weights too
+(quantize the full model first, then lay it out: a row-parallel weight's
+per-output-channel scales span its whole input dim), and the caches are
+this rank's slices under ``sharding.cache_shardings`` (the reference's
+GSPMD layout): the batch over the data axes, and on a ``model`` axis the
+attention caches' slots (a batch-1 cache's over the data axes and
+``model`` together), the Mamba2 states by the same rule.  Prefill runs
+the model-parallel regions as the forward does and hands each layer's
+cache over to that layout; decode reads and updates it in place (each
+rank attends over its slots, the ranks' partials combined, ``kv``
+attention's and MLA's heads gathered for it; the Mamba2 states gathered
+to the rank's heads and written back).  The logits are this rank's rows
+with the whole vocabulary.  A batch is this rank's rows (the global
+batch's under ``sharding.batch_shardings``); ``cache_len`` is the global
+batch's, as the reference's replicated argument.  The encoder-decoder and
+the xLSTM serve on data axes only.
 
 Activation checkpointing (``cfg.remat``, the reference's ``_maybe_remat``)
 wraps the training forward at the reference's granularity: one
@@ -137,9 +153,27 @@ def _stack(caches: list) -> dict:
     return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
-def _zeros_stacked(one: dict, lead: tuple) -> dict:
-    return {k: torch.zeros(lead + t.shape, dtype=t.dtype, device=t.device)
-            for k, t in one.items()}
+def _stacked(one: dict, lead: tuple) -> dict:
+    """``{field: (shape, dtype)}`` with ``lead`` stack dims in front."""
+    return {k: (lead + tuple(shape), dt) for k, (shape, dt) in one.items()}
+
+
+def _zeros(fields: dict, device) -> dict:
+    """Zero tensors of ``{field: (shape, dtype)}``."""
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in fields.items()}
+
+
+class _Shape:
+    """A cache leaf's shape for ``sharding.cache_shardings`` (which reads
+    ``shape`` and ``dim()`` only): a layout worked out inside a traced
+    step allocates nothing."""
+
+    def __init__(self, shape: tuple):
+        self.shape = torch.Size(shape)
+
+    def dim(self) -> int:
+        return len(self.shape)
 
 
 class DecoderBlock(nn.Module):
@@ -182,14 +216,16 @@ class DecoderBlock(nn.Module):
         sequence-split stream."""
         return self._ffn(x + self.attn(self.ln1(x), cfg, sp=sp), cfg, sp)
 
-    def prefill(self, x: torch.Tensor, cfg: ModelConfig,
-                max_len: int) -> tuple:
-        y, cache = self.attn.prefill(self.ln1(x), cfg, max_len)
+    def prefill(self, x: torch.Tensor, cfg: ModelConfig, max_len: int,
+                cache_sh: dict | None = None) -> tuple:
+        y, cache = self.attn.prefill(self.ln1(x), cfg, max_len, cache_sh)
         return self._ffn(x + y, cfg)[0], cache
 
     def decode_step(self, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-                    cache_len: torch.Tensor) -> torch.Tensor:
-        y, _ = self.attn.decode_step(self.ln1(x), cfg, cache, cache_len)
+                    cache_len: torch.Tensor,
+                    cache_sh: dict | None = None) -> torch.Tensor:
+        y, _ = self.attn.decode_step(self.ln1(x), cfg, cache, cache_len,
+                                     cache_sh)
         return self._ffn(x + y, cfg)[0]
 
 
@@ -292,6 +328,40 @@ class LMBase(nn.Module):
     #: the layout on a mesh (:func:`shard`), None on one rank
     layout: sharding.Layout | None = None
 
+    def stacked_cache_layout(self, cfg: ModelConfig, batch: int,
+                             max_len: int) -> tuple:
+        """(``{key: {field: _Shape}}`` of the stacked caches, their
+        ``sharding.cache_shardings`` on this model's mesh) for a global
+        ``batch`` and ``max_len``."""
+        full = {key: {k: _Shape(shape) for k, (shape, _) in fields.items()}
+                for key, fields in self.cache_shapes(
+                    cfg, batch, max_len, torch.bfloat16).items()}
+        return full, sharding.cache_shardings(full, self.layout.mesh, batch)
+
+    def cache_layout(self, cfg: ModelConfig, batch: int,
+                     max_len: int) -> dict:
+        """The caches' layout on this model's mesh for a global ``batch``
+        and ``max_len``: per cache key, one layer's Shardings ({field:
+        Sharding}), those ``sharding.cache_shardings`` gives the stacked
+        caches with their stack dims (a layer; a hybrid's Mamba2 group and
+        layer) dropped, which must be whole."""
+        full, shs = self.stacked_cache_layout(cfg, batch, max_len)
+        out = {}
+        for key, tree in shs.items():
+            lead = 2 if key == "mamba" else 1
+            out[key] = {}
+            for field, sh in tree.items():
+                if any(p is not None for p in sh.spec[:lead]):
+                    raise NotImplementedError(
+                        f"{cfg.name}: cache {key}.{field} of "
+                        f"{tuple(full[key][field].shape)} laid out as "
+                        f"{sh.spec} for a batch of {batch}: a stack dim is "
+                        f"split (the batch is not the first dim of that "
+                        f"size)")
+                out[key][field] = sharding.Sharding(sh.mesh,
+                                                    tuple(sh.spec[lead:]))
+        return out
+
     def splits_rows(self, batch: dict, cfg: ModelConfig) -> bool:
         """Whether the teacher-forced forward over ``batch`` splits its
         embedded stream on the sequence: ``cfg.seq_parallel``, a family
@@ -310,21 +380,26 @@ class LMBase(nn.Module):
         return model > 1 and n % model == 0
 
     def logits(self, x: torch.Tensor, cfg: ModelConfig,
-               split: bool = False) -> torch.Tensor:
+               split: bool = False, last: bool = False) -> torch.Tensor:
         """The LM head over every position (at prefill the dynamic
         activation scale of ``w8a8`` covers all of them, as in the
         reference, so the head is not cut to the last position first);
         a vocab-parallel head's logits gathered over ``model``.
         ``split``: x is this rank's rows of a sequence-split stream,
-        normalised there and gathered whole before the head."""
+        normalised there and gathered whole before the head.  ``last``:
+        the last position's logits (B, vocab) only, cut before the
+        gather."""
         h = self.final_norm(x)
         mesh = self.head.mesh
         if mesh is None:
             if split:        # a whole head: every rank reads every row
                 h = C.gather_from_model(h, self.layout.mesh, 1)
-            return self.head(h, nmc_mode=cfg.nmc_mode)
+            y = self.head(h, nmc_mode=cfg.nmc_mode)
+            return y[:, -1] if last else y
         h = C.enter_region(h, mesh, split)
         y = self.head(h, nmc_mode=cfg.nmc_mode)
+        if last:
+            y = y[:, -1].contiguous()
         return C.gather_from_model(y, mesh, -1)
 
 
@@ -386,33 +461,44 @@ class DecoderLM(LMBase):
         x, aux = self.hidden(x, cfg, split)
         return self.logits(x, cfg, split), aux
 
-    def prefill(self, batch: dict, cfg: ModelConfig, max_len: int) -> tuple:
+    def prefill(self, batch: dict, cfg: ModelConfig, max_len: int,
+                cache_sh: dict | None = None) -> tuple:
+        """``cache_sh``: :meth:`cache_layout` on a ``model`` axis."""
         x = self.inputs(batch, cfg)
         caches = {}
         for key, blocks in self.stacks():
             cs = []
             for blk in blocks:
-                x, c = blk.prefill(x, cfg, max_len)
+                x, c = blk.prefill(x, cfg, max_len,
+                                   cache_sh and cache_sh[key])
                 cs.append(c)
             caches[key] = _stack(cs)
-        return self.logits(x, cfg)[:, -1], caches
+        return self.logits(x, cfg, last=True), caches
 
     def decode_step(self, tokens: torch.Tensor, caches: dict,
-                    cache_len: torch.Tensor, cfg: ModelConfig) -> tuple:
+                    cache_len: torch.Tensor, cfg: ModelConfig,
+                    cache_sh: dict | None = None) -> tuple:
         x = self.embed(tokens, cfg.dtype)
         for key, blocks in self.stacks():
             stack = caches[key]
             for i, blk in enumerate(blocks):
                 x = blk.decode_step(x, cfg,
                                     {k: t[i] for k, t in stack.items()},
-                                    cache_len)
+                                    cache_len, cache_sh and cache_sh[key])
         return self.logits(x, cfg)[:, 0], caches
 
-    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
-                    dtype) -> dict:
-        one = A.cache_init(cfg, batch, max_len, dtype, self.device)
-        return {key: _zeros_stacked(one, (len(blocks),))
+    def cache_shapes(self, cfg: ModelConfig, batch: int, max_len: int,
+                     dtype) -> dict:
+        """``{key: {field: (shape, dtype)}}`` of the caches, each layer's
+        cache stacked over its stack's layers."""
+        one = A.cache_shapes(cfg, batch, max_len, dtype)
+        return {key: _stacked(one, (len(blocks),))
                 for key, blocks in self.stacks()}
+
+    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
+                    dtype, device=None) -> dict:
+        return {key: _zeros(fields, device or self.device) for key, fields
+                in self.cache_shapes(cfg, batch, max_len, dtype).items()}
 
 
 class HybridLM(LMBase):
@@ -458,7 +544,10 @@ class HybridLM(LMBase):
         x, aux = self.hidden(x, cfg, self.splits_rows(batch, cfg))
         return self.logits(x, cfg), aux
 
-    def prefill(self, batch: dict, cfg: ModelConfig, max_len: int) -> tuple:
+    def prefill(self, batch: dict, cfg: ModelConfig, max_len: int,
+                cache_sh: dict | None = None) -> tuple:
+        """``cache_sh``: :meth:`cache_layout` on a ``model`` axis (each
+        Mamba2 layer's state laid out from its heads to it)."""
         x = self.inputs(batch, cfg)
         states, attn = [], []
         for group in self.mamba:
@@ -466,33 +555,44 @@ class HybridLM(LMBase):
             for layer in group:
                 y, st = layer(x, cfg, return_state=True)
                 x = x + y
-                sts.append(st)
+                sts.append(st if cache_sh is None
+                           else layer.laid_out(st, cache_sh["mamba"]))
             states.append(_stack(sts))
-            x, c = self.shared_attn.prefill(x, cfg, max_len)
+            x, c = self.shared_attn.prefill(x, cfg, max_len,
+                                            cache_sh and cache_sh["attn"])
             attn.append(c)
-        return self.logits(x, cfg)[:, -1], {"mamba": _stack(states),
+        return self.logits(x, cfg, last=True), {"mamba": _stack(states),
                                             "attn": _stack(attn)}
 
     def decode_step(self, tokens: torch.Tensor, caches: dict,
-                    cache_len: torch.Tensor, cfg: ModelConfig) -> tuple:
+                    cache_len: torch.Tensor, cfg: ModelConfig,
+                    cache_sh: dict | None = None) -> tuple:
         x = self.embed(tokens, cfg.dtype)
         ms, ac = caches["mamba"], caches["attn"]
         for g, group in enumerate(self.mamba):
             for e, layer in enumerate(group):
                 x = x + layer.decode_step(
-                    x, cfg, {k: t[g, e] for k, t in ms.items()})
+                    x, cfg, {k: t[g, e] for k, t in ms.items()},
+                    cache_sh and cache_sh["mamba"])
             x = self.shared_attn.decode_step(
-                x, cfg, {k: t[g] for k, t in ac.items()}, cache_len)
+                x, cfg, {k: t[g] for k, t in ac.items()}, cache_len,
+                cache_sh and cache_sh["attn"])
         return self.logits(x, cfg)[:, 0], caches
 
-    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
-                    dtype) -> dict:
+    def cache_shapes(self, cfg: ModelConfig, batch: int, max_len: int,
+                     dtype) -> dict:
+        """``{key: {field: (shape, dtype)}}``: the Mamba2 states stacked
+        (groups, layers), the shared block's caches (groups)."""
         groups = (len(self.mamba), len(self.mamba[0]))
-        return {"mamba": _zeros_stacked(
-                    SSM.state_init(cfg, batch, dtype, self.device), groups),
-                "attn": _zeros_stacked(
-                    A.cache_init(cfg, batch, max_len, dtype, self.device),
-                    groups[:1])}
+        return {"mamba": _stacked(SSM.state_shapes(cfg, batch, dtype),
+                                  groups),
+                "attn": _stacked(A.cache_shapes(cfg, batch, max_len, dtype),
+                                 groups[:1])}
+
+    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
+                    dtype, device=None) -> dict:
+        return {key: _zeros(fields, device or self.device) for key, fields
+                in self.cache_shapes(cfg, batch, max_len, dtype).items()}
 
 
 class EncDecLM(LMBase):
@@ -558,7 +658,7 @@ class EncDecLM(LMBase):
             cs.append(c)
             ks.append(kv[0])
             vs.append(kv[1])
-        return self.logits(x, cfg)[:, -1], {
+        return self.logits(x, cfg, last=True), {
             "layers": _stack(cs), "cross_k": torch.stack(ks),
             "cross_v": torch.stack(vs)}
 
@@ -576,16 +676,15 @@ class EncDecLM(LMBase):
         return self.logits(x, cfg)[:, 0], caches
 
     def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
-                    dtype) -> dict:
+                    dtype, device=None) -> dict:
         n = len(self.layers)
+        device = device or self.device
         cross = (n, batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim)
-        return {"layers": _zeros_stacked(
-                    A.cache_init(cfg, batch, max_len, dtype, self.device),
-                    (n,)),
-                "cross_k": torch.zeros(cross, dtype=dtype,
-                                       device=self.device),
-                "cross_v": torch.zeros(cross, dtype=dtype,
-                                       device=self.device)}
+        return {"layers": _zeros(_stacked(
+                    A.cache_shapes(cfg, batch, max_len, dtype), (n,)),
+                    device),
+                "cross_k": torch.zeros(cross, dtype=dtype, device=device),
+                "cross_v": torch.zeros(cross, dtype=dtype, device=device)}
 
 
 class XLSTMLM(LMBase):
@@ -616,7 +715,7 @@ class XLSTMLM(LMBase):
         for blk in self.blocks:
             x, st = blk(x, cfg, return_state=True)
             states.append(st)
-        return self.logits(x, cfg)[:, -1], {"blocks": states}
+        return self.logits(x, cfg, last=True), {"blocks": states}
 
     def decode_step(self, tokens: torch.Tensor, caches: dict,
                     cache_len: torch.Tensor, cfg: ModelConfig) -> tuple:
@@ -626,12 +725,12 @@ class XLSTMLM(LMBase):
         return self.logits(x, cfg)[:, 0], caches
 
     def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
-                    dtype) -> dict:
+                    dtype, device=None) -> dict:
         """Zero states, float32 whatever ``dtype`` is (as the
         reference)."""
         return {"blocks": [
             (XL.slstm_state_init if isinstance(blk, XL.SLSTM)
-             else XL.mlstm_state_init)(cfg, batch, self.device)
+             else XL.mlstm_state_init)(cfg, batch, device or self.device)
             for blk in self.blocks]}
 
 
@@ -756,38 +855,120 @@ def loss_fn(params: LMBase, batch: dict, cfg: ModelConfig,
     return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 
 
+#: the families that serve on data axes only: their caches' layouts on a
+#: ``model`` axis (whisper's cross K/V split on the head dim, the xLSTM's
+#: C states on a 384 axis) wait for ROADMAP queue 1 item 6.6
+DATA_ONLY_SERVING = ("encdec", "xlstm")
+
+
 def _check_serving(params: LMBase, cfg: ModelConfig) -> None:
     _check_family(cfg)
-    if params.layout is not None and params.layout.mesh.model_size() > 1:
+    if params.layout is not None and params.layout.mesh.model_size() > 1 \
+            and cfg.family in DATA_ONLY_SERVING:
         raise NotImplementedError(
-            f"{cfg.name}: serving a model sharded over 'model' waits for "
-            f"sharded caches (cache_shardings)")
+            f"{cfg.name}: serving the {cfg.family} family on a 'model' axis "
+            f"(its caches laid out by cache_shardings) is ROADMAP item 6.6")
+
+
+def _rows(lay: sharding.Layout, n: int) -> tuple:
+    """(this rank's first row, its rows) of a global batch of ``n`` rows
+    (``sharding.batch_shardings``: split over the data axes where they
+    divide it)."""
+    axes = lay.mesh.data_axes()
+    d = lay.mesh.size(axes)
+    if d > 1 and n % d == 0:
+        return lay.mesh.index(axes) * (n // d), n // d
+    return 0, n
+
+
+def _check_rows(got: int, lay: sharding.Layout, n: int) -> None:
+    if got != _rows(lay, n)[1]:
+        raise ValueError(f"this rank holds {got} rows of a global batch of "
+                         f"{n}, its layout gives it {_rows(lay, n)[1]}")
 
 
 @torch.inference_mode()
-def prefill(params: LMBase, batch: dict, cfg: ModelConfig,
-            max_len: int) -> tuple:
+def prefill(params: LMBase, batch: dict, cfg: ModelConfig, max_len: int,
+            global_batch: int | None = None) -> tuple:
     """Process the prompt (a VLM's images first; an encoder-decoder's
-    frames through the encoder), return (last-position logits, caches)."""
+    frames through the encoder), return (last-position logits, caches).
+    On a mesh ``batch`` holds this rank's rows of a global batch of
+    ``global_batch`` rows, which a ``model`` axis needs (a batch copied
+    to every data rank and one split over them hold the same local rows
+    and are laid out apart), and the caches are this rank's slices under
+    ``cache_shardings`` (module docstring)."""
     _check_serving(params, cfg)
-    return params.prefill(batch, cfg, max_len)
+    lay = params.layout
+    if lay is None or lay.mesh.model_size() == 1:
+        return params.prefill(batch, cfg, max_len)
+    if global_batch is None:
+        raise ValueError(f"{cfg.name}: prefill on a 'model' axis needs "
+                         f"global_batch, the rows of the whole batch")
+    _check_rows(batch["tokens"].shape[0], lay, global_batch)
+    return params.prefill(batch, cfg, max_len,
+                          params.cache_layout(cfg, global_batch, max_len))
 
 
 @torch.inference_mode()
 def decode_step(params: LMBase, tokens: torch.Tensor, caches: dict,
-                cache_len: torch.Tensor, cfg: ModelConfig) -> tuple:
+                cache_len: torch.Tensor, cfg: ModelConfig,
+                max_len: int | None = None) -> tuple:
     """One decode step.  tokens: (B, 1) the new token ids; cache_len: (B,)
     lengths INCLUDING the new token.  Returns (logits (B, vocab), caches),
-    the caches updated in place."""
+    the caches updated in place.  On a mesh ``tokens`` are this rank's
+    rows and ``cache_len`` the global batch's; on a ``model`` axis
+    ``max_len`` is the caches' full length (that of :func:`init_caches`
+    or :func:`prefill`), which their slices do not tell, and every slice
+    must have the shape that layout gives it."""
     _check_serving(params, cfg)
-    return params.decode_step(tokens, caches, cache_len, cfg)
+    lay = params.layout
+    if lay is None:
+        return params.decode_step(tokens, caches, cache_len, cfg)
+    n = cache_len.shape[0]
+    first, rows = _rows(lay, n)
+    _check_rows(tokens.shape[0], lay, n)
+    local = cache_len.narrow(0, first, rows)
+    if lay.mesh.model_size() == 1:
+        return params.decode_step(tokens, caches, local, cfg)
+    if max_len is None:
+        raise ValueError(f"{cfg.name}: decode_step on a 'model' axis needs "
+                         f"max_len, the caches' full length")
+    _check_slices(params, cfg, caches, n, max_len)
+    return params.decode_step(tokens, caches, local, cfg,
+                              params.cache_layout(cfg, n, max_len))
+
+
+def _check_slices(params: LMBase, cfg: ModelConfig, caches: dict, n: int,
+                  max_len: int) -> None:
+    """Raise unless every cache slice has the shape ``cache_shardings``
+    gives this rank for ``n`` rows of ``max_len`` (a cache laid out for
+    another batch or length)."""
+    full, lay = params.stacked_cache_layout(cfg, n, max_len)
+    for key, fields in full.items():
+        for name, t in fields.items():
+            want = sharding.local_shape(tuple(t.shape), lay[key][name])
+            got = tuple(caches[key][name].shape)
+            if got != want:
+                raise ValueError(
+                    f"{cfg.name}: cache {key}.{name} is {got} on this rank, "
+                    f"its layout for {n} rows of {max_len} gives {want}")
 
 
 @torch.inference_mode()
 def init_caches(params: LMBase, cfg: ModelConfig, batch: int,
                 max_len: int, dtype=torch.bfloat16) -> dict:
+    """Zero caches for ``batch`` rows of ``max_len``; on a mesh this
+    rank's slices of the global batch's under ``cache_shardings``, and
+    only those allocated."""
     _check_serving(params, cfg)
-    return params.init_caches(cfg, batch, max_len, dtype)
+    lay = params.layout
+    if lay is None:
+        return params.init_caches(cfg, batch, max_len, dtype)
+    full = params.init_caches(cfg, batch, max_len, dtype, "meta")
+    return sharding.map_tree(
+        lambda t, sh: torch.zeros(sharding.local_shape(tuple(t.shape), sh),
+                                  dtype=t.dtype, device=params.device),
+        full, sharding.cache_shardings(full, lay.mesh, batch))
 
 
 @torch.no_grad()
@@ -814,10 +995,17 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
     families of :data:`SEQ_FAMILIES`) also every replicated weight of a
     block that runs on this rank's rows of the sequence, and the dense,
     MoE and VLM models' ``final_norm.g`` (``layout.seq_partial``, partial
-    only in a step whose stream was split)."""
+    only in a step whose stream was split).
+
+    The int8 serving weights (buffers: ``w_q`` and ``scale``, an int8
+    expert bank and its scales) are laid out by the same rules: a model
+    is quantized whole, then laid out.  On
+    any mesh every linear's W8A8 activation scale is taken over the data
+    axes that split its rows, and a row-parallel one's over ``model``
+    too (``NmcLinear.amax_axes``)."""
     _check_family(cfg)
     named = dict(params.named_parameters())
-    shard_of = sharding.param_shardings(named, mesh)
+    buffers = dict(params.named_buffers())
     tp = mesh.model_size()
     if tp > 1 and cfg.n_heads % tp:
         raise NotImplementedError(
@@ -826,31 +1014,37 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.ssm_heads} SSM heads over a model axis of "
             f"{tp}")
-    if tp > 1 and not cfg.mla and cfg.n_kv_heads % tp:
-        # the rule shards wk / wv by columns; the heads need whole ones
-        for n in named:
-            if sharding.path_of(n)[-3:-1] in (["attn", "wk"],
-                                              ["attn", "wv"]):
-                shard_of[n] = sharding.Sharding(mesh,
-                                                (None,) * named[n].dim())
+    # where model does not divide the KV heads, the rule would shard wk /
+    # wv by columns; the heads need whole ones
+    whole_kv = bool(tp > 1 and not cfg.mla and cfg.n_kv_heads % tp)
+    shard_of = sharding.tensor_shardings(named, mesh, whole_kv)
+    buf_of = sharding.tensor_shardings(buffers, mesh, whole_kv)
     moments = {n: sharding.Sharding(mesh, s) for n, s in
                sharding.moment_specs(
                    named, mesh, {n: sh.spec for n, sh in shard_of.items()}
                ).items()}
     for name, p in named.items():
         p.data = sharding.local_slice(p.data, shard_of[name])
+    for name, b in buffers.items():
+        mod_name, _, leaf = name.rpartition(".")
+        params.get_submodule(mod_name)._buffers[leaf] = \
+            sharding.local_slice(b, buf_of[name])
     partial, seq_partial = set(), set()
     if mesh.model_size() > 1:
-        partial = _mark_parallel(params, cfg, shard_of, mesh)
+        partial = _mark_parallel(params, cfg, shard_of | buf_of, mesh)
         if cfg.seq_parallel and cfg.family in SEQ_FAMILIES:
             seq_partial = _seq_partial(params, cfg, shard_of) - partial
+    data = mesh.data_axes() if mesh.size(mesh.data_axes()) > 1 else ()
     for mod in params.modules():
-        if isinstance(mod, MOE.MoE):
+        if isinstance(mod, L.NmcLinear):
+            mod.amax_axes = data + ((C.MODEL_AXIS,)
+                                    if mod.parallel == "row" else ())
+            mod.amax_mesh = mesh
+        elif isinstance(mod, MOE.MoE):
             mod.mesh = mesh
-            if mod.bank_keys == MOE.BANKS and \
-                    mod.wi.shape[0] != cfg.n_experts:
-                mod.expert_offset = mesh.index(C.MODEL_AXIS) * \
-                    mod.wi.shape[0]
+            bank = mod.wi if mod.bank_keys == MOE.BANKS else mod.wi_q
+            if bank.shape[0] != cfg.n_experts:
+                mod.expert_offset = mesh.index(C.MODEL_AXIS) * bank.shape[0]
     params.layout = sharding.Layout(mesh, shard_of, moments,
                                     frozenset(partial | seq_partial),
                                     frozenset(seq_partial))
@@ -859,15 +1053,17 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
 
 def _mark_parallel(params: LMBase, cfg: ModelConfig, shard_of: dict,
                    mesh: C.Mesh) -> set:
-    """Set each linear's ``parallel`` kind, the MLPs', attentions',
-    Mamba2, mLSTM and sLSTM blocks' and the vocab-parallel embedding's
-    mesh; return the names whose gradient is partial over ``model``."""
+    """Set each linear's ``parallel`` kind (read from ``w``'s Sharding, or
+    ``w_q``'s), the MLPs', attentions', Mamba2, mLSTM and sLSTM blocks' and
+    the vocab-parallel embedding's mesh; return the names whose gradient
+    is partial over ``model``."""
     model = C.MODEL_AXIS
     partial = set()
     for mname, mod in params.named_modules():
         pre = f"{mname}." if mname else ""
-        if isinstance(mod, L.NmcLinear) and mod.w is not None:
-            spec = shard_of[pre + "w"].spec
+        if isinstance(mod, L.NmcLinear):
+            spec = shard_of[pre + ("w" if mod.w is not None
+                                   else "w_q")].spec
             mod.parallel = "col" if spec[-1] == model else \
                 "row" if spec[-2] == model else None
             mod.mesh = mesh if mod.parallel else None

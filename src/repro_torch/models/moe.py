@@ -177,10 +177,13 @@ class MoE(nn.Module):
     def quantized(self) -> "MoE":
         """The NMC serving form: int8 expert banks, the shared experts'
         linears quantized, the router left in float (its logit margins
-        decide routing)."""
+        decide routing).  A MoE laid out on a mesh refuses: the full model
+        is quantized first and then laid out (``lm.shard`` slices the
+        int8 banks and their scales, which do not depend on the split:
+        one per (expert, output channel))."""
         if self.mesh is not None:
-            raise NotImplementedError("serving an expert-parallel MoE waits "
-                                      "for sharded serving")
+            raise NotImplementedError("quantize the full model, then "
+                                      "lm.shard it")
         if self.quantized_banks:
             banks = {k: getattr(self, k) for k in QUANT_BANKS}
         else:

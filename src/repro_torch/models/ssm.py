@@ -33,9 +33,16 @@ mLSTM's ``out_norm`` shares): each rank's sum of squares is summed over
 (each rank's output reads the global sum through its own slice only);
 each rank scales by its slice of the gain.  The whole tensors read inside
 the region (``in_b``, ``in_c``, ``in_dt``, ``conv_bc_*``, ``norm.g``)
-get partial gradients, summed over ``model`` by the train step.  The
-decode step and the prefill state run on one rank (serving a model
-sharded over ``model`` raises, ``lm._check_serving``).
+get partial gradients, summed over ``model`` by the train step.
+
+Serving on such a mesh keeps each layer's state laid out by
+``sharding.cache_shardings`` (the rule's longest dim over ``model``:
+``conv_x``'s channels and the SSM state's heads at full width, where
+they are the rank's own; ``conv_bc``'s channels, which every rank needs
+whole; at a batch of one ``conv_x`` over the data axes and ``model``
+together).  The decode step gathers each field to the layout it
+computes in (:meth:`Mamba2.state_specs`), steps it and writes this
+rank's slice back; the prefill lays its final state out the same way.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed import context as C
+from repro_torch.distributed import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -238,13 +246,49 @@ class Mamba2(nn.Module):
         return out, {"ssm": state, "conv_x": xs_raw[:, -k:],
                      "conv_bc": bc_raw[:, -k:]}
 
-    def decode_step(self, x: torch.Tensor, cfg: ModelConfig,
-                    state: dict) -> torch.Tensor:
+    def state_specs(self, batch_part) -> dict:
+        """One layer's state as this rank computes it, by field: the SSM
+        state over its heads and ``conv_x`` over their channels on a mesh
+        (tensor parallelism's slices), ``conv_bc`` whole (B and C are
+        shared by every head); the batch dim as ``batch_part``."""
+        heads = C.MODEL_AXIS if self.mesh is not None else None
+        return {"ssm": (batch_part, heads, None, None),
+                "conv_x": (batch_part, None, heads),
+                "conv_bc": (batch_part, None, None)}
+
+    def laid_out(self, state: dict, state_sh: dict) -> dict:
+        """A state as :meth:`state_specs` lays it out, as this rank's slice
+        of it under ``state_sh`` ({field: Sharding}, the cache's layout):
+        gathered where the cache splits a dim the computation does not
+        (``conv_bc``'s channels over ``model``; at batch 1 ``conv_x``'s
+        over the data axes and ``model`` together), narrowed where it
+        splits one the computation holds whole."""
+        mesh = state_sh["ssm"].mesh
+        want = self.state_specs(state_sh["ssm"].spec[0])
+        return {k: sharding.relayout(t, sharding.Sharding(mesh, want[k]),
+                                     state_sh[k].spec)
+                for k, t in state.items()}
+
+    def decode_step(self, x: torch.Tensor, cfg: ModelConfig, state: dict,
+                    state_sh: dict | None = None) -> torch.Tensor:
         """One token.  x: (B, 1, D); ``state`` (:func:`state_init`'s
-        fields) is updated in place.  Returns (B, 1, D)."""
+        fields) is updated in place.  ``state_sh``: on a mesh, the
+        state's layout ({field: Sharding}): each field is gathered to
+        :meth:`state_specs`, stepped, and this rank's slice written back.
+        Returns (B, 1, D)."""
         z, xs_raw, bm_raw, cm_raw, dt = self._proj(x, cfg)
+        work = state
+        if state_sh is not None:
+            want = self.state_specs(state_sh["ssm"].spec[0])
+            work = {k: sharding.relayout(t, state_sh[k], want[k])
+                    for k, t in state.items()}
         y = self.recurrent_step(xs_raw, torch.cat([bm_raw, cm_raw], dim=-1),
-                                dt, cfg, state)
+                                self._local_heads(dt), cfg, work)
+        if state_sh is not None:
+            for k, new in self.laid_out(
+                    {k: t for k, t in work.items() if t is not state[k]},
+                    state_sh).items():
+                state[k].copy_(new)
         return self._gated_out(y, z, cfg)
 
     def recurrent_step(self, xs_raw: torch.Tensor, bc_raw: torch.Tensor,
@@ -253,9 +297,10 @@ class Mamba2(nn.Module):
         """The convs at the newest position and the O(1) SSD update from
         the projections of one token (B, 1, ...): the state and the convs'
         windows written in place; returns y (B, 1, d_inner) before the
-        gated norm."""
+        gated norm (this rank's heads and channels on a mesh: ``dt``
+        holds its heads)."""
         bsz = xs_raw.shape[0]
-        n, h, pdim = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+        n, pdim = cfg.ssm_state, cfg.ssm_head_dim
         win_x = torch.cat([state["conv_x"].to(xs_raw.dtype), xs_raw], dim=1)
         win_bc = torch.cat([state["conv_bc"].to(bc_raw.dtype), bc_raw],
                            dim=1)
@@ -264,7 +309,7 @@ class Mamba2(nn.Module):
         bm, cm = bc[:, 0, :n], bc[:, 0, n:]
         dt = F.softplus(dt.float() + self.dt_bias)[:, 0]          # (B,H)
         da = torch.exp(dt * -torch.exp(self.A_log))               # (B,H)
-        xh = xs.reshape(bsz, h, pdim)
+        xh = xs.reshape(bsz, -1, pdim)
         dbx = torch.einsum("bh,bn,bhp->bhpn", dt.to(xh.dtype), bm, xh)
         ssm = state["ssm"]
         s_new = ssm * da[..., None, None].to(ssm.dtype) + dbx
@@ -273,16 +318,22 @@ class Mamba2(nn.Module):
         ssm.copy_(s_new)
         state["conv_x"].copy_(win_x[:, 1:])
         state["conv_bc"].copy_(win_bc[:, 1:])
-        return y.reshape(bsz, 1, cfg.d_inner)
+        return y.reshape(bsz, 1, -1)
+
+
+def state_shapes(cfg: ModelConfig, batch: int,
+                 dtype=torch.bfloat16) -> dict:
+    """One layer's state fields as ``{field: (shape, dtype)}``: ``ssm``
+    (B,H,P,N) and the convs' windows."""
+    k = cfg.ssm_conv - 1
+    return {"ssm": ((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state), dtype),
+            "conv_x": ((batch, k, cfg.d_inner), dtype),
+            "conv_bc": ((batch, k, 2 * cfg.ssm_state), dtype)}
 
 
 def state_init(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
                device=None) -> dict:
-    """One layer's zero state: ``ssm`` (B,H,P,N) and the convs' windows."""
-    k = cfg.ssm_conv - 1
-    return {"ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
-                                cfg.ssm_state), dtype=dtype, device=device),
-            "conv_x": torch.zeros((batch, k, cfg.d_inner), dtype=dtype,
-                                  device=device),
-            "conv_bc": torch.zeros((batch, k, 2 * cfg.ssm_state),
-                                   dtype=dtype, device=device)}
+    """One layer's zero state (:func:`state_shapes`)."""
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in state_shapes(cfg, batch, dtype).items()}

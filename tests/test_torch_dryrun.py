@@ -5,12 +5,15 @@
   bytes by dtype, against the reference's ``launch.specs`` under
   ``jax.eval_shape``.
 * Every cell of ``--all --both-meshes`` laid out over a fake world of 256
-  and 512 ranks: the split (7 train cells a mesh traced, 16 serving cells
-  whose step the port refuses, 10 cells whose layout it refuses), and
-  each laid-out cell's argument bytes a device equal to those the
+  and 512 ranks: the split (7 train and 16 serving cells a mesh laid out,
+  the serving ones traced at full width with their depth cut to one
+  layer, a MoE model's first dense layers and one MoE layer, or one
+  zamba2 group; 10 cells whose layout the port refuses), each laid-out
+  cell's argument bytes a device at full depth equal to those the
   reference's own specs imply (its ``param_specs``, ``fix_divisibility``,
   ZeRO-2 extension, ``batch_shardings`` and ``cache_shardings`` on
-  stand-in meshes), after the port's named departures.
+  stand-in meshes), after the port's named departures, and one serving
+  cell traced at full width and depth.
 * The census against a real run of the same step over gloo on the CPU
   (collectives and flops equal; the peak checked by bounds), and its
   flops against the reference's ``hlo_analysis`` of the compiled cell.
@@ -215,8 +218,8 @@ def _storage_bytes(tensors) -> int:
 
 
 def _laid_out(arch: str, sh: str, multi_pod: bool) -> dict:
-    """A train cell laid out as ``run_cell`` lays it out, not traced: the
-    bytes of rank 0's arguments."""
+    """A cell laid out as ``run_cell`` lays it out, not traced: the bytes
+    of rank 0's arguments."""
     cfg, shape = cb.get(arch), cb.SHAPES[sh]
     with dryrun.fake_world(512 if multi_pod else 256):
         mesh = tmesh.make_production_mesh(multi_pod=multi_pod)
@@ -231,41 +234,61 @@ def _laid_out(arch: str, sh: str, multi_pod: bool) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _outcome(arch: str, sh: str, multi_pod: bool):
-    """The cell's record (serving cells run to the step's refusal; train
-    cells laid out, not traced), or the layout's refusal."""
+    """The cell laid out at full width and depth, not traced (its
+    arguments' bytes), or the layout's refusal."""
     try:
-        rec = _laid_out(arch, sh, multi_pod) \
-            if cb.SHAPES[sh].kind == "train" else \
-            dryrun.run_cell(arch, sh, multi_pod)
+        rec = _laid_out(arch, sh, multi_pod)
     except NotImplementedError as e:
         return str(e)
     assert not dist.is_initialized()
     return rec
 
 
+def _cut_depth(arch: str) -> int:
+    """The depth a serving cell is traced at in the split's test: one
+    layer, a MoE model's first dense layers and one MoE layer (expert
+    parallelism traced), one group of a hybrid."""
+    cfg = cb.get(arch)
+    if cfg.family == "hybrid":
+        return cfg.attn_every
+    return cfg.first_dense_layers + 1 if cfg.moe else 1
+
+
 @pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16",
                                                            "2x16x16"])
 def test_expected_split(multi_pod):
-    refused_layout, refused_step, train = [], [], []
+    """No cell's step is refused: the 16 serving cells a mesh (prefill_32k
+    and decode_32k of the GQA decoders, the VLM, the MoE models and MLA
+    and the hybrid; long_500k of danube and zamba2) are traced with a
+    census and a peak, at full width with the depth cut
+    (:func:`_cut_depth`, for the test's time; ``launch.dryrun --all``
+    traces them at full depth)."""
+    refused_layout, serving, train = [], [], []
     for arch, sh in CELLS:
         out = _outcome(arch, sh, multi_pod)
         if isinstance(out, str):
             assert "over a model axis of 16" in out
             refused_layout.append((arch, sh))
-        elif out["refused"] is not None:
-            assert "waits for sharded caches" in out["refused"]
-            assert out["census"] is None
-            assert out["memory"]["peak_bytes"] is None
-            refused_step.append((arch, sh))
-        else:
+        elif cb.SHAPES[sh].kind == "train":
             train.append((arch, sh))
+        else:
+            rec = dryrun.run_cell(arch, sh, multi_pod,
+                                  n_layers=_cut_depth(arch))
+            assert not dist.is_initialized()
+            assert rec["refused"] is None, (arch, sh)
+            c, mem = rec["census"], rec["memory"]
+            assert c["flops"] > 0 and set(c["collectives"]) >= \
+                {"all-reduce", "all-gather"}, (arch, sh)
+            assert mem["peak_bytes"] >= mem["argument_bytes"] > 0
+            assert "ok:" in dryrun.summary(rec)
+            serving.append((arch, sh))
     assert sorted(refused_layout) == sorted(
         c for c in CELLS if c[0] in LAYOUT_REFUSED)
     assert len(refused_layout) == 10
-    assert sorted(refused_step) == sorted(
+    assert sorted(serving) == sorted(
         c for c in CELLS if c[0] not in LAYOUT_REFUSED
         and cb.SHAPES[c[1]].kind != "train")
-    assert len(refused_step) == 16
+    assert len(serving) == 16
     assert len(train) == 7 and {cb.SHAPES[s].kind for _, s in train} == \
         {"train"}
 
@@ -401,7 +424,7 @@ def test_w8a8_serving_argument_bytes_match_reference_specs(arch, sh):
     """The int8 serving weights (buffers) laid out by the same rules, wk /
     wv whole where model 16 does not divide the KV heads (mistral)."""
     rec = dryrun.run_cell(arch, sh, False, nmc_mode="w8a8")
-    assert rec["nmc_mode"] == "w8a8" and rec["refused"] is not None
+    assert rec["nmc_mode"] == "w8a8" and rec["refused"] is None
     assert rec["memory"]["argument_bytes"] == \
         _expected_argument_bytes(arch, sh, False, "w8a8")
 
@@ -442,6 +465,29 @@ def test_one_full_width_cell_end_to_end():
     assert mem["argument_bytes"] == _expected_argument_bytes(
         "qwen1.5-0.5b", "train_4k", False)
     assert "ok:" in dryrun.summary(rec)
+
+
+def test_full_width_decode_cell_end_to_end():
+    """qwen1.5-0.5b ``decode_32k`` on 16x16 at full width and depth,
+    traced: each rank's 8 rows against 2048 of the 32768 slots, the new
+    token's q, k and v gathered over ``model`` in each of the 24 layers,
+    the ranks' partials combined (a max and a sum) and the vocab-parallel
+    logits gathered; the argument bytes those of the reference's
+    specs."""
+    rec = dryrun.run_cell("qwen1.5-0.5b", "decode_32k", False)
+    assert not dist.is_initialized()
+    c, mem = rec["census"], rec["memory"]
+    assert rec["refused"] is None and rec["tokens"] == 128
+    assert mem["argument_bytes"] == _expected_argument_bytes(
+        "qwen1.5-0.5b", "decode_32k", False)
+    layers = cb.get("qwen1.5-0.5b").n_layers
+    # per layer: q, k, v gathered; the head's logits once
+    assert c["collectives"]["all-gather"]["count"] == 3 * layers + 1
+    # per layer: the partials' max and sum, the row-parallel wo and MLP
+    # wo; the embedding's sum over the vocabulary once
+    assert c["collectives"]["all-reduce"]["count"] == 4 * layers + 1
+    assert mem["peak_bytes"] >= mem["argument_bytes"] > 0
+    assert c["flops"] > 0 and "ok:" in dryrun.summary(rec)
 
 
 # ---------------------------------------------------------------------------
