@@ -931,9 +931,11 @@ ATTENTION_SHAPES = ((128, "bfloat16"), (384, "bfloat16"), (1000, "bfloat16"),
                     (384, "float32"))
 ATTENTION_REPS = 50
 #: the attention cases of the encoder-decoder and the hybrid timed beside
-#: the served models' (``checks.ATTENTION_CASES``)
+#: the served models' (``checks.ATTENTION_CASES``); the partial one with
+#: and without its log-sum-exp
 ATTENTION_NEW_CASES = ("whisper-enc-1500", "whisper-cross-64",
-                       "whisper-cross-decode", "zamba2-512")
+                       "whisper-cross-decode", "whisper-cross-partial-750",
+                       "zamba2-512")
 SLEEP_CYCLES = 1_000_000             # about 0.5 ms at the H100's clock
 MATMUL_REPS = 10
 #: decode steps profiled for their kernels' device time
@@ -1020,13 +1022,15 @@ def visible_pairs(sq: int, skv: int, causal: bool = True, window=None,
 
 
 def attention_bound_ms(b, hq, hkv, sq, d, dv, elem, skv=None, causal=True,
-                       window=None, q_offset=0) -> dict:
-    """Bytes: q, k, v read once and o written once.  Operations: 2 D + 2
-    Dv per visible query-key pair (:func:`visible_pairs`; ``skv`` is
-    ``sq`` when None), against the bf16 tensor peak (the f32 CUDA-core
-    peak, the rate of the kernel's own f32 math, kept beside it)."""
+                       window=None, q_offset=0, lse=False) -> dict:
+    """Bytes: q, k, v read once and o written once (and with ``lse`` the
+    float32 log-sum-exp of each row).  Operations: 2 D + 2 Dv per visible
+    query-key pair (:func:`visible_pairs`; ``skv`` is ``sq`` when None),
+    against the bf16 tensor peak (the f32 CUDA-core peak, the rate of the
+    kernel's own f32 math, kept beside it)."""
     skv = sq if skv is None else skv
-    nbytes = elem * (b * hq * sq * (d + dv) + b * hkv * skv * (d + dv))
+    nbytes = elem * (b * hq * sq * (d + dv) + b * hkv * skv * (d + dv)) \
+        + (4 * b * hq * sq if lse else 0)
     flops = b * hq * visible_pairs(sq, skv, causal, window, q_offset) \
         * (2 * d + 2 * dv)
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1129,10 +1133,11 @@ def replay_against_plain(calls) -> dict:
         if name == "nmc_matmul":
             want = ref.nmc_matmul(*args, **kw)
             tol = checks.matmul_tolerance(kw["act"], kw["out_dtype"])
+            err = checks.close(f"{name} launch {i}", out, want, *tol)
         else:
             want = fa.chunked_attention(*args, **kw)
-            tol = checks.attention_tolerance(args[0].dtype)
-        err = checks.close(f"{name} launch {i}", out, want, *tol)
+            err = checks.close_attention(f"{name} launch {i}", out, want,
+                                         args[0].dtype)
         worst[name] = max(worst[name], err)
         count[name] += 1
         if name == "flash_attention":
@@ -1553,7 +1558,10 @@ def time_attention(case: dict, dtype, device) -> dict:
     12 and 13 measured it), ``device_ms`` / ``library_device_ms`` behind
     :func:`host_ahead` (device time alone).  A window that hides no key
     (zamba2's 4096 over 512 tokens) leaves SDPA's causal mask the same
-    function; any other window or offset is refused here."""
+    function; any other window or offset is refused here.  A case that
+    asks for the log-sum-exp (``lse``) is timed with it, and the same
+    launch without it beside (``no_lse_ms`` / ``no_lse_device_ms``); SDPA
+    returns none."""
     import torch.nn.functional as F
     from repro_torch.kernels import checks, flash_attention as fa
     q, k, v = checks.attention_inputs(case, dtype, device)
@@ -1565,18 +1573,27 @@ def time_attention(case: dict, dtype, device) -> dict:
         raise ValueError(f"time_attention: SDPA has no window or offset "
                          f"({case})")
 
-    def kern():
-        return fa.flash_attention(q, k, v, **kw)
+    lse = case.get("lse", False)
+
+    def kern(with_lse=lse):
+        return fa.flash_attention(q, k, v, **kw, return_lse=with_lse)
 
     def sdpa():
         return F.scaled_dot_product_attention(q, k, v,
                                               is_causal=kw["causal"],
                                               enable_gqa=gqa)
-    return dict(ms=events_ms(kern, ATTENTION_REPS),
-                device_ms=events_ms(kern, ATTENTION_REPS, flush=host_ahead),
-                library_ms=events_ms(sdpa, ATTENTION_REPS),
-                library_device_ms=events_ms(sdpa, ATTENTION_REPS,
-                                            flush=host_ahead))
+    row = dict(ms=events_ms(kern, ATTENTION_REPS),
+               device_ms=events_ms(kern, ATTENTION_REPS, flush=host_ahead),
+               library_ms=events_ms(sdpa, ATTENTION_REPS),
+               library_device_ms=events_ms(sdpa, ATTENTION_REPS,
+                                           flush=host_ahead))
+    if lse:
+        row.update(lse=True,
+                   no_lse_ms=events_ms(lambda: kern(False), ATTENTION_REPS),
+                   no_lse_device_ms=events_ms(lambda: kern(False),
+                                              ATTENTION_REPS,
+                                              flush=host_ahead))
+    return row
 
 
 def attention_case(s: int) -> dict:
@@ -1652,18 +1669,22 @@ def phase_lm_timing(report: dict, device) -> dict:
         row = time_attention(case, dtype, device)
         kind = fa.route(dtype, case["d"], case["dv"])
         q, k, v = checks.attention_inputs(case, dtype, device)
-        plain = events_ms(lambda: fa.chunked_attention(q, k, v, **kw),
-                          reps=3)
+        plain = events_ms(lambda: fa.chunked_attention(
+            q, k, v, **kw, return_lse=case.get("lse", False)), reps=3)
         bound = attention_bound_ms(case["b"], case["hq"], case["hkv"], s,
                                    case["d"], case["dv"], dtype.itemsize,
-                                   skv=case["skv"], **kw)
+                                   skv=case["skv"], **kw,
+                                   lse=case.get("lse", False))
         rows.append(dict(kernel="flash_attention",
                          shape=[case["b"], case["hq"], s, case["d"]],
                          skv=case["skv"], heads=[case["hq"], case["hkv"]],
                          dv=case["dv"], dtype=str(dtype), kernel_route=kind,
                          **kw, **row, plain_ms=plain, **bound))
         mask = ("causal" if kw["causal"] else "non-causal") + \
-            (f", window {kw['window']}" if kw["window"] else "")
+            (f", window {kw['window']}" if kw["window"] else "") + \
+            (f", with lse (without: {row['no_lse_device_ms']:.5f} ms "
+             f"device / {row['no_lse_ms']:.4f} ms events)"
+             if row.get("lse") else "")
         log(f"timing: flash_attention B={case['b']} H={case['hq']}/"
             f"{case['hkv']} Sq={s} Skv={case['skv']} D={case['d']} "
             f"Dv={case['dv']} {dtype} {mask} ({kind} route): "
@@ -1756,7 +1777,8 @@ def block_by_block_model(arch: str, device, seed: int = 0) -> tuple:
     return cfg, params, time.perf_counter() - t0
 
 
-def matmul_kn_per_call(cfg, prefill: bool) -> dict:
+def matmul_kn_per_call(cfg, prefill: bool,
+                       row_parallel: bool = False) -> dict:
     """``{(K, N): launches}`` of ``nmc_matmul`` in one prefill or decode
     step of ``cfg`` in W8A8: per layer the attention's projections (GQA
     q/k/v/o, a cross-attention's q and o only, its k and v being the
@@ -1767,29 +1789,36 @@ def matmul_kn_per_call(cfg, prefill: bool) -> dict:
     plain); a hybrid's shared block once per group (its Mamba2 projections
     stay float); an encoder-decoder's encoder at prefill only; nothing of
     an xLSTM's blocks (they stay float); the LM head; at a VLM's prefill
-    ``img_proj``."""
+    ``img_proj``.  ``row_parallel``: only the linears a ``model`` axis
+    lays out row-parallel (an attention's ``wo``, an FFN's ``down``), whose
+    launches there return the int32 accumulator."""
     import collections
     d, hd, h = cfg.d_model, cfg.head_dim, cfg.n_heads
     kn = collections.Counter()
 
+    def add(k_n, n: int, row: bool = False):
+        if row or not row_parallel:
+            kn[k_n] += n
+
     def gqa(n: int, cross: bool = False):
-        kn[(d, h * hd)] += n
+        add((d, h * hd), n)
         if not cross:
-            kn[(d, cfg.n_kv_heads * hd)] += 2 * n
-        kn[(h * hd, d)] += n
+            add((d, cfg.n_kv_heads * hd), 2 * n)
+        add((h * hd, d), n, row=True)
 
     def mla(n: int):
         r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim,
                          cfg.qk_rope_dim, cfg.v_head_dim)
-        for k_n in ((d, h * (dn + dr)), (d, r), (d, dr), (h * dv, d)):
-            kn[k_n] += n
+        for k_n in ((d, h * (dn + dr)), (d, r), (d, dr)):
+            add(k_n, n)
+        add((h * dv, d), n, row=True)
         if prefill:
-            kn[(r, h * dn)] += n
-            kn[(r, h * dv)] += n
+            add((r, h * dn), n)
+            add((r, h * dv), n)
 
     def mlp(n: int, f: int, gated: bool = cfg.act == "silu"):
-        kn[(d, f)] += 2 * n if gated else n
-        kn[(f, d)] += n
+        add((d, f), 2 * n if gated else n)
+        add((f, d), n, row=True)
     fam, n_layers = cfg.family, cfg.n_layers
     if fam == "xlstm":
         pass
@@ -1813,9 +1842,9 @@ def matmul_kn_per_call(cfg, prefill: bool) -> dict:
         elif cfg.n_shared_experts:
             mlp(n_layers - n_dense, cfg.moe_d_ff * cfg.n_shared_experts,
                 gated=True)
-    kn[(d, cfg.vocab_size)] += 1
+    add((d, cfg.vocab_size), 1)
     if prefill and fam == "vlm":
-        kn[(d, d)] += 1
+        add((d, d), 1)
     return {k_n: c for k_n, c in kn.items() if c}
 
 
@@ -3092,17 +3121,36 @@ SCALEOUT_TIMEOUT = 600.0
 #: and (o) that zamba2 with float weights in float32, where the sharded
 #: run's caches can be held to the fixed limit; each prefills 4 rows of
 #: 512 tokens into caches of 640 slots and decodes 16 steps of the tokens
-#: the single rank picked greedily
+#: the single rank picked greedily; (p)-(r) below
 SCALEOUT_SERVE = dict(rows=4, prompt=512, max_len=640, steps=16)
 SCALEOUT_SERVE_MLA_LAYERS = 2
 SCALEOUT_SERVE_HYBRID_LAYERS = 12
-#: (part, config key, label, spread factor, spread only where the 1-ulp
-#: spread reaches the fixed limits, prefill exact): compare_logits' rules,
+#: the serving parts whose sizes differ from SCALEOUT_SERVE, at full
+#: width and depth: W8A8 in bf16, (p) whisper-tiny, 4 rows of 1500 frame
+#: embeddings and a 64-token prompt into caches of 128 slots (its cross
+#: K/V split over the frames); (q) xlstm-125m, a 512-token prompt (4
+#: chunks of 128; its states laid out by cache_shardings); 16 steps each.
+#: (q)'s spread nudges every step's embedded tokens: its states forget the
+#: prompt (on an H100 a prefill-only nudge moved mLSTM block 2's n,
+#: ``blocks.2.1``, by 0.058 rel L2 after the prefill and 0.0087 after 16
+#: steps), while the sharded run rounds its row-parallel sums anew at every
+#: step; that spread widens every limit of (q), so (r) serves the same
+#: xlstm-125m with float weights in float32, where the sharded run's
+#: logits and caches are held to the fixed limits alone
+SCALEOUT_SERVE_SIZES = {
+    "p": dict(rows=4, frames=1500, prompt=64, max_len=128, steps=16),
+    "q": dict(rows=4, prompt=512, max_len=640, steps=16,
+              spread_every_step=True),
+    "r": dict(rows=4, prompt=512, max_len=640, steps=16,
+              spread_every_step=True)}
+#: (part, config key, label, spread factor (None: the fixed limits
+#: alone), spread only where the 1-ulp spread reaches the fixed limits,
+#: prefill exact): compare_logits' rules,
 #: the MoE model always on its spread (its routing is discrete); where the
 #: sharded prefill does the single rank's arithmetic (column-parallel
-#: products, int32 row-parallel sums, attention on local heads: the dense
-#: and MLA parts), the caches' prompt slots are held to the attention
-#: tolerance after the prefill and after the last step
+#: products, int32 row-parallel sums, attention on local heads: the dense,
+#: MLA and encoder-decoder parts), the caches' prompt slots are held to the
+#: attention tolerance after the prefill and after the last step
 SCALEOUT_SERVE_PARTS = (("l", "serve_dense", "qwen W8A8", MOE_LOGITS_SPREAD,
                          True, True),
                         ("m", "serve_mla", "MLA + EP W8A8", MOE_LOGITS_SPREAD,
@@ -3110,7 +3158,13 @@ SCALEOUT_SERVE_PARTS = (("l", "serve_dense", "qwen W8A8", MOE_LOGITS_SPREAD,
                         ("n", "serve_hybrid", "Mamba2 W8A8 float32",
                          MOE_LOGITS_SPREAD, True, False),
                         ("o", "serve_hybrid_float", "Mamba2 float32",
-                         MOE_LOGITS_SPREAD, True, False))
+                         MOE_LOGITS_SPREAD, True, False),
+                        ("p", "serve_encdec", "enc-dec W8A8",
+                         MOE_LOGITS_SPREAD, True, True),
+                        ("q", "serve_xlstm", "xLSTM W8A8", MOE_LOGITS_SPREAD,
+                         True, False),
+                        ("r", "serve_xlstm_float", "xLSTM float32", None,
+                         True, False))
 #: the gathered caches after the prefill and after the last step against
 #: the single rank's, each field by relative L2: within this (about 2.5
 #: bf16 ulps), or within the part's spread factor times the single rank's
@@ -3196,7 +3250,8 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     (j) to SCALEOUT_LOSS_RTOL; each launch is expected on the route
     ``flash_attention.route`` gives its shape.  Both ranks compute on the
     one card, so the times are correctness-run times, not a measure of
-    scaling.  (l)-(o): serving on (1, 2), SCALEOUT_SERVE and
+    scaling.  (l)-(r): serving on (1, 2), SCALEOUT_SERVE (and
+    SCALEOUT_SERVE_SIZES for whisper's (p) and the xLSTM's (q), (r)) and
     :func:`scaleout_serving_checks`."""
     import dataclasses
     import math
@@ -3224,7 +3279,8 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     spec = dict(SCALEOUT, qwen=cfg, qwen_sp=sp_cfg, moe=moe_cfg,
                 mla=mla_cfg, hybrid=hybrid_cfg, xlstm=xlstm_cfg,
                 encdec=encdec_cfg, vlm=vlm_cfg, trainer_model=trainer_cfg,
-                serve=SCALEOUT_SERVE, **serve_cfgs, seed=seed,
+                serve=SCALEOUT_SERVE, serve_sizes=SCALEOUT_SERVE_SIZES,
+                **serve_cfgs, seed=seed,
                 grad_spread=TRAIN_GRAD_SPREAD, grad_floor=TRAIN_GRAD_FLOOR,
                 opt=dict(lr=1e-3, warmup_steps=1, total_steps=10),
                 trainer=dict(SCALEOUT["trainer"], ckpt_dir=str(
@@ -3397,7 +3453,8 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
         hybrid_layers=SCALEOUT_HYBRID_LAYERS, vlm_layers=SCALEOUT_VLM_LAYERS,
         trainer_layers=SCALEOUT_TRAINER_LAYERS,
         **{k: v for k, v in SCALEOUT.items()},
-        serve=SCALEOUT_SERVE, serve_mla_layers=SCALEOUT_SERVE_MLA_LAYERS,
+        serve=SCALEOUT_SERVE, serve_sizes=SCALEOUT_SERVE_SIZES,
+        serve_mla_layers=SCALEOUT_SERVE_MLA_LAYERS,
         serve_hybrid_layers=SCALEOUT_SERVE_HYBRID_LAYERS,
         ranks=[{p: plain(v) for p, v in r.items()
                 if p not in ("rank", "seconds")}
@@ -3429,22 +3486,52 @@ def scaleout_serving_configs() -> dict:
                 dtype=torch.float32),
             "serve_hybrid_float": configs.get(HYBRID_ARCH).scaled(
                 n_layers=SCALEOUT_SERVE_HYBRID_LAYERS, nmc_mode="none",
-                dtype=torch.float32)}
+                dtype=torch.float32),
+            "serve_encdec": configs.get(ENCDEC_ARCH).scaled(
+                nmc_mode="w8a8"),
+            "serve_xlstm": configs.get(XLSTM_ARCH).scaled(nmc_mode="w8a8"),
+            "serve_xlstm_float": configs.get(XLSTM_ARCH).scaled(
+                nmc_mode="none", dtype=torch.float32)}
+
+
+def serving_part_expected(cfg, steps: int) -> dict:
+    """The launches a rank makes in a serving part of ``phase_scaleout``
+    (a prefill and ``steps`` decode steps of ``cfg``), from the config:
+    ``nmc_matmul`` by route under W8A8 (:func:`matmul_routes_per_call`; a
+    split linear keeps its route on (1, 2), and an odd vocabulary keeps
+    the head whole, on ``dp4a``), the int32-out ones a ``model`` axis makes
+    of its row-parallel linears (none in the xLSTM, whose blocks stay
+    float), ``flash_attention`` (:func:`attention_launches_per_call`)."""
+    from repro_torch.kernels import nmc_matmul as mm
+    w8a8 = cfg.nmc_mode == "w8a8"
+    pre, dec = (matmul_routes_per_call(cfg, p) for p in (True, False))
+    routes = {r: (pre[r] + steps * dec[r]) if w8a8 else 0
+              for r in mm.ROUTE_ID}
+    rows = (sum(matmul_kn_per_call(cfg, True, True).values())
+            + steps * sum(matmul_kn_per_call(cfg, False, True).values())) \
+        if w8a8 else 0
+    return {"nmc_matmul": sum(routes.values()), "matmul_routes": routes,
+            "matmul_int32": rows,
+            "flash_attention": attention_launches_per_call(cfg, True)
+            + steps * attention_launches_per_call(cfg, False)}
 
 
 def scaleout_serving_checks(ranks: list, cfgs: dict, smi: str) -> dict:
-    """The serving parts (l)-(o) of ``phase_scaleout``: on each rank the
-    ``nmc_matmul`` launches of the sharded run equal the single rank's
-    (one launch a W8A8 linear either way, none with float weights; a
-    row-parallel one returns the int32 accumulator), all on the tensor
-    cores, the int32-out ones among them replayed bit for bit; the
-    ``flash_attention`` launches (the prefill's, on local heads) equal the
-    single rank's, on the route
+    """The serving parts (l)-(r) of ``phase_scaleout``: on each rank the
+    ``nmc_matmul`` launches of the sharded run equal the single rank's and
+    the part's expected ones by route (:func:`serving_part_expected`: one
+    launch a W8A8 linear either way, none with float weights, on the
+    tensor cores but a whole head of an odd vocabulary; a row-parallel one
+    returns the int32 accumulator, those replayed bit for bit); the
+    ``flash_attention`` launches (the prefill's on local heads, an
+    encoder-decoder's cross-attention at decode) equal the single rank's
+    and the expected ones (none in the xLSTM), on the route
     ``flash_attention.route`` gives, replayed; on rank 0 the logits of the
     prefill and every step (the rows gathered) against the single rank's
     by compare_logits' rules (SCALEOUT_SERVE_PARTS), the gathered caches
     after the prefill and after the last step by relative L2
-    (SCALEOUT_SERVE_CACHE_REL_L2, or the spread rule up to its cap) and,
+    (SCALEOUT_SERVE_CACHE_REL_L2, or the spread rule up to its cap; a
+    part with no spread factor, the fixed limits alone) and,
     where the part's prefill is exact, their prompt slots by the attention
     tolerance.
     Returns the parts' launches, routes, replays and results."""
@@ -3456,27 +3543,27 @@ def scaleout_serving_checks(ranks: list, cfgs: dict, smi: str) -> dict:
     for part, key, label, factor, if_reached, exact in \
             SCALEOUT_SERVE_PARTS:
         cfg = cfgs[key]
+        sv = SCALEOUT_SERVE_SIZES.get(part, SCALEOUT_SERVE)
+        want = serving_part_expected(cfg, sv["steps"])
         single = r0[part]["single_counted"]
         route = attention_route(cfg)
+        if any(single[k] != want[k] for k in ("nmc_matmul", "matmul_routes",
+                                              "flash_attention")):
+            raise AssertionError(f"scaleout ({part}) single rank: launches "
+                                 f"{single}, expected {want}")
         for r in ranks:
             res = r[part]
             c, a, m = res["counted"], res["attention_replay"], \
                 res["int32_replay"]
-            w8a8 = cfg.nmc_mode == "w8a8"
-            if c["nmc_matmul"] != single["nmc_matmul"] or \
-                    c["matmul_routes"]["tensor_core"] != c["nmc_matmul"] or \
-                    w8a8 != (0 < c["matmul_int32"]) or \
+            if any(c[k] != want[k] for k in want) or \
                     c["matmul_int32"] != m["launches"] or \
-                    w8a8 != (0 < c["nmc_matmul"]) or \
                     not m["bit_equal"] or \
-                    c["flash_attention"] != single["flash_attention"] or \
-                    not c["flash_attention"] or \
                     c["attention_routes"][route] != c["flash_attention"] or \
                     a["launches"] != c["flash_attention"]:
                 raise AssertionError(
                     f"scaleout ({part}) rank {r['rank']}: launches {c}, "
-                    f"single rank {single}, attention replay {a}, int32 "
-                    f"replay {m}")
+                    f"expected {want}, single rank {single}, attention "
+                    f"replay {a}, int32 replay {m}")
             for k in ("flash_attention", "nmc_matmul"):
                 out["launches"][k] += c[k]
             for k, n in c["matmul_routes"].items():
@@ -3495,16 +3582,17 @@ def scaleout_serving_checks(ranks: list, cfgs: dict, smi: str) -> dict:
         reached = spread["rms_diff"] >= rms_limit or \
             spread["top1_agreement"] <= agree_limit
         rule = "fixed"
-        if reached or not if_reached:
+        if factor is not None and (reached or not if_reached):
             rule = "spread"
             rms_limit = factor * spread["rms_diff"]
             agree_limit = spread["top1_agreement"] / factor
         cache_bad, worst_cache = [], (None, 0.0)
         for when, fields in res["caches"].items():
             for path, c in fields.items():
-                limit = min(SCALEOUT_SERVE_CACHE_REL_L2_CAP,
-                            max(SCALEOUT_SERVE_CACHE_REL_L2,
-                                factor * c["spread_rel_l2"]))
+                limit = SCALEOUT_SERVE_CACHE_REL_L2 if factor is None \
+                    else min(SCALEOUT_SERVE_CACHE_REL_L2_CAP,
+                             max(SCALEOUT_SERVE_CACHE_REL_L2,
+                                 factor * c["spread_rel_l2"]))
                 c["limit"] = limit
                 if c["rel_l2"] / limit >= worst_cache[1]:
                     worst_cache = (f"{when} {path}", c["rel_l2"] / limit)
@@ -3514,8 +3602,8 @@ def scaleout_serving_checks(ranks: list, cfgs: dict, smi: str) -> dict:
                     cache_bad.append((when, path, c))
         log(f"scaleout ({part}) serving {label}, {cfg.name} "
             f"{cfg.n_layers} layers on (1, 2): {res['positions']} positions "
-            f"(prefill and {SCALEOUT_SERVE['steps']} steps x "
-            f"{SCALEOUT_SERVE['rows']} rows) vs the single rank: logits "
+            f"(prefill and {sv['steps']} steps x {sv['rows']} rows) vs the "
+            f"single rank: logits "
             f"{st} ({rule} limits: rms <= {rms_limit:.4g}, top-1 agreement "
             f">= {agree_limit:.4f}; the single rank's 1-ulp spread "
             f"{spread}); caches (max abs err, within the attention "

@@ -6,7 +6,10 @@
 // masking, a sliding `window`, a `q_offset` (q row i sits at kv position
 // q_offset + i) and Dv != D.  The logits (Sq x Skv) never reach device
 // memory: the running max, running sum and output accumulator stay on
-// chip across the whole KV loop, in f32, whatever the input type.
+// chip across the whole KV loop, in f32, whatever the input type.  On
+// request each q row also writes max + log(sum) of its scaled logits, in
+// f32 (`lse`): a decode over keys split across ranks combines the ranks'
+// partial outputs by these weights.
 //
 // Two kernel bodies, chosen by an explicit route check before the launch
 // (`tc_route`; the entry reports the route it took, and the Python
@@ -107,7 +110,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 template <typename T, int DV_MAX>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Hq,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int Hq,
                        int Hkv, int Sq, int Skv, int D, int Dv, float scale,
                        int causal, int has_window, int window, int q_offset) {
   extern __shared__ float smem[];
@@ -212,6 +216,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (q0 + r > row_last) return;
   const float denom = l == 0.0f ? 1.0f : l;
+  if (lse != nullptr && lane == 0)
+    lse[static_cast<size_t>(bh) * Sq + q0 + r] = m + logf(denom);
   T* og = o + (static_cast<size_t>(bh) * Sq + q0 + r) * Dv;
 #pragma unroll
   for (int i = 0; i < DV_MAX / 4; ++i)
@@ -219,8 +225,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DV_MAX>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Skv, int D, int Dv, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Hq, int Hkv, int Sq, int Skv, int D, int Dv, float scale,
            int causal, int has_window, int window, int q_offset,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) *
@@ -234,23 +240,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * Hq);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, D, Dv,
-      scale, causal, has_window, window, q_offset);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Skv, D,
+      Dv, scale, causal, has_window, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_dv(const void* q, const void* k, const void* v, void* o, int B,
-                int Hq, int Hkv, int Sq, int Skv, int D, int Dv, float scale,
-                int causal, int has_window, int window, int q_offset,
-                cudaStream_t stream) {
+int dispatch_dv(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                int Dv, float scale, int causal, int has_window, int window,
+                int q_offset, cudaStream_t stream) {
   if (Dv <= 64)
-    return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, Dv, scale,
+    return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, Dv, scale,
                          causal, has_window, window, q_offset, stream);
   if (Dv <= 128)
-    return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, Dv, scale,
+    return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, Dv, scale,
                           causal, has_window, window, q_offset, stream);
-  return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, Dv, scale,
+  return launch<T, 256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, Dv, scale,
                         causal, has_window, window, q_offset, stream);
 }
 
@@ -270,6 +276,7 @@ constexpr int kTcBK = 64;               // keys per K / V tile
 constexpr int kStages = 3;              // K / V tiles in the smem ring
 constexpr int kTcPad = 8;               // bf16 of padding per smem row
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMasked2 = kMasked * kLog2e;   // -1e30 in the log2 domain
 
 int tc_route(int dtype, int D, int Dv) {
@@ -390,8 +397,9 @@ __global__ void __launch_bounds__(kTcWarps * 32, 1)
 flash_attention_tc_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
-                          int BH, int Hq, int Hkv, int Sq, int Skv, int D,
-                          int Dv, float scale_log2, int causal,
+                          float* __restrict__ lse, int BH, int Hq,
+                          int Hkv, int Sq, int Skv, int D, int Dv,
+                          float scale_log2, int causal,
                           int has_window, int window, int q_offset) {
   constexpr int kThreadsTc = kTcWarps * 32;
   constexpr int kBQTc = kTcWarps * 16;
@@ -588,6 +596,9 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
     const float l = quad_sum(l_run[i]);
     const float inv = __frcp_rn(l == 0.0f ? 1.0f : l);
     if (row >= Sq) continue;
+    if (lse != nullptr && t4 == 0)           // back from the log2 domain
+      lse[static_cast<size_t>(bh) * Sq + row] =
+          (m_run[i] + log2f(l == 0.0f ? 1.0f : l)) * kLn2;
 #pragma unroll
     for (int t = 0; t < NV; ++t) {
       const int col = t * 8 + 2 * t4;       // Dv is a multiple of 8
@@ -600,10 +611,10 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
 }
 
 template <int DP, int DVP>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int Hq, int Hkv, int Sq, int Skv, int D, int Dv, float scale,
-              int causal, int has_window, int window, int q_offset,
-              cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+              int Dv, float scale, int causal, int has_window, int window,
+              int q_offset, cudaStream_t stream) {
   constexpr int bq = kTcWarps * 16;
   constexpr size_t smem =
       sizeof(bf16) * (bq * (DP + kTcPad) +
@@ -618,19 +629,21 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), kTcWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), B * Hq, Hq, Hkv,
-      Sq, Skv, D, Dv, scale * kLog2e, causal, has_window, window, q_offset);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, B * Hq, Hq,
+      Hkv, Sq, Skv, D, Dv, scale * kLog2e, causal, has_window, window,
+      q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 // D and Dv each padded to 64 or 128.
-int dispatch_tc(const void* q, const void* k, const void* v, void* o, int B,
-                int Hq, int Hkv, int Sq, int Skv, int D, int Dv, float scale,
-                int causal, int has_window, int window, int q_offset,
-                cudaStream_t stream) {
+int dispatch_tc(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                int Dv, float scale, int causal, int has_window, int window,
+                int q_offset, cudaStream_t stream) {
 #define FA_TC_LAUNCH(DP, DVP)                                               \
-  return launch_tc<DP, DVP>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, Dv, scale,  \
-                            causal, has_window, window, q_offset, stream)
+  return launch_tc<DP, DVP>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, Dv,    \
+                            scale, causal, has_window, window, q_offset,     \
+                            stream)
   if (D <= 64) {
     if (Dv <= 64) FA_TC_LAUNCH(64, 64);
     FA_TC_LAUNCH(64, 128);
@@ -650,12 +663,17 @@ bool aligned16(const void* p) {
 // v[B, Hkv, Skv, Dv]) on `stream`; all contiguous, of one type: f32
 // (dtype 0) or bf16 (dtype 1).  D and Dv at most 256, Hq a multiple of
 // Hkv, Sq and Skv at least 1.  `scale` multiplies the logits (1 / sqrt(D)).
+// `lse`, when not null, receives f32 [B, Hq, Sq]: each row's log-sum-exp
+// of its scaled logits, max + log(sum), masked keys at -1e30 as in the
+// softmax (the weight of this slice of keys when partials over several
+// slices are combined).
 // The kernel body is `tc_route(dtype, D, Dv)`, written to `*route` (enum
 // Route) before anything else; the tensor-core route needs 16-byte aligned
 // pointers and refuses others.  Returns the CUDA error of the launch (0 on
 // success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int B, int Hq, int Hkv, int Sq,
+                               void* o, float* lse, int B, int Hq, int Hkv,
+                               int Sq,
                                int Skv, int D, int Dv, float scale,
                                int causal, int has_window, int window,
                                int q_offset, int dtype, int* route,
@@ -664,13 +682,14 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (*route == ROUTE_TENSOR_CORE) {
     if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
       return static_cast<int>(cudaErrorMisalignedAddress);
-    return dispatch_tc(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, Dv, scale, causal,
-                       has_window, window, q_offset, stream);
+    return dispatch_tc(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, Dv, scale,
+                       causal, has_window, window, q_offset, stream);
   }
   if (dtype == 0)
-    return dispatch_dv<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, Dv, scale,
-                              causal, has_window, window, q_offset, stream);
-  return dispatch_dv<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, Dv,
-                                    scale, causal, has_window, window,
+    return dispatch_dv<float>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, Dv,
+                              scale, causal, has_window, window, q_offset,
+                              stream);
+  return dispatch_dv<__nv_bfloat16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D,
+                                    Dv, scale, causal, has_window, window,
                                     q_offset, stream);
 }

@@ -21,8 +21,8 @@ configs, ``chip_smoke.py`` over gloo on the card at full width.
 * :func:`sharded_serving`: prefill and decode steps of a model given as
   the reference's weights (quantized whole first under W8A8), laid out
   on a (data, model) mesh: the logits and the caches gathered on rank 0.
-* :func:`serving_refusals`, :func:`row_parallel_w8a8`: the families that
-  serve on data axes only, with their messages; a W8A8 row-parallel
+* :func:`serving_refusals`, :func:`row_parallel_w8a8`: the calls that
+  refuse a layout that splits a cache's stack dim, with their messages; a W8A8 row-parallel
   linear's int32 accumulator against one rank's, bit for bit.
 * :func:`chip_scaleout`: ``chip_smoke.phase_scaleout``'s ranks at full
   width on the card: one train step of each of qwen (tensor and data
@@ -30,8 +30,8 @@ configs, ``chip_smoke.py`` over gloo on the card at full width.
   parallel), zamba2 (Mamba2 and its shared block tensor parallel),
   xlstm, whisper and pixtral (tensor parallel) against the single-rank
   step, the elastic trainer, the pipeline, and W8A8 serving of qwen,
-  deepseek and zamba2 (:data:`SERVE_PARTS`) against rank 0's single-rank
-  serving.
+  deepseek, zamba2, whisper and xlstm (:data:`SERVE_PARTS`) against rank
+  0's single-rank serving.
 """
 
 from __future__ import annotations
@@ -192,21 +192,32 @@ def sharded_serving(device, cfg, shape: tuple, weights: dict, batch: dict,
     return out if _rank0() else None
 
 
-def serving_refusals(device, cfgs: list, model: int = 2) -> list:
-    """For each config, laid out on a (world / model, model) mesh, the
-    message of the ``NotImplementedError`` that ``lm.init_caches`` raises,
-    or None."""
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    mesh = make_mesh((world // model, model), AXES, device)
-    out = []
-    for cfg in cfgs:
-        m = lm.shard(lm.init_params(cfg, torch.Generator(device=device)
-                                    .manual_seed(0), device), cfg, mesh)
+def serving_refusals(device, cfg, shape: tuple, rows: int,
+                     max_len: int = 8) -> dict:
+    """``cfg`` laid out on a ``shape`` (data, model) mesh: the messages
+    of the ``NotImplementedError`` s that ``lm.init_caches`` and
+    ``lm.prefill`` raise for a global batch of ``rows`` (this rank's rows
+    of zero tokens, and of zero frames for an encoder-decoder), or None
+    where a call went through."""
+    mesh = make_mesh(shape, AXES, device)
+    m = lm.shard(lm.init_params(cfg, torch.Generator(device=device)
+                                .manual_seed(0), device), cfg, mesh)
+    local = rows // mesh.size(mesh.data_axes())
+    batch = {"tokens": torch.zeros((local, 4), dtype=torch.int64,
+                                   device=device)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((local, cfg.enc_seq, cfg.d_model),
+                                      device=device)
+    calls = {"init_caches": lambda: lm.init_caches(m, cfg, rows, max_len),
+             "prefill": lambda: lm.prefill(m, batch, cfg, max_len,
+                                           global_batch=rows)}
+    out = {}
+    for name, call in calls.items():
         try:
-            lm.init_caches(m, cfg, world // model, 8)
-            out.append(None)
+            call()
+            out[name] = None
         except NotImplementedError as e:
-            out.append(str(e))
+            out[name] = str(e)
     return out
 
 
@@ -490,7 +501,8 @@ class _AttentionRecorder:
 
     def replay(self) -> dict:
         """Every launch against the plain version (``kernels/checks.py``'s
-        tolerance; raises beyond it): launches, shapes, the route each
+        tolerances, the log-sum-exp's too where a launch returned it;
+        raises beyond them): launches, shapes, the route each
         launch takes by ``flash_attention.route`` (launches and max abs
         err by route), max abs err."""
         from repro_torch.kernels import checks as kchecks
@@ -499,8 +511,8 @@ class _AttentionRecorder:
         with torch.no_grad():
             for i, (args, kw, out) in enumerate(self.calls):
                 want = fa.chunked_attention(*args, **kw)
-                tol = kchecks.attention_tolerance(args[0].dtype)
-                err = kchecks.close(f"attention launch {i}", out, want, *tol)
+                err = kchecks.close_attention(f"attention launch {i}", out,
+                                              want, args[0].dtype)
                 worst = max(worst, err)
                 key = str(tuple(args[0].shape))
                 shapes[key] = shapes.get(key, 0) + 1
@@ -750,29 +762,35 @@ def _reference(cfg, batch: dict, spec: dict, device) -> dict:
             "params": {n: p.detach() for n, p in params.items()}}
 
 
-def nudged_inputs(model, seed: int):
+def nudged_inputs(model, seed: int, every_step: bool = False):
     """A context in which ``model``'s embedded inputs are moved by one ulp
     of their dtype at half the positions, the gradient passing through
-    unchanged: the plain path's own spread under 1-ulp noise."""
+    unchanged: the plain path's own spread under 1-ulp noise.  With
+    ``every_step`` the token embedding's output is moved instead, at the
+    prompt and at every decode step (a model whose input is its embedded
+    tokens: the xLSTM); else the prompt's inputs only (``model.inputs``:
+    a VLM's images and an encoder-decoder's positions too)."""
     import contextlib
 
     @contextlib.contextmanager
     def ctx():
-        orig = model.inputs
+        obj, name = (model.embed, "forward") if every_step \
+            else (model, "inputs")
+        orig = getattr(obj, name)
         gen = torch.Generator(device=model.device).manual_seed(seed)
 
-        def inputs(batch, cfg):
-            x = orig(batch, cfg)
+        def nudged(*args, **kw):
+            x = orig(*args, **kw)
             flip = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
             host = x.detach().cpu()
             up = torch.nextafter(host, torch.full_like(host, 1e30))
             return x + torch.where(flip, (up - host).to(x.device),
                                    torch.zeros_like(x))
-        model.inputs = inputs
+        setattr(obj, name, nudged)
         try:
             yield
         finally:
-            del model.inputs
+            delattr(obj, name)
     return ctx()
 
 
@@ -911,9 +929,12 @@ def chip_scaleout(device, spec: dict) -> dict:
     ``seq_parallel`` and ``remat`` on, against (a)'s reference; (l)-(n)
     W8A8 serving on (1, 2) (:func:`_chip_serving`): qwen, deepseek cut to
     2 layers and zamba2 cut to 2 groups at full width; (o) that zamba2
-    with float weights in float32.  ``spec``
-    holds the configs, sizes and limits; ``spec["batches"]`` a part's (rows,
-    sequence) where it differs from ``spec["rows"]`` and ``spec["seq"]``.
+    with float weights in float32; (p) whisper and (q) xlstm at full width
+    and depth, W8A8 (their cross K/V and states laid out by
+    ``cache_shardings``); (r) that xlstm with float weights in float32.  ``spec`` holds the configs, sizes and limits;
+    ``spec["batches"]`` a part's (rows, sequence) where it differs from
+    ``spec["rows"]`` and ``spec["seq"]``; ``spec["serve_sizes"]`` a
+    serving part's sizes where they differ from ``spec["serve"]``.
     Returns each part's results and this rank's counted launches and
     collectives."""
     import time
@@ -949,7 +970,9 @@ def chip_scaleout(device, spec: dict) -> dict:
         out[part] = res
     for part, key, shape in SERVE_PARTS:
         t0 = time.perf_counter()
-        res = _chip_serving(device, spec[key], spec, shape)
+        res = _chip_serving(device, spec[key], spec, shape,
+                            spec.get("serve_sizes", {}).get(part,
+                                                            spec["serve"]))
         res["seconds"] = time.perf_counter() - t0
         out[part] = res
     tr = spec["trainer"]
@@ -968,7 +991,9 @@ def chip_scaleout(device, spec: dict) -> dict:
 #: ``chip_scaleout``'s serving parts: (part, config key, mesh shape)
 SERVE_PARTS = (("l", "serve_dense", (1, 2)), ("m", "serve_mla", (1, 2)),
                ("n", "serve_hybrid", (1, 2)),
-               ("o", "serve_hybrid_float", (1, 2)))
+               ("o", "serve_hybrid_float", (1, 2)),
+               ("p", "serve_encdec", (1, 2)), ("q", "serve_xlstm", (1, 2)),
+               ("r", "serve_xlstm_float", (1, 2)))
 
 
 def _serving_model(cfg, seed: int, device, mesh=None):
@@ -992,8 +1017,8 @@ def _serve(model, cfg, batch: dict, tokens, max_len: int, n: int,
     from repro_torch.distributed import context
     logits, caches = lm.prefill(model, batch, cfg, max_len, global_batch=n)
     out = {"logits": [logits],
-           "prefill_caches": {key: {f: t.clone() for f, t in fields.items()}
-                              for key, fields in caches.items()}}
+           "prefill_caches": sharding.map_tree(lambda t, _: t.clone(),
+                                               caches, caches)}
     pos = batch["tokens"].shape[1] + (cfg.n_img_tokens
                                       if cfg.family == "vlm" else 0)
     cache_len = torch.full((n,), pos, dtype=torch.int32,
@@ -1027,13 +1052,16 @@ def _logit_stats(got: torch.Tensor, want: torch.Tensor) -> dict:
                                     .float().mean())}
 
 
-def _chip_serving(device, cfg, spec: dict, shape: tuple) -> dict:
+def _chip_serving(device, cfg, spec: dict, shape: tuple,
+                  sv: dict) -> dict:
     """One serving part on every rank (every attention launch of the
     sharded run and every int32-out ``nmc_matmul`` launch replayed against
     the plain versions): rank 0 first serves the W8A8 model on its own
-    (prefill of ``spec["serve"]``'s rows and prompt, then greedy decode
+    (prefill of ``sv``'s rows and prompt, an encoder-decoder's with
+    ``sv["frames"]`` frame embeddings a row, then greedy decode
     steps; and once more with its prefill's embedded inputs moved by one
-    ulp: the model's own spread), the tokens it fed are broadcast, and
+    ulp, or with ``sv["spread_every_step"]`` every step's embedded tokens:
+    the model's own spread), the tokens it fed are broadcast, and
     the model laid out on ``shape`` serves the same tokens (each rank its
     rows).  Returns this rank's launches (prefill and steps:
     ``nmc_matmul`` by route and int32-out, ``flash_attention`` by route)
@@ -1047,7 +1075,6 @@ def _chip_serving(device, cfg, spec: dict, shape: tuple) -> dict:
     L2."""
     from repro_torch.distributed import context
     from repro_torch.kernels import checks as kchecks
-    sv = spec["serve"]
     rows, n_steps, max_len = sv["rows"], sv["steps"], sv["max_len"]
     gen = torch.Generator(device=device).manual_seed(spec["seed"] + 5)
     batch = {"tokens": torch.randint(cfg.vocab_size, (rows, sv["prompt"]),
@@ -1055,13 +1082,17 @@ def _chip_serving(device, cfg, spec: dict, shape: tuple) -> dict:
                                      dtype=torch.int32)}
     first = torch.randint(cfg.vocab_size, (rows, n_steps), generator=gen,
                           device=device, dtype=torch.int32)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((rows, sv["frames"], cfg.d_model),
+                                      generator=gen, device=device)
     out, ref, spread = {}, None, None
     if _rank0():
         model = _serving_model(cfg, spec["seed"], device)
         _reset(device)
         ref = _serve(model, cfg, batch, first, max_len, rows, greedy=True)
         out["single_counted"] = _counted(device)
-        with nudged_inputs(model, spec["seed"] + 1):
+        with nudged_inputs(model, spec["seed"] + 1,
+                           sv.get("spread_every_step", False)):
             spread = _serve(model, cfg, batch, ref["tokens"], max_len, rows)
         del model
         tokens = ref["tokens"]
@@ -1073,9 +1104,10 @@ def _chip_serving(device, cfg, spec: dict, shape: tuple) -> dict:
         (1, dist.get_world_size()), AXES, device))
     mesh = make_mesh(shape, AXES, device)
     model = _serving_model(cfg, spec["seed"], device, mesh)
-    full = {"tokens": batch["tokens"]}
-    rows_sh = sharding.batch_shardings(full, mesh)["tokens"]
-    local = {"tokens": sharding.local_slice(full["tokens"], rows_sh)}
+    batch_sh = sharding.batch_shardings(batch, mesh)
+    rows_sh = batch_sh["tokens"]
+    local = {k: sharding.local_slice(t, batch_sh[k])
+             for k, t in batch.items()}
     _reset(device)
     with _AttentionRecorder() as attn, _Int32Recorder() as acc:
         with _Events(device) as ev:
@@ -1088,7 +1120,8 @@ def _chip_serving(device, cfg, spec: dict, shape: tuple) -> dict:
     out.update(step_traffic=got["step_traffic"],
                serve_ms=ev.ms, peak_gb=_peak_gb(device),
                local_caches={p: tuple(t.shape)
-                             for p, t in _flat(got["caches"]).items()})
+                             for p, t in
+                             sharding.flat_tree(got["caches"]).items()})
     logits_sh = sharding.Sharding(mesh, (rows_sh.spec[0], None))
     cache_sh = sharding.cache_shardings(model.init_caches(
         cfg, rows, max_len, cfg.dtype, "meta"), mesh, rows)
@@ -1106,8 +1139,9 @@ def _chip_serving(device, cfg, spec: dict, shape: tuple) -> dict:
         rtol, atol = kchecks.attention_tolerance(cfg.dtype)
         out["caches"] = {}
         for when, key in (("prefill", "prefill_caches"), ("end", "caches")):
-            want, pert = _flat(ref[key]), _flat(spread[key])
-            got_ = _flat(caches[when == "end"])
+            want = sharding.flat_tree(ref[key])
+            pert = sharding.flat_tree(spread[key])
+            got_ = sharding.flat_tree(caches[when == "end"])
             out["caches"][when] = {p: {
                 "max_abs_err": float((t.float() - want[p].float()).abs()
                                      .max()),
@@ -1138,14 +1172,6 @@ def _prompt_slots(t: torch.Tensor, max_len: int, prompt: int):
     ``max_len``), None for a field with no such dim (a Mamba2 state)."""
     dims = [d for d, n in enumerate(t.shape) if n == max_len]
     return t.narrow(dims[0], 0, prompt) if len(dims) == 1 else None
-
-
-def _flat(tree, pre: str = "") -> dict:
-    """{"key.field": tensor} of a cache tree of dicts."""
-    if isinstance(tree, dict):
-        return {k2: v2 for k, v in tree.items()
-                for k2, v2 in _flat(v, f"{pre}{k}.").items()}
-    return {pre[:-1]: tree}
 
 
 def _chip_pipeline(device, spec: dict) -> dict:

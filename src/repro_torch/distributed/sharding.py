@@ -31,6 +31,10 @@ the old one splits, narrowed where the new one does: a prefill's K / V
 from local heads to local slots), :func:`local_offset` gives a slice's
 first global index on a dim (a cache's first slot).  The int8 serving
 weights are laid out by the parameters' rules (:func:`tensor_shardings`).
+A cache tree is walked by :func:`map_tree` and :func:`flat_tree`, its
+leaves described before allocation by :class:`CacheField`;
+:class:`ServedState` moves a recurrent block's state between the cache's
+layout and the one the block computes in.
 """
 
 from __future__ import annotations
@@ -291,16 +295,94 @@ def local_shape(shape: tuple, sh: Sharding) -> tuple:
                  else n for d, n in enumerate(shape))
 
 
-def map_tree(fn, tree, shardings):
+def map_tree(fn, tree, shardings=None):
     """``fn(leaf, its Sharding)`` over a tree of dicts, lists and tuples
-    (a cache tree and :func:`cache_shardings` of it), the same tree
-    back."""
+    (a cache tree and :func:`cache_shardings` of it, or any other tree
+    of that structure; None: ``fn(leaf, None)``), the same tree back."""
     if isinstance(tree, dict):
-        return {k: map_tree(fn, v, shardings[k]) for k, v in tree.items()}
+        return {k: map_tree(fn, v, None if shardings is None
+                            else shardings[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_tree(fn, v, s)
-                          for v, s in zip(tree, shardings))
+        return type(tree)(map_tree(fn, v, None if shardings is None
+                                   else shardings[i])
+                          for i, v in enumerate(tree))
     return fn(tree, shardings)
+
+
+def flat_tree(tree, pre: str = "") -> dict:
+    """``{"key.field": leaf}`` of a tree of dicts, lists and tuples (an
+    xLSTM's ``"blocks.3.0"``)."""
+    if isinstance(tree, (dict, list, tuple)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        return {k2: v2 for k, v in items
+                for k2, v2 in flat_tree(v, f"{pre}{k}.").items()}
+    return {pre[:-1]: tree}
+
+
+class CacheField:
+    """A leaf of a cache tree before it is allocated: its shape, dtype and
+    initial value.  :func:`cache_shardings` reads ``shape`` and ``dim()``
+    only, so a layout worked out inside a traced step allocates
+    nothing."""
+
+    def __init__(self, shape: tuple, dtype: torch.dtype, fill: float = 0.0):
+        self.shape, self.dtype, self.fill = torch.Size(shape), dtype, fill
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def full(self, device=None, sh: Sharding | None = None) -> torch.Tensor:
+        """The field at its initial value: whole, or this rank's slice
+        under ``sh``."""
+        shape = tuple(self.shape) if sh is None \
+            else local_shape(tuple(self.shape), sh)
+        return torch.full(shape, self.fill, dtype=self.dtype, device=device)
+
+
+class ServedState:
+    """What a recurrent block (Mamba2, mLSTM, sLSTM) needs to serve on a
+    mesh: it computes its state (a dict or a tuple of fields) in the
+    layout its ``state_specs(batch_part)`` gives (its heads), while the
+    cache holds that state under :func:`cache_shardings` (``state_sh``,
+    the same tree of Shardings)."""
+
+    def _layouts(self, state_sh) -> Any:
+        """(the cache's Sharding, the computing spec) of each field."""
+        first = next(iter(state_sh.values())) if isinstance(state_sh, dict) \
+            else state_sh[0]
+        return map_tree(lambda sh, w: (sh, w), state_sh,
+                        self.state_specs(first.spec[0]))
+
+    def laid_out(self, state, state_sh):
+        """A state in the computing layout as this rank's slice under
+        ``state_sh``: gathered where the cache splits a dim the
+        computation does not, narrowed where it splits one the computation
+        holds whole."""
+        return map_tree(lambda t, p: relayout(t, Sharding(p[0].mesh, p[1]),
+                                              p[0].spec),
+                        state, self._layouts(state_sh))
+
+    def gathered(self, state, state_sh):
+        """``state`` (this rank's slices under ``state_sh``) in the
+        computing layout; ``state`` itself off a mesh (``state_sh``
+        None)."""
+        if state_sh is None:
+            return state
+        return map_tree(lambda t, p: relayout(t, p[0], p[1]), state,
+                        self._layouts(state_sh))
+
+    def write_back(self, state, new, state_sh) -> None:
+        """The stepped state ``new`` (in the computing layout) into
+        ``state``, in place: this rank's slices under ``state_sh`` (as
+        they are off a mesh); a field stepped in place is left as it
+        is."""
+        if state_sh is not None:
+            new = self.laid_out(new, state_sh)
+
+        def put(t, n):
+            if n is not t:
+                t.copy_(n)
+        map_tree(put, state, new)
 
 
 def local_slice(full: torch.Tensor, sh: Sharding) -> torch.Tensor:

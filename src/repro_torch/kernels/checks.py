@@ -18,7 +18,9 @@ Tolerances:
   * ``flash_attention``: float32 within atol 2e-5 of ``chunked_attention``
     (the tolerance of the reference's kernel tests: another summation
     order); bfloat16 within atol 1e-2 / rtol 1.6e-2 (one bf16 ulp of the
-    output).
+    output).  Its optional log-sum-exp (float32 in both) within atol 1e-4
+    / rtol 1e-5: float32 sums in another order, the tensor-core route's
+    ``exp2`` approximation.
   * ``vrf_alu``: equal bit for bit (integer programs).
 """
 
@@ -125,6 +127,11 @@ ATTENTION_CASES = {
                              dv=64, causal=False),
     "whisper-cross-decode": dict(b=4, hq=6, hkv=6, sq=1, skv=1500, d=64,
                                  dv=64, causal=False),
+    # that decode step's cross-attention on a model axis of 2: every head
+    # over half the frames, with the log-sum-exp that combines the halves
+    # (``ops.attention_partial``)
+    "whisper-cross-partial-750": dict(b=4, hq=6, hkv=6, sq=1, skv=750, d=64,
+                                      dv=64, causal=False, lse=True),
     # zamba2-2.7b's shared block at a 512-token prompt: 32 heads of 80,
     # causal, its 4096 sliding window
     "zamba2-512": dict(b=1, hq=32, hkv=32, sq=512, skv=512, d=80, dv=80,
@@ -160,6 +167,23 @@ def matmul_tolerance(act: str, out_dtype) -> tuple:
 def attention_tolerance(dtype) -> tuple:
     """(rtol, atol) of ``flash_attention`` against ``chunked_attention``."""
     return (0.0, 2e-5) if dtype == torch.float32 else (1.6e-2, 1e-2)
+
+
+def lse_tolerance() -> tuple:
+    """(rtol, atol) of ``flash_attention``'s log-sum-exp against
+    ``chunked_attention``'s, in either dtype."""
+    return 1e-5, 1e-4
+
+
+def close_attention(name: str, got, want, dtype) -> float:
+    """An attention launch's output against the plain version's (each a
+    tensor, or (out, lse) where the launch returned its log-sum-exp):
+    :func:`attention_tolerance` on ``out``, :func:`lse_tolerance` on
+    ``lse``.  Returns the output's max abs err."""
+    if isinstance(got, tuple):
+        close(f"{name} lse", got[1], want[1], *lse_tolerance())
+        got, want = got[0], want[0]
+    return close(name, got, want, *attention_tolerance(dtype))
 
 
 def close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
@@ -248,14 +272,15 @@ def attention_kw(case: dict) -> dict:
 
 def check_attention(name: str, dtype, device, seed: int = 0) -> float:
     """Kernel vs ``chunked_attention`` for one case of
-    :data:`ATTENTION_CASES`.  Returns the max abs err."""
+    :data:`ATTENTION_CASES` (and its log-sum-exp where the case asks for
+    it, ``lse``).  Returns the output's max abs err."""
     case = ATTENTION_CASES[name]
     q, k, v = attention_inputs(case, dtype, device, seed)
-    kw = attention_kw(case)
+    kw = dict(attention_kw(case), return_lse=case.get("lse", False))
     got = _fa.flash_attention(q, k, v, **kw)
     want = _fa.chunked_attention(q, k, v, **kw)
-    return close(f"flash_attention {name} {dtype}", got, want,
-                 *attention_tolerance(dtype))
+    return close_attention(f"flash_attention {name} {dtype}", got, want,
+                           dtype)
 
 
 #: the cases whose gradient :func:`check_attention_grad` checks: the

@@ -36,6 +36,12 @@ entry took another route):
 ``flash_attention.launches`` counts the launches and
 ``flash_attention.launches_by_route`` splits them by route.
 
+With ``return_lse`` both versions also return each query row's
+log-sum-exp of its scaled logits (float32, the kernel writing it beside
+the output on either route): a decode over keys split across ranks weighs
+the ranks' outputs by it (``ops.attention_partial``,
+``ops.combine_partials``).  The output is the same with or without it.
+
 The kernel writes a fresh tensor through raw pointers, so its output has
 no autograd history.  :class:`FlashAttentionFn` gives it one: its forward
 calls the forward it is given (the kernel's wrapper on the card) and saves
@@ -68,10 +74,10 @@ ROUTE_NAME = {i: name for name, i in ROUTE_ID.items()}
 TC_MAX_HEAD_DIM = 128
 TC_HEAD_DIM_MULTIPLE = 8
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the C interface of csrc/flash_attention.cu: q, k, v, out, B, Hq, Hkv, Sq,
-#: Skv, D, Dv, scale, causal, has_window, window, q_offset, dtype, the
-#: route taken (out), stream
-ARGTYPES = [_VP] * 4 + [_I] * 7 + [_F] + [_I] * 5 + [_VP] * 2
+#: the C interface of csrc/flash_attention.cu: q, k, v, out, lse (out, or
+#: null), B, Hq, Hkv, Sq, Skv, D, Dv, scale, causal, has_window, window,
+#: q_offset, dtype, the route taken (out), stream
+ARGTYPES = [_VP] * 5 + [_I] * 7 + [_F] + [_I] * 5 + [_VP] * 2
 
 
 def route(dtype, d: int, dv: int) -> str:
@@ -112,10 +118,13 @@ def _fallback(fn):
 
 @_fallback
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
-                      kv_chunk: int = 1024):
+                      kv_chunk: int = 1024, return_lse: bool = False):
     """Online-softmax attention over KV chunks in plain PyTorch; never
     materializes Sq x Skv (peak temp Sq x kv_chunk per head).
-    q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv)."""
+    q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv).  With
+    ``return_lse`` also each row's log-sum-exp of its scaled logits, the
+    running max plus the log of the running sum, float32 (B, Hq, Sq):
+    ``ops.partial_softmax``'s logsumexp, masked keys at ``NEG_INF``."""
     b, hq, sq, d = q.shape
     dv = v.shape[-1]
     _, hkv, skv, _ = k.shape
@@ -145,7 +154,10 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
         acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vb)
         m = m_new
     l = torch.where(l == 0.0, torch.ones_like(l), l)
-    return (acc / l).reshape(b, hq, sq, dv).to(q.dtype)
+    out = (acc / l).reshape(b, hq, sq, dv).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l)).reshape(b, hq, sq)
 
 
 @_fallback
@@ -253,12 +265,14 @@ def _check(name: str, t: torch.Tensor, dtype, shape: tuple, device) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, return_lse: bool = False):
     """q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv); one
-    dtype, float32 or bfloat16.  Returns (B, Hq, Sq, Dv) in that dtype."""
+    dtype, float32 or bfloat16.  Returns (B, Hq, Sq, Dv) in that dtype;
+    with ``return_lse`` (out, lse), lse float32 (B, Hq, Sq) as
+    :func:`chunked_attention` gives it."""
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
+                                 q_offset=q_offset, return_lse=return_lse)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k and v must be 4-D")
     b, hq, sq, d = q.shape
@@ -278,12 +292,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "bytes at a time and needs q, k and v 16-byte "
                          "aligned")
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev) \
+        if return_lse else None
     fn = cuda_build.entry("flash_attention", ARGTYPES)
     taken = _I(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, hq, hkv, sq, skv, d, dv, 1.0 / math.sqrt(d), int(causal),
+                None if lse is None else lse.data_ptr(), b, hq, hkv, sq,
+                skv, d, dv, 1.0 / math.sqrt(d), int(causal),
                 int(window is not None), 0 if window is None else window,
                 q_offset, DTYPE_ID[q.dtype], ctypes.byref(taken), stream)
     cuda_build.check_launch("flash_attention", rc)
@@ -293,7 +310,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{taken.value}, the wrapper's rule says {kind}")
     flash_attention.launches += 1
     flash_attention.launches_by_route[took] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

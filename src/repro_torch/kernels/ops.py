@@ -27,6 +27,10 @@ cache whose slots are split across ranks runs apart:
 and the logsumexp of its logits) and :func:`combine_partials` (the
 slices' attentions weighted by their logsumexps, by reductions the
 caller passes in: this module knows no collectives).
+:func:`attention_partial` is the same first half over one slice of the
+keys of an attention without a cache mask (a cross-attention over a
+rank's encoder frames), and follows the device: the flash kernel with
+its log-sum-exp output on the card.
 """
 
 from __future__ import annotations
@@ -43,9 +47,10 @@ from repro_torch.kernels import vrf_alu as _vrf
 from repro_torch.kernels.flash_attention import (NEG_INF, FlashAttentionFn,
                                                  chunked_attention)
 
-__all__ = ["attention", "chunked_attention", "combine_partials",
-           "decode_attention", "decode_attention_partial", "force_plain",
-           "nmc_matmul", "partial_softmax", "vrf_alu"]
+__all__ = ["attention", "attention_partial", "chunked_attention",
+           "combine_partials", "decode_attention",
+           "decode_attention_partial", "force_plain", "nmc_matmul",
+           "partial_softmax", "vrf_alu"]
 
 _PLAIN = contextvars.ContextVar("repro_torch_force_plain", default=False)
 
@@ -97,6 +102,21 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0):
         return FlashAttentionFn.apply(q, k, v, forward, causal, window,
                                       q_offset)
     return forward(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def attention_partial(q, k, v, *, causal=True, window=None,
+                      lse: bool = True):
+    """Attention over one slice of the keys, for :func:`combine_partials`:
+    (o (B, Hq, Sq, Dv) in q's dtype, lse (B, Hq, Sq) float32, the
+    log-sum-exp of each row's scaled logits over the slice; None without
+    ``lse``, where the slice is all the keys).  The flash kernel on the
+    card (one launch, ``return_lse``), its plain version on the CPU and
+    under :func:`force_plain`; inference only (no autograd Function around
+    it)."""
+    forward = chunked_attention if _PLAIN.get() else _fa.flash_attention
+    out = forward(q.contiguous(), k.contiguous(), v.contiguous(),
+                  causal=causal, window=window, return_lse=lse)
+    return out if lse else (out, None)
 
 
 def _decode_mask(s: int, offset: int, cache_len, window, device):
@@ -157,11 +177,12 @@ def decode_attention_partial(q, k_cache, v_cache, cache_len, offset: int, *,
 
 def combine_partials(o, lse, all_max, all_sum) -> torch.Tensor:
     """The attention over every slice of the slots from each slice's
-    :func:`decode_attention_partial` (or :func:`partial_softmax`) parts:
-    each slice's ``o`` weighted by ``exp(lse - M)``, ``M`` the largest
-    ``lse`` over the slices, summed with the weights (one reduction of
-    both) and divided.  ``all_max`` / ``all_sum`` reduce a tensor over the
-    slices (the ranks that hold them).  Float32 (B, H, Dv)."""
+    :func:`decode_attention_partial` (or :func:`partial_softmax`, or
+    :func:`attention_partial`) parts: each slice's ``o`` weighted by
+    ``exp(lse - M)``, ``M`` the largest ``lse`` over the slices, summed
+    with the weights (one reduction of both) and divided.  ``all_max`` /
+    ``all_sum`` reduce a tensor over the slices (the ranks that hold them).
+    Float32 (B, H, Dv), or (B, H, Sq, Dv) for an ``o`` of that shape."""
     w = torch.exp(lse - all_max(lse))
     part = all_sum(torch.cat([o * w[..., None], w[..., None]], dim=-1))
     return part[..., :-1] / part[..., -1:]

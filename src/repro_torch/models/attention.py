@@ -41,7 +41,13 @@ the rank that holds its slot, attends over the rank's slots
 its logits) and combines the ranks' partials (``ops.combine_partials``:
 weighted by their logsumexps, a max and a sum over the split axes); each
 rank keeps its heads for the row-parallel ``wo`` (MLA: its heads'
-``W_uv`` first).
+``W_uv`` first).  An encoder-decoder's cross K/V follow the same rule
+over the encoder frames: its prefill hands the K / V of its local heads
+over to every head of its frames (:meth:`GQAttention.to_cache`, the
+slots' code), and its decode (:meth:`GQAttention.cross_decode`) attends
+every head's query over the rank's frames through the flash kernel with
+its log-sum-exp (``ops.attention_partial``) and combines the partials
+as above.
 
 Under sequence parallelism (``sp=True``, :mod:`~repro_torch.models.layers`)
 both enter their region by gathering the whole sequence and leave it by
@@ -131,22 +137,62 @@ class GQAttention(nn.Module):
         again)."""
         if self.mesh is not None:
             x = C.enter_region(x, self.mesh, sp)
-        positions = torch.arange(x.shape[1], device=x.device) + q_offset
         if kv is not None:
-            b, s, _ = x.shape
-            q = self.wq(x, nmc_mode=cfg.nmc_mode).reshape(
-                b, s, -1, cfg.head_dim)
-            if not cfg.learned_pos:
-                cos, sin = L.rope_table(positions, cfg.head_dim,
-                                        cfg.rope_theta)
-                q = L.apply_rope(q, cos, sin)
-            o = ops.attention(q.transpose(1, 2), *kv, causal=causal,
-                              window=cfg.window, q_offset=q_offset)
+            o = ops.attention(self._cross_q(x, cfg, q_offset), *kv,
+                              causal=causal, window=cfg.window,
+                              q_offset=q_offset)
             return self._out(o, cfg, sp)
+        positions = torch.arange(x.shape[1], device=x.device) + q_offset
         q, k, v = self.qkv(x, cfg, positions)
         o = ops.attention(q, k, v, causal=causal, window=cfg.window,
                           q_offset=q_offset)
         return self._out(o, cfg, sp)
+
+    def _cross_q(self, x: torch.Tensor, cfg: ModelConfig,
+                 q_offset: int = 0) -> torch.Tensor:
+        """A cross-attention's q (B, H, S, hd) from x (B, S, D), rope
+        applied at positions ``q_offset`` on (this rank's heads on a
+        mesh)."""
+        b, s, _ = x.shape
+        q = self.wq(x, nmc_mode=cfg.nmc_mode).reshape(b, s, -1, cfg.head_dim)
+        if not cfg.learned_pos:
+            positions = torch.arange(s, device=x.device) + q_offset
+            cos, sin = L.rope_table(positions, cfg.head_dim, cfg.rope_theta)
+            q = L.apply_rope(q, cos, sin)
+        return q.transpose(1, 2)
+
+    def to_cache(self, t: torch.Tensor, sh: sharding.Sharding
+                 ) -> torch.Tensor:
+        """t (B, KV, S, hd), this rank's KV heads of every position (every
+        KV head where ``wk`` / ``wv`` are whole), as its slice under the
+        cache's ``sh`` (:func:`cache_split`): gathered over the heads,
+        narrowed to the rank's positions."""
+        heads = C.MODEL_AXIS if self.wk.parallel == "col" else None
+        src = sharding.Sharding(sh.mesh, (sh.spec[0], heads, None, None))
+        return sharding.relayout(t, src, sh.spec)
+
+    def cross_decode(self, x: torch.Tensor, cfg: ModelConfig, kv: tuple,
+                     sh: sharding.Sharding | None = None) -> torch.Tensor:
+        """One token's cross-attention over an encoder output's K / V (B,
+        KV, S_enc, hd).  ``sh``: on a ``model`` axis their layout
+        (:func:`cache_split`: every KV head, this rank's frames): every
+        head's q gathered over ``model``, the attention over the rank's
+        frames (``ops.attention_partial``: the flash kernel, with its
+        log-sum-exp where the frames are split), the ranks' partials
+        combined over the axes that split them, the rank's heads on to the
+        row-parallel ``wo``; one rank's attention over all the frames
+        otherwise (the same launch, no log-sum-exp).  The query sits at
+        position 0, so a window hides no frame, as in :meth:`forward`.
+        Returns (B, 1, D)."""
+        q = self._cross_q(x, cfg)
+        axes = () if sh is None else sharding.split_axes(sh, 2)
+        if sh is not None and self.mesh is not None:
+            q = C.all_gather(q, C.MODEL_AXIS, self.mesh, 1)
+        o, lse = ops.attention_partial(q, *kv, causal=False, lse=bool(axes))
+        o = _combine(o, lse, axes, None if sh is None else sh.mesh)
+        if sh is not None:
+            o = _local_heads(o, self.mesh)
+        return self._out(o.to(x.dtype), cfg)
 
     def prefill(self, x: torch.Tensor, cfg: ModelConfig, max_len: int,
                 cache_sh: dict | None = None) -> tuple:
@@ -167,12 +213,8 @@ class GQAttention(nn.Module):
         pad = (0, 0, 0, max_len - s)
         kp, vp = F.pad(k, pad), F.pad(v, pad)
         if cache_sh is not None:
-            # this rank's KV heads of every slot -> every head of its slots
             sh = cache_split(cache_sh)
-            heads = C.MODEL_AXIS if self.wk.parallel == "col" else None
-            src = sharding.Sharding(sh.mesh, (sh.spec[0], heads, None, None))
-            kp = sharding.relayout(kp, src, sh.spec)
-            vp = sharding.relayout(vp, src, sh.spec)
+            kp, vp = self.to_cache(kp, sh), self.to_cache(vp, sh)
         if cfg.kv_cache_dtype == "int8":
             kq, ks = quant_kv(kp)
             vq, vs = quant_kv(vp)
@@ -432,9 +474,10 @@ class MLAttention(nn.Module):
 
 def cache_split(cache_sh: dict) -> sharding.Sharding:
     """The Sharding of one layer's attention cache that splits its slots
-    (GQA's ``k`` (B, KV, S, hd) on dim 2, MLA's ``ckv`` (B, S, r) on dim
-    1): every field must split the same slots and nothing else but the
-    batch (dim 0), else the layout is one the port does not serve."""
+    (GQA's ``k`` (B, KV, S, hd) on dim 2, an encoder-decoder's cross K/V
+    on its frames there too, MLA's ``ckv`` (B, S, r) on dim 1): every
+    field must split the same slots and nothing else but the batch (dim
+    0), else the layout is one the port does not serve."""
     key = "ckv" if "ckv" in cache_sh else "k"
     sh = cache_sh[key]
     seq = 1 if key == "ckv" else 2

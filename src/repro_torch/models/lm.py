@@ -50,16 +50,23 @@ per-output-channel scales span its whole input dim), and the caches are
 this rank's slices under ``sharding.cache_shardings`` (the reference's
 GSPMD layout): the batch over the data axes, and on a ``model`` axis the
 attention caches' slots (a batch-1 cache's over the data axes and
-``model`` together), the Mamba2 states by the same rule.  Prefill runs
-the model-parallel regions as the forward does and hands each layer's
-cache over to that layout; decode reads and updates it in place (each
-rank attends over its slots, the ranks' partials combined, ``kv``
-attention's and MLA's heads gathered for it; the Mamba2 states gathered
-to the rank's heads and written back).  The logits are this rank's rows
-with the whole vocabulary.  A batch is this rank's rows (the global
-batch's under ``sharding.batch_shardings``); ``cache_len`` is the global
-batch's, as the reference's replicated argument.  The encoder-decoder and
-the xLSTM serve on data axes only.
+``model`` together), the encoder-decoder's cross K/V over the encoder
+frames, the Mamba2 and xLSTM states by the same rule (their longest dim:
+an mLSTM ``C`` / ``n`` over its key dim, its ``m`` over heads, an sLSTM
+state over its channels).  Prefill runs the model-parallel regions as the
+forward does and hands each layer's cache over to that layout; decode
+reads and updates it in place (each rank attends over its slots or its
+frames, the ranks' partials combined, the heads of ``kv`` attention, of
+a cross-attention and of MLA gathered for it; the Mamba2 and xLSTM
+states gathered to the rank's heads and written back).  The logits are
+this rank's rows with the whole vocabulary.  A batch is this rank's rows
+(the global batch's under ``sharding.batch_shardings``); ``cache_len`` is
+the global batch's, as the reference's replicated argument.  A layout
+that splits a stack dim (a batch equal to an encoder-decoder's decoder
+layers, on a data axis: the rule takes the first dim of the batch's
+size) is refused where it is used: by ``init_caches``, and by prefill
+and decode on a ``model`` axis (on data axes alone they hold this rank's
+rows).
 
 Activation checkpointing (``cfg.remat``, the reference's ``_maybe_remat``)
 wraps the training forward at the reference's granularity: one
@@ -154,26 +161,10 @@ def _stack(caches: list) -> dict:
 
 
 def _stacked(one: dict, lead: tuple) -> dict:
-    """``{field: (shape, dtype)}`` with ``lead`` stack dims in front."""
-    return {k: (lead + tuple(shape), dt) for k, (shape, dt) in one.items()}
-
-
-def _zeros(fields: dict, device) -> dict:
-    """Zero tensors of ``{field: (shape, dtype)}``."""
-    return {k: torch.zeros(shape, dtype=dt, device=device)
-            for k, (shape, dt) in fields.items()}
-
-
-class _Shape:
-    """A cache leaf's shape for ``sharding.cache_shardings`` (which reads
-    ``shape`` and ``dim()`` only): a layout worked out inside a traced
-    step allocates nothing."""
-
-    def __init__(self, shape: tuple):
-        self.shape = torch.Size(shape)
-
-    def dim(self) -> int:
-        return len(self.shape)
+    """``{field: (shape, dtype)}`` as ``{field: sharding.CacheField}``
+    with ``lead`` stack dims in front."""
+    return {k: sharding.CacheField(lead + tuple(shape), dt)
+            for k, (shape, dt) in one.items()}
 
 
 class DecoderBlock(nn.Module):
@@ -276,41 +267,67 @@ class CrossDecoderBlock(nn.Module):
                    L.LayerNorm.init(d, cfg.norm_eps, device),
                    L.MLP.init(gen, d, cfg.d_ff, "gelu", device))
 
-    def cross_kv(self, enc: torch.Tensor, cfg: ModelConfig) -> tuple:
+    def cross_kv(self, enc: torch.Tensor, cfg: ModelConfig,
+                 select: bool = True) -> tuple:
         """The encoder output's keys and values (B, KV, S_enc, hd), by
         ``xattn``'s ``wk`` / ``wv`` without ``nmc_mode``, as the
         reference's ``_cross_kv``: the float weights, or once quantized
         the w8 form (weights dequantized, then a matmul in the activation
-        dtype); never an ``nmc_matmul`` launch."""
+        dtype); never an ``nmc_matmul`` launch.  On a mesh this rank's KV
+        heads (with ``select`` False, every KV head where ``wk`` / ``wv``
+        are whole)."""
         b, se, _ = enc.shape
-        # this rank's KV heads on a mesh (``enc`` entered the region in
-        # EncDecLM.hidden)
+        # ``enc`` entered the region in EncDecLM.hidden
         shape = (b, se, -1, cfg.head_dim)
         k = self.xattn.wk(enc).reshape(shape)
         v = self.xattn.wv(enc).reshape(shape)
-        if self.xattn.kv_select is not None:
+        if select and self.xattn.kv_select is not None:
             k, v = k[:, :, self.xattn.kv_select], v[:, :, self.xattn.kv_select]
         return k.transpose(1, 2), v.transpose(1, 2)
+
+    def _mlp(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        return x + self.mlp(self.ln2(x), "gelu", nmc_mode=cfg.nmc_mode)
 
     def _cross_and_mlp(self, x: torch.Tensor, kv: tuple,
                        cfg: ModelConfig) -> torch.Tensor:
         x = x + self.xattn(self.lnx(x), cfg, causal=False, kv=kv)
-        return x + self.mlp(self.ln2(x), "gelu", nmc_mode=cfg.nmc_mode)
+        return self._mlp(x, cfg)
 
     def forward(self, x: torch.Tensor, kv: tuple,
                 cfg: ModelConfig) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), cfg, causal=True)
         return self._cross_and_mlp(x, kv, cfg)
 
-    def prefill(self, x: torch.Tensor, kv: tuple, cfg: ModelConfig,
-                max_len: int) -> tuple:
-        y, cache = self.attn.prefill(self.ln1(x), cfg, max_len)
-        return self._cross_and_mlp(x + y, kv, cfg), cache
+    def prefill(self, x: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig,
+                max_len: int, cache_sh: dict | None = None) -> tuple:
+        """(x after the layer, its self-attention cache, its cross K/V).
+        ``cache_sh``: on a ``model`` axis, :meth:`EncDecLM.cache_layout`;
+        the caches returned are this rank's slices (the cross K/V every
+        KV head of its frames)."""
+        kv = self.cross_kv(enc, cfg, select=cache_sh is None)
+        y, cache = self.attn.prefill(self.ln1(x), cfg, max_len,
+                                     cache_sh and cache_sh["layers"])
+        kv_x = kv
+        if cache_sh is not None:
+            sel = self.xattn.kv_select
+            if sel is not None:
+                kv_x = (kv[0][:, sel], kv[1][:, sel])
+            sh = A.cache_split({"k": cache_sh["cross_k"],
+                                "v": cache_sh["cross_v"]})
+            kv = tuple(self.xattn.to_cache(t, sh) for t in kv)
+        return self._cross_and_mlp(x + y, kv_x, cfg), cache, kv
 
     def decode_step(self, x: torch.Tensor, kv: tuple, cfg: ModelConfig,
-                    cache: dict, cache_len: torch.Tensor) -> torch.Tensor:
-        y, _ = self.attn.decode_step(self.ln1(x), cfg, cache, cache_len)
-        return self._cross_and_mlp(x + y, kv, cfg)
+                    cache: dict, cache_len: torch.Tensor,
+                    cache_sh: dict | None = None) -> torch.Tensor:
+        """``cache_sh``: as in :meth:`prefill`; ``kv`` and ``cache`` are
+        this rank's slices."""
+        x = x + self.attn.decode_step(self.ln1(x), cfg, cache, cache_len,
+                                      cache_sh and cache_sh["layers"])[0]
+        cross_sh = None if cache_sh is None else A.cache_split(
+            {"k": cache_sh["cross_k"], "v": cache_sh["cross_v"]})
+        return self._mlp(x + self.xattn.cross_decode(self.lnx(x), cfg, kv,
+                                                      cross_sh), cfg)
 
 
 class LMBase(nn.Module):
@@ -327,40 +344,54 @@ class LMBase(nn.Module):
 
     #: the layout on a mesh (:func:`shard`), None on one rank
     layout: sharding.Layout | None = None
+    #: the stack dims in front of each cache key's fields (its layers; a
+    #: hybrid's Mamba2 groups and layers; none for the xLSTM's per-block
+    #: states), 1 where a key is not named
+    CACHE_STACK_DIMS: dict = {}
+
+    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
+                    dtype, device=None, shardings=None):
+        """The caches of :meth:`cache_shapes`, each field at its initial
+        value (0; an xLSTM max state's ``M0``); with ``shardings`` (their
+        ``sharding.cache_shardings``) only this rank's slices."""
+        device = device or self.device
+        return sharding.map_tree(
+            lambda f, sh: f.full(device, sh),
+            self.cache_shapes(cfg, batch, max_len, dtype), shardings)
 
     def stacked_cache_layout(self, cfg: ModelConfig, batch: int,
                              max_len: int) -> tuple:
-        """(``{key: {field: _Shape}}`` of the stacked caches, their
+        """(the stacked caches' tree of ``sharding.CacheField`` s, their
         ``sharding.cache_shardings`` on this model's mesh) for a global
         ``batch`` and ``max_len``."""
-        full = {key: {k: _Shape(shape) for k, (shape, _) in fields.items()}
-                for key, fields in self.cache_shapes(
-                    cfg, batch, max_len, torch.bfloat16).items()}
+        full = self.cache_shapes(cfg, batch, max_len, torch.bfloat16)
         return full, sharding.cache_shardings(full, self.layout.mesh, batch)
 
     def cache_layout(self, cfg: ModelConfig, batch: int,
                      max_len: int) -> dict:
         """The caches' layout on this model's mesh for a global ``batch``
-        and ``max_len``: per cache key, one layer's Shardings ({field:
-        Sharding}), those ``sharding.cache_shardings`` gives the stacked
-        caches with their stack dims (a layer; a hybrid's Mamba2 group and
-        layer) dropped, which must be whole."""
+        and ``max_len``: per cache key, one layer's Shardings (the key's
+        tree: ``{field: Sharding}``, one Sharding, a list of tuples), those
+        ``sharding.cache_shardings`` gives the stacked caches with their
+        stack dims (:data:`CACHE_STACK_DIMS`) dropped, which must be
+        whole."""
         full, shs = self.stacked_cache_layout(cfg, batch, max_len)
-        out = {}
-        for key, tree in shs.items():
-            lead = 2 if key == "mamba" else 1
-            out[key] = {}
-            for field, sh in tree.items():
-                if any(p is not None for p in sh.spec[:lead]):
-                    raise NotImplementedError(
-                        f"{cfg.name}: cache {key}.{field} of "
-                        f"{tuple(full[key][field].shape)} laid out as "
-                        f"{sh.spec} for a batch of {batch}: a stack dim is "
-                        f"split (the batch is not the first dim of that "
-                        f"size)")
-                out[key][field] = sharding.Sharding(sh.mesh,
-                                                    tuple(sh.spec[lead:]))
-        return out
+        shapes = sharding.flat_tree(full)
+        for path, sh in sharding.flat_tree(shs).items():
+            lead = self.CACHE_STACK_DIMS.get(path.split(".")[0], 1)
+            if any(p is not None for p in sh.spec[:lead]):
+                raise NotImplementedError(
+                    f"{cfg.name}: cache {path} of "
+                    f"{tuple(shapes[path].shape)} laid out as {sh.spec} for "
+                    f"a batch of {batch}: a stack dim is split (the batch "
+                    f"is not the first dim of that size)")
+
+        def unstacked(key, tree):
+            n = self.CACHE_STACK_DIMS.get(key, 1)
+            return sharding.map_tree(
+                lambda sh, _: sharding.Sharding(sh.mesh, tuple(sh.spec[n:])),
+                tree)
+        return {key: unstacked(key, tree) for key, tree in shs.items()}
 
     def splits_rows(self, batch: dict, cfg: ModelConfig) -> bool:
         """Whether the teacher-forced forward over ``batch`` splits its
@@ -489,16 +520,11 @@ class DecoderLM(LMBase):
 
     def cache_shapes(self, cfg: ModelConfig, batch: int, max_len: int,
                      dtype) -> dict:
-        """``{key: {field: (shape, dtype)}}`` of the caches, each layer's
-        cache stacked over its stack's layers."""
+        """``{key: {field: sharding.CacheField}}`` of the caches, each
+        layer's cache stacked over its stack's layers."""
         one = A.cache_shapes(cfg, batch, max_len, dtype)
         return {key: _stacked(one, (len(blocks),))
                 for key, blocks in self.stacks()}
-
-    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
-                    dtype, device=None) -> dict:
-        return {key: _zeros(fields, device or self.device) for key, fields
-                in self.cache_shapes(cfg, batch, max_len, dtype).items()}
 
 
 class HybridLM(LMBase):
@@ -506,6 +532,8 @@ class HybridLM(LMBase):
     ``attn_every`` Mamba2 layers, each group followed by the ONE
     ``shared_attn`` block (RMSNorm, GQA, MLP), whose weights every group
     reuses."""
+
+    CACHE_STACK_DIMS = {"mamba": 2}
 
     def __init__(self, embed: L.Embedding, mamba: list,
                  shared_attn: DecoderBlock, final_norm: L.RMSNorm,
@@ -581,18 +609,13 @@ class HybridLM(LMBase):
 
     def cache_shapes(self, cfg: ModelConfig, batch: int, max_len: int,
                      dtype) -> dict:
-        """``{key: {field: (shape, dtype)}}``: the Mamba2 states stacked
-        (groups, layers), the shared block's caches (groups)."""
+        """``{key: {field: sharding.CacheField}}``: the Mamba2 states
+        stacked (groups, layers), the shared block's caches (groups)."""
         groups = (len(self.mamba), len(self.mamba[0]))
         return {"mamba": _stacked(SSM.state_shapes(cfg, batch, dtype),
                                   groups),
                 "attn": _stacked(A.cache_shapes(cfg, batch, max_len, dtype),
                                  groups[:1])}
-
-    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
-                    dtype, device=None) -> dict:
-        return {key: _zeros(fields, device or self.device) for key, fields
-                in self.cache_shapes(cfg, batch, max_len, dtype).items()}
 
 
 class EncDecLM(LMBase):
@@ -648,22 +671,24 @@ class EncDecLM(LMBase):
         x = self.hidden(self.inputs(batch, cfg), enc, cfg)
         return self.logits(x, cfg), torch.zeros((), device=x.device)
 
-    def prefill(self, batch: dict, cfg: ModelConfig, max_len: int) -> tuple:
+    def prefill(self, batch: dict, cfg: ModelConfig, max_len: int,
+                cache_sh: dict | None = None) -> tuple:
+        """``cache_sh``: :meth:`cache_layout` on a ``model`` axis."""
         enc = self.encode(batch["frames"], cfg)
         x = self.inputs(batch, cfg)
         cs, ks, vs = [], [], []
         for blk in self.layers:
-            kv = blk.cross_kv(enc, cfg)
-            x, c = blk.prefill(x, kv, cfg, max_len)
+            x, c, (k, v) = blk.prefill(x, enc, cfg, max_len, cache_sh)
             cs.append(c)
-            ks.append(kv[0])
-            vs.append(kv[1])
+            ks.append(k)
+            vs.append(v)
         return self.logits(x, cfg, last=True), {
             "layers": _stack(cs), "cross_k": torch.stack(ks),
             "cross_v": torch.stack(vs)}
 
     def decode_step(self, tokens: torch.Tensor, caches: dict,
-                    cache_len: torch.Tensor, cfg: ModelConfig) -> tuple:
+                    cache_len: torch.Tensor, cfg: ModelConfig,
+                    cache_sh: dict | None = None) -> tuple:
         table = self.pos_dec.table
         pos = torch.clamp(cache_len - 1, 0, table.shape[0] - 1).long()
         x = self.embed(tokens, cfg.dtype) + table[pos][:, None, :].to(
@@ -672,24 +697,28 @@ class EncDecLM(LMBase):
         for i, blk in enumerate(self.layers):
             x = blk.decode_step(
                 x, (caches["cross_k"][i], caches["cross_v"][i]), cfg,
-                {k: t[i] for k, t in stack.items()}, cache_len)
+                {k: t[i] for k, t in stack.items()}, cache_len, cache_sh)
         return self.logits(x, cfg)[:, 0], caches
 
-    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
-                    dtype, device=None) -> dict:
+    def cache_shapes(self, cfg: ModelConfig, batch: int, max_len: int,
+                     dtype) -> dict:
+        """``{"layers": {field: CacheField}, "cross_k" / "cross_v":
+        CacheField}`` (``sharding.CacheField``): the self-attention caches
+        and the encoder output's keys and values, each stacked over the
+        decoder layers."""
         n = len(self.layers)
-        device = device or self.device
-        cross = (n, batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim)
-        return {"layers": _zeros(_stacked(
-                    A.cache_shapes(cfg, batch, max_len, dtype), (n,)),
-                    device),
-                "cross_k": torch.zeros(cross, dtype=dtype, device=device),
-                "cross_v": torch.zeros(cross, dtype=dtype, device=device)}
+        cross = sharding.CacheField(
+            (n, batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim), dtype)
+        return {"layers": _stacked(A.cache_shapes(cfg, batch, max_len,
+                                                  dtype), (n,)),
+                "cross_k": cross, "cross_v": cross}
 
 
 class XLSTMLM(LMBase):
     """xLSTM: a stack of mLSTM blocks with sLSTM blocks at
     ``cfg.slstm_layers``, each block holding its own residual."""
+
+    CACHE_STACK_DIMS = {"blocks": 0}
 
     def __init__(self, embed: L.Embedding, blocks: list,
                  final_norm: L.RMSNorm, head: L.NmcLinear):
@@ -709,28 +738,36 @@ class XLSTMLM(LMBase):
         x, aux = self.hidden(self.inputs(batch, cfg), cfg)
         return self.logits(x, cfg), aux
 
-    def prefill(self, batch: dict, cfg: ModelConfig, max_len: int) -> tuple:
+    def prefill(self, batch: dict, cfg: ModelConfig, max_len: int,
+                cache_sh: dict | None = None) -> tuple:
+        """``cache_sh``: :meth:`cache_layout` on a ``model`` axis (each
+        block's state laid out from its heads to it)."""
         x = self.inputs(batch, cfg)
         states = []
-        for blk in self.blocks:
+        for i, blk in enumerate(self.blocks):
             x, st = blk(x, cfg, return_state=True)
-            states.append(st)
+            states.append(st if cache_sh is None
+                          else blk.laid_out(st, cache_sh["blocks"][i]))
         return self.logits(x, cfg, last=True), {"blocks": states}
 
     def decode_step(self, tokens: torch.Tensor, caches: dict,
-                    cache_len: torch.Tensor, cfg: ModelConfig) -> tuple:
+                    cache_len: torch.Tensor, cfg: ModelConfig,
+                    cache_sh: dict | None = None) -> tuple:
         x = self.embed(tokens, cfg.dtype)
-        for blk, st in zip(self.blocks, caches["blocks"]):
-            x = blk.decode_step(x, cfg, st)
+        for i, (blk, st) in enumerate(zip(self.blocks, caches["blocks"])):
+            x = blk.decode_step(x, cfg, st,
+                                cache_sh and cache_sh["blocks"][i])
         return self.logits(x, cfg)[:, 0], caches
 
-    def init_caches(self, cfg: ModelConfig, batch: int, max_len: int,
-                    dtype, device=None) -> dict:
-        """Zero states, float32 whatever ``dtype`` is (as the
-        reference)."""
+    def cache_shapes(self, cfg: ModelConfig, batch: int, max_len: int,
+                     dtype) -> dict:
+        """``{"blocks": [one block's state fields, ...]}``, float32
+        whatever ``dtype`` is (as the reference), unstacked
+        (:func:`~repro_torch.models.xlstm.mlstm_state_shapes`,
+        :func:`~repro_torch.models.xlstm.slstm_state_shapes`)."""
         return {"blocks": [
-            (XL.slstm_state_init if isinstance(blk, XL.SLSTM)
-             else XL.mlstm_state_init)(cfg, batch, device or self.device)
+            (XL.slstm_state_shapes if isinstance(blk, XL.SLSTM)
+             else XL.mlstm_state_shapes)(cfg, batch)
             for blk in self.blocks]}
 
 
@@ -855,21 +892,6 @@ def loss_fn(params: LMBase, batch: dict, cfg: ModelConfig,
     return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 
 
-#: the families that serve on data axes only: their caches' layouts on a
-#: ``model`` axis (whisper's cross K/V split on the head dim, the xLSTM's
-#: C states on a 384 axis) wait for ROADMAP queue 1 item 6.6
-DATA_ONLY_SERVING = ("encdec", "xlstm")
-
-
-def _check_serving(params: LMBase, cfg: ModelConfig) -> None:
-    _check_family(cfg)
-    if params.layout is not None and params.layout.mesh.model_size() > 1 \
-            and cfg.family in DATA_ONLY_SERVING:
-        raise NotImplementedError(
-            f"{cfg.name}: serving the {cfg.family} family on a 'model' axis "
-            f"(its caches laid out by cache_shardings) is ROADMAP item 6.6")
-
-
 def _rows(lay: sharding.Layout, n: int) -> tuple:
     """(this rank's first row, its rows) of a global batch of ``n`` rows
     (``sharding.batch_shardings``: split over the data axes where they
@@ -896,8 +918,11 @@ def prefill(params: LMBase, batch: dict, cfg: ModelConfig, max_len: int,
     ``global_batch`` rows, which a ``model`` axis needs (a batch copied
     to every data rank and one split over them hold the same local rows
     and are laid out apart), and the caches are this rank's slices under
-    ``cache_shardings`` (module docstring)."""
-    _check_serving(params, cfg)
+    ``cache_shardings`` (module docstring); on data axes alone, this
+    rank's rows whatever that layout is (a batch equal to a stack dim,
+    ROADMAP fact 21, is served here, while :func:`init_caches` refuses
+    it)."""
+    _check_family(cfg)
     lay = params.layout
     if lay is None or lay.mesh.model_size() == 1:
         return params.prefill(batch, cfg, max_len)
@@ -920,7 +945,7 @@ def decode_step(params: LMBase, tokens: torch.Tensor, caches: dict,
     ``max_len`` is the caches' full length (that of :func:`init_caches`
     or :func:`prefill`), which their slices do not tell, and every slice
     must have the shape that layout gives it."""
-    _check_serving(params, cfg)
+    _check_family(cfg)
     lay = params.layout
     if lay is None:
         return params.decode_step(tokens, caches, cache_len, cfg)
@@ -944,31 +969,31 @@ def _check_slices(params: LMBase, cfg: ModelConfig, caches: dict, n: int,
     gives this rank for ``n`` rows of ``max_len`` (a cache laid out for
     another batch or length)."""
     full, lay = params.stacked_cache_layout(cfg, n, max_len)
-    for key, fields in full.items():
-        for name, t in fields.items():
-            want = sharding.local_shape(tuple(t.shape), lay[key][name])
-            got = tuple(caches[key][name].shape)
-            if got != want:
-                raise ValueError(
-                    f"{cfg.name}: cache {key}.{name} is {got} on this rank, "
-                    f"its layout for {n} rows of {max_len} gives {want}")
+    shs, got = sharding.flat_tree(lay), sharding.flat_tree(caches)
+    for path, f in sharding.flat_tree(full).items():
+        want = sharding.local_shape(tuple(f.shape), shs[path])
+        if tuple(got[path].shape) != want:
+            raise ValueError(
+                f"{cfg.name}: cache {path} is {tuple(got[path].shape)} on "
+                f"this rank, its layout for {n} rows of {max_len} gives "
+                f"{want}")
 
 
 @torch.inference_mode()
 def init_caches(params: LMBase, cfg: ModelConfig, batch: int,
                 max_len: int, dtype=torch.bfloat16) -> dict:
-    """Zero caches for ``batch`` rows of ``max_len``; on a mesh this
-    rank's slices of the global batch's under ``cache_shardings``, and
-    only those allocated."""
-    _check_serving(params, cfg)
+    """Initial caches for ``batch`` rows of ``max_len`` (zeros; an
+    xLSTM's max states at ``M0``); on a mesh this rank's slices of the
+    global batch's under ``cache_shardings``, and only those allocated.
+    A layout that splits a stack dim raises ``NotImplementedError``
+    (:meth:`LMBase.cache_layout`), on any mesh (ROADMAP fact 21)."""
+    _check_family(cfg)
     lay = params.layout
     if lay is None:
         return params.init_caches(cfg, batch, max_len, dtype)
-    full = params.init_caches(cfg, batch, max_len, dtype, "meta")
-    return sharding.map_tree(
-        lambda t, sh: torch.zeros(sharding.local_shape(tuple(t.shape), sh),
-                                  dtype=t.dtype, device=params.device),
-        full, sharding.cache_shardings(full, lay.mesh, batch))
+    params.cache_layout(cfg, batch, max_len)        # raises where it must
+    _, shs = params.stacked_cache_layout(cfg, batch, max_len)
+    return params.init_caches(cfg, batch, max_len, dtype, shardings=shs)
 
 
 @torch.no_grad()

@@ -141,7 +141,7 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return (y_diag + y_off).reshape(bsz, s, h, p), state
 
 
-class Mamba2(nn.Module):
+class Mamba2(sharding.ServedState, nn.Module):
     """One Mamba2 layer: the z / x / B / C / dt projections, the causal
     depthwise convs over x (``conv_x``) and over B and C together
     (``conv_bc``), the SSD, the gated RMSNorm and ``out_proj``.  On a mesh
@@ -256,19 +256,6 @@ class Mamba2(nn.Module):
                 "conv_x": (batch_part, None, heads),
                 "conv_bc": (batch_part, None, None)}
 
-    def laid_out(self, state: dict, state_sh: dict) -> dict:
-        """A state as :meth:`state_specs` lays it out, as this rank's slice
-        of it under ``state_sh`` ({field: Sharding}, the cache's layout):
-        gathered where the cache splits a dim the computation does not
-        (``conv_bc``'s channels over ``model``; at batch 1 ``conv_x``'s
-        over the data axes and ``model`` together), narrowed where it
-        splits one the computation holds whole."""
-        mesh = state_sh["ssm"].mesh
-        want = self.state_specs(state_sh["ssm"].spec[0])
-        return {k: sharding.relayout(t, sharding.Sharding(mesh, want[k]),
-                                     state_sh[k].spec)
-                for k, t in state.items()}
-
     def decode_step(self, x: torch.Tensor, cfg: ModelConfig, state: dict,
                     state_sh: dict | None = None) -> torch.Tensor:
         """One token.  x: (B, 1, D); ``state`` (:func:`state_init`'s
@@ -277,18 +264,10 @@ class Mamba2(nn.Module):
         :meth:`state_specs`, stepped, and this rank's slice written back.
         Returns (B, 1, D)."""
         z, xs_raw, bm_raw, cm_raw, dt = self._proj(x, cfg)
-        work = state
-        if state_sh is not None:
-            want = self.state_specs(state_sh["ssm"].spec[0])
-            work = {k: sharding.relayout(t, state_sh[k], want[k])
-                    for k, t in state.items()}
+        work = self.gathered(state, state_sh)
         y = self.recurrent_step(xs_raw, torch.cat([bm_raw, cm_raw], dim=-1),
                                 self._local_heads(dt), cfg, work)
-        if state_sh is not None:
-            for k, new in self.laid_out(
-                    {k: t for k, t in work.items() if t is not state[k]},
-                    state_sh).items():
-                state[k].copy_(new)
+        self.write_back(state, work, state_sh)
         return self._gated_out(y, z, cfg)
 
     def recurrent_step(self, xs_raw: torch.Tensor, bc_raw: torch.Tensor,

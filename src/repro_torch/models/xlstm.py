@@ -36,8 +36,17 @@ column-parallel over the head-major ``d``, ``r_*`` split over heads, the
 time loop on the local heads with no collective inside it, its hidden
 states gathered before the residual; the FFN follows the layout of its
 ``up`` and ``down`` (``fix_divisibility`` may keep either whole).
-Decode and the state initialisers for serving read ``cfg.n_heads`` and
-run on one rank (serving a model sharded over ``model`` raises).
+
+Serving on such a mesh keeps each block's state laid out by
+``sharding.cache_shardings`` (the rule's longest dim over ``model``: an
+mLSTM's ``C`` and ``n`` over their first key dim P, not the heads, its
+``m`` over the heads; an sLSTM state over its ``d_model`` channels, the
+rank's own heads' at a batch over 1; at a batch of one over the data
+axes and ``model`` together).  Each block computes in its heads
+(:meth:`MLSTM.state_specs`, :meth:`SLSTM.state_specs`): the decode step
+gathers each state to that layout, steps it and writes this rank's slice
+back, as ``Mamba2`` does; the prefill lays its final state out the same
+way (``laid_out``).
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed import context as C
+from repro_torch.distributed import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -146,7 +156,7 @@ def mlstm_head_dim(cfg: ModelConfig) -> int:
     return int(cfg.d_model * cfg.proj_factor_mlstm) // cfg.n_heads
 
 
-class MLSTM(nn.Module):
+class MLSTM(sharding.ServedState, nn.Module):
     """One mLSTM block: RMSNorm, the up projection ``up`` and its silu gate
     ``up_gate`` (d -> d_i = d * proj_factor_mlstm), q / k / v (d_i -> d_i),
     the per-head input and forget gates ``wi`` / ``wf`` (d_i -> H), the
@@ -224,21 +234,39 @@ class MLSTM(nn.Module):
         out = self._out(x, y, g, cfg)
         return (out, state) if return_state else out
 
-    def decode_step(self, x: torch.Tensor, cfg: ModelConfig,
-                    state: tuple) -> torch.Tensor:
-        """One token.  x: (B, 1, D); ``state`` is updated in place."""
+    def state_specs(self, batch_part) -> tuple:
+        """The state ``(C, n, m)`` as this rank computes it: over its
+        heads (dim 1) on a mesh, the batch dim as ``batch_part``."""
+        heads = C.MODEL_AXIS if self.mesh is not None else None
+        return ((batch_part, heads, None, None), (batch_part, heads, None),
+                (batch_part, heads))
+
+    def decode_step(self, x: torch.Tensor, cfg: ModelConfig, state: tuple,
+                    state_sh: tuple | None = None) -> torch.Tensor:
+        """One token.  x: (B, 1, D); ``state`` is updated in place.
+        ``state_sh``: on a mesh, the state's layout: each field is gathered
+        to :meth:`state_specs`, stepped, and this rank's slice written
+        back."""
         g, q, k, v, log_i, log_f = self._proj(x, cfg)
+        work = self.gathered(state, state_sh)
         y = mlstm_step(q[:, 0], k[:, 0], v[:, 0], log_i[:, 0], log_f[:, 0],
-                       state)
+                       work)
+        self.write_back(state, work, state_sh)
         return self._out(x, y, g, cfg)
 
 
+def mlstm_state_shapes(cfg: ModelConfig, batch: int) -> tuple:
+    """One mLSTM block's state fields ``(C, n, m)`` as
+    ``sharding.CacheField`` s: (B,H,P,P), (B,H,P) zeros and (B,H) at
+    ``M0``, float32."""
+    h, p, f32 = cfg.n_heads, mlstm_head_dim(cfg), torch.float32
+    return (sharding.CacheField((batch, h, p, p), f32),
+            sharding.CacheField((batch, h, p), f32),
+            sharding.CacheField((batch, h), f32, M0))
+
+
 def mlstm_state_init(cfg: ModelConfig, batch: int, device=None) -> tuple:
-    h, p = cfg.n_heads, mlstm_head_dim(cfg)
-    kw = {"dtype": torch.float32, "device": device}
-    return (torch.zeros((batch, h, p, p), **kw),
-            torch.zeros((batch, h, p), **kw),
-            torch.full((batch, h), M0, **kw))
+    return tuple(f.full(device) for f in mlstm_state_shapes(cfg, batch))
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +277,7 @@ def mlstm_state_init(cfg: ModelConfig, batch: int, device=None) -> tuple:
 GATES = ("z", "i", "f", "o")
 
 
-class SLSTM(nn.Module):
+class SLSTM(sharding.ServedState, nn.Module):
     """One sLSTM block: RMSNorm, the input projections ``w_z`` / ``w_i`` /
     ``w_f`` / ``w_o`` (d -> d), the block-diagonal recurrent weights
     ``r_z`` ... (H, P, P) float32, the scalar memory, a residual; then
@@ -366,20 +394,36 @@ class SLSTM(nn.Module):
         out = self._ffn(x + hs.to(x.dtype), cfg)
         return (out, last) if return_state else out
 
-    def decode_step(self, x: torch.Tensor, cfg: ModelConfig,
-                    state: tuple) -> torch.Tensor:
-        """One token.  x: (B, 1, D); ``state`` is updated in place."""
-        out, last = self(x, cfg, return_state=True, state=state)
-        for t, new in zip(state, last):
-            t.copy_(new)
+    def state_specs(self, batch_part) -> tuple:
+        """The state ``(c, n, m, h)`` as this rank computes it: its
+        heads' channels (dim 1) on a mesh, the batch dim as
+        ``batch_part``."""
+        heads = C.MODEL_AXIS if self.mesh is not None else None
+        return ((batch_part, heads),) * 4
+
+    def decode_step(self, x: torch.Tensor, cfg: ModelConfig, state: tuple,
+                    state_sh: tuple | None = None) -> torch.Tensor:
+        """One token.  x: (B, 1, D); ``state`` is updated in place.
+        ``state_sh``: as in :meth:`MLSTM.decode_step`."""
+        out, last = self(x, cfg, return_state=True,
+                         state=self.gathered(state, state_sh))
+        self.write_back(state, last, state_sh)
         return out
+
+
+def slstm_state_shapes(cfg: ModelConfig, batch: int,
+                       width: int | None = None) -> tuple:
+    """One sLSTM block's state fields ``(c, n, m, h)`` as
+    ``sharding.CacheField`` s: (B, width) float32 each, ``m`` at ``M0``,
+    the others zeros; the whole ``d_model`` unless ``width`` (a rank's
+    heads) is given."""
+    shape, f32 = (batch, width or cfg.d_model), torch.float32
+    return tuple(sharding.CacheField(shape, f32, fill)
+                 for fill in (0.0, 0.0, M0, 0.0))
 
 
 def slstm_state_init(cfg: ModelConfig, batch: int, device=None,
                      width: int | None = None) -> tuple:
-    """The zero state ``(c, n, m, h)``, (B, width) float32 each: the whole
-    ``d_model`` unless ``width`` (a rank's heads) is given."""
-    d = width or cfg.d_model
-    kw = {"dtype": torch.float32, "device": device}
-    return (torch.zeros((batch, d), **kw), torch.zeros((batch, d), **kw),
-            torch.full((batch, d), M0, **kw), torch.zeros((batch, d), **kw))
+    """The initial state of :func:`slstm_state_shapes`."""
+    return tuple(f.full(device)
+                 for f in slstm_state_shapes(cfg, batch, width))

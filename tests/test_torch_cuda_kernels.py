@@ -324,6 +324,34 @@ def test_attention_gradient_through_the_kernel_equals_plain(card, name,
     assert set(errs) == {"dq", "dk", "dv"}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_partials_over_split_frames_combine_on_the_card(card,
+                                                                   dtype):
+    """whisper-tiny's cross-attention at decode over a frame-split cache:
+    each half of the 1500 frames through the kernel with its log-sum-exp
+    (``ops.attention_partial``, one launch each), the halves combined by
+    ``ops.combine_partials``, against the kernel over every frame within
+    the attention tolerance."""
+    from repro_torch.kernels import ops
+    case = dict(checks.ATTENTION_CASES["whisper-cross-decode"])
+    q, k, v = checks.attention_inputs(case, dtype, card)
+    half = case["skv"] // 2
+    before = fa.flash_attention.launches
+    parts = [ops.attention_partial(q, k[:, :, lo:lo + half],
+                                   v[:, :, lo:lo + half], causal=False)
+             for lo in (0, half)]
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    assert all(lse.dtype == torch.float32 for _, lse in parts)
+    o, lse = (torch.stack(t) for t in zip(*parts))
+    got = ops.combine_partials(
+        o, lse, lambda t: t.amax(0, keepdim=True).expand_as(t),
+        lambda t: t.sum(0, keepdim=True).expand_as(t))[0]
+    want = fa.flash_attention(q, k, v, causal=False)
+    checks.close(f"attention partials {dtype}", got, want,
+                 *checks.attention_tolerance(dtype))
+
+
 def test_flash_attention_tensor_core_route_needs_aligned_inputs(card):
     q, k, v = checks.attention_inputs(checks.ATTENTION_CASES["qwen-64"],
                                       torch.bfloat16, card)

@@ -86,3 +86,27 @@ def test_full_width_counts_of_the_new_families(arch, prefill, decode,
     for pre, total in ((True, prefill), (False, decode)):
         assert chip_smoke.matmul_routes_per_call(cfg, pre) == \
             {"dp4a": head, "tensor_core": total - head}
+
+
+@pytest.mark.parametrize("part,arch,want", [
+    ("p", chip_smoke.ENCDEC_ARCH,
+     {"nmc_matmul": 57 + 16 * 33,
+      "matmul_routes": {"dp4a": 17, "tensor_core": 57 + 16 * 33 - 17},
+      "matmul_int32": 4 * 2 + 4 * 3 + 16 * 4 * 3,
+      "flash_attention": 12 + 16 * 4}),
+    ("q", chip_smoke.XLSTM_ARCH,
+     {"nmc_matmul": 17, "matmul_routes": {"dp4a": 0, "tensor_core": 17},
+      "matmul_int32": 0, "flash_attention": 0}),
+])
+def test_scaleout_serving_parts_expect_their_launches(part, arch, want):
+    """The launches ``chip_smoke.scaleout_serving_checks`` requires of the
+    serving parts at full width and depth over a prefill and 16 steps:
+    whisper-tiny's head whole on ``dp4a`` (the odd vocabulary), its
+    row-parallel ``wo`` / ``down`` returning int32 (the encoder's 2 a layer
+    at prefill, the decoder's self and cross ``wo`` and ``down``), its
+    cross-attention one launch a layer at decode; xlstm-125m's head alone,
+    no attention and no int32-out launch (its blocks stay float)."""
+    cfg = cb.get(arch).scaled(nmc_mode="w8a8")
+    steps = chip_smoke.SCALEOUT_SERVE_SIZES[part]["steps"]
+    assert steps == 16
+    assert chip_smoke.serving_part_expected(cfg, steps) == want

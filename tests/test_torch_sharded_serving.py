@@ -7,7 +7,8 @@ configs in float32, the reference's weights carried across by
 
 One spawn per world size runs every case of its meshes
 (``distributed.checks.sequence``): two ranks for (1, 2) and (2, 1), four
-for (2, 2).  Each case prefills a batch and decodes a few given tokens;
+for (2, 2).  Each case prefills a batch (an encoder-decoder's with its
+``"frames"``) and decodes a few given tokens;
 its logits (every rank's rows gathered) and its caches (gathered by
 ``sharding.gather_full`` under ``cache_shardings``) are held against the
 reference's ``prefill`` / ``decode_step`` on one device and against the
@@ -70,13 +71,15 @@ SPAWN_TIMEOUT = 240.0
 ARCHS = {"qwen": "qwen1.5-0.5b", "danube": "h2o-danube-1.8b",
          "deepseek": "deepseek-v2-lite-16b",
          "moonshot": "moonshot-v1-16b-a3b", "zamba2": "zamba2-2.7b",
-         "pixtral": "pixtral-12b"}
+         "pixtral": "pixtral-12b", "whisper": "whisper-tiny",
+         "xlstm": "xlstm-125m"}
 #: each case: (key, arch, mesh, nmc_mode, rows, prompt, steps, max_len,
 #: config overrides).  Four rows: a batch that equals no layer, head or
 #: group count, so that ``cache_shardings`` finds it; 64 slots, the
 #: caches' longest dim; zamba2's prompt one SSD chunk of 16; danube's ring
 #: of 32 slots (its window) wrapped by 20 + 16 tokens; one row on (2, 2):
-#: the sequence split over the data axes and ``model`` together
+#: the sequence split over the data axes and ``model`` together (whisper's
+#: encoder frames too); the xLSTM's prompt one chunk of 16
 CASES = [
     ("qwen-1x2", "qwen", (1, 2), "none", 4, 12, 3, 64, {}),
     ("qwen-1x2-w8a8", "qwen", (1, 2), "w8a8", 4, 12, 3, 64, {}),
@@ -95,10 +98,18 @@ CASES = [
     ("qwen-2x2-w8a8", "qwen", (2, 2), "w8a8", 4, 12, 3, 64, {}),
     ("qwen-2x2-batch1", "qwen", (2, 2), "none", 1, 12, 3, 64, {}),
     ("zamba2-2x2-batch1-w8a8", "zamba2", (2, 2), "w8a8", 1, 16, 3, 64, {}),
+    ("whisper-1x2", "whisper", (1, 2), "none", 4, 12, 3, 64, {}),
+    ("whisper-1x2-w8a8", "whisper", (1, 2), "w8a8", 4, 12, 3, 64, {}),
+    ("whisper-2x1", "whisper", (2, 1), "none", 4, 12, 3, 64, {}),
+    ("whisper-2x2-batch1", "whisper", (2, 2), "none", 1, 12, 3, 64, {}),
+    ("xlstm-1x2", "xlstm", (1, 2), "none", 4, 16, 3, 64, {}),
+    ("xlstm-1x2-w8a8", "xlstm", (1, 2), "w8a8", 4, 16, 3, 64, {}),
+    ("xlstm-2x2-batch1", "xlstm", (2, 2), "none", 1, 16, 3, 64, {}),
 ]
 BY_KEY = {c[0]: c for c in CASES}
-#: the families that serve on data axes only (ROADMAP item 6.6)
-DATA_ONLY = ("whisper-tiny", "xlstm-125m")
+#: ROADMAP fact 21: whisper-smoke drawn with as many decoder layers as
+#: rows; on a data axis the rule splits its layer stack
+STACK_SPLIT_ROWS = 4
 
 # the reference's entry points, compiled once per shape
 jprefill = jax.jit(jlm.prefill, static_argnums=(2, 3))
@@ -135,6 +146,9 @@ def _inputs(key: str) -> tuple:
     if cfg.family == "vlm":
         batch["images"] = rng.normal(size=(rows, cfg.n_img_tokens,
                                            cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(size=(rows, cfg.enc_seq,
+                                           cfg.d_model)).astype(np.float32)
     nxt = rng.integers(0, cfg.vocab_size, (steps, rows)).astype(np.int32)
     return batch, nxt
 
@@ -167,9 +181,10 @@ ROW_X = np.random.default_rng(6).normal(size=(5, 64)).astype(np.float32)
 @pytest.fixture(scope="module")
 def world2():
     calls = {c[0]: _call(c[0]) for c in CASES if np.prod(c[2]) == 2}
-    calls["refused"] = ("serving_refusals", ([
-        cb.get(a, smoke=True).scaled(dtype=torch.float32)
-        for a in DATA_ONLY],))
+    calls["refused"] = ("serving_refusals", (
+        cb.get(ARCHS["whisper"], smoke=True).scaled(
+            dtype=torch.float32, n_layers=STACK_SPLIT_ROWS),
+        (2, 1), STACK_SPLIT_ROWS))
     calls["row_parallel"] = ("row_parallel_w8a8", (ROW_W, ROW_B, ROW_X))
     calls["misuse"] = ("serving_misuse", (
         cb.get(ARCHS["qwen"], smoke=True).scaled(dtype=torch.float32),))
@@ -328,7 +343,8 @@ def test_cache_slices_follow_cache_shardings(world2, world4):
     slots, head dim) split on its rows over data and its slots over
     model, over both at batch 1; zamba2's SSM state over its head dim (the
     rule's longest dim at smoke size: 16 > 8 heads), ``conv_bc`` over its
-    channels; the danube ring's 32 slots over model."""
+    channels; the danube ring's 32 slots over model; whisper's cross K/V
+    over its frames; the xLSTM's states over their longest dim."""
     assert world2["qwen-1x2"]["local"]["layers"]["k"] == (2, 4, 4, 32, 16)
     assert world2["qwen-2x1"]["local"]["layers"]["k"] == (2, 2, 4, 64, 16)
     assert world4["qwen-2x2"]["local"]["layers"]["k"] == (2, 2, 4, 32, 16)
@@ -342,6 +358,23 @@ def test_cache_slices_follow_cache_shardings(world2, world4):
         "conv_bc": (2, 2, 4, 3, 16)}
     assert world4["zamba2-2x2-batch1-w8a8"]["local"]["mamba"]["conv_x"] == \
         (2, 2, 1, 3, 32)
+    # whisper's cross K/V (layers, rows, KV heads, 32 frames, head dim):
+    # every head, its frames split over model (over data and model at
+    # batch 1); on (2, 1) its rows over data
+    for key, layers, cross in (
+            ("whisper-1x2", (2, 4, 4, 32, 16), (2, 4, 4, 16, 16)),
+            ("whisper-2x1", (2, 2, 4, 64, 16), (2, 2, 4, 32, 16)),
+            ("whisper-2x2-batch1", (2, 1, 4, 16, 16), (2, 1, 4, 8, 16))):
+        local = _result(world2, world4, key)["local"]
+        assert local["layers"]["k"] == layers, key
+        assert local["cross_k"] == local["cross_v"] == cross, key
+    # the xLSTM's states: an mLSTM's C and n over their key dim (32 of 4
+    # heads x 32), its m over heads, an sLSTM state over its 64 channels
+    mlstm, slstm = ((4, 4, 16, 32), (4, 4, 16), (4, 2)), ((4, 32),) * 4
+    assert world2["xlstm-1x2"]["local"]["blocks"] == [mlstm, slstm, mlstm]
+    mlstm, slstm = ((1, 4, 8, 32), (1, 4, 8), (1, 1)), ((1, 16),) * 4
+    assert world4["xlstm-2x2-batch1"]["local"]["blocks"] == \
+        [mlstm, slstm, mlstm]
     # a decode step on a model axis gathers q (and k / v) and combines
     # the partials: all-gathers and all-reduces, nothing else
     assert set(world2["qwen-1x2"]["traffic"]) == {"all_gather",
@@ -409,12 +442,19 @@ def test_fully_masked_slice_gets_zero_weight():
                                    rtol=1e-5, atol=1e-6)
 
 
-def test_encdec_and_xlstm_refuse_a_model_axis(world2):
+def test_batch_equal_to_the_layer_stack_is_refused_on_a_data_axis(world2):
+    """ROADMAP fact 21: ``cache_shardings`` takes the first dim of the
+    batch's size as the batch, so 4 rows of a 4-layer encoder-decoder on
+    (2, 1) split its layer stack over ``data``; ``init_caches``, which
+    allocates that layout, refuses it, naming the cache and its stack dim,
+    while ``prefill``, which on data axes alone holds this rank's rows
+    and never uses that layout, serves."""
     msgs = world2["refused"]
-    assert len(msgs) == len(DATA_ONLY)
-    for arch, msg in zip(DATA_ONLY, msgs):
-        assert msg is not None and "6.6" in msg and "'model' axis" in msg, \
-            (arch, msg)
+    assert set(msgs) == {"init_caches", "prefill"}
+    msg = msgs["init_caches"]
+    assert msg is not None and "stack dim is split" in msg and \
+        "cache layers.k of (4, 4," in msg and "('data'," in msg, msg
+    assert msgs["prefill"] is None, msgs
 
 
 def test_model_axis_serving_needs_its_global_shape(world2):
