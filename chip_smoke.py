@@ -92,7 +92,7 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 * Scale-out: two ranks sharing the card over gloo
   (``launch.mesh.run_ranks``, rank function
   ``distributed.checks.chip_scaleout``): tensor parallelism (qwen1.5-0.5b
-  at full width and depth on data 1 x model 2), data parallelism with
+  at full width cut to 12 layers on data 1 x model 2), data parallelism with
   ZeRO-2 moments (on 2 x 1), expert parallelism (moonshot-v1-16b-a3b at
   full width cut to 2 layers, 32 experts a rank), MLA with expert
   parallelism (deepseek-v2-lite-16b at full width cut to 2 layers, 8 heads
@@ -103,13 +103,13 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   launch replayed on the route it takes); the trainer on 1 x 2 with
   a crash, its checkpoint restored onto 2 x 1 through
   ``elastic.reshard_state`` bit for bit and one more step; the GPipe
-  pipeline of qwen's 24 blocks in 2 stages against the blocks in
-  sequence; W8A8 serving on 1 x 2 (qwen1.5-0.5b at full width and depth,
+  pipeline of those 12 blocks in 2 stages against the blocks in
+  sequence; W8A8 serving on 1 x 2 (qwen1.5-0.5b at full width cut to 12 layers,
   deepseek-v2-lite-16b cut to 2 layers, zamba2-2.7b cut to 2 groups): a
   prefill of 4 x 512 tokens into caches of 640 slots split over the
   ranks, then 16 decode steps, against rank 0's single-rank serving
-  (logits, gathered caches, launches; the int32-out ``nmc_matmul`` and
-  the attention launches replayed).
+  (logits, gathered caches, launches; every ``nmc_matmul`` and
+  attention launch replayed, the int32-out ones bit for bit).
 * The dry run (``python -m repro_torch.launch.dryrun``, no card): in a
   spawned CPU process beside the scale-out phase, the scale-out steps of
   tensor parallelism and of sequence parallelism with remat, and the
@@ -3083,11 +3083,18 @@ SCALEOUT_HYBRID_LAYERS = 12
 SCALEOUT_VLM_LAYERS = 2
 #: the elastic trainer's qwen1.5-0.5b cut to 8 of 24 layers at full width
 #: (a 4.97 GB training state instead of 7.43), to keep the whole run inside
-#: its time limit; (a), (b) and the pipeline keep all 24
+#: its time limit
 SCALEOUT_TRAINER_LAYERS = 8
-#: the scale-out phase: qwen1.5-0.5b, xlstm-125m and whisper-tiny at full
-#: width and depth, moonshot-v1-16b-a3b, deepseek-v2-lite-16b, zamba2-2.7b
-#: and pixtral-12b at full width cut in depth (above), the training
+#: qwen1.5-0.5b cut to 12 of 24 layers at full width for (a), (b), (k),
+#: the pipeline (2 stages of 6 blocks) and (l)'s serving, and xlstm-125m
+#: to 6 of 12 blocks (sLSTM at 3) for (h), (q) and (r), to make room in the
+#: time limit for (s) and (t); the training and serving phases keep qwen's
+#: 24 layers, (t) xlstm-125m's 12
+SCALEOUT_QWEN_LAYERS = 12
+SCALEOUT_XLSTM_LAYERS = 6
+#: the scale-out phase: whisper-tiny at full width and depth,
+#: qwen1.5-0.5b, xlstm-125m, moonshot-v1-16b-a3b, deepseek-v2-lite-16b,
+#: zamba2-2.7b and pixtral-12b at full width cut in depth (above), the training
 #: phase's batch (8 rows of 512 tokens in 2 microbatches; whisper's with
 #: 1500 frames a row), pixtral's 4 rows of 1536 positions (1024 image +
 #: 512 text) in 2 microbatches; the trainer's 4 steps of 2 rows of 256
@@ -3111,7 +3118,7 @@ SCALEOUT_LOSS_RTOL = 1e-4
 SCALEOUT_SPREAD_PARTS = ("c", "f", "g", "h")
 SCALEOUT_TIMEOUT = 600.0
 #: the scale-out phase's serving parts, two ranks on (data 1, model 2),
-#: W8A8: (l) qwen1.5-0.5b at full width and depth, (m)
+#: W8A8: (l) qwen1.5-0.5b at full width cut to SCALEOUT_QWEN_LAYERS, (m)
 #: deepseek-v2-lite-16b at full width cut to 2 layers (its dense first
 #: layer and one MoE layer: MLA and expert parallelism), (n) zamba2-2.7b at
 #: full width cut to 2 groups (12 layers), its activations in float32 (in
@@ -3126,9 +3133,10 @@ SCALEOUT_SERVE = dict(rows=4, prompt=512, max_len=640, steps=16)
 SCALEOUT_SERVE_MLA_LAYERS = 2
 SCALEOUT_SERVE_HYBRID_LAYERS = 12
 #: the serving parts whose sizes differ from SCALEOUT_SERVE, at full
-#: width and depth: W8A8 in bf16, (p) whisper-tiny, 4 rows of 1500 frame
+#: width: W8A8 in bf16, (p) whisper-tiny at full depth, 4 rows of 1500 frame
 #: embeddings and a 64-token prompt into caches of 128 slots (its cross
-#: K/V split over the frames); (q) xlstm-125m, a 512-token prompt (4
+#: K/V split over the frames); (q) xlstm-125m cut to
+#: SCALEOUT_XLSTM_LAYERS, a 512-token prompt (4
 #: chunks of 128; its states laid out by cache_shardings); 16 steps each.
 #: (q)'s spread nudges every step's embedded tokens: its states forget the
 #: prompt (on an H100 a prefill-only nudge moved mLSTM block 2's n,
@@ -3173,6 +3181,23 @@ SCALEOUT_SERVE_PARTS = (("l", "serve_dense", "qwen W8A8", MOE_LOGITS_SPREAD,
 #: one of the same norm about 1.4)
 SCALEOUT_SERVE_CACHE_REL_L2 = 1e-2
 SCALEOUT_SERVE_CACHE_REL_L2_CAP = 0.5
+#: the scale-out phase's parts on larger worlds, whose model axis does not
+#: divide the heads, so that every rank runs every head (ROADMAP fact 18):
+#: (part, ranks, train config key, serving config key, label, spread
+#: factor, spread only where reached, prefill exact), the serving rules of
+#: SCALEOUT_SERVE_PARTS.  (s) whisper-tiny on (1, 4), 1.5 of its 6 heads a
+#: rank: one bf16 train step as (i), W8A8 serving as (p); (t) xlstm-125m
+#: on (1, 8), half of one of its 4 heads a rank, float weights in float32:
+#: one train step and serving as (r), held to the fixed limits alone.
+#: Both at full width and depth; both train steps take their family's
+#: batch of (i) and (h)
+SCALEOUT_EVERY_HEAD = (("s", 4, "encdec", "serve_encdec",
+                        "enc-dec every head W8A8", MOE_LOGITS_SPREAD, True,
+                        True),
+                       ("t", 8, "xlstm_float", "serve_xlstm_every",
+                        "xLSTM every head float32", None, True, False))
+SCALEOUT_EVERY_HEAD_SIZES = {"s": SCALEOUT_SERVE_SIZES["p"],
+                             "t": SCALEOUT_SERVE_SIZES["r"]}
 
 
 def scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg,
@@ -3214,7 +3239,8 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     """Scale-out on two ranks that share the card over gloo
     (``launch.mesh.run_ranks``; the rank function is
     ``distributed.checks.chip_scaleout``, the kernels already built): (a)
-    tensor parallelism, qwen1.5-0.5b at full width on (data 1, model 2);
+    tensor parallelism, qwen1.5-0.5b at full width cut to 12 layers on
+    (data 1, model 2);
     (b) data parallelism with ZeRO-2, the same on (2, 1); (c) expert
     parallelism, moonshot-v1-16b-a3b at full width cut to 2 layers on (1,
     2), 32 experts a rank.  Each one step from a mid-run optimizer state,
@@ -3226,7 +3252,7 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     step's loss equal bit for bit), its checkpoint restored onto (2, 1) by
     ``elastic.reshard_state`` (each rank's slices equal to the written
     state's bit for bit) and one more step; (e) ``pipeline_apply``, 2
-    stages of 12 blocks, 4 microbatches of 2 rows, against the blocks in
+    stages of 6 blocks, 4 microbatches of 2 rows, against the blocks in
     sequence; (f)
     MLA with expert parallelism, deepseek-v2-lite-16b at full width cut to
     2 layers (the dense one and one MoE) on (1, 2), 8 heads and 32 experts
@@ -3234,8 +3260,8 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     Dv 128), the assignments dropped on each rank reported; (g) Mamba2
     tensor parallelism, zamba2-2.7b at full width cut to 12 layers (2
     groups) on (1, 2), 40 SSM heads and 16 attention heads a rank; (h)
-    xLSTM tensor parallelism, xlstm-125m at full width and depth on (1,
-    2), 2 mLSTM and 2 sLSTM heads a rank, no attention, its collectives
+    xLSTM tensor parallelism, xlstm-125m at full width cut to 6 blocks on
+    (1, 2), 2 mLSTM and 2 sLSTM heads a rank, no attention, its collectives
     also by site; (i) the encoder-decoder, whisper-tiny at full width and
     depth on (1, 2), 3 heads a rank, ``embed`` and ``head`` whole (vocab
     51865); (j) the VLM, pixtral-12b at full width cut to 2 layers on (1,
@@ -3252,7 +3278,9 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     one card, so the times are correctness-run times, not a measure of
     scaling.  (l)-(r): serving on (1, 2), SCALEOUT_SERVE (and
     SCALEOUT_SERVE_SIZES for whisper's (p) and the xLSTM's (q), (r)) and
-    :func:`scaleout_serving_checks`."""
+    :func:`scaleout_serving_checks`.  (s), (t): a train step and serving
+    on 4 and 8 ranks whose model axis does not divide the heads
+    (:func:`scaleout_every_head`)."""
     import dataclasses
     import math
     import re
@@ -3261,14 +3289,17 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     from repro_torch import configs
     from repro_torch.distributed import checks as dchecks
     from repro_torch.launch.mesh import run_ranks
-    cfg = configs.get(TRAIN_ARCH).scaled(remat=False)
+    cfg = configs.get(TRAIN_ARCH).scaled(n_layers=SCALEOUT_QWEN_LAYERS,
+                                         remat=False)
     moe_cfg = configs.get(MOE_ARCH).scaled(n_layers=SCALEOUT_MOE_LAYERS,
                                            remat=False)
     mla_cfg = configs.get(MLA_ARCH).scaled(n_layers=SCALEOUT_MLA_LAYERS,
                                            remat=False)
     hybrid_cfg = configs.get(HYBRID_ARCH).scaled(
         n_layers=SCALEOUT_HYBRID_LAYERS, remat=False)
-    xlstm_cfg = configs.get(XLSTM_ARCH).scaled(remat=False)
+    xlstm_full = configs.get(XLSTM_ARCH).scaled(remat=False)
+    xlstm_cfg = xlstm_full.scaled(n_layers=SCALEOUT_XLSTM_LAYERS)
+    xlstm_float = xlstm_full.scaled(dtype=torch.float32)
     encdec_cfg = configs.get(ENCDEC_ARCH).scaled(remat=False)
     vlm_cfg = configs.get(VLM_ARCH).scaled(n_layers=SCALEOUT_VLM_LAYERS,
                                            remat=False)
@@ -3279,6 +3310,7 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     spec = dict(SCALEOUT, qwen=cfg, qwen_sp=sp_cfg, moe=moe_cfg,
                 mla=mla_cfg, hybrid=hybrid_cfg, xlstm=xlstm_cfg,
                 encdec=encdec_cfg, vlm=vlm_cfg, trainer_model=trainer_cfg,
+                xlstm_float=xlstm_float,
                 serve=SCALEOUT_SERVE, serve_sizes=SCALEOUT_SERVE_SIZES,
                 **serve_cfgs, seed=seed,
                 grad_spread=TRAIN_GRAD_SPREAD, grad_floor=TRAIN_GRAD_FLOOR,
@@ -3309,45 +3341,32 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     steps = "abkcfghij"
     launches = {"flash_attention": 0, "nmc_matmul": 0, "vrf_alu": 0}
     routes = {"tensor_core": 0, "cuda_core": 0}
-    by_part = {}
-    counts = []
-    for r in ranks:
-        parts = {p: r[p]["counted"] for p in steps}
-        parts.update(d=r["d"]["counted"], d_resumed=r["d"]["counted_resumed"],
-                     e=r["e"]["counted"])
-        for part, c in parts.items():
-            counts.append((r["rank"], part, c["flash_attention"],
-                           c["nmc_matmul"], c["attention_routes"]))
-            if c["flash_attention"] != want[part] or c["nmc_matmul"] or \
-                    c["attention_routes"][want_route[part]] != \
-                    c["flash_attention"]:
-                raise AssertionError(
-                    f"scaleout ({part}) rank {r['rank']}: launches {c}, "
-                    f"expected {want[part]} flash_attention on the "
-                    f"{want_route[part]} route and no nmc_matmul")
-            launches["flash_attention"] += c["flash_attention"]
-            for k, n in c["attention_routes"].items():
-                routes[k] += n
-                row = by_part.setdefault(part.split("_")[0], {})
-                row[k] = row.get(k, 0) + n
-    replay_by_route = {}
-    for r in ranks:
-        for p in steps:
-            rep = r[p]["replay"]
-            if rep["launches"] != want[p] or rep["routes"] != (
-                    {want_route[p]: want[p]} if want[p] else {}):
-                raise AssertionError(f"scaleout ({p}) rank {r['rank']}: "
-                                     f"replayed {rep}, expected {want[p]} "
-                                     f"on {want_route[p]}")
-            for k, err in rep["max_abs_err_by_route"].items():
-                replay_by_route[k] = max(replay_by_route.get(k, 0.0), err)
-    replay_err = max(replay_by_route.values())
+    by_part, replay_by_route, counts = {}, {}, []
+
+    def tally(part: str, got: dict) -> None:
+        launches["flash_attention"] += got["launches"]
+        row = by_part.setdefault(part.split("_")[0], {})
+        for k, n in got["attention_routes"].items():
+            routes[k] += n
+            row[k] = row.get(k, 0) + n
+        for k, err in got["replay_by_route"].items():
+            replay_by_route[k] = max(replay_by_route.get(k, 0.0), err)
+        counts.extend((rank, part, *rest) for rank, *rest in got["per_rank"])
+    for part, key in (("d", "counted"), ("d_resumed", "counted_resumed"),
+                      ("e", "counted")):
+        tally(part, step_part_check(
+            part, [(r["rank"], {"counted": r[part[0]][key]}) for r in ranks],
+            want[part], want_route[part]))
     for part, key in (("a", "TP"), ("b", "DP ZeRO-2"),
                       ("k", "TP + SP + remat"), ("c", "EP"),
                       ("f", "MLA + EP"), ("g", "Mamba2 TP"),
                       ("h", "xLSTM TP"), ("i", "enc-dec TP"),
                       ("j", "VLM TP")):
         res = r0[part]
+        loss_limit = SCALEOUT_LOSS_RTOL \
+            if part not in SCALEOUT_SPREAD_PARTS else max(
+            SCALEOUT_LOSS_RTOL,
+            MOE_LOGITS_SPREAD * res["reference"]["loss_spread"])
         log(f"scaleout ({part}) {key}: loss {res['metrics']['loss']:.6f} vs "
             f"single rank {res['reference']['loss']:.6f} (rel "
             f"{res['loss_rel']:.3g}; plain {res['reference']['loss_plain']:.6f},"
@@ -3383,17 +3402,10 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
                 f"rank: {[r['h']['traffic_by_site'] for r in ranks]}; "
                 f"collectives in all by rank "
                 f"{[r['h']['counted']['traffic'] for r in ranks]}")
-        loss_limit = SCALEOUT_LOSS_RTOL \
-            if part not in SCALEOUT_SPREAD_PARTS else max(
-            SCALEOUT_LOSS_RTOL,
-            MOE_LOGITS_SPREAD * res["reference"]["loss_spread"])
-        res["loss_limit"] = loss_limit
-        if res["grads"]["bad"] or res["params"]["bad"] or \
-                not res["loss_rel"] <= loss_limit:
-            raise AssertionError(f"scaleout ({part}): loss rel "
-                                 f"{res['loss_rel']}, gradients past their "
-                                 f"limits {res['grads']['bad'][:5]}, params "
-                                 f"{res['params']['bad'][:5]}")
+        tally(part, step_part_check(part, [(r["rank"], r[part])
+                                           for r in ranks],
+                                    want[part], want_route[part],
+                                    loss_limit))
     zero = r0["b"]
     log(f"scaleout (b) ZeRO-2: {zero['moments_split']} moments halved over "
         f"data, whole where the reference puts data on a layer stack "
@@ -3430,6 +3442,9 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     if not e["finite"] or e["bubble"] != 0.2:
         raise AssertionError(f"scaleout (e): {e}")
     serving = scaleout_serving_checks(ranks, serve_cfgs, smi)
+    every = scaleout_every_head(spec, serving, smi)
+    for part, res in every.items():
+        tally(part, res)
     for k in ("flash_attention", "nmc_matmul"):
         launches[k] += serving["launches"][k]
     for k, n in serving["attention_routes"].items():
@@ -3449,6 +3464,7 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     def plain(res):
         return {k: v for k, v in res.items() if k not in ("steps",)}
     report["scaleout"] = dict(
+        qwen_layers=SCALEOUT_QWEN_LAYERS, xlstm_layers=SCALEOUT_XLSTM_LAYERS,
         moe_layers=SCALEOUT_MOE_LAYERS, mla_layers=SCALEOUT_MLA_LAYERS,
         hybrid_layers=SCALEOUT_HYBRID_LAYERS, vlm_layers=SCALEOUT_VLM_LAYERS,
         trainer_layers=SCALEOUT_TRAINER_LAYERS,
@@ -3461,9 +3477,10 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
                | {"seconds": r["seconds"]} for r in ranks],
         trainer_steps=d["steps"], launches=launches, attention_routes=routes,
         attention_routes_by_part=by_part, serving=serving,
+        every_head=every,
         matmul_routes=serving["matmul_routes"],
         replay={"attention_by_route": replay_by_route,
-                "max_abs_err": {"nmc_matmul": 0.0,
+                "max_abs_err": {"nmc_matmul": serving["matmul_max_abs_err"],
                                 "flash_attention": replay_err}},
         wall_seconds=wall, nvidia_smi=smi,
         **{f"{k}_config": dataclasses.asdict(c) | {"dtype": str(c.dtype)}
@@ -3474,11 +3491,126 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     return launches
 
 
+def step_part_check(part: str, ranks: list, want: int, route: str,
+                    loss_limit: float | None = None) -> dict:
+    """One train-step part of ``phase_scaleout`` (``ranks``: (rank, its
+    result) in rank order, rank 0 first): on each rank ``want``
+    ``flash_attention`` launches, all on ``route``, and no ``nmc_matmul``;
+    where the result holds its replays, every launch replayed on that
+    route; given ``loss_limit``, rank 0's loss within it of the
+    single-rank step's (relative) and every gathered gradient and updated
+    parameter within their limits.  Raises where it fails; returns the
+    part's launches, routes, replay errors by route and per-rank launches
+    (rank, flash_attention, nmc_matmul, routes)."""
+    out = {"launches": 0, "attention_routes": {}, "replay_by_route": {},
+           "per_rank": []}
+    for rank, res in ranks:
+        c, rep = res["counted"], res.get("replay")
+        if c["flash_attention"] != want or c["nmc_matmul"] or \
+                c["attention_routes"][route] != want or \
+                (rep is not None and (rep["launches"] != want or
+                                      rep["routes"] != ({route: want}
+                                                        if want else {}))):
+            raise AssertionError(
+                f"scaleout ({part}) rank {rank}: launches {c}, replayed "
+                f"{rep}, expected {want} flash_attention on the {route} "
+                f"route and no nmc_matmul")
+        out["launches"] += want
+        out["per_rank"].append((rank, c["flash_attention"], c["nmc_matmul"],
+                                c["attention_routes"]))
+        for k, n in c["attention_routes"].items():
+            out["attention_routes"][k] = out["attention_routes"].get(k, 0) + n
+        for k, err in (rep or {}).get("max_abs_err_by_route", {}).items():
+            out["replay_by_route"][k] = max(
+                out["replay_by_route"].get(k, 0.0), err)
+    if loss_limit is not None:
+        res = ranks[0][1]
+        res["loss_limit"] = loss_limit
+        if res["grads"]["bad"] or res["params"]["bad"] or \
+                not res["loss_rel"] <= loss_limit:
+            raise AssertionError(f"scaleout ({part}): loss rel "
+                                 f"{res['loss_rel']}, gradients past their "
+                                 f"limits {res['grads']['bad'][:5]}, params "
+                                 f"{res['params']['bad'][:5]}")
+    return out
+
+
+def scaleout_every_head(spec: dict, serving: dict, smi: str) -> dict:
+    """Parts (s) and (t) of ``phase_scaleout`` (SCALEOUT_EVERY_HEAD): each
+    on its own world of 4 or 8 ranks sharing the card over gloo (rank
+    function ``distributed.checks.chip_every_head``), a model whose heads
+    the model axis does not divide, so that every rank runs every head.
+    The two worlds run at the same time (12 ranks, ~60 GB of the card at
+    their peaks), for the run's time limit.
+    The train step by :func:`step_part_check`: on each rank as many
+    ``flash_attention`` launches as one rank makes ((i)'s count for
+    whisper, none for the xLSTM), each over every head; its loss within
+    SCALEOUT_LOSS_RTOL.  The serving part by :func:`serving_part_check`
+    (its launches added to ``serving``).  Returns each part's launches,
+    routes, replays, seconds and results."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.distributed import checks as dchecks
+    from repro_torch.launch.mesh import run_ranks
+
+    def spawn(row) -> tuple:
+        part, world, train_key, serve_key = row[:4]
+        part_spec = dict(spec, part=part, train=train_key, serve=serve_key,
+                         serve_sizes=SCALEOUT_EVERY_HEAD_SIZES)
+        t0 = time.perf_counter()
+        ranks = run_ranks(dchecks.chip_every_head, world, part_spec,
+                          backend="gloo", device="cuda",
+                          timeout=SCALEOUT_TIMEOUT, collective_timeout=300.0)
+        return ranks, time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with ThreadPoolExecutor(len(SCALEOUT_EVERY_HEAD)) as pool:
+        runs = list(pool.map(spawn, SCALEOUT_EVERY_HEAD))
+    out = {}
+    for (part, world, train_key, serve_key, label, factor, if_reached,
+         exact), (ranks, wall) in zip(SCALEOUT_EVERY_HEAD, runs):
+        cfg = spec[train_key]
+        want = 0 if cfg.family == "xlstm" else \
+            (cfg.n_enc_layers + 2 * cfg.n_layers) * spec["n_mb"]
+        t = ranks[0]["train"]
+        per_rank = [(r["rank"], round(r["train"]["step_ms"], 1),
+                     r["train"]["peak_gb"], round(r["train"]["seconds"], 1),
+                     round(r["serve"]["seconds"], 1)) for r in ranks]
+        log(f"scaleout ({part}) {cfg.name} train step on (1, {world}), "
+            f"every head on every rank, "
+            f"{spec['batches'].get(train_key, (spec['rows'], spec['seq']))}"
+            f" (rows, tokens) in {spec['n_mb']} microbatches: loss "
+            f"{t['metrics']['loss']:.6f} vs "
+            f"single rank {t['reference']['loss']:.6f} (rel "
+            f"{t['loss_rel']:.3g}; 1-ulp spread "
+            f"{t['reference']['loss_spread']:.3g}); gradients worst "
+            f"{t['grads']['worst']}, params worst {t['params']['worst']}; "
+            f"per rank (rank, step ms, peak GB, train s, serve s) "
+            f"{per_rank}; replay "
+            f"{[r['train']['replay'] for r in ranks][:1]}; collectives "
+            f"(rank 0) {t['counted']['traffic']}; partial over model "
+            f"{len(t['partial'])}; ranks {wall:.1f} s wall; [{smi}]")
+        res = step_part_check(part, [(r["rank"], r["train"]) for r in ranks],
+                              want, attention_route(cfg), SCALEOUT_LOSS_RTOL)
+        res.update(wall_seconds=wall, train_per_rank=per_rank)
+        serving_part_check(serving, [(r["rank"], r["serve"]) for r in ranks],
+                           part, spec[serve_key], label, factor, if_reached,
+                           exact, SCALEOUT_EVERY_HEAD_SIZES[part], smi)
+        res["ranks"] = [{k: {n: v for n, v in r[k].items()
+                             if n not in ("grads", "params")}
+                         for k in ("train", "serve")} for r in ranks]
+        res["train"] = {k: t[k] for k in ("grads", "params", "loss_rel",
+                                          "reference", "metrics")}
+        out[part] = res
+    return out
+
+
 def scaleout_serving_configs() -> dict:
     """The serving parts' configs (SCALEOUT_SERVE), by spec key."""
     import torch
     from repro_torch import configs
-    return {"serve_dense": configs.get(TRAIN_ARCH).scaled(nmc_mode="w8a8"),
+    return {"serve_dense": configs.get(TRAIN_ARCH).scaled(
+                n_layers=SCALEOUT_QWEN_LAYERS, nmc_mode="w8a8"),
             "serve_mla": configs.get(MLA_ARCH).scaled(
                 n_layers=SCALEOUT_SERVE_MLA_LAYERS, nmc_mode="w8a8"),
             "serve_hybrid": configs.get(HYBRID_ARCH).scaled(
@@ -3489,8 +3621,12 @@ def scaleout_serving_configs() -> dict:
                 dtype=torch.float32),
             "serve_encdec": configs.get(ENCDEC_ARCH).scaled(
                 nmc_mode="w8a8"),
-            "serve_xlstm": configs.get(XLSTM_ARCH).scaled(nmc_mode="w8a8"),
+            "serve_xlstm": configs.get(XLSTM_ARCH).scaled(
+                n_layers=SCALEOUT_XLSTM_LAYERS, nmc_mode="w8a8"),
             "serve_xlstm_float": configs.get(XLSTM_ARCH).scaled(
+                n_layers=SCALEOUT_XLSTM_LAYERS, nmc_mode="none",
+                dtype=torch.float32),
+            "serve_xlstm_every": configs.get(XLSTM_ARCH).scaled(
                 nmc_mode="none", dtype=torch.float32)}
 
 
@@ -3521,8 +3657,9 @@ def scaleout_serving_checks(ranks: list, cfgs: dict, smi: str) -> dict:
     ``nmc_matmul`` launches of the sharded run equal the single rank's and
     the part's expected ones by route (:func:`serving_part_expected`: one
     launch a W8A8 linear either way, none with float weights, on the
-    tensor cores but a whole head of an odd vocabulary; a row-parallel one
-    returns the int32 accumulator, those replayed bit for bit); the
+    tensor cores but a whole head of an odd vocabulary; every launch
+    replayed: a row-parallel one returns the int32 accumulator, held bit
+    for bit, the others at ``kernels/checks.matmul_tolerance``); the
     ``flash_attention`` launches (the prefill's on local heads, an
     encoder-decoder's cross-attention at decode) equal the single rank's
     and the expected ones (none in the xLSTM), on the route
@@ -3535,101 +3672,115 @@ def scaleout_serving_checks(ranks: list, cfgs: dict, smi: str) -> dict:
     where the part's prefill is exact, their prompt slots by the attention
     tolerance.
     Returns the parts' launches, routes, replays and results."""
-    r0 = ranks[0]
     out = {"launches": {"flash_attention": 0, "nmc_matmul": 0},
            "matmul_routes": {"tensor_core": 0, "dp4a": 0},
            "attention_routes": {"tensor_core": 0, "cuda_core": 0},
-           "attention_by_route": {}, "launches_by_part": {}, "parts": {}}
+           "attention_by_route": {}, "matmul_max_abs_err": 0.0,
+           "launches_by_part": {}, "parts": {}}
     for part, key, label, factor, if_reached, exact in \
             SCALEOUT_SERVE_PARTS:
-        cfg = cfgs[key]
-        sv = SCALEOUT_SERVE_SIZES.get(part, SCALEOUT_SERVE)
-        want = serving_part_expected(cfg, sv["steps"])
-        single = r0[part]["single_counted"]
-        route = attention_route(cfg)
-        if any(single[k] != want[k] for k in ("nmc_matmul", "matmul_routes",
-                                              "flash_attention")):
-            raise AssertionError(f"scaleout ({part}) single rank: launches "
-                                 f"{single}, expected {want}")
-        for r in ranks:
-            res = r[part]
-            c, a, m = res["counted"], res["attention_replay"], \
-                res["int32_replay"]
-            if any(c[k] != want[k] for k in want) or \
-                    c["matmul_int32"] != m["launches"] or \
-                    not m["bit_equal"] or \
-                    c["attention_routes"][route] != c["flash_attention"] or \
-                    a["launches"] != c["flash_attention"]:
-                raise AssertionError(
-                    f"scaleout ({part}) rank {r['rank']}: launches {c}, "
-                    f"expected {want}, single rank {single}, attention "
-                    f"replay {a}, int32 replay {m}")
-            for k in ("flash_attention", "nmc_matmul"):
-                out["launches"][k] += c[k]
-            for k, n in c["matmul_routes"].items():
-                out["matmul_routes"][k] += n
-            for k, n in c["attention_routes"].items():
-                out["attention_routes"][k] += n
-            for k, err in a["max_abs_err_by_route"].items():
-                out["attention_by_route"][k] = max(
-                    out["attention_by_route"].get(k, 0.0), err)
-            out["launches_by_part"].setdefault(part, []).append(
-                (r["rank"], c["nmc_matmul"], c["matmul_int32"],
-                 c["flash_attention"]))
-        res = r0[part]
-        st, spread = res["logits"], res["spread"]
-        rms_limit, agree_limit = 0.25 * st["logit_std"], 0.5
-        reached = spread["rms_diff"] >= rms_limit or \
-            spread["top1_agreement"] <= agree_limit
-        rule = "fixed"
-        if factor is not None and (reached or not if_reached):
-            rule = "spread"
-            rms_limit = factor * spread["rms_diff"]
-            agree_limit = spread["top1_agreement"] / factor
-        cache_bad, worst_cache = [], (None, 0.0)
-        for when, fields in res["caches"].items():
-            for path, c in fields.items():
-                limit = SCALEOUT_SERVE_CACHE_REL_L2 if factor is None \
-                    else min(SCALEOUT_SERVE_CACHE_REL_L2_CAP,
-                             max(SCALEOUT_SERVE_CACHE_REL_L2,
-                                 factor * c["spread_rel_l2"]))
-                c["limit"] = limit
-                if c["rel_l2"] / limit >= worst_cache[1]:
-                    worst_cache = (f"{when} {path}", c["rel_l2"] / limit)
-                if not c["rel_l2"] <= limit or (
-                        exact and c["prompt_within_attention_tolerance"]
-                        is False):
-                    cache_bad.append((when, path, c))
-        log(f"scaleout ({part}) serving {label}, {cfg.name} "
-            f"{cfg.n_layers} layers on (1, 2): {res['positions']} positions "
-            f"(prefill and {sv['steps']} steps x {sv['rows']} rows) vs the "
-            f"single rank: logits "
-            f"{st} ({rule} limits: rms <= {rms_limit:.4g}, top-1 agreement "
-            f">= {agree_limit:.4f}; the single rank's 1-ulp spread "
-            f"{spread}); caches (max abs err, within the attention "
-            f"tolerance: all and the prompt's slots"
-            f"{', enforced' if exact else ''}; "
-            f"rel L2, the spread's rel L2) {res['caches']}, the "
-            f"worst rel L2 over its limit {worst_cache}; local caches "
-            f"(rank 0) "
-            f"{res['local_caches']}; launches (rank, nmc_matmul, int32-out, "
-            f"flash_attention) {out['launches_by_part'][part]}, single rank "
-            f"{single['nmc_matmul']} / {single['flash_attention']}; a decode "
-            f"step's collectives (calls, bytes, staged, result bytes) by "
-            f"rank {[r[part]['step_traffic'] for r in ranks]}; served in "
-            f"{[round(r[part]['serve_ms'], 1) for r in ranks]} ms by events,"
-            f" peak GB {[r[part]['peak_gb'] for r in ranks]}; "
-            f"{res['seconds']:.1f} s; [{smi}]")
-        if not res["finite"] or st["rms_diff"] > rms_limit or \
-                st["top1_agreement"] < agree_limit or cache_bad:
-            raise AssertionError(
-                f"scaleout ({part}): logits {st} against {rule} limits "
-                f"{rms_limit}, {agree_limit}; caches past their limits "
-                f"{cache_bad}")
-        out["parts"][part] = dict(rule=rule, rms_limit=rms_limit,
-                                  top1_agreement_limit=agree_limit,
-                                  spread_reaches_fixed_limits=reached)
+        serving_part_check(out, [(r["rank"], r[part]) for r in ranks], part,
+                           cfgs[key], label, factor, if_reached, exact,
+                           SCALEOUT_SERVE_SIZES.get(part, SCALEOUT_SERVE),
+                           smi)
     return out
+
+
+def serving_part_check(out: dict, ranks: list, part: str, cfg, label: str,
+                       factor, if_reached: bool, exact: bool, sv: dict,
+                       smi: str) -> None:
+    """One serving part of ``phase_scaleout`` (``ranks``: (rank, its
+    result) in rank order, rank 0 first), by the rules of
+    :func:`scaleout_serving_checks`: raises where it fails, adds its
+    launches, routes and replays to ``out`` and its rule to
+    ``out["parts"]``."""
+    rank0 = ranks[0][1]
+    want = serving_part_expected(cfg, sv["steps"])
+    single = rank0["single_counted"]
+    route = attention_route(cfg)
+    mesh = f"(1, {len(ranks)})"
+    if any(single[k] != want[k] for k in ("nmc_matmul", "matmul_routes",
+                                          "flash_attention")):
+        raise AssertionError(f"scaleout ({part}) single rank: launches "
+                             f"{single}, expected {want}")
+    for rank, res in ranks:
+        c, a, m = res["counted"], res["attention_replay"], \
+            res["matmul_replay"]
+        if any(c[k] != want[k] for k in want) or \
+                c["nmc_matmul"] != m["launches"] or \
+                c["matmul_int32"] != m["int32"] or not m["bit_equal"] or \
+                c["attention_routes"][route] != c["flash_attention"] or \
+                a["launches"] != c["flash_attention"]:
+            raise AssertionError(
+                f"scaleout ({part}) rank {rank}: launches {c}, "
+                f"expected {want}, single rank {single}, attention "
+                f"replay {a}, nmc_matmul replay {m}")
+        for k in ("flash_attention", "nmc_matmul"):
+            out["launches"][k] += c[k]
+        for k, n in c["matmul_routes"].items():
+            out["matmul_routes"][k] += n
+        for k, n in c["attention_routes"].items():
+            out["attention_routes"][k] += n
+        for k, err in a["max_abs_err_by_route"].items():
+            out["attention_by_route"][k] = max(
+                out["attention_by_route"].get(k, 0.0), err)
+        out["matmul_max_abs_err"] = max(out["matmul_max_abs_err"],
+                                        m["max_abs_err"])
+        out["launches_by_part"].setdefault(part, []).append(
+            (rank, c["nmc_matmul"], c["matmul_int32"], c["flash_attention"]))
+    res = rank0
+    st, spread = res["logits"], res["spread"]
+    rms_limit, agree_limit = 0.25 * st["logit_std"], 0.5
+    reached = spread["rms_diff"] >= rms_limit or \
+        spread["top1_agreement"] <= agree_limit
+    rule = "fixed"
+    if factor is not None and (reached or not if_reached):
+        rule = "spread"
+        rms_limit = factor * spread["rms_diff"]
+        agree_limit = spread["top1_agreement"] / factor
+    cache_bad, worst_cache = [], (None, 0.0)
+    for when, fields in res["caches"].items():
+        for path, c in fields.items():
+            limit = SCALEOUT_SERVE_CACHE_REL_L2 if factor is None \
+                else min(SCALEOUT_SERVE_CACHE_REL_L2_CAP,
+                         max(SCALEOUT_SERVE_CACHE_REL_L2,
+                             factor * c["spread_rel_l2"]))
+            c["limit"] = limit
+            if c["rel_l2"] / limit >= worst_cache[1]:
+                worst_cache = (f"{when} {path}", c["rel_l2"] / limit)
+            if not c["rel_l2"] <= limit or (
+                    exact and c["prompt_within_attention_tolerance"]
+                    is False):
+                cache_bad.append((when, path, c))
+    log(f"scaleout ({part}) serving {label}, {cfg.name} "
+        f"{cfg.n_layers} layers on {mesh}: {res['positions']} positions "
+        f"(prefill and {sv['steps']} steps x {sv['rows']} rows) vs the "
+        f"single rank: logits "
+        f"{st} ({rule} limits: rms <= {rms_limit:.4g}, top-1 agreement "
+        f">= {agree_limit:.4f}; the single rank's 1-ulp spread "
+        f"{spread}); caches (max abs err, within the attention "
+        f"tolerance: all and the prompt's slots"
+        f"{', enforced' if exact else ''}; "
+        f"rel L2, the spread's rel L2) {res['caches']}, the "
+        f"worst rel L2 over its limit {worst_cache}; local caches "
+        f"(rank 0) "
+        f"{res['local_caches']}; launches (rank, nmc_matmul, int32-out, "
+        f"flash_attention) {out['launches_by_part'][part]}, single rank "
+        f"{single['nmc_matmul']} / {single['flash_attention']}; a decode "
+        f"step's collectives (calls, bytes, staged, result bytes) by "
+        f"rank {[r['step_traffic'] for _, r in ranks]}; served in "
+        f"{[round(r['serve_ms'], 1) for _, r in ranks]} ms by events,"
+        f" peak GB {[r['peak_gb'] for _, r in ranks]}; "
+        f"{res['seconds']:.1f} s; [{smi}]")
+    if not res["finite"] or st["rms_diff"] > rms_limit or \
+            st["top1_agreement"] < agree_limit or cache_bad:
+        raise AssertionError(
+            f"scaleout ({part}): logits {st} against {rule} limits "
+            f"{rms_limit}, {agree_limit}; caches past their limits "
+            f"{cache_bad}")
+    out["parts"][part] = dict(rule=rule, rms_limit=rms_limit,
+                              top1_agreement_limit=agree_limit,
+                              spread_reaches_fixed_limits=reached)
 
 
 #: the dry run's part: a (1, 2) fake world for scale-out (a) and (k), and
@@ -3664,8 +3815,9 @@ def dryrun_child(conn, src: str) -> None:
         shape = ShapeSpec("scaleout", SCALEOUT["seq"], SCALEOUT["rows"],
                           "train")
         # (a)'s and (k)'s configs as phase_scaleout builds them
-        for part, c in (("a", cfg.scaled(remat=False)),
-                        ("k", cfg.scaled(seq_parallel=True, remat=True))):
+        qwen = cfg.scaled(n_layers=SCALEOUT_QWEN_LAYERS)
+        for part, c in (("a", qwen.scaled(remat=False)),
+                        ("k", qwen.scaled(seq_parallel=True, remat=True))):
             out[part] = dryrun.run_cell(
                 TRAIN_ARCH, shape, False, cfg_override=c, mesh_shape=(1, 2),
                 n_microbatches=SCALEOUT["n_mb"])

@@ -12,6 +12,10 @@ configs, ``chip_smoke.py`` over gloo on the card at full width.
   every one gathered in full on rank 0.
 * :func:`refusals`: the configs that ``shard`` refuses on a ``model``
   axis, with their messages.
+* :func:`gather_to_heads_check`: the gradient through
+  ``context.gather_to_heads`` where the ranks keep different columns of
+  what follows, against one rank's, and through ``gather_from_model``'s
+  narrowing backward, which must miss it.
 * :func:`pipeline_check`: ``pipeline_apply`` over a stage axis against
   the stages applied in sequence.
 * :func:`elastic_check`: a trainer with a crash on one mesh, its
@@ -31,7 +35,9 @@ configs, ``chip_smoke.py`` over gloo on the card at full width.
   xlstm, whisper and pixtral (tensor parallel) against the single-rank
   step, the elastic trainer, the pipeline, and W8A8 serving of qwen,
   deepseek, zamba2, whisper and xlstm (:data:`SERVE_PARTS`) against rank
-  0's single-rank serving.
+  0's single-rank serving; :func:`chip_every_head`, the same checks of a
+  train step and of serving on a world of 4 or 8 ranks whose ``model``
+  axis does not divide the heads.
 """
 
 from __future__ import annotations
@@ -165,8 +171,10 @@ def sharded_serving(device, cfg, shape: tuple, weights: dict, batch: dict,
         out = _numpy(sharding.gather_full(logits, logits_sh))
         if caches is None:
             return out
+        # a copy: a field the layout keeps whole is gathered as itself,
+        # and the decode steps update it in place
         return out, sharding.map_tree(
-            lambda t, sh: _numpy(sharding.gather_full(t, sh)), caches,
+            lambda t, sh: _numpy(sharding.gather_full(t, sh)).copy(), caches,
             cache_sh)
     logits, caches = lm.prefill(model, local, cfg, max_len, global_batch=n)
     first, prefill_caches = gathered(logits, caches)
@@ -303,6 +311,46 @@ def refusals(device, cfgs: list, model: int = 2) -> list:
         except NotImplementedError as e:
             out.append(str(e))
     return out
+
+
+def gather_to_heads_check(device, seed: int = 0, heads: int = 3,
+                          head_dim: int = 4) -> dict | None:
+    """On a (1, world) mesh: column slices of x (rows, heads * head_dim)
+    gathered into every head, a function that mixes the columns of each
+    head (x times its head's softmax), each rank's columns of the result
+    times its rows of ``w`` (a row-parallel product, summed over
+    ``model``), the loss the sum of squares; 3 heads of 4 cut through a
+    head on 2 and on 4 ranks.  Returns on rank 0 (None elsewhere) the
+    largest difference, over the largest value, between the gradient of
+    x (the ranks' slices gathered) and one rank's gradient of the same
+    loss, for ``context.gather_to_heads`` and for ``gather_from_model``
+    in its place."""
+    from repro_torch.distributed import context
+    world = dist.get_world_size()
+    mesh = make_mesh((1, world), AXES, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    width = heads * head_dim
+    x = torch.randn((5, width), generator=gen, device=device)
+    w = torch.randn((width, 7), generator=gen, device=device)
+
+    def mix(z):
+        h = z.reshape(z.shape[0], heads, head_dim)
+        return (h * torch.softmax(h, dim=-1)).reshape(z.shape)
+    whole = x.clone().requires_grad_(True)
+    (mix(whole) @ w).pow(2).sum().backward()
+    n = width // world
+    i = mesh.index(context.MODEL_AXIS)
+    out = {}
+    for name, gather in (("gather_to_heads", context.gather_to_heads),
+                         ("gather_from_model", context.gather_from_model)):
+        part = x.narrow(-1, i * n, n).clone().requires_grad_(True)
+        y = mix(gather(part, mesh)).narrow(-1, i * n, n) @ \
+            w.narrow(0, i * n, n)
+        context.reduce_from_model(y, mesh).pow(2).sum().backward()
+        g = context.all_gather(part.grad, context.MODEL_AXIS, mesh, -1)
+        out[name] = float((g - whole.grad).abs().max()
+                          / whole.grad.abs().max())
+    return out if _rank0() else None
 
 
 def tanh_stage(params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -525,11 +573,12 @@ class _AttentionRecorder:
                 "max_abs_err": worst}
 
 
-class _Int32Recorder:
-    """Records every ``nmc_matmul`` launch that returns the raw int32
-    accumulator (a row-parallel W8A8 linear's partial product) at the
-    dispatch layer, the wrapper still counting; :meth:`replay` holds each
-    against the plain version bit for bit."""
+class _MatmulRecorder:
+    """Records every ``nmc_matmul`` launch the models make (inputs,
+    keywords, output) at the dispatch layer, the wrapper still counting;
+    :meth:`replay` holds each against the plain version: the raw int32
+    accumulator (a row-parallel W8A8 linear's partial product) bit for
+    bit, every other output at ``kernels/checks.matmul_tolerance``."""
 
     def __enter__(self):
         import types
@@ -539,8 +588,7 @@ class _Int32Recorder:
 
         def rec(x_q, w_q, scale, bias=None, **kw):
             out = orig(x_q, w_q, scale, bias, **kw)
-            if kw.get("out_dtype") == torch.int32:
-                self.calls.append((x_q, w_q, out))
+            self.calls.append((x_q, w_q, scale, bias, kw, out))
             return out
         ops._mm = types.SimpleNamespace(nmc_matmul=rec)
         return self
@@ -549,15 +597,27 @@ class _Int32Recorder:
         self._ops._mm = self._orig
 
     def replay(self) -> dict:
+        """Launches, int32-out launches, launches by (M, K, N) and output
+        dtype, whether every int32-out one is bit-equal, and the other
+        launches' max abs err (raises beyond their tolerance)."""
+        from repro_torch.kernels import checks as kchecks
         from repro_torch.kernels import ref
-        shapes, equal = {}, True
-        for x_q, w_q, out in self.calls:
-            want = ref.nmc_matmul(x_q, w_q, None, out_dtype=torch.int32)
-            equal &= bool(torch.equal(out, want))
-            key = str((tuple(x_q.shape), tuple(w_q.shape)))
-            shapes[key] = shapes.get(key, 0) + 1
-        return {"launches": len(self.calls), "shapes": shapes,
-                "bit_equal": equal}
+        shapes, equal, int32, worst = {}, True, 0, 0.0
+        with torch.no_grad():
+            for i, (x_q, w_q, scale, bias, kw, out) in enumerate(self.calls):
+                want = ref.nmc_matmul(x_q, w_q, scale, bias, **kw)
+                if out.dtype == torch.int32:
+                    int32 += 1
+                    equal &= bool(torch.equal(out, want))
+                else:
+                    worst = max(worst, kchecks.close(
+                        f"nmc_matmul launch {i}", out, want,
+                        *kchecks.matmul_tolerance(kw.get("act", "none"),
+                                                  out.dtype)))
+                key = str((x_q.shape[0], *w_q.shape, str(out.dtype)))
+                shapes[key] = shapes.get(key, 0) + 1
+        return {"launches": len(self.calls), "int32": int32,
+                "shapes": shapes, "bit_equal": equal, "max_abs_err": worst}
 
 
 class _MoEDrops:
@@ -735,15 +795,23 @@ def _reference(cfg, batch: dict, spec: dict, device) -> dict:
     """The single-rank step on rank 0: the loss and gradient through the
     kernels, the plain path's own spread under 1-ulp input noise (each
     gradient's limit), and the parameters after one update from the
-    mid-run state."""
+    mid-run state.  A step that launched no kernel (the xLSTM's) is its
+    own plain version, and is not run again."""
     from repro_torch.kernels import ops
     n_mb, seed = spec["n_mb"], spec["seed"]
     model, shapes = _model(cfg, seed, device)
     loss_fn = step_lib.make_loss(cfg)
+    before = _launches()
     loss_k, _, g_k = step_lib.accumulated_grads(loss_fn, model, batch, n_mb)
+    _sync(device)
+    after = _launches()
     with ops.force_plain():
-        loss_p, _, g_p = step_lib.accumulated_grads(loss_fn, model, batch,
-                                                    n_mb)
+        if any(after[k] != before[k] for k in ("flash_attention",
+                                                "nmc_matmul")):
+            loss_p, _, g_p = step_lib.accumulated_grads(loss_fn, model,
+                                                        batch, n_mb)
+        else:
+            loss_p, g_p = loss_k, g_k
         with nudged_inputs(model, seed + 1):
             loss_u, _, g_u = step_lib.accumulated_grads(loss_fn, model,
                                                         batch, n_mb)
@@ -927,10 +995,10 @@ def chip_scaleout(device, spec: dict) -> dict:
     and 4 KV heads a rank, ``img_proj`` whole; (k) sequence parallelism
     with activation checkpointing, (a)'s model, batch and mesh with
     ``seq_parallel`` and ``remat`` on, against (a)'s reference; (l)-(n)
-    W8A8 serving on (1, 2) (:func:`_chip_serving`): qwen, deepseek cut to
-    2 layers and zamba2 cut to 2 groups at full width; (o) that zamba2
-    with float weights in float32; (p) whisper and (q) xlstm at full width
-    and depth, W8A8 (their cross K/V and states laid out by
+    W8A8 serving on (1, 2) (:func:`_chip_serving`): qwen, deepseek and
+    zamba2 at full width cut in depth; (o) that zamba2 with float weights
+    in float32; (p) whisper at full width and depth and (q) xlstm at full
+    width cut in depth, W8A8 (their cross K/V and states laid out by
     ``cache_shardings``); (r) that xlstm with float weights in float32.  ``spec`` holds the configs, sizes and limits;
     ``spec["batches"]`` a part's (rows, sequence) where it differs from
     ``spec["rows"]`` and ``spec["seq"]``; ``spec["serve_sizes"]`` a
@@ -938,20 +1006,11 @@ def chip_scaleout(device, spec: dict) -> dict:
     Returns each part's results and this rank's counted launches and
     collectives."""
     import time
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     out, t_all = {"rank": dist.get_rank()}, time.perf_counter()
-
-    def batch_of(cfg, rows, seq):
-        data = SyntheticLM(DataConfig(global_batch=rows, seq_len=seq,
-                                      seed=0), cfg)
-        return {k: torch.from_numpy(v).to(device)
-                for k, v in data.batch_at(0).items()}
-
     for part, key, shape in STEP_PARTS:
         t0 = time.perf_counter()
         cfg = spec[key]
-        batch = batch_of(cfg, *spec.get("batches", {}).get(
-            key, (spec["rows"], spec["seq"])))
+        batch = _batch_of(cfg, spec, key, device)
         if part not in ("b", "k"):            # they reuse (a)'s reference
             refs = _reference(cfg, batch, spec, device) if _rank0() else None
             _free(device)
@@ -985,6 +1044,56 @@ def chip_scaleout(device, spec: dict) -> dict:
         spec["opt"], tr["fail_at"], (1, 2), 1)
     out["e"] = _chip_pipeline(device, spec)
     out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def _batch_of(cfg, spec: dict, key: str, device) -> dict:
+    """A train part's global batch (``spec["batches"][key]``'s rows and
+    sequence, else ``spec["rows"]`` and ``spec["seq"]``), seed 0."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    rows, seq = spec.get("batches", {}).get(key, (spec["rows"],
+                                                  spec["seq"]))
+    data = SyntheticLM(DataConfig(global_batch=rows, seq_len=seq, seed=0),
+                       cfg)
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in data.batch_at(0).items()}
+
+
+def chip_every_head(device, spec: dict) -> dict:
+    """A part of ``chip_smoke.phase_scaleout`` on every rank of a world
+    whose ``model`` axis does not divide the model's heads, so that each
+    rank runs every head ((s) whisper-tiny on (1, 4), 1.5 heads a rank;
+    (t) xlstm-125m on (1, 8), half a head a rank), all on ``device``: one
+    train step of ``spec[spec["train"]]`` from the mid-run state against
+    rank 0's single-rank step (:func:`_sharded_run`), then serving of
+    ``spec[spec["serve"]]`` at ``spec["serve_sizes"][spec["part"]]``
+    against rank 0's single-rank serving (:func:`_chip_serving`), both on
+    (1, world).  Returns this rank's results of each (``"train"``,
+    ``"serve"``) with their seconds."""
+    import time
+    shape = (1, dist.get_world_size())
+    out = {"rank": dist.get_rank()}
+    t0 = time.perf_counter()
+    cfg = spec[spec["train"]]
+    batch = _batch_of(cfg, spec, spec["train"], device)
+    refs = _reference(cfg, batch, spec, device) if _rank0() else None
+    _free(device)
+    dist.barrier()
+    res = _sharded_run(cfg, make_mesh(shape, AXES, device), batch, spec,
+                       refs, device, profile=False)
+    if _rank0():
+        res["reference"] = {k: refs[k] for k in ("loss", "loss_plain",
+                                                 "loss_spread")}
+    del refs, batch
+    _free(device)
+    dist.barrier()
+    res["seconds"] = time.perf_counter() - t0
+    out["train"] = res
+    t0 = time.perf_counter()
+    res = _chip_serving(device, spec[spec["serve"]], spec, shape,
+                        spec["serve_sizes"][spec["part"]])
+    res["seconds"] = time.perf_counter() - t0
+    out["serve"] = res
     return out
 
 
@@ -1054,9 +1163,9 @@ def _logit_stats(got: torch.Tensor, want: torch.Tensor) -> dict:
 
 def _chip_serving(device, cfg, spec: dict, shape: tuple,
                   sv: dict) -> dict:
-    """One serving part on every rank (every attention launch of the
-    sharded run and every int32-out ``nmc_matmul`` launch replayed against
-    the plain versions): rank 0 first serves the W8A8 model on its own
+    """One serving part on every rank (every attention and ``nmc_matmul``
+    launch of the sharded run replayed against the plain versions): rank
+    0 first serves the W8A8 model on its own
     (prefill of ``sv``'s rows and prompt, an encoder-decoder's with
     ``sv["frames"]`` frame embeddings a row, then greedy decode
     steps; and once more with its prefill's embedded inputs moved by one
@@ -1109,14 +1218,14 @@ def _chip_serving(device, cfg, spec: dict, shape: tuple,
     local = {k: sharding.local_slice(t, batch_sh[k])
              for k, t in batch.items()}
     _reset(device)
-    with _AttentionRecorder() as attn, _Int32Recorder() as acc:
+    with _AttentionRecorder() as attn, _MatmulRecorder() as mm:
         with _Events(device) as ev:
             got = _serve(model, cfg, local,
                          sharding.local_slice(tokens, rows_sh), max_len,
                          rows)
         out["counted"] = _counted(device)
-    out.update(attention_replay=attn.replay(), int32_replay=acc.replay())
-    del attn, acc
+    out.update(attention_replay=attn.replay(), matmul_replay=mm.replay())
+    del attn, mm
     out.update(step_traffic=got["step_traffic"],
                serve_ms=ev.ms, peak_gb=_peak_gb(device),
                local_caches={p: tuple(t.shape)

@@ -20,7 +20,9 @@ result cast back).  The autograd-aware ones are the four of tensor
 parallelism: :func:`copy_to_model` (forward identity, backward all-reduce
 over ``model``), :func:`reduce_from_model` (forward all-reduce, backward
 identity), :func:`gather_from_model` (forward all-gather on one dim,
-backward the local slice) and :func:`mean_over_model`;
+backward the local slice), :func:`gather_to_heads` (forward all-gather
+of column slices into whole heads, backward reduce-scatter: each rank
+then keeps other columns of what follows) and :func:`mean_over_model`;
 :func:`gather_from_data` (forward all-gather of rows over the data axes,
 backward their sum and the local rows), with which a MoE layer under data
 parallelism alone routes the global batch as the reference's GSPMD does;
@@ -439,7 +441,7 @@ class _GatherFromData(torch.autograd.Function):
         return g.narrow(0, ctx.mesh.index(axes) * ctx.n, ctx.n), None
 
 
-class _GatherFromSeq(torch.autograd.Function):
+class _GatherReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, dim):
         ctx.mesh, ctx.dim = mesh, dim
@@ -492,6 +494,27 @@ def gather_from_model(x: torch.Tensor, mesh: Mesh, dim: int = -1
     return _GatherFromModel.apply(x, mesh, dim % x.dim())
 
 
+def gather_to_heads(x: torch.Tensor, mesh: Mesh, dim: int = -1
+                    ) -> torch.Tensor:
+    """The model ranks' column slices of x (a column-parallel projection's
+    output, split through a head) concatenated on ``dim``, every head
+    whole on every rank, for a layer whose ranks then keep different
+    columns of its output: each rank's gradient of the whole x covers its
+    own columns' part of the layer, so the gradient is summed over the
+    model ranks and each rank's columns kept (a reduce-scatter).
+    :func:`gather_from_model` narrows instead, which is right only where
+    every rank's downstream is the same."""
+    return _GatherReduceScatter.apply(x, mesh, dim % x.dim())
+
+
+def gather_to_heads_if(x: torch.Tensor, mesh: Mesh, every: bool,
+                       dim: int = -1) -> torch.Tensor:
+    """:func:`gather_to_heads` where ``every`` (a layer that runs every
+    head on every rank, its column-parallel slice split through a head);
+    x itself otherwise."""
+    return gather_to_heads(x, mesh, dim) if every else x
+
+
 def mean_over_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The mean of x over the model ranks (the reference's ``pmean``)."""
     return _MeanOverModel.apply(x, mesh)
@@ -510,7 +533,7 @@ def gather_from_seq(x: torch.Tensor, mesh: Mesh, dim: int = 1
     model ranks' rows of x concatenated on ``dim``; the gradient (partial:
     each rank's part of the region) summed over the model ranks and each
     rank's rows kept."""
-    return _GatherFromSeq.apply(x, mesh, dim % x.dim())
+    return _GatherReduceScatter.apply(x, mesh, dim % x.dim())
 
 
 def reduce_scatter_to_seq(x: torch.Tensor, mesh: Mesh, dim: int = 1

@@ -26,7 +26,9 @@ there is no while body to expand and no ``*_body_once`` field.  It counts:
   attention, forward and backward
   (:data:`repro_torch.kernels.flash_attention.FALLBACK`, the counterpart
   of the reference's ``named_scope("flashattn_fallback")``): the I/O that
-  the attention kernel replaces;
+  the attention kernel replaces; ``attn_fallback_flops``, its products
+  (the attention's flops, which a layer that runs every head on every
+  rank replicates over ``model``);
 * ``collectives`` by kind, each with ``count``, ``result_bytes`` and
   ``link_bytes``, and their sum ``collective_link_bytes``, from
   :data:`repro_torch.distributed.context.traffic` with the reference's
@@ -131,7 +133,10 @@ class _Ops(TorchDispatchMode):
         c = self.census
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
-            c.flops += count(*args, **kwargs, out_val=out)
+            n = count(*args, **kwargs, out_val=out)
+            c.flops += n
+            if FALLBACK.get():
+                c.attn_fallback_flops += n
         if not func.is_view and func not in _METADATA:
             n = _bytes(args) + _bytes(kwargs) + _bytes(out)
             c.hbm_bytes += n
@@ -150,6 +155,7 @@ class Census:
 
     def __init__(self, args=()):
         self.flops = self.hbm_bytes = self.attn_fallback_bytes = 0
+        self.attn_fallback_flops = 0
         self.live: dict = {}
         self.live_bytes = self.peak_bytes = self.allocated_bytes = 0
         self.peak_op, self.live_by_op, self.peak_by_op = None, {}, {}
@@ -206,6 +212,7 @@ class Census:
                 "flops": int(self.flops),
                 "hbm_bytes": self.hbm_bytes,
                 "attn_fallback_bytes": self.attn_fallback_bytes,
+                "attn_fallback_flops": int(self.attn_fallback_flops),
                 "collective_link_bytes": sum(
                     c["link_bytes"] for c in self.collectives.values()),
                 "collectives": self.collectives,

@@ -19,6 +19,19 @@ Where ``model`` does not divide ``n_kv_heads``, ``wk`` and ``wv`` stay
 whole: each rank computes every KV head and takes those its query heads
 read (``kv_select``).
 
+Where ``model`` does not divide the heads (whisper-tiny's 6 on model 4,
+phi3-medium-14b's 40 on model 16), the rule still splits ``wq`` / ``wk``
+/ ``wv`` by columns and ``wo`` by rows, through a head (and the KV heads
+do not divide either, so ``wk`` / ``wv`` stay whole, but for a
+cross-attention's, which the rule splits).  Such a layer runs every head
+on every rank (``every_head``): the column slices of q (and of k / v
+where they are split) are gathered over ``model`` into whole heads
+(``context.gather_to_heads``, whose backward is a reduce-scatter), the
+attention runs on every head, and each rank keeps the columns of its
+output that its rows of ``wo`` meet (:meth:`GQAttention._out`); the
+row-parallel sum closes the layer as before.  The attention's flops are
+then replicated on the ``model`` ranks.
+
 MLA on such a mesh runs the rank's heads too: ``wq``, ``w_uk`` and
 ``w_uv`` column-parallel (their columns are head-major), ``wo``
 row-parallel, ``n_heads / model`` heads through ``flash_attention``.
@@ -40,9 +53,11 @@ the rank that holds its slot, attends over the rank's slots
 (``ops.decode_attention_partial``: the attention and the logsumexp of
 its logits) and combines the ranks' partials (``ops.combine_partials``:
 weighted by their logsumexps, a max and a sum over the split axes); each
-rank keeps its heads for the row-parallel ``wo`` (MLA: its heads'
-``W_uv`` first).  An encoder-decoder's cross K/V follow the same rule
-over the encoder frames: its prefill hands the K / V of its local heads
+rank keeps the columns its rows of the row-parallel ``wo`` meet, its
+heads where they divide (MLA: its heads' ``W_uv`` first).  An
+encoder-decoder's cross K/V follow the same rule over the encoder frames
+(over each head's features where ``model`` does not divide the frames:
+whisper-tiny's 1500 on 16): its prefill hands the K / V of its local heads
 over to every head of its frames (:meth:`GQAttention.to_cache`, the
 slots' code), and its decode (:meth:`GQAttention.cross_decode`) attends
 every head's query over the rank's frames through the flash kernel with
@@ -77,6 +92,9 @@ class GQAttention(nn.Module):
 
     mesh: C.Mesh | None = None
     kv_select: list | None = None
+    #: on a mesh whose ``model`` axis does not divide the heads: every
+    #: rank runs every head (module docstring)
+    every_head: bool = False
 
     def __init__(self, wq: L.NmcLinear, wk: L.NmcLinear, wv: L.NmcLinear,
                  wo: L.NmcLinear):
@@ -95,16 +113,24 @@ class GQAttention(nn.Module):
                              device),
             L.NmcLinear.init(gen, cfg.n_heads * hd, d, device=device))
 
+    def heads(self, y: torch.Tensor, lin: L.NmcLinear,
+              cfg: ModelConfig) -> torch.Tensor:
+        """A projection's output y (B, S, cols) by ``lin`` as (B, S, heads,
+        hd): under ``every_head`` a column-parallel one's slice gathered
+        over ``model`` into every head first."""
+        y = C.gather_to_heads_if(y, self.mesh,
+                                 self.every_head and lin.parallel == "col")
+        return y.reshape(y.shape[0], y.shape[1], -1, cfg.head_dim)
+
     def _project(self, x: torch.Tensor, cfg: ModelConfig,
                  select: bool = True) -> tuple:
         """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd), before RoPE
-        (this rank's heads on a mesh; with ``select`` False, every KV head
-        where ``wk`` / ``wv`` are whole)."""
-        b, s, _ = x.shape
-        hd, mode = cfg.head_dim, cfg.nmc_mode
-        q = self.wq(x, nmc_mode=mode).reshape(b, s, -1, hd)
-        k = self.wk(x, nmc_mode=mode).reshape(b, s, -1, hd)
-        v = self.wv(x, nmc_mode=mode).reshape(b, s, -1, hd)
+        (this rank's heads on a mesh, every head under ``every_head``;
+        with ``select`` False, every KV head where ``wk`` / ``wv`` are
+        whole)."""
+        mode = cfg.nmc_mode
+        q, k, v = (self.heads(lin(x, nmc_mode=mode), lin, cfg)
+                   for lin in (self.wq, self.wk, self.wv))
         if select and self.kv_select is not None:
             k, v = k[:, :, self.kv_select], v[:, :, self.kv_select]
         return q, k, v
@@ -119,11 +145,17 @@ class GQAttention(nn.Module):
             k = L.apply_rope(k, cos, sin)
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
-    def _out(self, o: torch.Tensor, cfg: ModelConfig,
-             sp: bool = False) -> torch.Tensor:
+    def _out(self, o: torch.Tensor, cfg: ModelConfig, sp: bool = False,
+             every: bool = False) -> torch.Tensor:
+        """The output projection of o (B, H, S, hd).  Where o holds every
+        head (``every``, or under ``every_head``) and ``wo`` is
+        row-parallel, the columns its rows meet
+        (:func:`_local_columns`)."""
         b, _, s, _ = o.shape
-        return self.wo(o.transpose(1, 2).reshape(b, s, -1),
-                       nmc_mode=cfg.nmc_mode, sp=sp)
+        o = o.transpose(1, 2).reshape(b, s, -1)
+        if (every or self.every_head) and self.wo.parallel == "row":
+            o = _local_columns(o, self.wo)
+        return self.wo(o, nmc_mode=cfg.nmc_mode, sp=sp)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, *,
                 causal: bool = True, q_offset: int = 0,
@@ -152,9 +184,9 @@ class GQAttention(nn.Module):
                  q_offset: int = 0) -> torch.Tensor:
         """A cross-attention's q (B, H, S, hd) from x (B, S, D), rope
         applied at positions ``q_offset`` on (this rank's heads on a
-        mesh)."""
-        b, s, _ = x.shape
-        q = self.wq(x, nmc_mode=cfg.nmc_mode).reshape(b, s, -1, cfg.head_dim)
+        mesh, every head under ``every_head``)."""
+        s = x.shape[1]
+        q = self.heads(self.wq(x, nmc_mode=cfg.nmc_mode), self.wq, cfg)
         if not cfg.learned_pos:
             positions = torch.arange(s, device=x.device) + q_offset
             cos, sin = L.rope_table(positions, cfg.head_dim, cfg.rope_theta)
@@ -164,10 +196,11 @@ class GQAttention(nn.Module):
     def to_cache(self, t: torch.Tensor, sh: sharding.Sharding
                  ) -> torch.Tensor:
         """t (B, KV, S, hd), this rank's KV heads of every position (every
-        KV head where ``wk`` / ``wv`` are whole), as its slice under the
-        cache's ``sh`` (:func:`cache_split`): gathered over the heads,
-        narrowed to the rank's positions."""
-        heads = C.MODEL_AXIS if self.wk.parallel == "col" else None
+        KV head where ``wk`` / ``wv`` are whole or under ``every_head``),
+        as its slice under the cache's ``sh`` (:func:`cache_split`):
+        gathered over the heads, narrowed to the rank's positions."""
+        heads = C.MODEL_AXIS if self.wk.parallel == "col" and \
+            not self.every_head else None
         src = sharding.Sharding(sh.mesh, (sh.spec[0], heads, None, None))
         return sharding.relayout(t, src, sh.spec)
 
@@ -175,24 +208,26 @@ class GQAttention(nn.Module):
                      sh: sharding.Sharding | None = None) -> torch.Tensor:
         """One token's cross-attention over an encoder output's K / V (B,
         KV, S_enc, hd).  ``sh``: on a ``model`` axis their layout
-        (:func:`cache_split`: every KV head, this rank's frames): every
-        head's q gathered over ``model``, the attention over the rank's
-        frames (``ops.attention_partial``: the flash kernel, with its
-        log-sum-exp where the frames are split), the ranks' partials
-        combined over the axes that split them, the rank's heads on to the
-        row-parallel ``wo``; one rank's attention over all the frames
-        otherwise (the same launch, no log-sum-exp).  The query sits at
-        position 0, so a window hides no frame, as in :meth:`forward`.
-        Returns (B, 1, D)."""
+        (:func:`cache_split`: every KV head, this rank's frames; where the
+        layout splits the head dim instead, K / V are gathered on it
+        first): every head's q gathered over ``model``, the attention over
+        the rank's frames (``ops.attention_partial``: the flash kernel,
+        with its log-sum-exp where the frames are split), the ranks' partials
+        combined over the axes that split them, the columns of the rank's
+        rows of the row-parallel ``wo`` on to it; one rank's attention over
+        all the frames otherwise (the same launch, no log-sum-exp).  The
+        query sits at position 0, so a window hides no frame, as in
+        :meth:`forward`.  Returns (B, 1, D)."""
         q = self._cross_q(x, cfg)
         axes = () if sh is None else sharding.split_axes(sh, 2)
-        if sh is not None and self.mesh is not None:
+        if sh is not None and sharding.split_axes(sh, 3):
+            kv = tuple(C.all_gather(t, sharding.split_axes(sh, 3), sh.mesh, 3)
+                       for t in kv)
+        if sh is not None and self.mesh is not None and not self.every_head:
             q = C.all_gather(q, C.MODEL_AXIS, self.mesh, 1)
         o, lse = ops.attention_partial(q, *kv, causal=False, lse=bool(axes))
         o = _combine(o, lse, axes, None if sh is None else sh.mesh)
-        if sh is not None:
-            o = _local_heads(o, self.mesh)
-        return self._out(o.to(x.dtype), cfg)
+        return self._out(o.to(x.dtype), cfg, every=sh is not None)
 
     def prefill(self, x: torch.Tensor, cfg: ModelConfig, max_len: int,
                 cache_sh: dict | None = None) -> tuple:
@@ -234,8 +269,9 @@ class GQAttention(nn.Module):
         (:meth:`prefill`): the new token's k / v (every KV head) and q
         (every head) are gathered over ``model``, the rank holding a row's
         slot writes it, every rank attends over its slots and the ranks'
-        partials are combined over the axes that split them; the rank's
-        heads of the result go on to the row-parallel ``wo``.
+        partials are combined over the axes that split them; the columns
+        of the result that the rank's rows of the row-parallel ``wo`` meet
+        go on to it (its heads' where the heads divide).
         Returns (out (B,1,D), cache)."""
         b = x.shape[0]
         q, k, v = self._project(x, cfg, select=cache_sh is None)
@@ -251,7 +287,8 @@ class GQAttention(nn.Module):
         s_cache = s_loc * (split.mesh.size(axes) if axes else 1)
         offset = 0 if split is None else sharding.local_offset(split, 2,
                                                                s_loc)
-        if split is not None and self.mesh is not None:
+        if split is not None and self.mesh is not None and \
+                not self.every_head:
             q = C.all_gather(q, C.MODEL_AXIS, self.mesh, 2)
             if self.wk.parallel == "col":
                 k = C.all_gather(k, C.MODEL_AXIS, self.mesh, 2)
@@ -279,9 +316,8 @@ class GQAttention(nn.Module):
         o = _combine(*ops.decode_attention_partial(
             q.transpose(1, 2), kc, vc, lens, offset, window=window,
             lse=bool(axes)), axes, None if split is None else split.mesh)
-        if split is not None:
-            o = _local_heads(o, self.mesh)
-        return self._out(o.to(x.dtype)[:, :, None], cfg), cache
+        return self._out(o.to(x.dtype)[:, :, None], cfg,
+                         every=split is not None), cache
 
 
 class MLAttention(nn.Module):
@@ -472,20 +508,25 @@ class MLAttention(nn.Module):
         return self.latent_out(o_lat, cfg)
 
 
-def cache_split(cache_sh: dict) -> sharding.Sharding:
+def cache_split(cache_sh: dict, features: bool = False) -> sharding.Sharding:
     """The Sharding of one layer's attention cache that splits its slots
     (GQA's ``k`` (B, KV, S, hd) on dim 2, an encoder-decoder's cross K/V
     on its frames there too, MLA's ``ckv`` (B, S, r) on dim 1): every
     field must split the same slots and nothing else but the batch (dim
-    0), else the layout is one the port does not serve."""
+    0), and with ``features`` its last dim (a cross K/V whose frames the
+    model axis does not divide: whisper-tiny's 1500 over 16 split each
+    head's 64 features instead), else the layout is one the port does not
+    serve."""
     key = "ckv" if "ckv" in cache_sh else "k"
     sh = cache_sh[key]
     seq = 1 if key == "ckv" else 2
+    last = len(sh.spec) - 1
     for name, other in cache_sh.items():
         parts = tuple(other.spec)
         bad = [d for d, p in enumerate(parts) if p is not None
-               and d not in (0, seq)]
-        if bad or parts[0] != sh.spec[0] or parts[seq] != sh.spec[seq]:
+               and d not in (0, seq) + ((last,) if features else ())]
+        if bad or parts[0] != sh.spec[0] or parts[seq] != sh.spec[seq] \
+                or parts[-1] != sh.spec[-1]:
             raise NotImplementedError(
                 f"cache field {name!r} laid out as {parts}: the port serves "
                 f"a cache split on its batch and its slots only")
@@ -524,9 +565,17 @@ def _combine(o: torch.Tensor, lse: torch.Tensor | None, axes: tuple,
                                 lambda t: C.all_reduce(t, axes, mesh))
 
 
+def _local_columns(o: torch.Tensor, wo: L.NmcLinear) -> torch.Tensor:
+    """The columns of o (..., every head's features) that this rank's rows
+    of the row-parallel ``wo`` meet: its heads' where the heads divide,
+    a slice through a head where they do not."""
+    n = (wo.w if wo.w is not None else wo.w_q).shape[0]
+    return o.narrow(-1, wo.mesh.index(C.MODEL_AXIS) * n, n)
+
+
 def _local_heads(o: torch.Tensor, mesh: C.Mesh | None) -> torch.Tensor:
     """This rank's heads (dim 1) of every head's ``o`` (all of it with no
-    mesh)."""
+    mesh; MLA, whose heads divide)."""
     if mesh is None:
         return o
     n = o.shape[1] // mesh.model_size()

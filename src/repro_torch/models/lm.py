@@ -275,14 +275,13 @@ class CrossDecoderBlock(nn.Module):
         the w8 form (weights dequantized, then a matmul in the activation
         dtype); never an ``nmc_matmul`` launch.  On a mesh this rank's KV
         heads (with ``select`` False, every KV head where ``wk`` / ``wv``
-        are whole)."""
-        b, se, _ = enc.shape
+        are whole; every KV head, the column slices gathered, where
+        ``xattn`` runs every head)."""
         # ``enc`` entered the region in EncDecLM.hidden
-        shape = (b, se, -1, cfg.head_dim)
-        k = self.xattn.wk(enc).reshape(shape)
-        v = self.xattn.wv(enc).reshape(shape)
-        if select and self.xattn.kv_select is not None:
-            k, v = k[:, :, self.xattn.kv_select], v[:, :, self.xattn.kv_select]
+        xa = self.xattn
+        k, v = (xa.heads(lin(enc), lin, cfg) for lin in (xa.wk, xa.wv))
+        if select and xa.kv_select is not None:
+            k, v = k[:, :, xa.kv_select], v[:, :, xa.kv_select]
         return k.transpose(1, 2), v.transpose(1, 2)
 
     def _mlp(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -313,7 +312,7 @@ class CrossDecoderBlock(nn.Module):
             if sel is not None:
                 kv_x = (kv[0][:, sel], kv[1][:, sel])
             sh = A.cache_split({"k": cache_sh["cross_k"],
-                                "v": cache_sh["cross_v"]})
+                                "v": cache_sh["cross_v"]}, features=True)
             kv = tuple(self.xattn.to_cache(t, sh) for t in kv)
         return self._cross_and_mlp(x + y, kv_x, cfg), cache, kv
 
@@ -325,7 +324,8 @@ class CrossDecoderBlock(nn.Module):
         x = x + self.attn.decode_step(self.ln1(x), cfg, cache, cache_len,
                                       cache_sh and cache_sh["layers"])[0]
         cross_sh = None if cache_sh is None else A.cache_split(
-            {"k": cache_sh["cross_k"], "v": cache_sh["cross_v"]})
+            {"k": cache_sh["cross_k"], "v": cache_sh["cross_v"]},
+            features=True)
         return self._mlp(x + self.xattn.cross_decode(self.lnx(x), cfg, kv,
                                                       cross_sh), cfg)
 
@@ -1009,14 +1009,21 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
     tensor-parallel), the encoder-decoder (its encoder, self- and
     cross-attention on local heads; an odd vocabulary keeps ``embed`` and
     ``head`` whole) and the xLSTM (mLSTM and sLSTM on local heads).
-    The heads (attention and SSM) must divide over ``model``; where the
-    KV heads do not, ``wk`` and ``wv`` stay whole (the rule would split
-    them by columns, through a head) and each rank takes the KV heads its
-    query heads read.  ``params.layout.partial`` names the whole tensors
-    read inside a model-parallel region, whose gradients are partial over
-    ``model``: the MoE routers, whole KV heads, MLA's latent projections,
-    Mamba2's ``in_b`` / ``in_c`` / ``in_dt`` / ``conv_bc_*`` / ``norm.g``,
-    the mLSTM's ``wf`` and ``out_norm.g``; under ``cfg.seq_parallel`` (the
+    Where the KV heads do not divide over ``model``, ``wk`` and ``wv``
+    stay whole (the rule would split them by columns, through a head) and
+    each rank takes the KV heads its query heads read.  Where the
+    attention, mLSTM or sLSTM heads do not divide, the rule splits their
+    projections through a head all the same, and each such layer runs
+    every head on every rank (``every_head``: the column slices gathered
+    into whole heads, each rank keeping its columns of the output; the
+    attention and the recurrences replicated over ``model``).  MLA's
+    heads and Mamba2's SSM heads must divide.  ``params.layout.partial``
+    names the whole tensors read inside a model-parallel region, whose
+    gradients are partial over ``model``: the MoE routers, whole KV heads,
+    MLA's latent projections, Mamba2's ``in_b`` / ``in_c`` / ``in_dt`` /
+    ``conv_bc_*`` / ``norm.g``, the mLSTM's ``wf`` and ``out_norm.g`` (and
+    its whole ``wi`` where every rank runs every head); under
+    ``cfg.seq_parallel`` (the
     families of :data:`SEQ_FAMILIES`) also every replicated weight of a
     block that runs on this rank's rows of the sequence, and the dense,
     MoE and VLM models' ``final_norm.g`` (``layout.seq_partial``, partial
@@ -1032,9 +1039,9 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
     named = dict(params.named_parameters())
     buffers = dict(params.named_buffers())
     tp = mesh.model_size()
-    if tp > 1 and cfg.n_heads % tp:
+    if tp > 1 and cfg.mla and cfg.n_heads % tp:
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} heads over a model axis of {tp}")
+            f"{cfg.name}: {cfg.n_heads} MLA heads over a model axis of {tp}")
     if tp > 1 and cfg.family == "hybrid" and cfg.ssm_heads % tp:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.ssm_heads} SSM heads over a model axis of "
@@ -1099,14 +1106,19 @@ def _mark_parallel(params: LMBase, cfg: ModelConfig, shard_of: dict,
         elif isinstance(mod, MOE.MoE):
             partial |= {pre + "router." + n
                         for n, _ in mod.router.named_parameters()}
+    tp = mesh.model_size()
     for mname, mod in params.named_modules():
         pre = f"{mname}." if mname else ""
         if isinstance(mod, L.MLP) and mod.wi.parallel == "col":
             mod.mesh = mesh
         elif isinstance(mod, A.GQAttention) and mod.wq.parallel == "col":
             mod.mesh = mesh
+            # heads, or split KV heads, that model does not divide
+            mod.every_head = bool(cfg.n_heads % tp or (
+                mod.wk.parallel == "col" and cfg.n_kv_heads % tp))
             if mod.wk.parallel != "col":
-                mod.kv_select = _kv_select(cfg, mesh)
+                if not mod.every_head:
+                    mod.kv_select = _kv_select(cfg, mesh)
                 partial |= _names(mod, pre, ("wk", "wv"))
         elif isinstance(mod, A.MLAttention) and mod.wq.parallel == "col":
             mod.mesh = mesh
@@ -1117,10 +1129,15 @@ def _mark_parallel(params: LMBase, cfg: ModelConfig, shard_of: dict,
             partial |= {pre + n for n in ("conv_bc_w", "conv_bc_b")}
         elif isinstance(mod, XL.MLSTM) and mod.up.parallel == "col":
             mod.mesh = mesh
-            # out_norm's gain is read by slices; wf (whole) by local heads
+            mod.every_head = bool(cfg.n_heads % tp)
+            # out_norm's gain is read by slices; wf (whole) by local heads,
+            # and under every_head wi (whole) by every rank's columns
             partial |= _names(mod, pre, ("out_norm", "wf"))
+            if mod.wi.parallel is None:
+                partial |= _names(mod, pre, ("wi",))
         elif isinstance(mod, XL.SLSTM) and mod.w_z.parallel == "col":
             mod.mesh = mesh
+            mod.every_head = bool(cfg.n_heads % tp)
     return partial
 
 

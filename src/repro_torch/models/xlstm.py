@@ -37,6 +37,22 @@ time loop on the local heads with no collective inside it, its hidden
 states gathered before the residual; the FFN follows the layout of its
 ``up`` and ``down`` (``fix_divisibility`` may keep either whole).
 
+Where ``model`` does not divide the heads (xlstm-125m's 4 on model 8:
+half a head a rank), the rule still splits the column-parallel
+projections through a head, and keeps ``wi`` and ``r_*`` (split over
+heads) whole.  Both blocks then run every head on every rank
+(``every_head``).  mLSTM: the column slices of q / k / v are gathered
+over ``model`` into whole heads (``context.gather_to_heads``: each rank
+keeps other columns of the output, so the gradient is reduce-scattered),
+the gates of every head come from the whole ``wi`` / ``wf`` (both
+gradients partial), the matrix memory runs on every head, and each rank
+keeps its columns of the result for ``out_norm`` and the row-parallel
+``down``.  sLSTM: the gates' column slices are gathered into every head
+(``context.gather_from_model``: everything after the loop is the same on
+every rank, so each rank's gradient is whole) and the time loop runs on
+every head with the whole ``r_*``, its hidden states whole on every rank.
+Their states are computed whole (``state_specs``).
+
 Serving on such a mesh keeps each block's state laid out by
 ``sharding.cache_shardings`` (the rule's longest dim over ``model``: an
 mLSTM's ``C`` and ``n`` over their first key dim P, not the heads, its
@@ -165,6 +181,9 @@ class MLSTM(sharding.ServedState, nn.Module):
 
     KEYS = ("up", "up_gate", "wq", "wk", "wv", "wi", "wf", "down")
     mesh: C.Mesh | None = None
+    #: on a mesh whose ``model`` axis does not divide the heads: every
+    #: rank runs every head (module docstring)
+    every_head: bool = False
 
     def __init__(self, norm: L.RMSNorm, lin: dict, out_norm: L.RMSNorm):
         super().__init__()
@@ -193,7 +212,8 @@ class MLSTM(sharding.ServedState, nn.Module):
 
     def _proj(self, x: torch.Tensor, cfg: ModelConfig) -> tuple:
         """(g, q, k, v, log_i, log_f): the silu gate (B,S,d_i), q / k / v
-        (B,S,H,P) in the activation dtype, the gates (B,S,H) float32."""
+        (B,S,H,P) in the activation dtype, the gates (B,S,H) float32 (H
+        this rank's heads on a mesh, every head under ``every_head``)."""
         b, s, _ = x.shape
         mode, mesh = cfg.nmc_mode, self.mesh
         xn = self.norm(x)
@@ -207,19 +227,25 @@ class MLSTM(sharding.ServedState, nn.Module):
             u = C.copy_to_model(C.gather_from_model(u, mesh), mesh)
         # by the head dim: the local head count follows from the widths
         heads = (b, s, -1, mlstm_head_dim(cfg))
-        q, k, v = (lin(u, nmc_mode=mode).reshape(heads)
+        q, k, v = (C.gather_to_heads_if(lin(u, nmc_mode=mode), mesh,
+                                        self.every_head).reshape(heads)
                    for lin in (self.wq, self.wk, self.wv))
         log_i = self.wi(u).float()
         log_f = self.wf(u)
-        if mesh is not None:            # wf whole: this rank's heads' gates
+        if mesh is not None and not self.every_head:
+            # wf whole: this rank's heads' gates
             h = log_i.shape[-1]
             log_f = log_f.narrow(-1, mesh.index(C.MODEL_AXIS) * h, h)
         return g, q, k, v, log_i, F.logsigmoid(log_f.float())
 
     def _out(self, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
              cfg: ModelConfig) -> torch.Tensor:
-        """x + down(out_norm(y) * g), y (B,S,H,P)."""
-        y = y.reshape(g.shape)
+        """x + down(out_norm(y) * g), y (B,S,H,P); under ``every_head``
+        this rank's columns of y (those of its slice of g)."""
+        y = y.reshape(g.shape[:-1] + (-1,))
+        if self.every_head:
+            n = g.shape[-1]
+            y = y.narrow(-1, self.mesh.index(C.MODEL_AXIS) * n, n)
         y = self.out_norm(y) if self.mesh is None \
             else L.rms_norm_over_model(y, self.out_norm, self.mesh)
         return x + self.down(y * g, nmc_mode=cfg.nmc_mode)
@@ -236,8 +262,10 @@ class MLSTM(sharding.ServedState, nn.Module):
 
     def state_specs(self, batch_part) -> tuple:
         """The state ``(C, n, m)`` as this rank computes it: over its
-        heads (dim 1) on a mesh, the batch dim as ``batch_part``."""
-        heads = C.MODEL_AXIS if self.mesh is not None else None
+        heads (dim 1) on a mesh, every head under ``every_head``, the batch
+        dim as ``batch_part``."""
+        heads = C.MODEL_AXIS if self.mesh is not None and \
+            not self.every_head else None
         return ((batch_part, heads, None, None), (batch_part, heads, None),
                 (batch_part, heads))
 
@@ -287,6 +315,8 @@ class SLSTM(sharding.ServedState, nn.Module):
     docstring)."""
 
     mesh: C.Mesh | None = None
+    #: as :attr:`MLSTM.every_head`
+    every_head: bool = False
 
     def __init__(self, norm: L.RMSNorm, w: dict, r: dict,
                  ffn_norm: L.RMSNorm, up: L.NmcLinear, down: L.NmcLinear):
@@ -320,12 +350,16 @@ class SLSTM(sharding.ServedState, nn.Module):
 
     def _proj(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         """The gates' input pre-activations (B, S, 4, D) float32, in
-        :data:`GATES` order."""
+        :data:`GATES` order (D this rank's heads' channels on a mesh,
+        every head's under ``every_head``)."""
         xn = self.norm(x)
         if self.mesh is not None:
             xn = C.copy_to_model(xn, self.mesh)
-        return torch.stack([getattr(self, f"w_{g}")(xn).float()
-                            for g in GATES], dim=2)
+        pre = torch.stack([getattr(self, f"w_{g}")(xn).float()
+                           for g in GATES], dim=2)
+        # every head: the loop and all after it are the same on every rank
+        return C.gather_from_model(pre, self.mesh) if self.every_head \
+            else pre
 
     def recurrence(self, pre: torch.Tensor, state: tuple) -> tuple:
         """The time loop over pre (B, S, 4, D) from ``state`` ``(c, n, m,
@@ -335,8 +369,10 @@ class SLSTM(sharding.ServedState, nn.Module):
         c, n, m, hprev = state
         bsz, s, _, d = pre.shape
         heads, p = self.r_z.shape[:2]
-        # (H, P, 4P): the four gates' recurrent weights side by side
-        r = torch.cat([getattr(self, f"r_{g}") for g in GATES], dim=-1)
+        # (H, P, 4P): the four gates' recurrent weights side by side, in
+        # float32 (bf16 serving weights promote to it, as in the reference)
+        r = torch.cat([getattr(self, f"r_{g}") for g in GATES],
+                      dim=-1).to(pre.dtype)
         hs = []
         for t in range(s):
             rec = torch.bmm(hprev.reshape(bsz, heads, p).transpose(0, 1), r)
@@ -387,7 +423,7 @@ class SLSTM(sharding.ServedState, nn.Module):
             heads, p = self.r_z.shape[:2]
             state = slstm_state_init(cfg, x.shape[0], x.device, heads * p)
         hs, last = self.recurrence(self._proj(x, cfg), state)
-        if self.mesh is not None:
+        if self.mesh is not None and not self.every_head:
             # what follows reads the whole hidden state on every rank, so
             # its gradient is whole there: a plain gather
             hs = C.gather_from_model(hs, self.mesh)
@@ -396,9 +432,10 @@ class SLSTM(sharding.ServedState, nn.Module):
 
     def state_specs(self, batch_part) -> tuple:
         """The state ``(c, n, m, h)`` as this rank computes it: its
-        heads' channels (dim 1) on a mesh, the batch dim as
-        ``batch_part``."""
-        heads = C.MODEL_AXIS if self.mesh is not None else None
+        heads' channels (dim 1) on a mesh, every channel under
+        ``every_head``, the batch dim as ``batch_part``."""
+        heads = C.MODEL_AXIS if self.mesh is not None and \
+            not self.every_head else None
         return ((batch_part, heads),) * 4
 
     def decode_step(self, x: torch.Tensor, cfg: ModelConfig, state: tuple,

@@ -5,11 +5,12 @@
   bytes by dtype, against the reference's ``launch.specs`` under
   ``jax.eval_shape``.
 * Every cell of ``--all --both-meshes`` laid out over a fake world of 256
-  and 512 ranks: the split (7 train and 16 serving cells a mesh laid out,
-  the serving ones traced at full width with their depth cut to one
+  and 512 ranks: the split (10 train and 23 serving cells a mesh laid
+  out, the serving ones traced at full width with their depth cut to one
   layer, a MoE model's first dense layers and one MoE layer, or one
-  zamba2 group; 10 cells whose layout the port refuses), each laid-out
-  cell's argument bytes a device at full depth equal to those the
+  zamba2 group; no layout refused,
+  heads that model 16 does not divide included), each cell's argument
+  bytes a device at full depth equal to those the
   reference's own specs imply (its ``param_specs``, ``fix_divisibility``,
   ZeRO-2 extension, ``batch_shardings`` and ``cache_shardings`` on
   stand-in meshes), after the port's named departures, and one serving
@@ -46,12 +47,14 @@ from repro_torch.launch.analysis import KINDS, leaves
 MESHES = {False: {"data": 16, "model": 16},
           True: {"pod": 2, "data": 16, "model": 16}}
 
-#: the cells the port refuses to lay out: heads that a model axis of 16
-#: does not divide (ROADMAP fact 18)
-LAYOUT_REFUSED = ("phi3-medium-14b", "xlstm-125m", "whisper-tiny")
-#: where model 16 does not divide the KV heads, the port keeps wk / wv
-#: whole (``lm.shard``); the reference splits their columns
-WHOLE_KV = ("h2o-danube-1.8b", "mistral-nemo-12b", "pixtral-12b")
+#: the cells the port refuses to lay out: none (heads that a model axis of
+#: 16 does not divide run every head on every rank, ROADMAP fact 18)
+LAYOUT_REFUSED = ()
+#: where model 16 does not divide the KV heads, the port keeps the
+#: self-attentions' wk / wv whole (``lm.shard``); the reference splits
+#: their columns
+WHOLE_KV = ("h2o-danube-1.8b", "mistral-nemo-12b", "pixtral-12b",
+            "phi3-medium-14b", "whisper-tiny")
 
 CELLS = [(arch, sh) for arch in cb.ARCH_IDS
          for sh in cb.applicable_shapes(cb.get(arch))]
@@ -197,8 +200,12 @@ def test_run_cell_refuses_an_existing_world_and_always_closes_its_own():
         with pytest.raises(RuntimeError, match="default process group"):
             dryrun.run_cell("qwen1.5-0.5b", "decode_32k", False)
     assert not dist.is_initialized()
-    with pytest.raises(NotImplementedError, match="40 heads"):
-        dryrun.run_cell("phi3-medium-14b", "train_4k", False)
+    # a layout the port still refuses: Mamba2 SSM heads that model does not
+    # divide (zamba2-smoke with one SSM head of 128, on model 2)
+    with pytest.raises(NotImplementedError, match="1 SSM heads"):
+        dryrun.run_cell("zamba2-2.7b", SMOKE_SHAPE, False,
+                        cfg_override=cb.get("zamba2-2.7b", smoke=True)
+                        .scaled(ssm_head_dim=128), mesh_shape=(1, 2))
     assert not dist.is_initialized()
 
 
@@ -247,7 +254,9 @@ def _outcome(arch: str, sh: str, multi_pod: bool):
 def _cut_depth(arch: str) -> int:
     """The depth a serving cell is traced at in the split's test: one
     layer, a MoE model's first dense layers and one MoE layer (expert
-    parallelism traced), one group of a hybrid."""
+    parallelism traced), one group of a hybrid (an xLSTM's one mLSTM
+    block: its sLSTM blocks loop over every position, too slow for the
+    test at 32768 and 524288)."""
     cfg = cb.get(arch)
     if cfg.family == "hybrid":
         return cfg.attn_every
@@ -257,12 +266,13 @@ def _cut_depth(arch: str) -> int:
 @pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16",
                                                            "2x16x16"])
 def test_expected_split(multi_pod):
-    """No cell's step is refused: the 16 serving cells a mesh (prefill_32k
-    and decode_32k of the GQA decoders, the VLM, the MoE models and MLA
-    and the hybrid; long_500k of danube and zamba2) are traced with a
+    """No cell's layout and no cell's step is refused: the 23 serving
+    cells a mesh (prefill_32k and decode_32k of the GQA decoders, the VLM,
+    the MoE models and MLA, the hybrid, the encoder-decoder and the
+    xLSTM; long_500k of danube, zamba2 and the xLSTM) are traced with a
     census and a peak, at full width with the depth cut
     (:func:`_cut_depth`, for the test's time; ``launch.dryrun --all``
-    traces them at full depth)."""
+    traces them at full depth), and the 10 train cells are laid out."""
     refused_layout, serving, train = [], [], []
     for arch, sh in CELLS:
         out = _outcome(arch, sh, multi_pod)
@@ -284,12 +294,12 @@ def test_expected_split(multi_pod):
             serving.append((arch, sh))
     assert sorted(refused_layout) == sorted(
         c for c in CELLS if c[0] in LAYOUT_REFUSED)
-    assert len(refused_layout) == 10
+    assert len(refused_layout) == 0
     assert sorted(serving) == sorted(
         c for c in CELLS if c[0] not in LAYOUT_REFUSED
         and cb.SHAPES[c[1]].kind != "train")
-    assert len(serving) == 16
-    assert len(train) == 7 and {cb.SHAPES[s].kind for _, s in train} == \
+    assert len(serving) == 23
+    assert len(train) == 10 and {cb.SHAPES[s].kind for _, s in train} == \
         {"train"}
 
 
@@ -408,7 +418,7 @@ def test_argument_bytes_match_reference_specs(multi_pod):
         if arch in LAYOUT_REFUSED:
             continue
         cfg = cb.get(arch)
-        if not cfg.mla and cfg.n_kv_heads % 16:
+        if not cfg.mla and cfg.family != "xlstm" and cfg.n_kv_heads % 16:
             whole_kv.add(arch)
         rec = _outcome(arch, sh, multi_pod)
         assert rec["memory"]["argument_bytes"] == \
@@ -447,11 +457,12 @@ def test_one_full_width_cell_end_to_end():
     c, mem = rec["census"], rec["memory"]
     assert rec["refused"] is None and rec["tokens"] == 256 * 4096
     assert set(c) == {"flops", "hbm_bytes", "attn_fallback_bytes",
-                      "collective_link_bytes", "collectives", "peak_op",
-                      "peak_by_op"}
+                      "attn_fallback_flops", "collective_link_bytes",
+                      "collectives", "peak_op", "peak_by_op"}
     assert sum(c["peak_by_op"].values()) == mem["peak_bytes"]
     assert c["peak_by_op"]["arguments"] <= mem["argument_bytes"]
     assert c["flops"] > 0 and c["hbm_bytes"] > c["attn_fallback_bytes"] > 0
+    assert c["flops"] > c["attn_fallback_flops"] > 0
     assert set(c["collectives"]) >= {"all-reduce", "all-gather"}
     for kind, k in c["collectives"].items():
         assert k["count"] > 0 and k["result_bytes"] > 0

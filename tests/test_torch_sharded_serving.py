@@ -39,6 +39,11 @@ here, and is held to the float tolerance.
 from __future__ import annotations
 
 import functools
+import json
+import os
+import subprocess
+import sys
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -58,6 +63,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.convert import params_from_jax
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL_SCALE = 1e-4, 1e-5
 W8A8_RMS = 2e-2
 #: the cases where the sharded run rounds an activation at an int8 tie the
@@ -72,7 +78,15 @@ ARCHS = {"qwen": "qwen1.5-0.5b", "danube": "h2o-danube-1.8b",
          "deepseek": "deepseek-v2-lite-16b",
          "moonshot": "moonshot-v1-16b-a3b", "zamba2": "zamba2-2.7b",
          "pixtral": "pixtral-12b", "whisper": "whisper-tiny",
-         "xlstm": "xlstm-125m"}
+         "xlstm": "xlstm-125m", "phi3": "phi3-medium-14b"}
+#: smoke configs whose heads model 4 does not divide (ROADMAP fact 18):
+#: whisper-smoke with 6 heads of 16, 1.5 a rank (with 30 encoder frames,
+#: which model 4 does not divide, its cross K/V split on the head dim, as
+#: whisper-tiny's 1500 frames on model 16); xlstm-smoke with 2 heads,
+#: half a head a rank; phi3-smoke with 6 query and 2 KV heads of 16
+WHISPER_6H = dict(d_model=96, n_heads=6, n_kv_heads=6)
+XLSTM_2H = dict(n_heads=2, n_kv_heads=2)
+PHI3_6H = dict(d_model=96, n_heads=6, n_kv_heads=2, head_dim=16)
 #: each case: (key, arch, mesh, nmc_mode, rows, prompt, steps, max_len,
 #: config overrides).  Four rows: a batch that equals no layer, head or
 #: group count, so that ``cache_shardings`` finds it; 64 slots, the
@@ -105,7 +119,16 @@ CASES = [
     ("xlstm-1x2", "xlstm", (1, 2), "none", 4, 16, 3, 64, {}),
     ("xlstm-1x2-w8a8", "xlstm", (1, 2), "w8a8", 4, 16, 3, 64, {}),
     ("xlstm-2x2-batch1", "xlstm", (2, 2), "none", 1, 16, 3, 64, {}),
+    ("whisper-6h-1x4", "whisper", (1, 4), "none", 4, 12, 3, 64,
+     WHISPER_6H | {"enc_seq": 30}),
+    ("whisper-6h-1x4-w8a8", "whisper", (1, 4), "w8a8", 4, 12, 3, 64,
+     WHISPER_6H),
+    ("xlstm-2h-1x4", "xlstm", (1, 4), "none", 4, 16, 3, 64, XLSTM_2H),
+    ("phi3-6h-1x4", "phi3", (1, 4), "none", 4, 12, 3, 64, PHI3_6H),
 ]
+#: the cases whose heads model does not divide, also held against the
+#: reference's own run on a 1 x 4 mesh
+FRACTIONAL = [c[0] for c in CASES if c[2] == (1, 4)]
 BY_KEY = {c[0]: c for c in CASES}
 #: ROADMAP fact 21: whisper-smoke drawn with as many decoder layers as
 #: rows; on a data axis the rule splits its layer stack
@@ -336,6 +359,134 @@ def test_sharded_serving_matches_single_rank_and_reference(world2, world4,
             _close(g[path][:1], r[path][:1], f"{what} vs reference")
             for layer, (gl, rl) in enumerate(zip(g[path], r[path])):
                 _rms(gl, rl, W8A8_RMS, f"{what} layer {layer} vs reference")
+
+
+@pytest.fixture(scope="module")
+def reference_1x4(tmp_path_factory):
+    """The reference's own prefill and decode steps of each case of
+    :data:`FRACTIONAL` on a 1 x 4 (data, model) mesh of fake devices (one
+    subprocess for all): its weights (quantized whole first under W8A8)
+    laid out by its ``param_shardings``, the batch by ``batch_shardings``,
+    the caches after the prefill by ``cache_shardings``.  {case:
+    {"logits": the prefill's and every step's, "caches": after the
+    prefill and after the last step, each {path: array}}}."""
+    tmp = tmp_path_factory.mktemp("ref1x4")
+    specs = []
+    for key in FRACTIONAL:
+        _, arch, _, mode, _, _, _, max_len, kw = BY_KEY[key]
+        batch, nxt = _inputs(key)
+        np.savez(tmp / f"in_{key}.npz", nxt=nxt, **batch)
+        specs.append(json.dumps(dict(name=key, arch=ARCHS[arch], mode=mode,
+                                     kw=kw, max_len=max_len)))
+    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", _REF_1X4, str(tmp)] + specs,
+                         capture_output=True, text=True, env=env, cwd=REPO,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    results = {}
+    for key in FRACTIONAL:
+        res = np.load(tmp / f"out_{key}.npz")
+        results[key] = {
+            "logits": [res[f"logits{i}"] for i in range(1 + BY_KEY[key][6])],
+            "caches": [{k.split("/", 1)[1]: res[k] for k in res.files
+                        if k.startswith(f"caches{when}/")}
+                       for when in (0, 1)]}
+    return results
+
+
+_REF_1X4 = textwrap.dedent("""
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import json, sys
+    import numpy as np
+    import jax, jax.numpy as jnp
+    sys.path.insert(0, "src")
+    from repro.configs import base as cb
+    from repro.distributed import context, sharding
+    from repro.launch.mesh import make_mesh
+    from repro.models import lm
+    from repro.serve import engine
+
+    tmp = sys.argv[1]
+    mesh = make_mesh(np.array(jax.devices()).reshape(1, 4),
+                     ("data", "model"))
+    prefill = jax.jit(lm.prefill, static_argnums=(2, 3))
+    decode = jax.jit(lm.decode_step, static_argnums=(4,))
+
+    def leaves(tree, label):
+        return {f"{label}/{jax.tree_util.keystr(p)}": np.asarray(v)
+                for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    for item in sys.argv[2:]:
+        spec = json.loads(item)
+        cfg = cb.get(spec["arch"], smoke=True).scaled(
+            dtype=jnp.float32, nmc_mode=spec["mode"], **spec["kw"])
+        params = lm.init_params(jax.random.PRNGKey(0),
+                                cfg.scaled(nmc_mode="none"))
+        if spec["mode"] != "none":
+            params = engine.quantize_params(params, cfg)
+        inp = np.load(os.path.join(tmp, "in_%s.npz" % spec["name"]))
+        batch = {k: jnp.asarray(inp[k]) for k in ("tokens", "frames")
+                 if k in inp}
+        rows, n = batch["tokens"].shape
+        with context.use_mesh(mesh):
+            ps = jax.device_put(params,
+                                sharding.param_shardings(params, mesh))
+            batch = jax.device_put(batch,
+                                   sharding.batch_shardings(batch, mesh))
+            logits, caches = prefill(ps, batch, cfg, spec["max_len"])
+            caches = jax.device_put(
+                caches, sharding.cache_shardings(caches, mesh, rows))
+            out = {"logits0": np.asarray(logits)} | leaves(caches, "caches0")
+            for i, tok in enumerate(inp["nxt"]):
+                logits, caches = decode(ps, jnp.asarray(tok[:, None]), caches,
+                                        jnp.full((rows,), n + i + 1,
+                                                 jnp.int32), cfg)
+                out["logits%d" % (i + 1)] = np.asarray(logits)
+            out |= leaves(caches, "caches1")
+        np.savez(os.path.join(tmp, "out_%s.npz" % spec["name"]), **out)
+""")
+
+
+@pytest.mark.parametrize("key", FRACTIONAL)
+def test_heads_model_does_not_divide_follow_the_reference_1x4(
+        world4, reference_1x4, key):
+    """Heads that model 4 does not divide, every rank running every head:
+    the logits and the caches after the prefill and after the last step
+    against the reference's own run on a 1 x 4 mesh, which splits the same
+    projections through a head, by the rules of
+    :func:`test_sharded_serving_matches_single_rank_and_reference`; each
+    rank holds its ``cache_shardings`` slice, whisper's cross K/V split
+    on the head dim where model 4 does not divide its 30 frames."""
+    got, ref = world4[key], reference_1x4[key]
+    mode = BY_KEY[key][3]
+    assert len(got["logits"]) == len(ref["logits"])
+    for i, (g, r) in enumerate(zip(got["logits"], ref["logits"])):
+        if mode == "none":
+            _close(g, r, f"{key} logits {i} vs reference 1x4")
+        else:
+            _w8a8(g, r, f"{key} logits {i} vs reference 1x4")
+    for when in (0, 1):
+        g, r = _leaves(got["caches"][when]), ref["caches"][when]
+        assert sorted(g) == sorted(r)
+        for path in g:
+            what = f"{key} cache {path} after " \
+                f"{('prefill', 'decode')[when]} vs reference 1x4"
+            if mode == "none":
+                _close(g[path], r[path], what)
+                continue
+            _close(g[path][:1], r[path][:1], what)
+            for layer, (gl, rl) in enumerate(zip(g[path], r[path])):
+                _rms(gl, rl, W8A8_RMS, f"{what} layer {layer}")
+    local = got["local"]
+    if key.startswith("whisper"):
+        frames = BY_KEY[key][8].get("enc_seq", 32)
+        assert local["cross_k"] == ((2, 4, 6, 30, 4) if frames % 4
+                                    else (2, 4, 6, 8, 16)), local
+    elif key.startswith("xlstm"):
+        mlstm = ((4, 2, 16, 64), (4, 2, 16), (4, 2))
+        assert local["blocks"] == [mlstm, ((4, 16),) * 4, mlstm], local
+    else:
+        assert local["layers"]["k"] == (2, 4, 2, 16, 16), local
 
 
 def test_cache_slices_follow_cache_shardings(world2, world4):
