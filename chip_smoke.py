@@ -109,7 +109,13 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
   prefill of 4 x 512 tokens into caches of 640 slots split over the
   ranks, then 16 decode steps, against rank 0's single-rank serving
   (logits, gathered caches, launches; every ``nmc_matmul`` and
-  attention launch replayed, the int32-out ones bit for bit).
+  attention launch replayed, the int32-out ones bit for bit).  Layouts
+  with heads that the model axis does not divide, every rank running
+  every head: whisper-tiny on 1 x 4, xlstm-125m on 1 x 8,
+  deepseek-v2-lite-16b's dense layer on 1 x 3 (``wq`` split through a
+  head), one MLA head and one SSM head on 1 x 2 at smoke width; and
+  whisper-tiny serving 4 rows on 2 x 1, its 4-layer cache stack split
+  over the data axis.
 * The dry run (``python -m repro_torch.launch.dryrun``, no card): in a
   spawned CPU process beside the scale-out phase, the scale-out steps of
   tensor parallelism and of sequence parallelism with remat, and the
@@ -1777,8 +1783,8 @@ def block_by_block_model(arch: str, device, seed: int = 0) -> tuple:
     return cfg, params, time.perf_counter() - t0
 
 
-def matmul_kn_per_call(cfg, prefill: bool,
-                       row_parallel: bool = False) -> dict:
+def matmul_kn_per_call(cfg, prefill: bool, row_parallel: bool = False,
+                       model: int = 1) -> dict:
     """``{(K, N): launches}`` of ``nmc_matmul`` in one prefill or decode
     step of ``cfg`` in W8A8: per layer the attention's projections (GQA
     q/k/v/o, a cross-attention's q and o only, its k and v being the
@@ -1789,36 +1795,48 @@ def matmul_kn_per_call(cfg, prefill: bool,
     plain); a hybrid's shared block once per group (its Mamba2 projections
     stay float); an encoder-decoder's encoder at prefill only; nothing of
     an xLSTM's blocks (they stay float); the LM head; at a VLM's prefill
-    ``img_proj``.  ``row_parallel``: only the linears a ``model`` axis
-    lays out row-parallel (an attention's ``wo``, an FFN's ``down``), whose
+    ``img_proj``.  ``model``: a ``model`` axis of that size lays each
+    linear out by the rule, a column-parallel one's (K, N / model) and a
+    row-parallel one's (K / model, N) where ``model`` divides that width
+    (GQA's ``wk`` / ``wv`` only where it divides the KV heads), whole
+    otherwise.  ``row_parallel``: only the linears it lays out
+    row-parallel (an attention's ``wo``, an FFN's ``down``), whose
     launches there return the int32 accumulator."""
     import collections
     d, hd, h = cfg.d_model, cfg.head_dim, cfg.n_heads
     kn = collections.Counter()
 
-    def add(k_n, n: int, row: bool = False):
-        if row or not row_parallel:
+    def add(k_n, n: int, kind: str | None = None, split: bool = True):
+        k, m = k_n
+        split = split and model > 1 and (
+            (kind == "col" and m % model == 0)
+            or (kind == "row" and k % model == 0))
+        if split:
+            k_n = (k // model, m) if kind == "row" else (k, m // model)
+        if not row_parallel or (kind == "row" and split):
             kn[k_n] += n
 
     def gqa(n: int, cross: bool = False):
-        add((d, h * hd), n)
+        add((d, h * hd), n, "col")
         if not cross:
-            add((d, cfg.n_kv_heads * hd), 2 * n)
-        add((h * hd, d), n, row=True)
+            add((d, cfg.n_kv_heads * hd), 2 * n, "col",
+                cfg.n_kv_heads % model == 0)
+        add((h * hd, d), n, "row")
 
     def mla(n: int):
         r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim,
                          cfg.qk_rope_dim, cfg.v_head_dim)
-        for k_n in ((d, h * (dn + dr)), (d, r), (d, dr)):
+        add((d, h * (dn + dr)), n, "col")
+        for k_n in ((d, r), (d, dr)):
             add(k_n, n)
-        add((h * dv, d), n, row=True)
+        add((h * dv, d), n, "row")
         if prefill:
-            add((r, h * dn), n)
-            add((r, h * dv), n)
+            add((r, h * dn), n, "col")
+            add((r, h * dv), n, "col")
 
     def mlp(n: int, f: int, gated: bool = cfg.act == "silu"):
-        add((d, f), 2 * n if gated else n)
-        add((f, d), n, row=True)
+        add((d, f), 2 * n if gated else n, "col")
+        add((f, d), n, "row")
     fam, n_layers = cfg.family, cfg.n_layers
     if fam == "xlstm":
         pass
@@ -1842,7 +1860,7 @@ def matmul_kn_per_call(cfg, prefill: bool,
         elif cfg.n_shared_experts:
             mlp(n_layers - n_dense, cfg.moe_d_ff * cfg.n_shared_experts,
                 gated=True)
-    add((d, cfg.vocab_size), 1)
+    add((d, cfg.vocab_size), 1, "col")
     if prefill and fam == "vlm":
         add((d, d), 1)
     return {k_n: c for k_n, c in kn.items() if c}
@@ -1854,12 +1872,12 @@ def matmuls_per_call(cfg, prefill: bool) -> int:
     return sum(matmul_kn_per_call(cfg, prefill).values())
 
 
-def matmul_routes_per_call(cfg, prefill: bool) -> dict:
-    """:func:`matmul_kn_per_call` by the route ``nmc_matmul.route`` gives
-    each (K, N)."""
+def matmul_routes_per_call(cfg, prefill: bool, model: int = 1) -> dict:
+    """:func:`matmul_kn_per_call` (on a ``model`` axis of that size) by
+    the route ``nmc_matmul.route`` gives each (K, N)."""
     from repro_torch.kernels import nmc_matmul as mm
     out = dict.fromkeys(mm.ROUTE_ID, 0)
-    for (k, n), c in matmul_kn_per_call(cfg, prefill).items():
+    for (k, n), c in matmul_kn_per_call(cfg, prefill, model=model).items():
         out[mm.route(k, n)] += c
     return out
 
@@ -3081,15 +3099,15 @@ SCALEOUT_HYBRID_LAYERS = 12
 #: accumulates across layers (~1.91 B parameters: ~31 GB of float32 p, g,
 #: m, v for rank 0's single-rank reference; ~205 GB at 40)
 SCALEOUT_VLM_LAYERS = 2
-#: the elastic trainer's qwen1.5-0.5b cut to 8 of 24 layers at full width
-#: (a 4.97 GB training state instead of 7.43), to keep the whole run inside
-#: its time limit
-SCALEOUT_TRAINER_LAYERS = 8
+#: the elastic trainer's qwen1.5-0.5b cut to 4 of 24 layers at full width
+#: (7.43 GB of training state at 24), to keep the whole run inside its time
+#: limit
+SCALEOUT_TRAINER_LAYERS = 4
 #: qwen1.5-0.5b cut to 12 of 24 layers at full width for (a), (b), (k),
 #: the pipeline (2 stages of 6 blocks) and (l)'s serving, and xlstm-125m
-#: to 6 of 12 blocks (sLSTM at 3) for (h), (q) and (r), to make room in the
-#: time limit for (s) and (t); the training and serving phases keep qwen's
-#: 24 layers, (t) xlstm-125m's 12
+#: to 6 of 12 blocks (sLSTM at 3) for (h), (q), (r) and (t), to make room
+#: in the time limit for (s)-(w); the training and serving phases keep
+#: qwen's 24 layers
 SCALEOUT_QWEN_LAYERS = 12
 SCALEOUT_XLSTM_LAYERS = 6
 #: the scale-out phase: whisper-tiny at full width and depth,
@@ -3115,7 +3133,22 @@ SCALEOUT = dict(rows=8, seq=512, n_mb=2, batches={"vlm": (4, 1536)},
 #: the sharded step gives the single-rank loss exactly for zamba2 and to
 #: rounding for the xLSTM at 12 blocks, tests/test_torch_scaleout.py)
 SCALEOUT_LOSS_RTOL = 1e-4
-SCALEOUT_SPREAD_PARTS = ("c", "f", "g", "h")
+SCALEOUT_SPREAD_PARTS = ("c", "f", "g", "h", "v_mla", "v_ssm")
+#: (v): the split-through-a-head paths at smoke width in the 2-rank spawn
+#: on (1, 2), a step and W8A8 serving each: deepseek-smoke with one MLA
+#: head (``wq``'s 24 columns, ``w_uk`` / ``w_uv`` and ``wo`` split through
+#: it) and zamba2-smoke with one SSM head of 128.  No full-width
+#: configuration splits an MLA or SSM head on a world that fits one card:
+#: deepseek-v2-lite's ``w_uk`` / ``w_uv`` (2048 columns, 16 heads) need
+#: model 32, zamba2-2.7b's 80 SSM heads over 5120 columns too.  The
+#: hybrid runs in float32 (SCALEOUT_FLOAT32), its step and its serving (as
+#: (n)): its ``D`` and ``A_log`` gradients sum the one head's 2 x 512 x 128
+#: terms, which cancel, and in bf16 the two ranks' partial sums moved
+#: ``mamba.1.1.D`` by 0.48 rel L2 from one rank's (an H100 run), past any
+#: limit a check could hold
+SCALEOUT_ONE_HEAD = {"mla_1h": (MLA_ARCH, dict(n_heads=1, n_kv_heads=1)),
+                     "hybrid_1h": (HYBRID_ARCH, dict(ssm_head_dim=128))}
+SCALEOUT_FLOAT32 = ("hybrid_1h",)
 SCALEOUT_TIMEOUT = 600.0
 #: the scale-out phase's serving parts, two ranks on (data 1, model 2),
 #: W8A8: (l) qwen1.5-0.5b at full width cut to SCALEOUT_QWEN_LAYERS, (m)
@@ -3151,6 +3184,10 @@ SCALEOUT_SERVE_SIZES = {
               spread_every_step=True),
     "r": dict(rows=4, prompt=512, max_len=640, steps=16,
               spread_every_step=True)}
+#: (w) serves as (p), 4 rows on (2, 1): whisper-tiny's 4 decoder layers
+#: are the first dim of the batch's size, so the cache rule splits the
+#: layer stack over data (ROADMAP fact 21)
+SCALEOUT_SERVE_SIZES["w"] = SCALEOUT_SERVE_SIZES["p"]
 #: (part, config key, label, spread factor (None: the fixed limits
 #: alone), spread only where the 1-ulp spread reaches the fixed limits,
 #: prefill exact): compare_logits' rules,
@@ -3172,7 +3209,13 @@ SCALEOUT_SERVE_PARTS = (("l", "serve_dense", "qwen W8A8", MOE_LOGITS_SPREAD,
                         ("q", "serve_xlstm", "xLSTM W8A8", MOE_LOGITS_SPREAD,
                          True, False),
                         ("r", "serve_xlstm_float", "xLSTM float32", None,
-                         True, False))
+                         True, False),
+                        ("v_mla_serve", "serve_mla_1h", "one MLA head W8A8",
+                         MOE_LOGITS_SPREAD, False, True),
+                        ("v_ssm_serve", "serve_hybrid_1h", "one SSM head W8A8",
+                         MOE_LOGITS_SPREAD, True, False),
+                        ("w", "serve_encdec", "enc-dec stack over data W8A8",
+                         MOE_LOGITS_SPREAD, True, True))
 #: the gathered caches after the prefill and after the last step against
 #: the single rank's, each field by relative L2: within this (about 2.5
 #: bf16 ulps), or within the part's spread factor times the single rank's
@@ -3189,15 +3232,30 @@ SCALEOUT_SERVE_CACHE_REL_L2_CAP = 0.5
 #: rank: one bf16 train step as (i), W8A8 serving as (p); (t) xlstm-125m
 #: on (1, 8), half of one of its 4 heads a rank, float weights in float32:
 #: one train step and serving as (r), held to the fixed limits alone.
-#: Both at full width and depth; both train steps take their family's
-#: batch of (i) and (h)
+#: Both at full width, (s) at full depth, (t) at (r)'s; both train steps
+#: take their family's batch of (i) and (h).  (u) deepseek-v2-lite-16b on (1, 3), 16 MLA heads
+#: over 3: ``wq``'s 3072 columns split through a head, 1024 a rank,
+#: ``w_uk``, ``w_uv`` and ``wo`` whole (3 does not divide 2048); cut to its
+#: dense first layer (SCALEOUT_MLA_EVERY_LAYERS), a float32 step on (f)'s
+#: batch and W8A8 serving as (m).  (s) and (t) run at the same time, (u)
+#: after them (SCALEOUT_EVERY_HEAD_WAVES: the three do not fit the card
+#: together)
 SCALEOUT_EVERY_HEAD = (("s", 4, "encdec", "serve_encdec",
                         "enc-dec every head W8A8", MOE_LOGITS_SPREAD, True,
                         True),
-                       ("t", 8, "xlstm_float", "serve_xlstm_every",
-                        "xLSTM every head float32", None, True, False))
+                       ("t", 8, "xlstm_float", "serve_xlstm_float",
+                        "xLSTM every head float32", None, True, False),
+                       ("u", 3, "mla_every", "serve_mla_every",
+                        "MLA every head W8A8", MOE_LOGITS_SPREAD, False,
+                        True))
+SCALEOUT_EVERY_HEAD_WAVES = (("s", "t"), ("u",))
 SCALEOUT_EVERY_HEAD_SIZES = {"s": SCALEOUT_SERVE_SIZES["p"],
-                             "t": SCALEOUT_SERVE_SIZES["r"]}
+                             "t": SCALEOUT_SERVE_SIZES["r"],
+                             "u": SCALEOUT_SERVE}
+#: deepseek-v2-lite-16b cut to its dense first layer for (u): its 64
+#: routed experts do not divide over model 3, where the reference's
+#: shard_map fails and the port refuses (``lm.shard``)
+SCALEOUT_MLA_EVERY_LAYERS = 1
 
 
 def scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg,
@@ -3222,6 +3280,20 @@ def scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg,
             "h": 0,
             "i": (encdec_cfg.n_enc_layers + 2 * encdec_cfg.n_layers) * n_mb,
             "j": vlm_cfg.n_layers * n_mb}
+
+
+def train_attention_launches(cfg, n_mb: int) -> int:
+    """``flash_attention`` launches a rank makes in one train step of
+    ``cfg`` without remat: one per attention layer and microbatch (a
+    hybrid's shared block once per group; an encoder-decoder's encoder,
+    self- and cross-attention layers; none in an xLSTM)."""
+    if cfg.family == "xlstm":
+        return 0
+    if cfg.family == "encdec":
+        return (cfg.n_enc_layers + 2 * cfg.n_layers) * n_mb
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every * n_mb
+    return cfg.n_layers * n_mb
 
 
 def attention_route(cfg) -> str:
@@ -3278,9 +3350,12 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     one card, so the times are correctness-run times, not a measure of
     scaling.  (l)-(r): serving on (1, 2), SCALEOUT_SERVE (and
     SCALEOUT_SERVE_SIZES for whisper's (p) and the xLSTM's (q), (r)) and
-    :func:`scaleout_serving_checks`.  (s), (t): a train step and serving
-    on 4 and 8 ranks whose model axis does not divide the heads
-    (:func:`scaleout_every_head`)."""
+    :func:`scaleout_serving_checks`.  (v): a step and serving of one MLA
+    head and one SSM head split over (1, 2) at smoke width
+    (SCALEOUT_ONE_HEAD), under (f)'s and (g)'s rules; (w): whisper's
+    serving as (p) on (2, 1), its layer stack split over data.  (s)-(u):
+    a train step and serving on 4, 8 and 3 ranks whose model axis does
+    not divide the heads (:func:`scaleout_every_head`)."""
     import dataclasses
     import math
     import re
@@ -3297,20 +3372,26 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
                                            remat=False)
     hybrid_cfg = configs.get(HYBRID_ARCH).scaled(
         n_layers=SCALEOUT_HYBRID_LAYERS, remat=False)
-    xlstm_full = configs.get(XLSTM_ARCH).scaled(remat=False)
-    xlstm_cfg = xlstm_full.scaled(n_layers=SCALEOUT_XLSTM_LAYERS)
-    xlstm_float = xlstm_full.scaled(dtype=torch.float32)
+    xlstm_cfg = configs.get(XLSTM_ARCH).scaled(
+        n_layers=SCALEOUT_XLSTM_LAYERS, remat=False)
+    xlstm_float = xlstm_cfg.scaled(dtype=torch.float32)
     encdec_cfg = configs.get(ENCDEC_ARCH).scaled(remat=False)
     vlm_cfg = configs.get(VLM_ARCH).scaled(n_layers=SCALEOUT_VLM_LAYERS,
                                            remat=False)
     trainer_cfg = cfg.scaled(n_layers=SCALEOUT_TRAINER_LAYERS)
     sp_cfg = cfg.scaled(seq_parallel=True, remat=True)
+    one_head = {k: configs.get(arch, smoke=True).scaled(
+        remat=False, **kw, **({"dtype": torch.float32}
+                              if k in SCALEOUT_FLOAT32 else {}))
+        for k, (arch, kw) in SCALEOUT_ONE_HEAD.items()}
+    mla_every = configs.get(MLA_ARCH).scaled(
+        n_layers=SCALEOUT_MLA_EVERY_LAYERS, remat=False, dtype=torch.float32)
     serve_cfgs = scaleout_serving_configs()
     smi = report["nvidia_smi"]
     spec = dict(SCALEOUT, qwen=cfg, qwen_sp=sp_cfg, moe=moe_cfg,
                 mla=mla_cfg, hybrid=hybrid_cfg, xlstm=xlstm_cfg,
                 encdec=encdec_cfg, vlm=vlm_cfg, trainer_model=trainer_cfg,
-                xlstm_float=xlstm_float,
+                xlstm_float=xlstm_float, mla_every=mla_every, **one_head,
                 serve=SCALEOUT_SERVE, serve_sizes=SCALEOUT_SERVE_SIZES,
                 **serve_cfgs, seed=seed,
                 grad_spread=TRAIN_GRAD_SPREAD, grad_floor=TRAIN_GRAD_FLOOR,
@@ -3332,13 +3413,15 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
     r0 = ranks[0]
     want = scaleout_expected(cfg, moe_cfg, mla_cfg, hybrid_cfg, trainer_cfg,
                              encdec_cfg, vlm_cfg)
+    for part, key in (("v_mla", "mla_1h"), ("v_ssm", "hybrid_1h")):
+        want[part] = train_attention_launches(one_head[key], SCALEOUT["n_mb"])
     want_route = {p: attention_route(c) for p, c in
                   (("a", cfg), ("b", cfg), ("k", sp_cfg),
                    ("c", moe_cfg), ("d", cfg),
                    ("d_resumed", cfg), ("e", cfg), ("f", mla_cfg),
                    ("g", hybrid_cfg), ("h", xlstm_cfg), ("i", encdec_cfg),
-                   ("j", vlm_cfg))}
-    steps = "abkcfghij"
+                   ("j", vlm_cfg), ("v_mla", one_head["mla_1h"]),
+                   ("v_ssm", one_head["hybrid_1h"]))}
     launches = {"flash_attention": 0, "nmc_matmul": 0, "vrf_alu": 0}
     routes = {"tensor_core": 0, "cuda_core": 0}
     by_part, replay_by_route, counts = {}, {}, []
@@ -3361,7 +3444,8 @@ def phase_scaleout(report: dict, device, seed: int = 0) -> dict:
                       ("k", "TP + SP + remat"), ("c", "EP"),
                       ("f", "MLA + EP"), ("g", "Mamba2 TP"),
                       ("h", "xLSTM TP"), ("i", "enc-dec TP"),
-                      ("j", "VLM TP")):
+                      ("j", "VLM TP"), ("v_mla", "one MLA head TP"),
+                      ("v_ssm", "one SSM head TP")):
         res = r0[part]
         loss_limit = SCALEOUT_LOSS_RTOL \
             if part not in SCALEOUT_SPREAD_PARTS else max(
@@ -3536,16 +3620,18 @@ def step_part_check(part: str, ranks: list, want: int, route: str,
 
 
 def scaleout_every_head(spec: dict, serving: dict, smi: str) -> dict:
-    """Parts (s) and (t) of ``phase_scaleout`` (SCALEOUT_EVERY_HEAD): each
-    on its own world of 4 or 8 ranks sharing the card over gloo (rank
+    """Parts (s)-(u) of ``phase_scaleout`` (SCALEOUT_EVERY_HEAD): each
+    on its own world of 4, 8 or 3 ranks sharing the card over gloo (rank
     function ``distributed.checks.chip_every_head``), a model whose heads
     the model axis does not divide, so that every rank runs every head.
-    The two worlds run at the same time (12 ranks, ~60 GB of the card at
-    their peaks), for the run's time limit.
+    The worlds of a wave of SCALEOUT_EVERY_HEAD_WAVES run at the same time
+    ((s) and (t): 12 ranks, ~60 GB of the card at their peaks), for the
+    run's time limit.
     The train step by :func:`step_part_check`: on each rank as many
-    ``flash_attention`` launches as one rank makes ((i)'s count for
-    whisper, none for the xLSTM), each over every head; its loss within
-    SCALEOUT_LOSS_RTOL.  The serving part by :func:`serving_part_check`
+    ``flash_attention`` launches as one rank makes
+    (:func:`train_attention_launches`: (i)'s count for whisper, none for
+    the xLSTM, deepseek's one a layer and microbatch), each over every
+    head; its loss within SCALEOUT_LOSS_RTOL.  The serving part by :func:`serving_part_check`
     (its launches added to ``serving``).  Returns each part's launches,
     routes, replays, seconds and results."""
     import torch
@@ -3562,16 +3648,19 @@ def scaleout_every_head(spec: dict, serving: dict, smi: str) -> dict:
                           backend="gloo", device="cuda",
                           timeout=SCALEOUT_TIMEOUT, collective_timeout=300.0)
         return ranks, time.perf_counter() - t0
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    with ThreadPoolExecutor(len(SCALEOUT_EVERY_HEAD)) as pool:
-        runs = list(pool.map(spawn, SCALEOUT_EVERY_HEAD))
+    rows = {row[0]: row for row in SCALEOUT_EVERY_HEAD}
+    runs = {}
+    for wave in SCALEOUT_EVERY_HEAD_WAVES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with ThreadPoolExecutor(len(wave)) as pool:
+            runs.update(zip(wave, pool.map(spawn, [rows[p] for p in wave])))
     out = {}
-    for (part, world, train_key, serve_key, label, factor, if_reached,
-         exact), (ranks, wall) in zip(SCALEOUT_EVERY_HEAD, runs):
+    for part, world, train_key, serve_key, label, factor, if_reached, \
+            exact in SCALEOUT_EVERY_HEAD:
+        ranks, wall = runs[part]
         cfg = spec[train_key]
-        want = 0 if cfg.family == "xlstm" else \
-            (cfg.n_enc_layers + 2 * cfg.n_layers) * spec["n_mb"]
+        want = train_attention_launches(cfg, spec["n_mb"])
         t = ranks[0]["train"]
         per_rank = [(r["rank"], round(r["train"]["step_ms"], 1),
                      r["train"]["peak_gb"], round(r["train"]["seconds"], 1),
@@ -3595,7 +3684,8 @@ def scaleout_every_head(spec: dict, serving: dict, smi: str) -> dict:
         res.update(wall_seconds=wall, train_per_rank=per_rank)
         serving_part_check(serving, [(r["rank"], r["serve"]) for r in ranks],
                            part, spec[serve_key], label, factor, if_reached,
-                           exact, SCALEOUT_EVERY_HEAD_SIZES[part], smi)
+                           exact, SCALEOUT_EVERY_HEAD_SIZES[part], smi,
+                           (1, world))
         res["ranks"] = [{k: {n: v for n, v in r[k].items()
                              if n not in ("grads", "params")}
                          for k in ("train", "serve")} for r in ranks]
@@ -3626,25 +3716,31 @@ def scaleout_serving_configs() -> dict:
             "serve_xlstm_float": configs.get(XLSTM_ARCH).scaled(
                 n_layers=SCALEOUT_XLSTM_LAYERS, nmc_mode="none",
                 dtype=torch.float32),
-            "serve_xlstm_every": configs.get(XLSTM_ARCH).scaled(
-                nmc_mode="none", dtype=torch.float32)}
+            "serve_mla_every": configs.get(MLA_ARCH).scaled(
+                n_layers=SCALEOUT_MLA_EVERY_LAYERS, nmc_mode="w8a8"),
+            **{f"serve_{k}": configs.get(arch, smoke=True).scaled(
+                nmc_mode="w8a8", **kw, **({"dtype": torch.float32}
+                                          if k in SCALEOUT_FLOAT32 else {}))
+               for k, (arch, kw) in SCALEOUT_ONE_HEAD.items()}}
 
 
-def serving_part_expected(cfg, steps: int) -> dict:
+def serving_part_expected(cfg, steps: int, shape: tuple = (1, 2)) -> dict:
     """The launches a rank makes in a serving part of ``phase_scaleout``
-    (a prefill and ``steps`` decode steps of ``cfg``), from the config:
-    ``nmc_matmul`` by route under W8A8 (:func:`matmul_routes_per_call`; a
-    split linear keeps its route on (1, 2), and an odd vocabulary keeps
-    the head whole, on ``dp4a``), the int32-out ones a ``model`` axis makes
-    of its row-parallel linears (none in the xLSTM, whose blocks stay
-    float), ``flash_attention`` (:func:`attention_launches_per_call`)."""
+    (a prefill and ``steps`` decode steps of ``cfg`` on a (data, model)
+    mesh of ``shape``), from the config: ``nmc_matmul`` by route under
+    W8A8 (:func:`matmul_routes_per_call` at the rank's slices: an odd
+    vocabulary keeps the head whole, on ``dp4a``), the int32-out ones the
+    ``model`` axis makes of the linears it lays out row-parallel (none in
+    the xLSTM, whose blocks stay float; none on data axes alone),
+    ``flash_attention`` (:func:`attention_launches_per_call`)."""
     from repro_torch.kernels import nmc_matmul as mm
-    w8a8 = cfg.nmc_mode == "w8a8"
-    pre, dec = (matmul_routes_per_call(cfg, p) for p in (True, False))
+    w8a8, model = cfg.nmc_mode == "w8a8", shape[1]
+    pre, dec = (matmul_routes_per_call(cfg, p, model) for p in (True, False))
     routes = {r: (pre[r] + steps * dec[r]) if w8a8 else 0
               for r in mm.ROUTE_ID}
-    rows = (sum(matmul_kn_per_call(cfg, True, True).values())
-            + steps * sum(matmul_kn_per_call(cfg, False, True).values())) \
+    rows = (sum(matmul_kn_per_call(cfg, True, True, model).values())
+            + steps * sum(matmul_kn_per_call(cfg, False, True,
+                                             model).values())) \
         if w8a8 else 0
     return {"nmc_matmul": sum(routes.values()), "matmul_routes": routes,
             "matmul_int32": rows,
@@ -3653,7 +3749,8 @@ def serving_part_expected(cfg, steps: int) -> dict:
 
 
 def scaleout_serving_checks(ranks: list, cfgs: dict, smi: str) -> dict:
-    """The serving parts (l)-(r) of ``phase_scaleout``: on each rank the
+    """The serving parts (l)-(r), (v) and (w) of ``phase_scaleout``: on
+    each rank the
     ``nmc_matmul`` launches of the sharded run equal the single rank's and
     the part's expected ones by route (:func:`serving_part_expected`: one
     launch a W8A8 linear either way, none with float weights, on the
@@ -3677,32 +3774,35 @@ def scaleout_serving_checks(ranks: list, cfgs: dict, smi: str) -> dict:
            "attention_routes": {"tensor_core": 0, "cuda_core": 0},
            "attention_by_route": {}, "matmul_max_abs_err": 0.0,
            "launches_by_part": {}, "parts": {}}
+    from repro_torch.distributed import checks as dchecks
+    shapes = {part: shape for part, _, shape in dchecks.SERVE_PARTS}
     for part, key, label, factor, if_reached, exact in \
             SCALEOUT_SERVE_PARTS:
         serving_part_check(out, [(r["rank"], r[part]) for r in ranks], part,
                            cfgs[key], label, factor, if_reached, exact,
                            SCALEOUT_SERVE_SIZES.get(part, SCALEOUT_SERVE),
-                           smi)
+                           smi, shapes[part])
     return out
 
 
 def serving_part_check(out: dict, ranks: list, part: str, cfg, label: str,
                        factor, if_reached: bool, exact: bool, sv: dict,
-                       smi: str) -> None:
-    """One serving part of ``phase_scaleout`` (``ranks``: (rank, its
-    result) in rank order, rank 0 first), by the rules of
-    :func:`scaleout_serving_checks`: raises where it fails, adds its
-    launches, routes and replays to ``out`` and its rule to
-    ``out["parts"]``."""
+                       smi: str, shape: tuple) -> None:
+    """One serving part of ``phase_scaleout`` on a (data, model) mesh of
+    ``shape`` (``ranks``: (rank, its result) in rank order, rank 0
+    first), by the rules of :func:`scaleout_serving_checks`: raises where
+    it fails, adds its launches, routes and replays to ``out`` and its
+    rule to ``out["parts"]``."""
     rank0 = ranks[0][1]
-    want = serving_part_expected(cfg, sv["steps"])
+    want = serving_part_expected(cfg, sv["steps"], shape)
+    alone = serving_part_expected(cfg, sv["steps"], (1, 1))
     single = rank0["single_counted"]
     route = attention_route(cfg)
-    mesh = f"(1, {len(ranks)})"
-    if any(single[k] != want[k] for k in ("nmc_matmul", "matmul_routes",
-                                          "flash_attention")):
+    mesh = str(tuple(shape))
+    if any(single[k] != alone[k] for k in ("nmc_matmul", "matmul_routes",
+                                           "flash_attention")):
         raise AssertionError(f"scaleout ({part}) single rank: launches "
-                             f"{single}, expected {want}")
+                             f"{single}, expected {alone}")
     for rank, res in ranks:
         c, a, m = res["counted"], res["attention_replay"], \
             res["matmul_replay"]

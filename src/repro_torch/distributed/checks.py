@@ -10,8 +10,6 @@ configs, ``chip_smoke.py`` over gloo on the card at full width.
   reference's weights, laid out on a (data, model) mesh: the metrics, the
   gradients as the step reduces them, the updated parameters and moments,
   every one gathered in full on rank 0.
-* :func:`refusals`: the configs that ``shard`` refuses on a ``model``
-  axis, with their messages.
 * :func:`gather_to_heads_check`: the gradient through
   ``context.gather_to_heads`` where the ranks keep different columns of
   what follows, against one rank's, and through ``gather_from_model``'s
@@ -24,20 +22,22 @@ configs, ``chip_smoke.py`` over gloo on the card at full width.
   slices of the written state bit for bit, then one more step.
 * :func:`sharded_serving`: prefill and decode steps of a model given as
   the reference's weights (quantized whole first under W8A8), laid out
-  on a (data, model) mesh: the logits and the caches gathered on rank 0.
-* :func:`serving_refusals`, :func:`row_parallel_w8a8`: the calls that
-  refuse a layout that splits a cache's stack dim, with their messages; a W8A8 row-parallel
-  linear's int32 accumulator against one rank's, bit for bit.
+  on a (data, model) mesh: the logits and the caches gathered on rank 0,
+  the shapes of rank 0's slices (of the prefill's caches and of
+  ``init_caches``').
+* :func:`row_parallel_w8a8`: a W8A8 row-parallel linear's int32
+  accumulator against one rank's, bit for bit.
 * :func:`chip_scaleout`: ``chip_smoke.phase_scaleout``'s ranks at full
   width on the card: one train step of each of qwen (tensor and data
   parallel), moonshot (expert parallel), deepseek (MLA and expert
   parallel), zamba2 (Mamba2 and its shared block tensor parallel),
   xlstm, whisper and pixtral (tensor parallel) against the single-rank
   step, the elastic trainer, the pipeline, and W8A8 serving of qwen,
-  deepseek, zamba2, whisper and xlstm (:data:`SERVE_PARTS`) against rank
-  0's single-rank serving; :func:`chip_every_head`, the same checks of a
-  train step and of serving on a world of 4 or 8 ranks whose ``model``
-  axis does not divide the heads.
+  deepseek, zamba2, whisper and xlstm (:data:`SERVE_PARTS`; a
+  one-head deepseek and zamba2, and whisper's layer stack split over
+  ``data``) against rank 0's single-rank serving; :func:`chip_every_head`,
+  the same checks of a train step and of serving on a world of 3, 4 or 8
+  ranks whose ``model`` axis does not divide the heads.
 """
 
 from __future__ import annotations
@@ -150,7 +150,8 @@ def sharded_serving(device, cfg, shape: tuple, weights: dict, batch: dict,
     on rank 0 (None elsewhere), gathered in full (numpy): ``logits``, the
     prefill's and every step's; ``caches``, after the prefill and after
     the last step (as the reference's trees); ``local``, rank 0's cache
-    shapes; ``traffic``, the collectives of the last step."""
+    shapes, and ``init_local``, those of its ``lm.init_caches``;
+    ``traffic``, the collectives of the last step."""
     from repro_torch.distributed import context
     from repro_torch.models import layers as L
     mesh = make_mesh(shape, AXES, device)
@@ -193,40 +194,14 @@ def sharded_serving(device, cfg, shape: tuple, weights: dict, batch: dict,
         traffic = {k: list(v) for k, v in context.traffic.items()}
         steps.append(gathered(logits))
     _, last_caches = gathered(logits, caches)
+    def shapes(tree):
+        return sharding.map_tree(lambda t, _: tuple(t.shape), tree)
     out = {"logits": steps, "caches": [prefill_caches, last_caches],
-           "local": sharding.map_tree(lambda t, sh: tuple(t.shape), caches,
-                                      cache_sh),
+           "local": shapes(caches),
+           "init_local": shapes(lm.init_caches(model, cfg, n, max_len,
+                                               cfg.dtype)),
            "traffic": traffic}
     return out if _rank0() else None
-
-
-def serving_refusals(device, cfg, shape: tuple, rows: int,
-                     max_len: int = 8) -> dict:
-    """``cfg`` laid out on a ``shape`` (data, model) mesh: the messages
-    of the ``NotImplementedError`` s that ``lm.init_caches`` and
-    ``lm.prefill`` raise for a global batch of ``rows`` (this rank's rows
-    of zero tokens, and of zero frames for an encoder-decoder), or None
-    where a call went through."""
-    mesh = make_mesh(shape, AXES, device)
-    m = lm.shard(lm.init_params(cfg, torch.Generator(device=device)
-                                .manual_seed(0), device), cfg, mesh)
-    local = rows // mesh.size(mesh.data_axes())
-    batch = {"tokens": torch.zeros((local, 4), dtype=torch.int64,
-                                   device=device)}
-    if cfg.family == "encdec":
-        batch["frames"] = torch.zeros((local, cfg.enc_seq, cfg.d_model),
-                                      device=device)
-    calls = {"init_caches": lambda: lm.init_caches(m, cfg, rows, max_len),
-             "prefill": lambda: lm.prefill(m, batch, cfg, max_len,
-                                           global_batch=rows)}
-    out = {}
-    for name, call in calls.items():
-        try:
-            call()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
-    return out
 
 
 def serving_misuse(device, cfg, max_len: int = 16) -> dict:
@@ -294,23 +269,6 @@ def row_parallel_w8a8(device, w: np.ndarray, b: np.ndarray,
     return {"accumulator_equal": bool(torch.equal(acc, want)),
             "output_equal": bool(torch.equal(y, y1)),
             "accumulator_dtype": str(acc.dtype)}
-
-
-def refusals(device, cfgs: list, model: int = 2) -> list:
-    """For each config, the message of the ``NotImplementedError`` that
-    laying it out on a (world / model, model) mesh raises, or None."""
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    mesh = make_mesh((world // model, model), AXES, device)
-    out = []
-    for cfg in cfgs:
-        model_ = lm.init_params(cfg, torch.Generator(device=device)
-                                .manual_seed(0), device)
-        try:
-            lm.shard(model_, cfg, mesh)
-            out.append(None)
-        except NotImplementedError as e:
-            out.append(str(e))
-    return out
 
 
 def gather_to_heads_check(device, seed: int = 0, heads: int = 3,
@@ -975,7 +933,8 @@ STEP_PARTS = (("a", "qwen", (1, 2)), ("b", "qwen", (2, 1)),
               ("k", "qwen_sp", (1, 2)),
               ("c", "moe", (1, 2)), ("f", "mla", (1, 2)),
               ("g", "hybrid", (1, 2)), ("h", "xlstm", (1, 2)),
-              ("i", "encdec", (1, 2)), ("j", "vlm", (1, 2)))
+              ("i", "encdec", (1, 2)), ("j", "vlm", (1, 2)),
+              ("v_mla", "mla_1h", (1, 2)), ("v_ssm", "hybrid_1h", (1, 2)))
 
 
 def chip_scaleout(device, spec: dict) -> dict:
@@ -999,7 +958,11 @@ def chip_scaleout(device, spec: dict) -> dict:
     zamba2 at full width cut in depth; (o) that zamba2 with float weights
     in float32; (p) whisper at full width and depth and (q) xlstm at full
     width cut in depth, W8A8 (their cross K/V and states laid out by
-    ``cache_shardings``); (r) that xlstm with float weights in float32.  ``spec`` holds the configs, sizes and limits;
+    ``cache_shardings``); (r) that xlstm with float weights in float32;
+    (v) a step and W8A8 serving of deepseek-smoke with one MLA head and
+    zamba2-smoke with one SSM head on (1, 2), every head on every rank;
+    (w) whisper W8A8 serving 4 rows on (2, 1), its 4-layer stack split over
+    ``data`` (ROADMAP fact 21).  ``spec`` holds the configs, sizes and limits;
     ``spec["batches"]`` a part's (rows, sequence) where it differs from
     ``spec["rows"]`` and ``spec["seq"]``; ``spec["serve_sizes"]`` a
     serving part's sizes where they differ from ``spec["serve"]``.
@@ -1063,7 +1026,8 @@ def chip_every_head(device, spec: dict) -> dict:
     """A part of ``chip_smoke.phase_scaleout`` on every rank of a world
     whose ``model`` axis does not divide the model's heads, so that each
     rank runs every head ((s) whisper-tiny on (1, 4), 1.5 heads a rank;
-    (t) xlstm-125m on (1, 8), half a head a rank), all on ``device``: one
+    (t) xlstm-125m on (1, 8), half a head a rank; (u) deepseek-v2-lite on
+    (1, 3), 16 MLA heads, ``wq`` split through a head), all on ``device``: one
     train step of ``spec[spec["train"]]`` from the mid-run state against
     rank 0's single-rank step (:func:`_sharded_run`), then serving of
     ``spec[spec["serve"]]`` at ``spec["serve_sizes"][spec["part"]]``
@@ -1102,7 +1066,10 @@ SERVE_PARTS = (("l", "serve_dense", (1, 2)), ("m", "serve_mla", (1, 2)),
                ("n", "serve_hybrid", (1, 2)),
                ("o", "serve_hybrid_float", (1, 2)),
                ("p", "serve_encdec", (1, 2)), ("q", "serve_xlstm", (1, 2)),
-               ("r", "serve_xlstm_float", (1, 2)))
+               ("r", "serve_xlstm_float", (1, 2)),
+               ("v_mla_serve", "serve_mla_1h", (1, 2)),
+               ("v_ssm_serve", "serve_hybrid_1h", (1, 2)),
+               ("w", "serve_encdec", (2, 1)))
 
 
 def _serving_model(cfg, seed: int, device, mesh=None):
@@ -1177,7 +1144,8 @@ def _chip_serving(device, cfg, spec: dict, shape: tuple,
     and the first decode step's collectives; on rank 0 the single-rank
     run's launches, the sharded logits (every step, rows gathered) against
     the single rank's and the spread's against it, and the gathered caches
-    after the prefill and at the end against the single rank's, by field:
+    after the prefill and at the end against the single rank's, by field
+    (but an empty stack's):
     max abs err, whether within ``kernels/checks.attention_tolerance``
     (all of it, and the prompt's slots, which no decode step writes: None
     for a state with no slots), relative L2, and the spread's relative
@@ -1262,7 +1230,7 @@ def _chip_serving(device, cfg, spec: dict, shape: tuple,
                     atol),
                 "rel_l2": rel_l2(t, want[p]),
                 "spread_rel_l2": rel_l2(pert[p], want[p])}
-                for p, t in got_.items()}
+                for p, t in got_.items() if t.numel()}     # not an empty stack
     del ref, spread, caches
     _free(device)
     dist.barrier()

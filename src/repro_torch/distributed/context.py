@@ -22,7 +22,9 @@ over ``model``), :func:`reduce_from_model` (forward all-reduce, backward
 identity), :func:`gather_from_model` (forward all-gather on one dim,
 backward the local slice), :func:`gather_to_heads` (forward all-gather
 of column slices into whole heads, backward reduce-scatter: each rank
-then keeps other columns of what follows) and :func:`mean_over_model`;
+then keeps other columns of what follows), :func:`leave_whole` (leave a
+region whose output every rank computed whole: forward the output,
+backward its gradient on model rank 0 alone) and :func:`mean_over_model`;
 :func:`gather_from_data` (forward all-gather of rows over the data axes,
 backward their sum and the local rows), with which a MoE layer under data
 parallelism alone routes the global batch as the reference's GSPMD does;
@@ -306,13 +308,16 @@ def reduce_scatter(t: torch.Tensor, axes, mesh: Mesh,
     return out.movedim(0, dim).to(t.dtype).contiguous()
 
 
-def broadcast(t: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
-    """``t`` of the first rank along ``axes`` (index 0 on each), on every
-    rank of the group (a new tensor)."""
+def broadcast(t: torch.Tensor, axes, mesh: Mesh, root: int = 0
+              ) -> torch.Tensor:
+    """``t`` of the rank at row-major index ``root`` along ``axes`` (the
+    first by default), on every rank of the group (a new tensor)."""
     group = mesh.group(axes)
     if group is None:
         return t
-    coords = {a: 0 for a in mesh._axes(axes)}
+    coords = {}
+    for a in reversed(mesh._axes(axes)):
+        coords[a], root = root % mesh.shape[a], root // mesh.shape[a]
     work = t.contiguous().clone()
     _count("broadcast", work, _staged("broadcast", mesh, work),
            _nbytes(work))
@@ -428,6 +433,17 @@ class _MeanOverModel(torch.autograd.Function):
         return g / ctx.n, None
 
 
+class _OwnedByFirst(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.first = mesh.index(MODEL_AXIS) == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
 class _GatherFromData(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
@@ -513,6 +529,20 @@ def gather_to_heads_if(x: torch.Tensor, mesh: Mesh, every: bool,
     head on every rank, its column-parallel slice split through a head);
     x itself otherwise."""
     return gather_to_heads(x, mesh, dim) if every else x
+
+
+def leave_whole(y: torch.Tensor, mesh: Mesh, sp: bool) -> torch.Tensor:
+    """Leave a model-parallel region whose output every model rank
+    computed whole (a whole output projection after every head): with
+    ``sp`` this rank's rows of the sequence (dim 1), the others' rows
+    getting no gradient here; else ``y`` itself, its gradient kept by
+    model rank 0 alone and zero on the others.  Either way each rank's
+    gradients inside the region are its part of the whole, as after a
+    row-parallel exit, and the region's entry sums them."""
+    if sp:
+        n = y.shape[1] // mesh.model_size()
+        return y.narrow(1, mesh.index(MODEL_AXIS) * n, n)
+    return _OwnedByFirst.apply(y, mesh)
 
 
 def mean_over_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -34,7 +34,9 @@ weights are laid out by the parameters' rules (:func:`tensor_shardings`).
 A cache tree is walked by :func:`map_tree` and :func:`flat_tree`, its
 leaves described before allocation by :class:`CacheField`;
 :class:`ServedState` moves a recurrent block's state between the cache's
-layout and the one the block computes in.
+layout and the one the block computes in, and :class:`StackSplit` a
+layer's cache between the rank that holds it (where the rule splits a
+layer stack over the data axes) and the ranks that own its rows.
 """
 
 from __future__ import annotations
@@ -383,6 +385,77 @@ class ServedState:
             if n is not t:
                 t.copy_(n)
         map_tree(put, state, new)
+
+
+class WholeStack:
+    """A cache key's stacked fields that no data axis splits on a stack
+    dim: each layer's cache is this rank's rows as they lie in the
+    stack."""
+
+    def keep(self, idx: tuple, layer):
+        """The layer's cache as the stack holds it: ``layer`` itself."""
+        return layer
+
+    def fetch(self, stack, idx: tuple):
+        """Layer ``idx``'s cache (views into ``stack``, updated in
+        place)."""
+        return map_tree(lambda t, _: t[idx], stack)
+
+    def store(self, stack, idx: tuple, layer) -> None:
+        """Nothing to do: :meth:`fetch` gave views."""
+
+
+WHOLE_STACK = WholeStack()
+
+
+class StackSplit(WholeStack):
+    """A cache key's stacked fields whose stack dim ``dim`` (of full size
+    ``size``) :func:`cache_shardings` puts the data ``axes`` on, because it
+    is the first dim of the batch's size (ROADMAP fact 21; a 4-layer
+    decoder serving 4 rows): each data rank holds every row's cache of the
+    layers of its slice of the stack, while it computes its own rows
+    (``rows``: this rank's first row and their count).  A layer's rows
+    move between the rank that holds the layer and the ranks that own
+    them: gathered over ``axes`` onto the holder (:meth:`keep`,
+    :meth:`store`), broadcast from it and narrowed to the rows
+    (:meth:`fetch`)."""
+
+    def __init__(self, mesh, axes: tuple, dim: int, size: int, rows: tuple):
+        self.mesh, self.axes, self.dim = mesh, axes, dim
+        self.per = size // mesh.size(axes)
+        self.first, self.rows = rows
+
+    def _holder(self, idx: tuple) -> int:
+        return idx[self.dim] // self.per
+
+    def _local(self, idx: tuple) -> tuple:
+        return idx[:self.dim] + (idx[self.dim] % self.per,) \
+            + idx[self.dim + 1:]
+
+    def keep(self, idx: tuple, layer):
+        """Layer ``idx``'s cache of every row on the rank that holds it
+        (None on the others) from each rank's ``layer``, its rows."""
+        whole = map_tree(
+            lambda t, _: context.all_gather(t, self.axes, self.mesh, 0), layer)
+        return whole if self._holder(idx) == self.mesh.index(self.axes) \
+            else None
+
+    def fetch(self, stack, idx: tuple):
+        """This rank's rows of layer ``idx``'s cache (new tensors), from
+        the rank whose slice of ``stack`` holds it."""
+        local, root = self._local(idx), self._holder(idx)
+        return map_tree(
+            lambda t, _: context.broadcast(t[local], self.axes, self.mesh,
+                                           root)
+            .narrow(0, self.first, self.rows).contiguous(), stack)
+
+    def store(self, stack, idx: tuple, layer) -> None:
+        """Every rank's rows of layer ``idx`` (each rank's ``layer``, as
+        :meth:`fetch` gave it and a step updated it) written into the
+        holder's slice of ``stack``."""
+        whole = self.keep(idx, layer)
+        if whole is not None:
+            map_tree(lambda t, w: t[self._local(idx)].copy_(w), stack, whole)
 
 
 def local_slice(full: torch.Tensor, sh: Sharding) -> torch.Tensor:

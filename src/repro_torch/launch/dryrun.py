@@ -31,10 +31,11 @@ and ``trace_s`` (the layout and the step, for ``lower_s`` /
 refuses (a ``NotImplementedError`` from the step; no cell of ``--all``
 has one) still gets its record: its arguments' bytes, the refusal's
 message under ``refused`` and null step quantities.  A cell whose layout
-is refused (MLA or Mamba2 SSM heads that ``model`` does not divide, or a
-batch equal to a layer stack on a data axis, ROADMAP queue 1 item 7; no
-cell of ``--all`` meets one: heads that ``model`` does not divide run
-every head on every rank, fact 18) writes the reference's ``.err``
+is refused (MoE experts that ``model`` does not divide, where the
+reference's ``shard_map`` fails too; no cell of ``--all`` meets one:
+heads that ``model`` does not divide run every head on every rank, fact
+18, and a layer stack split over a data axis is held by slices, fact 21)
+writes the reference's ``.err``
 traceback and ``FAILED`` line.  ``--save-hlo`` has no counterpart: there
 is no compiled program to save.
 

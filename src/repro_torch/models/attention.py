@@ -38,7 +38,19 @@ row-parallel, ``n_heads / model`` heads through ``flash_attention``.
 ``w_dkv``, ``w_krope`` and ``norm_ckv`` stay whole: every rank computes
 the whole latent ``ckv`` and the shared RoPE key, and each differentiates
 them through its own heads only, so their gradients are partial and
-summed over ``model`` by the train step.
+summed over ``model`` by the train step.  Where ``model`` does not divide
+the heads (deepseek-v2-lite's 16 on model 3), the rule splits each of
+``wq`` (``h * (dn + dr)`` columns, each head's nope part then its rope
+part), ``w_uk``, ``w_uv`` by columns and ``wo`` by rows wherever ``model``
+divides that width, through a head, and keeps the others whole.  Such a
+layer runs every head on every rank (``every_head``), as GQA does: a
+split projection's columns gathered into whole heads
+(``context.gather_to_heads``), and its output through the columns of the
+rank's rows of a split ``wo``; a whole ``wo`` gives every rank the whole
+output, of which model rank 0 alone carries the gradient
+(``context.leave_whole``), so that every whole tensor of the layer gets
+a partial gradient.  The absorbed decode reads ``W_uk`` / ``W_uv`` by
+whole heads: their column slices are gathered.
 
 Serving on such a mesh (``lm.prefill`` / ``lm.decode_step``) keeps each
 layer's cache laid out by ``sharding.cache_shardings``: every KV head (or
@@ -329,6 +341,9 @@ class MLAttention(nn.Module):
     docstring): the head count is read from their widths."""
 
     mesh: C.Mesh | None = None
+    #: on a mesh whose ``model`` axis does not divide the heads: every
+    #: rank runs every head (module docstring)
+    every_head: bool = False
 
     def __init__(self, wq: L.NmcLinear, w_dkv: L.NmcLinear,
                  w_krope: L.NmcLinear, w_uk: L.NmcLinear, w_uv: L.NmcLinear,
@@ -351,14 +366,43 @@ class MLAttention(nn.Module):
                    L.NmcLinear.init(gen, h * dv, d, device=device),
                    L.RMSNorm.init(r, device=device))
 
+    def _heads(self, y: torch.Tensor, lin: L.NmcLinear) -> torch.Tensor:
+        """A projection's output by ``lin``: under ``every_head`` a
+        column-parallel one's slice gathered over ``model`` into every
+        head."""
+        return C.gather_to_heads_if(y, self.mesh, self.every_head
+                                    and lin.parallel == "col")
+
+    def _weight(self, lin: L.NmcLinear) -> torch.Tensor:
+        """``lin``'s float32 weight (d_in, columns): under ``every_head``
+        a column-parallel one's slice gathered into every head."""
+        w = lin.float_weight()
+        if self.every_head and lin.parallel == "col":
+            w = C.all_gather(w, C.MODEL_AXIS, self.mesh, 1)
+        return w
+
+    def _out(self, o: torch.Tensor, cfg: ModelConfig,
+             sp: bool = False) -> torch.Tensor:
+        """The output projection of o (B, S, heads * dv): under
+        ``every_head`` (o holds every head) the columns of a row-parallel
+        ``wo``'s rows, or a whole ``wo``'s output left whole
+        (``context.leave_whole``)."""
+        mode = cfg.nmc_mode
+        if self.every_head and self.wo.parallel == "row":
+            o = _local_columns(o, self.wo)
+        elif self.every_head:
+            return C.leave_whole(self.wo(o, nmc_mode=mode), self.mesh, sp)
+        return self.wo(o, nmc_mode=mode, sp=sp)
+
     def _q_and_latent(self, x: torch.Tensor, cfg: ModelConfig, cos,
                       sin) -> tuple:
         """x: (B, S, D) -> q_nope (B,S,H,dn), q_rope (B,S,H,dr), ckv
         (B,S,r) and the shared key krope (B,S,1,dr), rope applied (H this
-        rank's heads on a mesh)."""
+        rank's heads on a mesh, every head under ``every_head``)."""
         b, s, _ = x.shape
         dn, dr, mode = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.nmc_mode
-        q = self.wq(x, nmc_mode=mode).reshape(b, s, -1, dn + dr)
+        q = self._heads(self.wq(x, nmc_mode=mode), self.wq).reshape(
+            b, s, -1, dn + dr)
         ckv = self.norm_ckv(self.w_dkv(x, nmc_mode=mode))
         krope = L.apply_rope(self.w_krope(x, nmc_mode=mode)[:, :, None, :],
                              cos, sin)
@@ -377,15 +421,15 @@ class MLAttention(nn.Module):
         cos, sin = L.rope_table(positions, dr, cfg.rope_theta)
         q_nope, q_rope, ckv, krope = self._q_and_latent(x, cfg, cos, sin)
         h = q_nope.shape[2]
-        k_nope = self.w_uk(ckv, nmc_mode=mode).reshape(b, s, h,
-                                                        cfg.qk_nope_dim)
-        v = self.w_uv(ckv, nmc_mode=mode).reshape(b, s, h, cfg.v_head_dim)
+        k_nope = self._heads(self.w_uk(ckv, nmc_mode=mode), self.w_uk) \
+            .reshape(b, s, h, cfg.qk_nope_dim)
+        v = self._heads(self.w_uv(ckv, nmc_mode=mode), self.w_uv) \
+            .reshape(b, s, h, cfg.v_head_dim)
         q = torch.cat([q_nope, q_rope], -1).transpose(1, 2)
         k = torch.cat([k_nope, krope.expand(b, s, h, dr)], -1).transpose(1, 2)
         o = ops.attention(q, k, v.transpose(1, 2), causal=True,
                           q_offset=q_offset)
-        out = self.wo(o.transpose(1, 2).reshape(b, s, -1), nmc_mode=mode,
-                      sp=sp)
+        out = self._out(o.transpose(1, 2).reshape(b, s, -1), cfg, sp)
         return out, ckv, krope[:, :, 0]
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, *,
@@ -425,7 +469,9 @@ class MLAttention(nn.Module):
         (:meth:`prefill`): every head's latent query is gathered over
         ``model``, the rank holding a row's slot writes it, the ranks'
         partials over their slots are combined, and each rank applies its
-        heads' ``W_uv``.  Returns (out (B,1,D), cache)."""
+        heads' ``W_uv`` (every head's under ``every_head``, then the
+        columns its rows of ``wo`` meet).  Returns (out (B,1,D),
+        cache)."""
         b = x.shape[0]
         cos, sin = L.rope_table(cache_len[:, None] - 1, cfg.qk_rope_dim,
                                 cfg.rope_theta)
@@ -444,15 +490,14 @@ class MLAttention(nn.Module):
                      dim=1)
         o = self.absorbed_attention(q_nope[:, 0], q_rope[:, 0], cache,
                                     cache_len, cfg, split)
-        return self.wo(o.reshape(b, 1, -1).to(x.dtype),
-                       nmc_mode=cfg.nmc_mode), cache
+        return self._out(o.reshape(b, 1, -1).to(x.dtype), cfg), cache
 
     def latent_query(self, q_nope: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
         """q_nope (B,H,dn) -> ``q_nope W_uk`` (B,H,r) in float32 (H this
-        rank's heads on a mesh)."""
-        w_uk = self.w_uk.float_weight().reshape(cfg.kv_lora_rank, -1,
-                                                cfg.qk_nope_dim)
+        rank's heads on a mesh, every head under ``every_head``)."""
+        w_uk = self._weight(self.w_uk).reshape(cfg.kv_lora_rank, -1,
+                                               cfg.qk_nope_dim)
         return torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk)
 
     def latent_logits(self, q_lat: torch.Tensor, q_rope: torch.Tensor,
@@ -474,8 +519,8 @@ class MLAttention(nn.Module):
     def latent_out(self, o_lat: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
         """o_lat (B,H,r) -> ``o_lat W_uv`` (B,H,dv) in float32."""
-        w_uv = self.w_uv.float_weight().reshape(cfg.kv_lora_rank, -1,
-                                                cfg.v_head_dim)
+        w_uv = self._weight(self.w_uv).reshape(cfg.kv_lora_rank, -1,
+                                               cfg.v_head_dim)
         return torch.einsum("bhr,rhv->bhv", o_lat, w_uv)
 
     def absorbed_attention(self, q_nope: torch.Tensor, q_rope: torch.Tensor,
@@ -490,20 +535,23 @@ class MLAttention(nn.Module):
         laid out so (:func:`cache_split`): every head's latent query is
         gathered over ``model``, the partials over the rank's slots are
         combined with the other ranks', and the rank's heads go on to its
-        ``W_uv``."""
+        ``W_uv``.  Under ``every_head`` every rank holds every head
+        throughout."""
         q_lat = self.latent_query(q_nope, cfg)
         offset, axes = 0, ()
+        local = split is not None and self.mesh is not None and \
+            not self.every_head
         if split is not None:
             offset = sharding.local_offset(split, 1, cache["ckv"].shape[1])
             axes = sharding.split_axes(split, 1)
-            if self.mesh is not None:
-                q_lat = C.all_gather(q_lat, C.MODEL_AXIS, self.mesh, 1)
-                q_rope = C.all_gather(q_rope, C.MODEL_AXIS, self.mesh, 1)
+        if local:
+            q_lat = C.all_gather(q_lat, C.MODEL_AXIS, self.mesh, 1)
+            q_rope = C.all_gather(q_rope, C.MODEL_AXIS, self.mesh, 1)
         p, lse = ops.partial_softmax(self.latent_logits(
             q_lat, q_rope, cache, cache_len, cfg, offset), bool(axes))
         o_lat = _combine(torch.einsum("bhs,bsr->bhr", p, cache["ckv"].float()),
                          lse, axes, None if split is None else split.mesh)
-        if split is not None:
+        if local:
             o_lat = _local_heads(o_lat, self.mesh)
         return self.latent_out(o_lat, cfg)
 
@@ -573,11 +621,9 @@ def _local_columns(o: torch.Tensor, wo: L.NmcLinear) -> torch.Tensor:
     return o.narrow(-1, wo.mesh.index(C.MODEL_AXIS) * n, n)
 
 
-def _local_heads(o: torch.Tensor, mesh: C.Mesh | None) -> torch.Tensor:
-    """This rank's heads (dim 1) of every head's ``o`` (all of it with no
-    mesh; MLA, whose heads divide)."""
-    if mesh is None:
-        return o
+def _local_heads(o: torch.Tensor, mesh: C.Mesh) -> torch.Tensor:
+    """This rank's heads (dim 1) of every head's ``o`` (MLA, whose heads
+    divide)."""
     n = o.shape[1] // mesh.model_size()
     return o.narrow(1, mesh.index(C.MODEL_AXIS) * n, n)
 

@@ -61,12 +61,13 @@ a cross-attention and of MLA gathered for it; the Mamba2 and xLSTM
 states gathered to the rank's heads and written back).  The logits are
 this rank's rows with the whole vocabulary.  A batch is this rank's rows
 (the global batch's under ``sharding.batch_shardings``); ``cache_len`` is
-the global batch's, as the reference's replicated argument.  A layout
-that splits a stack dim (a batch equal to an encoder-decoder's decoder
-layers, on a data axis: the rule takes the first dim of the batch's
-size) is refused where it is used: by ``init_caches``, and by prefill
-and decode on a ``model`` axis (on data axes alone they hold this rank's
-rows).
+the global batch's, as the reference's replicated argument.  Where the
+rule splits a layer stack over the data axes (a batch equal to an
+encoder-decoder's decoder layers: it takes the first dim of the batch's
+size), each data rank holds every row's cache of its slice of the
+layers; each layer's rows move between the rank that holds it and the
+ranks that own them (``sharding.StackSplit``: gathered onto the holder
+at prefill, broadcast from it and written back at decode).
 
 Activation checkpointing (``cfg.remat``, the reference's ``_maybe_remat``)
 wraps the training forward at the reference's granularity: one
@@ -156,8 +157,16 @@ def remat(fn, cfg: ModelConfig, *args):
 
 
 def _stack(caches: list) -> dict:
-    """Per-layer caches (dicts of tensors) stacked over a new first axis."""
+    """Per-layer caches (dicts of tensors) stacked over a new first axis,
+    the layers this rank does not hold (None) left out."""
+    caches = [c for c in caches if c is not None]
     return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def _split(stacks: dict | None, key: str) -> sharding.WholeStack:
+    """How the stack of cache ``key`` lies over the data axes
+    (:meth:`LMBase.stack_splits`)."""
+    return (stacks or {}).get(key, sharding.WHOLE_STACK)
 
 
 def _stacked(one: dict, lead: tuple) -> dict:
@@ -370,28 +379,68 @@ class LMBase(nn.Module):
     def cache_layout(self, cfg: ModelConfig, batch: int,
                      max_len: int) -> dict:
         """The caches' layout on this model's mesh for a global ``batch``
-        and ``max_len``: per cache key, one layer's Shardings (the key's
-        tree: ``{field: Sharding}``, one Sharding, a list of tuples), those
-        ``sharding.cache_shardings`` gives the stacked caches with their
-        stack dims (:data:`CACHE_STACK_DIMS`) dropped, which must be
-        whole."""
+        and ``max_len``: per cache key, one layer's Shardings as the layer
+        computes (the key's tree: ``{field: Sharding}``, one Sharding, a
+        list of tuples), those ``sharding.cache_shardings`` gives the
+        stacked caches with their stack dims (:data:`CACHE_STACK_DIMS`)
+        dropped; where the data axes split a stack dim
+        (:meth:`stack_splits`) the layer's rows are split over them
+        instead, as the rows its activations hold.  A stack dim split over
+        ``model`` (no configuration's caches meet one; an empty stack's,
+        which holds nothing, aside) raises ``NotImplementedError``."""
         full, shs = self.stacked_cache_layout(cfg, batch, max_len)
         shapes = sharding.flat_tree(full)
         for path, sh in sharding.flat_tree(shs).items():
             lead = self.CACHE_STACK_DIMS.get(path.split(".")[0], 1)
-            if any(p is not None for p in sh.spec[:lead]):
+            if shapes[path].shape.numel() and any(
+                    C.MODEL_AXIS in sharding.split_axes(sh, d)
+                    for d in range(lead)):
                 raise NotImplementedError(
                     f"{cfg.name}: cache {path} of "
-                    f"{tuple(shapes[path].shape)} laid out as {sh.spec} for "
-                    f"a batch of {batch}: a stack dim is split (the batch "
-                    f"is not the first dim of that size)")
+                    f"{tuple(shapes[path].shape)} laid out as {sh.spec}: "
+                    f"its layer stack split over {C.MODEL_AXIS!r}")
+        splits = self._stack_splits(full, shs, batch)
 
         def unstacked(key, tree):
             n = self.CACHE_STACK_DIMS.get(key, 1)
-            return sharding.map_tree(
-                lambda sh, _: sharding.Sharding(sh.mesh, tuple(sh.spec[n:])),
-                tree)
+            split = splits.get(key)
+
+            def one(sh, _):
+                spec = tuple(sh.spec[n:])
+                if split is not None:        # the rows, not the stack
+                    spec = (sh.spec[split.dim],) + spec[1:]
+                return sharding.Sharding(sh.mesh, spec)
+            return sharding.map_tree(one, tree)
         return {key: unstacked(key, tree) for key, tree in shs.items()}
+
+    def stack_splits(self, cfg: ModelConfig, batch: int,
+                     max_len: int) -> dict:
+        """``{cache key: sharding.StackSplit}`` of the keys whose layer
+        stack ``sharding.cache_shardings`` splits over the data axes for a
+        global ``batch`` (ROADMAP fact 21: the first dim of the batch's
+        size is a stack dim; whisper-tiny's 4 decoder layers for 4 rows);
+        none off a mesh.  The data axes' place does not depend on
+        ``max_len``: every field's slots come after its batch dim."""
+        if self.layout is None:
+            return {}
+        return self._stack_splits(
+            *self.stacked_cache_layout(cfg, batch, max_len), batch)
+
+    def _stack_splits(self, full, shs, batch: int) -> dict:
+        """:meth:`stack_splits` of the stacked caches ``full`` laid out as
+        ``shs``."""
+        shapes = sharding.flat_tree(full)
+        rows = _rows(self.layout, batch)
+        out = {}
+        for path, sh in sharding.flat_tree(shs).items():
+            key = path.split(".")[0]
+            for d in range(self.CACHE_STACK_DIMS.get(key, 1)):
+                axes = sharding.split_axes(sh, d)
+                if axes and C.MODEL_AXIS not in axes:
+                    out[key] = sharding.StackSplit(
+                        self.layout.mesh, axes, d, shapes[path].shape[d],
+                        rows)
+        return out
 
     def splits_rows(self, batch: dict, cfg: ModelConfig) -> bool:
         """Whether the teacher-forced forward over ``batch`` splits its
@@ -493,29 +542,40 @@ class DecoderLM(LMBase):
         return self.logits(x, cfg, split), aux
 
     def prefill(self, batch: dict, cfg: ModelConfig, max_len: int,
-                cache_sh: dict | None = None) -> tuple:
-        """``cache_sh``: :meth:`cache_layout` on a ``model`` axis."""
+                cache_sh: dict | None = None,
+                stacks: dict | None = None) -> tuple:
+        """``cache_sh``: :meth:`cache_layout` on a ``model`` axis;
+        ``stacks``: :meth:`stack_splits`."""
         x = self.inputs(batch, cfg)
         caches = {}
         for key, blocks in self.stacks():
-            cs = []
-            for blk in blocks:
+            split, cs = _split(stacks, key), []
+            for i, blk in enumerate(blocks):
                 x, c = blk.prefill(x, cfg, max_len,
                                    cache_sh and cache_sh[key])
-                cs.append(c)
-            caches[key] = _stack(cs)
+                cs.append(split.keep((i,), c))
+            caches[key] = _stack(cs) if cs else None
+        # a stack of no layer (a MoE model cut to its dense layers, as the
+        # reference's zero-length leaves): every layer's cache has the
+        # same fields, so another stack's, cut to none
+        like = next(c for c in caches.values() if c is not None)
+        caches = {key: c if c is not None else
+                  {f: t[:0] for f, t in like.items()}
+                  for key, c in caches.items()}
         return self.logits(x, cfg, last=True), caches
 
     def decode_step(self, tokens: torch.Tensor, caches: dict,
                     cache_len: torch.Tensor, cfg: ModelConfig,
-                    cache_sh: dict | None = None) -> tuple:
+                    cache_sh: dict | None = None,
+                    stacks: dict | None = None) -> tuple:
         x = self.embed(tokens, cfg.dtype)
         for key, blocks in self.stacks():
-            stack = caches[key]
+            split, stack = _split(stacks, key), caches[key]
             for i, blk in enumerate(blocks):
-                x = blk.decode_step(x, cfg,
-                                    {k: t[i] for k, t in stack.items()},
-                                    cache_len, cache_sh and cache_sh[key])
+                layer = split.fetch(stack, (i,))
+                x = blk.decode_step(x, cfg, layer, cache_len,
+                                    cache_sh and cache_sh[key])
+                split.store(stack, (i,), layer)
         return self.logits(x, cfg)[:, 0], caches
 
     def cache_shapes(self, cfg: ModelConfig, batch: int, max_len: int,
@@ -573,38 +633,45 @@ class HybridLM(LMBase):
         return self.logits(x, cfg), aux
 
     def prefill(self, batch: dict, cfg: ModelConfig, max_len: int,
-                cache_sh: dict | None = None) -> tuple:
+                cache_sh: dict | None = None,
+                stacks: dict | None = None) -> tuple:
         """``cache_sh``: :meth:`cache_layout` on a ``model`` axis (each
-        Mamba2 layer's state laid out from its heads to it)."""
+        Mamba2 layer's state laid out from its heads to it); ``stacks``:
+        :meth:`stack_splits`."""
         x = self.inputs(batch, cfg)
+        ms, ac = _split(stacks, "mamba"), _split(stacks, "attn")
         states, attn = [], []
-        for group in self.mamba:
+        for g, group in enumerate(self.mamba):
             sts = []
-            for layer in group:
+            for e, layer in enumerate(group):
                 y, st = layer(x, cfg, return_state=True)
                 x = x + y
-                sts.append(st if cache_sh is None
-                           else layer.laid_out(st, cache_sh["mamba"]))
-            states.append(_stack(sts))
+                sts.append(ms.keep((g, e), st if cache_sh is None
+                                   else layer.laid_out(st, cache_sh["mamba"])))
+            if any(st is not None for st in sts):
+                states.append(_stack(sts))
             x, c = self.shared_attn.prefill(x, cfg, max_len,
                                             cache_sh and cache_sh["attn"])
-            attn.append(c)
+            attn.append(ac.keep((g,), c))
         return self.logits(x, cfg, last=True), {"mamba": _stack(states),
                                             "attn": _stack(attn)}
 
     def decode_step(self, tokens: torch.Tensor, caches: dict,
                     cache_len: torch.Tensor, cfg: ModelConfig,
-                    cache_sh: dict | None = None) -> tuple:
+                    cache_sh: dict | None = None,
+                    stacks: dict | None = None) -> tuple:
         x = self.embed(tokens, cfg.dtype)
-        ms, ac = caches["mamba"], caches["attn"]
+        ms, ac = _split(stacks, "mamba"), _split(stacks, "attn")
         for g, group in enumerate(self.mamba):
             for e, layer in enumerate(group):
-                x = x + layer.decode_step(
-                    x, cfg, {k: t[g, e] for k, t in ms.items()},
-                    cache_sh and cache_sh["mamba"])
-            x = self.shared_attn.decode_step(
-                x, cfg, {k: t[g] for k, t in ac.items()}, cache_len,
-                cache_sh and cache_sh["attn"])
+                st = ms.fetch(caches["mamba"], (g, e))
+                x = x + layer.decode_step(x, cfg, st,
+                                          cache_sh and cache_sh["mamba"])
+                ms.store(caches["mamba"], (g, e), st)
+            c = ac.fetch(caches["attn"], (g,))
+            x = self.shared_attn.decode_step(x, cfg, c, cache_len,
+                                             cache_sh and cache_sh["attn"])
+            ac.store(caches["attn"], (g,), c)
         return self.logits(x, cfg)[:, 0], caches
 
     def cache_shapes(self, cfg: ModelConfig, batch: int, max_len: int,
@@ -672,32 +739,40 @@ class EncDecLM(LMBase):
         return self.logits(x, cfg), torch.zeros((), device=x.device)
 
     def prefill(self, batch: dict, cfg: ModelConfig, max_len: int,
-                cache_sh: dict | None = None) -> tuple:
-        """``cache_sh``: :meth:`cache_layout` on a ``model`` axis."""
+                cache_sh: dict | None = None,
+                stacks: dict | None = None) -> tuple:
+        """``cache_sh``: :meth:`cache_layout` on a ``model`` axis;
+        ``stacks``: :meth:`stack_splits`."""
         enc = self.encode(batch["frames"], cfg)
         x = self.inputs(batch, cfg)
         cs, ks, vs = [], [], []
-        for blk in self.layers:
+        for i, blk in enumerate(self.layers):
             x, c, (k, v) = blk.prefill(x, enc, cfg, max_len, cache_sh)
-            cs.append(c)
-            ks.append(k)
-            vs.append(v)
+            cs.append(_split(stacks, "layers").keep((i,), c))
+            ks.append(_split(stacks, "cross_k").keep((i,), k))
+            vs.append(_split(stacks, "cross_v").keep((i,), v))
         return self.logits(x, cfg, last=True), {
-            "layers": _stack(cs), "cross_k": torch.stack(ks),
-            "cross_v": torch.stack(vs)}
+            "layers": _stack(cs),
+            "cross_k": torch.stack([k for k in ks if k is not None]),
+            "cross_v": torch.stack([v for v in vs if v is not None])}
 
     def decode_step(self, tokens: torch.Tensor, caches: dict,
                     cache_len: torch.Tensor, cfg: ModelConfig,
-                    cache_sh: dict | None = None) -> tuple:
+                    cache_sh: dict | None = None,
+                    stacks: dict | None = None) -> tuple:
+        """The cross K/V are read, never written: a layer held on another
+        data rank (``stacks``) is fetched and not stored back."""
         table = self.pos_dec.table
         pos = torch.clamp(cache_len - 1, 0, table.shape[0] - 1).long()
         x = self.embed(tokens, cfg.dtype) + table[pos][:, None, :].to(
             cfg.dtype)
-        stack = caches["layers"]
+        split = _split(stacks, "layers")
         for i, blk in enumerate(self.layers):
-            x = blk.decode_step(
-                x, (caches["cross_k"][i], caches["cross_v"][i]), cfg,
-                {k: t[i] for k, t in stack.items()}, cache_len, cache_sh)
+            layer = split.fetch(caches["layers"], (i,))
+            kv = tuple(_split(stacks, key).fetch(caches[key], (i,))
+                       for key in ("cross_k", "cross_v"))
+            x = blk.decode_step(x, kv, cfg, layer, cache_len, cache_sh)
+            split.store(caches["layers"], (i,), layer)
         return self.logits(x, cfg)[:, 0], caches
 
     def cache_shapes(self, cfg: ModelConfig, batch: int, max_len: int,
@@ -739,9 +814,11 @@ class XLSTMLM(LMBase):
         return self.logits(x, cfg), aux
 
     def prefill(self, batch: dict, cfg: ModelConfig, max_len: int,
-                cache_sh: dict | None = None) -> tuple:
+                cache_sh: dict | None = None,
+                stacks: dict | None = None) -> tuple:
         """``cache_sh``: :meth:`cache_layout` on a ``model`` axis (each
-        block's state laid out from its heads to it)."""
+        block's state laid out from its heads to it).  The states are per
+        block, no stack: ``stacks`` is always empty."""
         x = self.inputs(batch, cfg)
         states = []
         for i, blk in enumerate(self.blocks):
@@ -752,7 +829,8 @@ class XLSTMLM(LMBase):
 
     def decode_step(self, tokens: torch.Tensor, caches: dict,
                     cache_len: torch.Tensor, cfg: ModelConfig,
-                    cache_sh: dict | None = None) -> tuple:
+                    cache_sh: dict | None = None,
+                    stacks: dict | None = None) -> tuple:
         x = self.embed(tokens, cfg.dtype)
         for i, (blk, st) in enumerate(zip(self.blocks, caches["blocks"])):
             x = blk.decode_step(x, cfg, st,
@@ -914,24 +992,26 @@ def prefill(params: LMBase, batch: dict, cfg: ModelConfig, max_len: int,
             global_batch: int | None = None) -> tuple:
     """Process the prompt (a VLM's images first; an encoder-decoder's
     frames through the encoder), return (last-position logits, caches).
-    On a mesh ``batch`` holds this rank's rows of a global batch of
-    ``global_batch`` rows, which a ``model`` axis needs (a batch copied
+    On a mesh of more than one rank ``batch`` holds this rank's rows of a
+    global batch of ``global_batch`` rows, which it needs (a batch copied
     to every data rank and one split over them hold the same local rows
     and are laid out apart), and the caches are this rank's slices under
-    ``cache_shardings`` (module docstring); on data axes alone, this
-    rank's rows whatever that layout is (a batch equal to a stack dim,
-    ROADMAP fact 21, is served here, while :func:`init_caches` refuses
-    it)."""
+    ``cache_shardings`` (module docstring), a layer stack split over the
+    data axes included (ROADMAP fact 21)."""
     _check_family(cfg)
     lay = params.layout
-    if lay is None or lay.mesh.model_size() == 1:
+    if lay is None:
         return params.prefill(batch, cfg, max_len)
-    if global_batch is None:
-        raise ValueError(f"{cfg.name}: prefill on a 'model' axis needs "
+    rows = batch["tokens"].shape[0]
+    if global_batch is None and lay.mesh.size(lay.mesh.axis_names) > 1:
+        raise ValueError(f"{cfg.name}: prefill on a mesh needs "
                          f"global_batch, the rows of the whole batch")
-    _check_rows(batch["tokens"].shape[0], lay, global_batch)
-    return params.prefill(batch, cfg, max_len,
-                          params.cache_layout(cfg, global_batch, max_len))
+    n = rows if global_batch is None else global_batch
+    _check_rows(rows, lay, n)
+    cache_sh = params.cache_layout(cfg, n, max_len) \
+        if lay.mesh.model_size() > 1 else None
+    return params.prefill(batch, cfg, max_len, cache_sh,
+                          params.stack_splits(cfg, n, max_len))
 
 
 @torch.inference_mode()
@@ -954,13 +1034,16 @@ def decode_step(params: LMBase, tokens: torch.Tensor, caches: dict,
     _check_rows(tokens.shape[0], lay, n)
     local = cache_len.narrow(0, first, rows)
     if lay.mesh.model_size() == 1:
-        return params.decode_step(tokens, caches, local, cfg)
+        # on data axes alone max_len does not move the layout
+        return params.decode_step(tokens, caches, local, cfg, None,
+                                  params.stack_splits(cfg, n, max_len or 1))
     if max_len is None:
         raise ValueError(f"{cfg.name}: decode_step on a 'model' axis needs "
                          f"max_len, the caches' full length")
     _check_slices(params, cfg, caches, n, max_len)
     return params.decode_step(tokens, caches, local, cfg,
-                              params.cache_layout(cfg, n, max_len))
+                              params.cache_layout(cfg, n, max_len),
+                              params.stack_splits(cfg, n, max_len))
 
 
 def _check_slices(params: LMBase, cfg: ModelConfig, caches: dict, n: int,
@@ -984,9 +1067,9 @@ def init_caches(params: LMBase, cfg: ModelConfig, batch: int,
                 max_len: int, dtype=torch.bfloat16) -> dict:
     """Initial caches for ``batch`` rows of ``max_len`` (zeros; an
     xLSTM's max states at ``M0``); on a mesh this rank's slices of the
-    global batch's under ``cache_shardings``, and only those allocated.
-    A layout that splits a stack dim raises ``NotImplementedError``
-    (:meth:`LMBase.cache_layout`), on any mesh (ROADMAP fact 21)."""
+    global batch's under ``cache_shardings``, and only those allocated (a
+    layer stack split over the data axes: this rank's layers, every row
+    of each; ROADMAP fact 21)."""
     _check_family(cfg)
     lay = params.layout
     if lay is None:
@@ -1012,22 +1095,28 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
     Where the KV heads do not divide over ``model``, ``wk`` and ``wv``
     stay whole (the rule would split them by columns, through a head) and
     each rank takes the KV heads its query heads read.  Where the
-    attention, mLSTM or sLSTM heads do not divide, the rule splits their
-    projections through a head all the same, and each such layer runs
-    every head on every rank (``every_head``: the column slices gathered
-    into whole heads, each rank keeping its columns of the output; the
-    attention and the recurrences replicated over ``model``).  MLA's
-    heads and Mamba2's SSM heads must divide.  ``params.layout.partial``
-    names the whole tensors read inside a model-parallel region, whose
-    gradients are partial over ``model``: the MoE routers, whole KV heads,
-    MLA's latent projections, Mamba2's ``in_b`` / ``in_c`` / ``in_dt`` /
-    ``conv_bc_*`` / ``norm.g``, the mLSTM's ``wf`` and ``out_norm.g`` (and
-    its whole ``wi`` where every rank runs every head); under
+    attention, MLA, Mamba2 SSM, mLSTM or sLSTM heads do not divide, the
+    rule splits their projections through a head all the same, and each
+    such layer runs every head on every rank (``every_head``: the column
+    slices gathered into whole heads, each rank keeping its columns of
+    the output; the attention, the SSD and the recurrences replicated
+    over ``model``).  ``params.layout.partial`` names the whole tensors
+    read inside a model-parallel region, whose gradients are partial over
+    ``model``: the MoE routers, whole KV heads, MLA's latent projections
+    (and whatever of ``wq`` / ``w_uk`` / ``w_uv`` / ``wo`` the rule keeps
+    whole where every rank runs every head), Mamba2's ``in_b`` / ``in_c``
+    / ``in_dt`` / ``conv_bc_*`` / ``norm.g`` (and its whole ``A_log`` /
+    ``D`` / ``dt_bias`` where every rank runs every head), the mLSTM's
+    ``wf`` and ``out_norm.g`` (and its whole ``wi`` where every rank runs
+    every head); under
     ``cfg.seq_parallel`` (the
     families of :data:`SEQ_FAMILIES`) also every replicated weight of a
     block that runs on this rank's rows of the sequence, and the dense,
     MoE and VLM models' ``final_norm.g`` (``layout.seq_partial``, partial
     only in a step whose stream was split).
+
+    A MoE model's experts must divide over ``model`` (the reference's
+    ``shard_map`` fails otherwise): ``NotImplementedError``.
 
     The int8 serving weights (buffers: ``w_q`` and ``scale``, an int8
     expert bank and its scales) are laid out by the same rules: a model
@@ -1039,13 +1128,6 @@ def shard(params: LMBase, cfg: ModelConfig, mesh: C.Mesh) -> LMBase:
     named = dict(params.named_parameters())
     buffers = dict(params.named_buffers())
     tp = mesh.model_size()
-    if tp > 1 and cfg.mla and cfg.n_heads % tp:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} MLA heads over a model axis of {tp}")
-    if tp > 1 and cfg.family == "hybrid" and cfg.ssm_heads % tp:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.ssm_heads} SSM heads over a model axis of "
-            f"{tp}")
     # where model does not divide the KV heads, the rule would shard wk /
     # wv by columns; the heads need whole ones
     whole_kv = bool(tp > 1 and not cfg.mla and cfg.n_kv_heads % tp)
@@ -1104,6 +1186,12 @@ def _mark_parallel(params: LMBase, cfg: ModelConfig, shard_of: dict,
                 mod.mesh = mesh
                 mod.vocab_offset = mesh.index(model) * mod.table.shape[0]
         elif isinstance(mod, MOE.MoE):
+            if cfg.n_experts % mesh.model_size():
+                # the reference's shard_map splits the banks over model
+                # and fails where it does not divide them
+                raise NotImplementedError(
+                    f"{cfg.name}: {cfg.n_experts} experts over a model "
+                    f"axis of {mesh.model_size()}")
             partial |= {pre + "router." + n
                         for n, _ in mod.router.named_parameters()}
     tp = mesh.model_size()
@@ -1120,13 +1208,22 @@ def _mark_parallel(params: LMBase, cfg: ModelConfig, shard_of: dict,
                 if not mod.every_head:
                     mod.kv_select = _kv_select(cfg, mesh)
                 partial |= _names(mod, pre, ("wk", "wv"))
-        elif isinstance(mod, A.MLAttention) and mod.wq.parallel == "col":
+        elif isinstance(mod, A.MLAttention) and any(
+                getattr(mod, n).parallel for n in MLA_SPLIT):
             mod.mesh = mesh
-            partial |= _names(mod, pre, ("w_dkv", "w_krope", "norm_ckv"))
+            mod.every_head = bool(cfg.n_heads % tp)
+            # the latent projections, and under every_head whatever the
+            # rule keeps whole, are read inside the region
+            whole = [n for n in MLA_SPLIT if getattr(mod, n).parallel is None]
+            partial |= _names(mod, pre, ("w_dkv", "w_krope", "norm_ckv",
+                                         *whole))
         elif isinstance(mod, SSM.Mamba2) and mod.in_x.parallel == "col":
             mod.mesh = mesh
+            mod.every_head = bool(cfg.ssm_heads % tp)
             partial |= _names(mod, pre, ("in_b", "in_c", "in_dt", "norm"))
             partial |= {pre + n for n in ("conv_bc_w", "conv_bc_b")}
+            if mod.every_head:     # the head vectors stay whole
+                partial |= {pre + n for n in ("A_log", "D", "dt_bias")}
         elif isinstance(mod, XL.MLSTM) and mod.up.parallel == "col":
             mod.mesh = mesh
             mod.every_head = bool(cfg.n_heads % tp)
@@ -1139,6 +1236,11 @@ def _mark_parallel(params: LMBase, cfg: ModelConfig, shard_of: dict,
             mod.mesh = mesh
             mod.every_head = bool(cfg.n_heads % tp)
     return partial
+
+
+#: MLA's projections that the rule splits where ``model`` divides their
+#: widths (the latent ``w_dkv`` / ``w_krope`` stay whole)
+MLA_SPLIT = ("wq", "w_uk", "w_uv", "wo")
 
 
 def _seq_partial(params: LMBase, cfg: ModelConfig, shard_of: dict) -> set:

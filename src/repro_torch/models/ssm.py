@@ -35,14 +35,26 @@ each rank scales by its slice of the gain.  The whole tensors read inside
 the region (``in_b``, ``in_c``, ``in_dt``, ``conv_bc_*``, ``norm.g``)
 get partial gradients, summed over ``model`` by the train step.
 
+Where ``model`` does not divide the SSM heads (zamba2-smoke drawn with one
+head of 128 on model 2), the rule still splits ``in_z`` / ``in_x`` /
+``conv_x`` over ``d_inner`` and ``out_proj`` by rows, through a head, and
+keeps ``A_log`` / ``D`` / ``dt_bias`` whole.  Such a layer runs every
+head on every rank (``every_head``), as the mLSTM does: the convolved x
+columns gathered into whole heads (``context.gather_to_heads``, whose
+backward reduce-scatters), ``dt`` taken whole, the SSD on every head, and
+each rank keeping the columns of ``y`` that its ``z`` slice, its slice of
+the gated norm and its rows of ``out_proj`` meet; the whole head vectors'
+gradients are then partial too.
+
 Serving on such a mesh keeps each layer's state laid out by
 ``sharding.cache_shardings`` (the rule's longest dim over ``model``:
 ``conv_x``'s channels and the SSM state's heads at full width, where
 they are the rank's own; ``conv_bc``'s channels, which every rank needs
 whole; at a batch of one ``conv_x`` over the data axes and ``model``
 together).  The decode step gathers each field to the layout it
-computes in (:meth:`Mamba2.state_specs`), steps it and writes this
-rank's slice back; the prefill lays its final state out the same way.
+computes in (:meth:`Mamba2.state_specs`: the SSM state over every head
+under ``every_head``), steps it and writes this rank's slice back; the
+prefill lays its final state out the same way.
 """
 
 from __future__ import annotations
@@ -149,6 +161,9 @@ class Mamba2(sharding.ServedState, nn.Module):
     docstring)."""
 
     mesh: C.Mesh | None = None
+    #: on a mesh whose ``model`` axis does not divide the SSM heads: every
+    #: rank runs every head (module docstring)
+    every_head: bool = False
 
     def __init__(self, proj: dict, conv_x_w: torch.Tensor,
                  conv_x_b: torch.Tensor, conv_bc_w: torch.Tensor,
@@ -206,6 +221,12 @@ class Mamba2(sharding.ServedState, nn.Module):
 
     def _gated_out(self, y: torch.Tensor, z: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
+        """The gated norm and ``out_proj`` of y (..., d_inner); under
+        ``every_head`` y holds every head and this rank takes the columns
+        of its slice ``z``."""
+        if self.every_head:
+            n = z.shape[-1]
+            y = y.narrow(-1, self.mesh.index(C.MODEL_AXIS) * n, n)
         u = y * F.silu(z)
         # on a mesh, the RMS over the whole d_inner
         normed = self.norm(u) if self.mesh is None \
@@ -214,9 +235,9 @@ class Mamba2(sharding.ServedState, nn.Module):
 
     def _local_heads(self, dt: torch.Tensor) -> torch.Tensor:
         """This rank's heads of the whole ``dt`` projection (all of it off
-        a mesh)."""
+        a mesh and under ``every_head``)."""
         h = self.A_log.shape[0]
-        if self.mesh is None:
+        if self.mesh is None or self.every_head:
             return dt
         return dt.narrow(-1, self.mesh.index(C.MODEL_AXIS) * h, h)
 
@@ -232,7 +253,9 @@ class Mamba2(sharding.ServedState, nn.Module):
             x = C.copy_to_model(x, self.mesh)
         z, xs_raw, bm_raw, cm_raw, dt = self._proj(x, cfg)
         bc_raw = torch.cat([bm_raw, cm_raw], dim=-1)
-        xs = conv_full(self.conv_x_w, self.conv_x_b, xs_raw)
+        xs = C.gather_to_heads_if(
+            conv_full(self.conv_x_w, self.conv_x_b, xs_raw), self.mesh,
+            self.every_head)
         bc = conv_full(self.conv_bc_w, self.conv_bc_b, bc_raw)
         dt = F.softplus(self._local_heads(dt).float() + self.dt_bias)
         xh = xs.reshape(bsz, s, -1, pdim)
@@ -248,12 +271,14 @@ class Mamba2(sharding.ServedState, nn.Module):
 
     def state_specs(self, batch_part) -> dict:
         """One layer's state as this rank computes it, by field: the SSM
-        state over its heads and ``conv_x`` over their channels on a mesh
-        (tensor parallelism's slices), ``conv_bc`` whole (B and C are
-        shared by every head); the batch dim as ``batch_part``."""
-        heads = C.MODEL_AXIS if self.mesh is not None else None
+        state over its heads (every head under ``every_head``) and
+        ``conv_x`` over its channels on a mesh (tensor parallelism's
+        slices), ``conv_bc`` whole (B and C are shared by every head); the
+        batch dim as ``batch_part``."""
+        split = C.MODEL_AXIS if self.mesh is not None else None
+        heads = None if self.every_head else split
         return {"ssm": (batch_part, heads, None, None),
-                "conv_x": (batch_part, None, heads),
+                "conv_x": (batch_part, None, split),
                 "conv_bc": (batch_part, None, None)}
 
     def decode_step(self, x: torch.Tensor, cfg: ModelConfig, state: dict,
@@ -277,13 +302,16 @@ class Mamba2(sharding.ServedState, nn.Module):
         the projections of one token (B, 1, ...): the state and the convs'
         windows written in place; returns y (B, 1, d_inner) before the
         gated norm (this rank's heads and channels on a mesh: ``dt``
-        holds its heads)."""
+        holds its heads; every head under ``every_head``, the convolved x
+        gathered)."""
         bsz = xs_raw.shape[0]
         n, pdim = cfg.ssm_state, cfg.ssm_head_dim
         win_x = torch.cat([state["conv_x"].to(xs_raw.dtype), xs_raw], dim=1)
         win_bc = torch.cat([state["conv_bc"].to(bc_raw.dtype), bc_raw],
                            dim=1)
-        xs = conv_step(self.conv_x_w, self.conv_x_b, win_x)
+        xs = C.gather_to_heads_if(
+            conv_step(self.conv_x_w, self.conv_x_b, win_x), self.mesh,
+            self.every_head)
         bc = conv_step(self.conv_bc_w, self.conv_bc_b, win_bc)
         bm, cm = bc[:, 0, :n], bc[:, 0, n:]
         dt = F.softplus(dt.float() + self.dt_bias)[:, 0]          # (B,H)

@@ -200,12 +200,13 @@ def test_run_cell_refuses_an_existing_world_and_always_closes_its_own():
         with pytest.raises(RuntimeError, match="default process group"):
             dryrun.run_cell("qwen1.5-0.5b", "decode_32k", False)
     assert not dist.is_initialized()
-    # a layout the port still refuses: Mamba2 SSM heads that model does not
-    # divide (zamba2-smoke with one SSM head of 128, on model 2)
-    with pytest.raises(NotImplementedError, match="1 SSM heads"):
-        dryrun.run_cell("zamba2-2.7b", SMOKE_SHAPE, False,
-                        cfg_override=cb.get("zamba2-2.7b", smoke=True)
-                        .scaled(ssm_head_dim=128), mesh_shape=(1, 2))
+    # a layout the port refuses, as the reference's shard_map fails on it:
+    # MoE experts that model does not divide (deepseek-smoke's 8 on 3)
+    with pytest.raises(NotImplementedError, match="8 experts over"):
+        dryrun.run_cell("deepseek-v2-lite-16b", SMOKE_SHAPE, False,
+                        cfg_override=cb.get("deepseek-v2-lite-16b",
+                                            smoke=True),
+                        mesh_shape=(1, 3))
     assert not dist.is_initialized()
 
 

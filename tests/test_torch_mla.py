@@ -190,6 +190,32 @@ def test_caches_and_batch_axes_match_reference(first_dense):
         jlm.cache_batch_axes(jcfg, want)
 
 
+def test_dense_layers_alone_match_reference():
+    """deepseek-smoke cut to its dense first layer (``n_layers`` 1): the
+    MoE stack holds no layer, and the reference's prefill returns its
+    caches as zero-length leaves; the port's prefill does too, and its
+    logits and a decode step's follow the reference."""
+    kw = dict(n_layers=1)
+    jcfg, tcfg = _cfgs(1, **kw)
+    jp = jinit(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    toks = _tokens(tcfg, (2, 6), 3)
+    jl, jc = jprefill(jp, {"tokens": jnp.asarray(toks)}, jcfg, 12)
+    tl, tc = lm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tcfg, 12)
+    _assert_logits(tl, jl, "none")
+    assert {k: {n: tuple(t.shape) for n, t in v.items()}
+            for k, v in tc.items()} == \
+        {k: {n: tuple(t.shape) for n, t in v.items()}
+         for k, v in jc.items()}
+    assert tc["layers"]["ckv"].shape[0] == 0
+    nxt = _tokens(tcfg, (2, 1), 4)
+    jl, _ = jdecode(jp, jnp.asarray(nxt), jc, jnp.full((2,), 7, jnp.int32),
+                    jcfg)
+    tl, _ = lm.decode_step(tp, torch.from_numpy(nxt), tc,
+                           torch.full((2,), 7, dtype=torch.int32), tcfg)
+    _assert_logits(tl, jl, "none")
+
+
 def _serve(engine, prompts, max_new):
     for i, pr in enumerate(prompts):
         engine.submit(Request(rid=i, prompt=pr, max_new=max_new))

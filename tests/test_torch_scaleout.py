@@ -4,8 +4,8 @@ spawned by ``launch.mesh.run_ranks`` over gloo, smoke configs in float32.
 
 One spawn per world size runs every check of its meshes
 (``distributed.checks.sequence``): two ranks for the (1, 2) and (2, 1)
-meshes, one head over model 2 and the refusals left, the hybrid's data
-parallelism, the xLSTM over several chunks, at full depth and with a
+meshes, one head over model 2 (attention, MLA, Mamba2, xLSTM), the
+hybrid's data parallelism, the xLSTM over several chunks, at full depth and with a
 row-parallel FFN, whisper with an odd vocabulary and the elastic
 reshard; four for (2, 2), (1, 4) (with heads that model 4 does not
 divide: :data:`VARIANTS`) and the 4-stage pipeline; both for the
@@ -74,7 +74,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: with 6 heads of 16 (1.5 a rank), xlstm-smoke with 2 heads (half a head
 #: a rank, as xlstm-125m on model 16), phi3-smoke with 6 query and 2 KV
 #: heads of 16 (whole ``wk`` / ``wv``, 1.5 query heads a rank); model 2
-#: does not divide the single head of the ``-1h`` ones
+#: does not divide the single head of the ``-1h`` ones (deepseek-smoke's
+#: one MLA head: ``wq``'s 24 columns split through its nope part, and
+#: with a value dim of 15 ``w_uv`` and ``wo`` whole, as deepseek-v2-lite's
+#: on model 3; zamba2-smoke's one SSM head of 128)
 VARIANTS = {
     "whisper-6h": ("whisper-tiny", dict(d_model=96, n_heads=6,
                                         n_kv_heads=6)),
@@ -83,7 +86,11 @@ VARIANTS = {
                                         head_dim=16)),
     "xlstm-1h": ("xlstm-125m", dict(n_heads=1, n_kv_heads=1)),
     "whisper-1h": ("whisper-tiny", dict(n_heads=1, n_kv_heads=1)),
-    "pixtral-1h": ("pixtral-12b", dict(n_heads=1, n_kv_heads=1))}
+    "pixtral-1h": ("pixtral-12b", dict(n_heads=1, n_kv_heads=1)),
+    "deepseek-1h": ("deepseek-v2-lite-16b", dict(n_heads=1, n_kv_heads=1)),
+    "deepseek-1h-dv15": ("deepseek-v2-lite-16b",
+                         dict(n_heads=1, n_kv_heads=1, v_head_dim=15)),
+    "zamba2-1h": ("zamba2-2.7b", dict(ssm_head_dim=128))}
 ARCHS = {"qwen": "qwen1.5-0.5b", "moonshot": "moonshot-v1-16b-a3b",
          "deepseek": "deepseek-v2-lite-16b", "zamba2": "zamba2-2.7b",
          "xlstm": "xlstm-125m", "whisper": "whisper-tiny",
@@ -117,15 +124,23 @@ STEPS_4 = [("qwen", (2, 2), 1, False), ("moonshot", (2, 2), 1, False),
            ("xlstm", (1, 4), 1, False), ("whisper", (2, 2), 1, False),
            ("pixtral", (1, 4), 1, False)] + \
     [(v, (1, 4), 1, False) for v in ("whisper-6h", "xlstm-2h", "phi3-6h")]
-#: one smoke config of each family ported last, whose single head a model
-#: axis of 2 does not divide: each rank runs every head
+#: one smoke config of each family whose single head (an MLA head, a
+#: Mamba2 SSM head) a model axis of 2 does not divide: each rank runs
+#: every head
 HEADS_REFUSED = {"xlstm-125m": "xlstm-1h", "whisper-tiny": "whisper-1h",
-                 "pixtral-12b": "pixtral-1h"}
-#: the layouts ``shard`` still refuses on model 2: MLA heads and Mamba2 SSM
-#: heads that it does not divide (deepseek-smoke with one head,
-#: zamba2-smoke with one SSM head of 128)
-STILL_REFUSED = {"deepseek-v2-lite-16b": dict(n_heads=1, n_kv_heads=1),
-                 "zamba2-2.7b": dict(ssm_head_dim=128)}
+                 "pixtral-12b": "pixtral-1h",
+                 "deepseek-v2-lite-16b": "deepseek-1h",
+                 "deepseek-whole-wo": "deepseek-1h-dv15",
+                 "zamba2-2.7b": "zamba2-1h"}
+#: the cases where the port's single rank itself is not within the
+#: gradients' tolerance of the reference's single-device step on a few
+#: elements, with the most such elements: zamba2-1h's Mamba2 ``D``, one
+#: element per layer summing the one SSM head's 4 x 16 x 128 terms, which
+#: cancel to ~1e-4 (``mamba.1.1.D``: 7.2 times the tolerance from the
+#: reference on this CPU, the sharded step 0.65 times it from the single
+#: rank).  Such an element is held to the single rank, every other one
+#: to both.
+ILL_CONDITIONED = {"zamba2-1h": 2}
 #: xlstm-smoke with d_f = 128, so that its sLSTM FFN's ``down`` is
 #: row-parallel on model 2 (at d_f 85 it stays whole)
 XLSTM_EVEN_FFN = dict(proj_factor_slstm=2.0)
@@ -262,12 +277,24 @@ def _single(arch: str, n_mb: int, compress: bool, mask: bool = False
     return {n: t.numpy() for n, t in g.items()}
 
 
-def _assert_close_grads(got: dict, want: dict, what: str):
+def _assert_close_grads(got: dict, want: dict, what: str,
+                        single: dict | None = None, most: int = 0):
+    """``got`` within the gradients' tolerance of ``want``; with
+    ``single`` (the port's single rank, which ``got`` is held to as well)
+    the elements where ``single`` itself is not within it of ``want`` are
+    left out, at most ``most`` of them (:data:`ILL_CONDITIONED`)."""
     assert sorted(got) == sorted(want)
+    left_out = 0
     for name, w in want.items():
         atol = GRAD_ATOL_SCALE * float(np.abs(w).max()) + 1e-12
-        np.testing.assert_allclose(got[name], w, rtol=GRAD_RTOL, atol=atol,
+        g = got[name]
+        if single is not None:
+            apart = np.abs(single[name] - w) > atol + GRAD_RTOL * np.abs(w)
+            left_out += int(apart.sum())
+            g, w = g[~apart], w[~apart]
+        np.testing.assert_allclose(g, w, rtol=GRAD_RTOL, atol=atol,
                                    err_msg=f"{what} {name}")
+    assert left_out <= most, (what, left_out)
 
 
 def _step_call(key, shape, n_mb, compress, mask: bool = False,
@@ -291,8 +318,6 @@ def world2(tmp_path_factory):
     calls = {case: _step_call(*case) for case in STEPS_2}
     for arch, variant in HEADS_REFUSED.items():
         calls[("one head", arch)] = _step_call(variant, (1, 2), 1, False)
-    calls["refused"] = ("refusals", ([cb.get(a, smoke=True).scaled(
-        dtype=torch.float32, **kw) for a, kw in STILL_REFUSED.items()],))
     calls["gather_to_heads"] = ("gather_to_heads_check", ())
     calls["zamba2"] = _step_call_dp_or_kv("zamba2-2.7b", (2, 1))
     calls["kv1"] = _step_call_dp_or_kv("qwen1.5-0.5b", (1, 2), n_kv_heads=1)
@@ -394,9 +419,11 @@ def _assert_step_matches(got: dict, arch: str, n_mb: int, compress: bool):
     moments (compressed: the reference's compression and AdamW on the
     gathered gradients)."""
     ref = _reference(ARCHS[arch], n_mb)
-    _assert_close_grads(got["grads"], ref["grads"], "reference")
-    _assert_close_grads(got["grads"], _single(ARCHS[arch], n_mb, compress),
-                        "single rank")
+    single = _single(ARCHS[arch], n_mb, compress)
+    _assert_close_grads(got["grads"], single, "single rank")
+    most = ILL_CONDITIONED.get(arch, 0)
+    _assert_close_grads(got["grads"], ref["grads"], "reference",
+                        single if most else None, most)
     assert sorted(got["metrics"]) == sorted(ref["metrics"])
     for key in ("loss", "nll", "aux", "lr") + (() if compress
                                                 else ("grad_norm",)):
@@ -825,6 +852,33 @@ def test_slstm_ffn_layouts(model, kw, kinds):
     assert blk.mesh is not None and blk.w_z.parallel == "col"
 
 
+def test_mla_layout_where_model_splits_only_wq():
+    """deepseek-smoke cut to its dense layer on model 3, as
+    deepseek-v2-lite-16b's on (1, 3) in ``chip_smoke.py``'s (u): 3 does not
+    divide its 4 heads, ``wq``'s 96 columns split through a head, ``w_uk``
+    / ``w_uv`` / ``wo``'s 64 stay whole, so every rank runs every head
+    and every whole tensor of the layer is partial; with a MoE layer the
+    8 experts do not divide over 3, where the reference's ``shard_map``
+    fails, and ``shard`` refuses."""
+    tcfg = _cfgs("deepseek-v2-lite-16b", n_layers=1)[1]
+    model_ = lm.shard(lm.init_params(tcfg, torch.Generator(), "cpu"), tcfg,
+                      _fake_mesh(3))
+    attn = model_.dense_layers[0].attn
+    assert attn.every_head and attn.mesh is not None
+    assert [getattr(attn, n).parallel for n in lm.MLA_SPLIT] == \
+        ["col", None, None, None]
+    assert attn.wq.w.shape == (64, 32)
+    assert sorted(model_.layout.partial) == sorted(
+        f"dense_layers.0.attn.{n}" for n in (
+            "w_dkv.w", "w_krope.w", "norm_ckv.g", "w_uk.w", "w_uv.w",
+            "wo.w"))
+    tcfg = _cfgs("deepseek-v2-lite-16b")[1]
+    with pytest.raises(NotImplementedError,
+                       match="8 experts over a model axis of 3"):
+        lm.shard(lm.init_params(tcfg, torch.Generator(), "cpu"), tcfg,
+                 _fake_mesh(3))
+
+
 def test_encdec_partial_gradients(world2):
     """whisper-smoke on (1, 2): nothing is partial: the encoder output
     enters the region once, and every cross K/V head divides."""
@@ -844,19 +898,35 @@ def test_vlm_partial_gradients(world2):
 @pytest.mark.parametrize("arch", HEADS_REFUSED)
 def test_model_axis_refuses_heads_it_does_not_divide(world2, arch):
     """One head over a model axis of 2, which ``shard`` used to refuse:
-    each rank runs every head (ROADMAP fact 18), and the step (loss,
-    gradients, the updated state) is the reference's single-device step
-    and the port's single rank's."""
+    each rank runs every head (ROADMAP fact 18; an MLA head and a Mamba2
+    SSM head too), and the step (loss, gradients, the updated state) is
+    the reference's single-device step and the port's single rank's."""
     _assert_step_matches(world2[("one head", arch)], HEADS_REFUSED[arch], 1,
                          False)
 
 
-def test_model_axis_still_refuses_mla_and_ssm_heads(world2):
-    """MLA heads and Mamba2 SSM heads that ``model`` does not divide are
-    still refused (ROADMAP queue 1)."""
-    assert world2["refused"] == [
-        "deepseek-smoke: 1 MLA heads over a model axis of 2",
-        "zamba2-smoke: 1 SSM heads over a model axis of 2"]
+@pytest.mark.parametrize("arch, whole", [
+    ("deepseek-v2-lite-16b", ()),
+    ("deepseek-whole-wo", ("w_uv.w", "wo.w")),
+    ("zamba2-2.7b", ("A_log", "D", "dt_bias"))])
+def test_partial_gradients_of_one_head(world2, arch, whole):
+    """deepseek-1h, deepseek-1h-dv15 and zamba2-1h on (1, 2): the whole
+    tensors read inside the region are partial, beside the ones of
+    divided heads: MLA's latent projections, and at a value dim of 15 its
+    whole ``w_uv`` and ``wo`` too (model rank 0 alone carries the whole
+    output's gradient); the SSM head vectors, which the rule keeps
+    whole."""
+    got = world2[("one head", arch)]["partial"]
+    if arch.startswith("deepseek"):
+        want = {f"{stack}.attn.{w}" for stack in ("dense_layers.0",
+                                                  "layers.0")
+                for w in ("w_dkv.w", "w_krope.w", "norm_ckv.g") + whole}
+        want.add("layers.0.moe.router.w")
+    else:
+        want = {f"mamba.{g}.{e}.{n}" for g in range(2) for e in range(2)
+                for n in ("in_b.w", "in_c.w", "in_dt.w", "conv_bc_w",
+                          "conv_bc_b", "norm.g") + whole}
+    assert got == sorted(want)
 
 
 #: the (1, 4) cases whose heads model 4 does not divide

@@ -87,6 +87,12 @@ ARCHS = {"qwen": "qwen1.5-0.5b", "danube": "h2o-danube-1.8b",
 WHISPER_6H = dict(d_model=96, n_heads=6, n_kv_heads=6)
 XLSTM_2H = dict(n_heads=2, n_kv_heads=2)
 PHI3_6H = dict(d_model=96, n_heads=6, n_kv_heads=2, head_dim=16)
+#: smoke configs whose single head model 2 does not divide: deepseek-smoke
+#: with one MLA head (``wq``'s 24 columns split through its nope part,
+#: ``w_uk`` / ``w_uv`` through the head; at a value dim of 15 ``w_uv`` and
+#: ``wo`` whole), zamba2-smoke with one SSM head of 128
+DEEPSEEK_1H = dict(n_heads=1, n_kv_heads=1)
+ZAMBA2_1H = dict(ssm_head_dim=128)
 #: each case: (key, arch, mesh, nmc_mode, rows, prompt, steps, max_len,
 #: config overrides).  Four rows: a batch that equals no layer, head or
 #: group count, so that ``cache_shardings`` finds it; 64 slots, the
@@ -125,14 +131,34 @@ CASES = [
      WHISPER_6H),
     ("xlstm-2h-1x4", "xlstm", (1, 4), "none", 4, 16, 3, 64, XLSTM_2H),
     ("phi3-6h-1x4", "phi3", (1, 4), "none", 4, 12, 3, 64, PHI3_6H),
+    ("deepseek-1h-1x2", "deepseek", (1, 2), "none", 4, 12, 3, 64,
+     DEEPSEEK_1H),
+    ("deepseek-1h-1x2-w8a8", "deepseek", (1, 2), "w8a8", 4, 12, 3, 64,
+     DEEPSEEK_1H),
+    ("deepseek-1h-dv15-1x2", "deepseek", (1, 2), "none", 4, 12, 3, 64,
+     DEEPSEEK_1H | {"v_head_dim": 15}),
+    ("zamba2-1h-1x2", "zamba2", (1, 2), "none", 4, 16, 3, 64, ZAMBA2_1H),
+    ("zamba2-1h-1x2-w8a8", "zamba2", (1, 2), "w8a8", 4, 16, 3, 64,
+     ZAMBA2_1H),
+    ("whisper-4l-2x1", "whisper", (2, 1), "none", 4, 12, 3, 64,
+     {"n_layers": 4}),
+    ("whisper-4l-2x2", "whisper", (2, 2), "none", 4, 12, 3, 64,
+     {"n_layers": 4}),
+    ("qwen-stack-2x1", "qwen", (2, 1), "none", 2, 12, 3, 64, {}),
+    ("zamba2-stack-2x1", "zamba2", (2, 1), "none", 2, 16, 3, 64, {}),
 ]
 #: the cases whose heads model does not divide, also held against the
 #: reference's own run on a 1 x 4 mesh
 FRACTIONAL = [c[0] for c in CASES if c[2] == (1, 4)]
-BY_KEY = {c[0]: c for c in CASES}
 #: ROADMAP fact 21: whisper-smoke drawn with as many decoder layers as
-#: rows; on a data axis the rule splits its layer stack
-STACK_SPLIT_ROWS = 4
+#: rows; on a data axis the rule splits its layer stack (each data rank
+#: holds 2 of the 4 layers, every row of each), also held against the
+#: reference's own run on a 2 x 1 mesh; on (2, 2) each layer's slots split
+#: over model too.  The same rule splits qwen-smoke's 2 layers and
+#: zamba2-smoke's 2 groups (its Mamba2 states and its shared block's
+#: caches) for 2 rows on (2, 1)
+STACK_SPLIT = "whisper-4l-2x1"
+BY_KEY = {c[0]: c for c in CASES}
 
 # the reference's entry points, compiled once per shape
 jprefill = jax.jit(jlm.prefill, static_argnums=(2, 3))
@@ -204,10 +230,6 @@ ROW_X = np.random.default_rng(6).normal(size=(5, 64)).astype(np.float32)
 @pytest.fixture(scope="module")
 def world2():
     calls = {c[0]: _call(c[0]) for c in CASES if np.prod(c[2]) == 2}
-    calls["refused"] = ("serving_refusals", (
-        cb.get(ARCHS["whisper"], smoke=True).scaled(
-            dtype=torch.float32, n_layers=STACK_SPLIT_ROWS),
-        (2, 1), STACK_SPLIT_ROWS))
     calls["row_parallel"] = ("row_parallel_w8a8", (ROW_W, ROW_B, ROW_X))
     calls["misuse"] = ("serving_misuse", (
         cb.get(ARCHS["qwen"], smoke=True).scaled(dtype=torch.float32),))
@@ -364,33 +386,37 @@ def test_sharded_serving_matches_single_rank_and_reference(world2, world4,
 @pytest.fixture(scope="module")
 def reference_1x4(tmp_path_factory):
     """The reference's own prefill and decode steps of each case of
-    :data:`FRACTIONAL` on a 1 x 4 (data, model) mesh of fake devices (one
-    subprocess for all): its weights (quantized whole first under W8A8)
-    laid out by its ``param_shardings``, the batch by ``batch_shardings``,
-    the caches after the prefill by ``cache_shardings``.  {case:
-    {"logits": the prefill's and every step's, "caches": after the
-    prefill and after the last step, each {path: array}}}."""
+    :data:`FRACTIONAL` on a 1 x 4 (data, model) mesh of fake devices, and
+    of :data:`STACK_SPLIT` on a 2 x 1 one (one subprocess for all): its
+    weights (quantized whole first under W8A8) laid out by its
+    ``param_shardings``, the batch by ``batch_shardings``, the caches
+    after the prefill by ``cache_shardings``.  {case: {"logits": the
+    prefill's and every step's, "caches": after the prefill and after the
+    last step, each {path: array}, "shard": the first device's shard
+    shape of each cache after the prefill}}."""
     tmp = tmp_path_factory.mktemp("ref1x4")
     specs = []
-    for key in FRACTIONAL:
-        _, arch, _, mode, _, _, _, max_len, kw = BY_KEY[key]
+    for key in FRACTIONAL + [STACK_SPLIT]:
+        _, arch, mesh, mode, _, _, _, max_len, kw = BY_KEY[key]
         batch, nxt = _inputs(key)
         np.savez(tmp / f"in_{key}.npz", nxt=nxt, **batch)
         specs.append(json.dumps(dict(name=key, arch=ARCHS[arch], mode=mode,
-                                     kw=kw, max_len=max_len)))
+                                     kw=kw, max_len=max_len, mesh=mesh)))
     env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", _REF_1X4, str(tmp)] + specs,
                          capture_output=True, text=True, env=env, cwd=REPO,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     results = {}
-    for key in FRACTIONAL:
+    for key in FRACTIONAL + [STACK_SPLIT]:
         res = np.load(tmp / f"out_{key}.npz")
         results[key] = {
             "logits": [res[f"logits{i}"] for i in range(1 + BY_KEY[key][6])],
             "caches": [{k.split("/", 1)[1]: res[k] for k in res.files
                         if k.startswith(f"caches{when}/")}
-                       for when in (0, 1)]}
+                       for when in (0, 1)],
+            "shard": {k.split("/", 1)[1]: tuple(res[k]) for k in res.files
+                      if k.startswith("shard/")}}
     return results
 
 
@@ -408,8 +434,6 @@ _REF_1X4 = textwrap.dedent("""
     from repro.serve import engine
 
     tmp = sys.argv[1]
-    mesh = make_mesh(np.array(jax.devices()).reshape(1, 4),
-                     ("data", "model"))
     prefill = jax.jit(lm.prefill, static_argnums=(2, 3))
     decode = jax.jit(lm.decode_step, static_argnums=(4,))
 
@@ -428,6 +452,9 @@ _REF_1X4 = textwrap.dedent("""
         batch = {k: jnp.asarray(inp[k]) for k in ("tokens", "frames")
                  if k in inp}
         rows, n = batch["tokens"].shape
+        shape = tuple(spec["mesh"])
+        mesh = make_mesh(np.array(jax.devices()[:int(np.prod(shape))])
+                         .reshape(shape), ("data", "model"))
         with context.use_mesh(mesh):
             ps = jax.device_put(params,
                                 sharding.param_shardings(params, mesh))
@@ -437,6 +464,10 @@ _REF_1X4 = textwrap.dedent("""
             caches = jax.device_put(
                 caches, sharding.cache_shardings(caches, mesh, rows))
             out = {"logits0": np.asarray(logits)} | leaves(caches, "caches0")
+            out |= {"shard/" + jax.tree_util.keystr(p):
+                    np.array(v.sharding.shard_shape(v.shape))
+                    for p, v in jax.tree_util.tree_flatten_with_path(
+                        caches)[0]}
             for i, tok in enumerate(inp["nxt"]):
                 logits, caches = decode(ps, jnp.asarray(tok[:, None]), caches,
                                         jnp.full((rows,), n + i + 1,
@@ -593,19 +624,33 @@ def test_fully_masked_slice_gets_zero_weight():
                                    rtol=1e-5, atol=1e-6)
 
 
-def test_batch_equal_to_the_layer_stack_is_refused_on_a_data_axis(world2):
+def test_batch_equal_to_the_layer_stack_follows_the_reference_2x1(
+        world2, reference_1x4):
     """ROADMAP fact 21: ``cache_shardings`` takes the first dim of the
     batch's size as the batch, so 4 rows of a 4-layer encoder-decoder on
-    (2, 1) split its layer stack over ``data``; ``init_caches``, which
-    allocates that layout, refuses it, naming the cache and its stack dim,
-    while ``prefill``, which on data axes alone holds this rank's rows
-    and never uses that layout, serves."""
-    msgs = world2["refused"]
-    assert set(msgs) == {"init_caches", "prefill"}
-    msg = msgs["init_caches"]
-    assert msg is not None and "stack dim is split" in msg and \
-        "cache layers.k of (4, 4," in msg and "('data'," in msg, msg
-    assert msgs["prefill"] is None, msgs
+    (2, 1) split its layer stack over ``data``.  Each data rank holds
+    every row's caches of 2 of the 4 layers, as each device of the
+    reference's own 2 x 1 run does (shard shapes equal: the same bytes),
+    ``init_caches`` allocates that slice, and the logits and the caches
+    equal the reference's 2 x 1 run by the rules of
+    :func:`test_sharded_serving_matches_single_rank_and_reference` (its
+    single-rank and single-device runs are held there)."""
+    got, ref = world2[STACK_SPLIT], reference_1x4[STACK_SPLIT]
+    for i, (g, r) in enumerate(zip(got["logits"], ref["logits"], strict=True)):
+        _close(g, r, f"logits {i} vs reference 2x1")
+    for when in (0, 1):
+        g, r = _leaves(got["caches"][when]), ref["caches"][when]
+        assert sorted(g) == sorted(r)
+        for path in g:
+            _close(g[path], r[path], f"cache {path} after "
+                   f"{('prefill', 'decode')[when]} vs reference 2x1")
+    shapes = {jax.tree_util.keystr(p): s for p, s in
+              jax.tree_util.tree_flatten_with_path(
+                  got["local"], is_leaf=lambda x: isinstance(x, tuple))[0]}
+    assert shapes == ref["shard"]
+    assert shapes["['layers']['k']"] == (2, 4, 4, 64, 16)
+    assert shapes["['cross_k']"] == (2, 4, 4, 32, 16)
+    assert got["init_local"] == got["local"]
 
 
 def test_model_axis_serving_needs_its_global_shape(world2):
